@@ -1,0 +1,27 @@
+"""seldon-core-tpu's serving plane on PyTorch and CUDA.
+
+A port of the JAX package (which stays beside it as the reference)
+for an NVIDIA H100.  It keeps the JAX package's module names and graph
+spec, so a deployment the JAX engine serves is served unchanged.  Every
+entry point takes ``device`` and runs on ``"cuda"`` unless the caller asks
+for ``"cpu"``; on a machine without CUDA it raises.  The attention kernels
+are hand-written CUDA C++ for ``sm_90a`` (``csrc/``), built at first use.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
+    """The device an entry point runs on; raises when CUDA is asked for but
+    absent, so nothing quietly carries on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but CUDA is not available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {str(device)!r}")
+    return dev

@@ -1,0 +1,151 @@
+"""Wire codec: SeldonMessage JSON <-> :class:`Payload`.
+
+The JSON half of the JAX package's ``contract/codec.py``, wire-compatible
+with it: ``data.tensor``, ``data.ndarray`` and ``strData``.
+
+    {"meta": {...}, "data": {"names": [...], "tensor": {"shape": [...],
+     "values": [...]}}}                       # or "ndarray": [[...]]
+    {"strData": "..."}
+
+Decoding happens once per request at the process boundary; everything
+inside the graph walk is numpy.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any
+
+import numpy as np
+
+from seldon_core_tpu_torch.contract.payload import DataKind, Meta, Metric, Payload
+
+
+class CodecError(ValueError):
+    """Malformed wire message."""
+
+
+_METRIC_TYPES = {"COUNTER", "GAUGE", "TIMER"}
+
+
+def failure_status_dict(code: int, reason: str) -> dict[str, Any]:
+    """The wire-level FAILURE envelope of the engine's REST errors."""
+    return {
+        "status": {"code": code, "info": reason, "reason": reason, "status": "FAILURE"}
+    }
+
+
+def meta_from_dict(d: dict[str, Any] | None) -> Meta:
+    d = d or {}
+    metrics = []
+    for m in d.get("metrics", []):
+        mtype = m.get("type", "COUNTER")
+        if mtype not in _METRIC_TYPES:
+            raise CodecError(
+                f"unknown metric type {mtype!r}; expected one of {sorted(_METRIC_TYPES)}"
+            )
+        metrics.append(
+            Metric(key=m.get("key", ""), type=mtype, value=float(m.get("value", 0.0)))
+        )
+    return Meta(
+        puid=d.get("puid", ""),
+        tags=dict(d.get("tags", {})),
+        routing={k: int(v) for k, v in d.get("routing", {}).items()},
+        request_path=dict(d.get("requestPath", {})),
+        metrics=metrics,
+    )
+
+
+def meta_to_dict(meta: Meta) -> dict[str, Any]:
+    out: dict[str, Any] = {"puid": meta.puid}
+    if meta.tags:
+        out["tags"] = meta.tags
+    if meta.routing:
+        out["routing"] = meta.routing
+    if meta.request_path:
+        out["requestPath"] = meta.request_path
+    if meta.metrics:
+        out["metrics"] = [
+            {"key": m.key, "type": m.type, "value": m.value} for m in meta.metrics
+        ]
+    return out
+
+
+def payload_from_dict(msg: dict[str, Any]) -> Payload:
+    """Decode a parsed SeldonMessage JSON object."""
+    if not isinstance(msg, dict):
+        raise CodecError("SeldonMessage must be a JSON object")
+    meta = meta_from_dict(msg.get("meta"))
+    if "data" in msg:
+        data = msg["data"]
+        if not isinstance(data, dict):
+            raise CodecError("data must be a JSON object")
+        names = list(data.get("names", []))
+        if "tensor" in data:
+            t = data["tensor"]
+            try:
+                shape = [int(s) for s in t.get("shape", [])]
+                arr = np.asarray(t["values"], dtype=np.float64)
+            except (AttributeError, KeyError, TypeError, ValueError) as e:
+                raise CodecError(f"bad tensor: {e}") from e
+            if shape:
+                try:
+                    arr = arr.reshape(shape)
+                except ValueError as e:
+                    raise CodecError(f"tensor shape mismatch: {e}") from e
+            return Payload(arr, names, DataKind.TENSOR, meta)
+        if "ndarray" in data:
+            return Payload(_ndarray_to_array(data["ndarray"]), names, DataKind.NDARRAY, meta)
+        raise CodecError("data must contain 'tensor' or 'ndarray'")
+    if "strData" in msg:
+        return Payload(str(msg["strData"]), [], DataKind.STRING, meta)
+    for other in ("rawTensor", "binData"):
+        if other in msg:
+            raise CodecError(f"{other} payloads are not served by this engine")
+    return Payload(None, [], DataKind.EMPTY, meta)
+
+
+def payload_to_dict(payload: Payload, include_meta: bool = True) -> dict[str, Any]:
+    """Encode a payload back to SeldonMessage JSON structure."""
+    out: dict[str, Any] = {}
+    if include_meta:
+        out["meta"] = meta_to_dict(payload.meta)
+    kind, data = payload.kind, payload.data
+    if kind == DataKind.EMPTY or data is None:
+        return out
+    if kind == DataKind.STRING:
+        out["strData"] = data
+    elif kind == DataKind.TENSOR:
+        arr = np.asarray(data, dtype=np.float64)
+        out["data"] = {
+            "names": payload.names,
+            "tensor": {"shape": list(arr.shape), "values": arr.ravel().tolist()},
+        }
+    elif kind == DataKind.NDARRAY:
+        out["data"] = {"names": payload.names, "ndarray": np.asarray(data).tolist()}
+    else:
+        raise CodecError(f"{kind.value} payloads are not served by this engine")
+    return out
+
+
+def payload_from_json(raw: str | bytes) -> Payload:
+    try:
+        msg = json.loads(raw)
+    except (json.JSONDecodeError, UnicodeDecodeError) as e:
+        raise CodecError(f"invalid JSON: {e}") from e
+    return payload_from_dict(msg)
+
+
+def _ndarray_to_array(nd: Any) -> np.ndarray:
+    """Decode a JSON ndarray; mixed or string rows stay python objects
+    instead of being coerced to numpy unicode."""
+    try:
+        arr = np.asarray(nd)
+    except (TypeError, ValueError):
+        try:
+            return np.asarray(nd, dtype=object)
+        except (TypeError, ValueError) as e:
+            raise CodecError(f"bad ndarray: {e}") from e
+    if arr.dtype.kind in "USV":
+        arr = np.asarray(nd, dtype=object)
+    return arr

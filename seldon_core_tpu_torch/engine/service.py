@@ -1,0 +1,76 @@
+"""Per-predictor prediction service: the graph walker plus request-scope
+logic (puid assignment).
+
+The predictor comes from ``ENGINE_PREDICTOR`` (base64 JSON, the same
+variable the JAX engine reads), else ``./deploymentdef.json``, else the
+built-in SIMPLE_MODEL graph.
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import os
+import uuid
+from typing import Any
+
+from seldon_core_tpu_torch.contract.payload import Payload
+from seldon_core_tpu_torch.graph.spec import PredictorSpec
+from seldon_core_tpu_torch.graph.walker import GraphWalker
+
+ENGINE_PREDICTOR_ENV = "ENGINE_PREDICTOR"
+PREDICTOR_FILE_FALLBACK = "./deploymentdef.json"
+
+DEFAULT_PREDICTOR: dict[str, Any] = {
+    "name": "default",
+    "graph": {
+        "name": "simple-model",
+        "type": "MODEL",
+        "implementation": "SIMPLE_MODEL",
+    },
+}
+
+
+def load_predictor_spec(environ: dict[str, str] | None = None) -> PredictorSpec:
+    """Resolve the predictor: env ``ENGINE_PREDICTOR`` (base64 JSON) ->
+    ``./deploymentdef.json`` -> the built-in SIMPLE_MODEL default."""
+    env = environ if environ is not None else os.environ
+    raw = env.get(ENGINE_PREDICTOR_ENV)
+    if raw:
+        return PredictorSpec.from_dict(json.loads(base64.b64decode(raw)))
+    if os.path.exists(PREDICTOR_FILE_FALLBACK):
+        with open(PREDICTOR_FILE_FALLBACK) as f:
+            return PredictorSpec.from_dict(json.load(f))
+    return PredictorSpec.from_dict(DEFAULT_PREDICTOR)
+
+
+class PredictionService:
+    """Owns one predictor's walker for the process lifetime.  Units are
+    built on ``device`` by :meth:`start` (a blocking call: it loads the
+    model)."""
+
+    def __init__(self, predictor: PredictorSpec, *, device: str = "cuda"):
+        self.predictor = predictor
+        self.device = device
+        self.walker: GraphWalker | None = None
+
+    def start(self) -> None:
+        self.walker = GraphWalker(self.predictor.graph, device=self.device)
+
+    def _walker(self) -> GraphWalker:
+        if self.walker is None:
+            raise RuntimeError("PredictionService.start() not called")
+        return self.walker
+
+    async def warmup(self) -> dict[str, int]:
+        return await self._walker().warmup()
+
+    async def predict(self, payload: Payload) -> Payload:
+        walker = self._walker()
+        if not payload.meta.puid:
+            payload.meta.puid = uuid.uuid4().hex
+        return await walker.predict(payload)
+
+    async def close(self) -> None:
+        if self.walker is not None:
+            await self.walker.aclose()

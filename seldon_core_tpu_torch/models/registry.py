@@ -1,0 +1,146 @@
+"""Model-family registry for the generative graph unit (JAX_GENERATIVE).
+
+The counterpart of the JAX package's ``models/registry.py::
+build_generative_component`` for the llama family and its presets.  Graph
+parameters of features the port does not serve yet raise
+:class:`GraphUnitError` naming themselves whenever they are set to
+anything but their off value; none is ever ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from seldon_core_tpu_torch import resolve_device
+from seldon_core_tpu_torch.graph.units import GraphUnitError
+from seldon_core_tpu_torch.models import llama
+from seldon_core_tpu_torch.models.weights import init_params, params_from_jax
+
+PRESETS = {
+    "llama3-8b": llama.Config.llama3_8b,
+    "llama3-1b": llama.Config.llama3_1b,
+    "tiny": llama.Config.tiny,
+}
+
+# parameters of the JAX package's generative unit that belong to later
+# slices of the port (speculation, LoRA, int8 KV, chunked prefill, prefix
+# reuse and tiers, mesh, checkpoints, the overlap pipeline, chip packing,
+# LLM-graph hooks)
+LATER_SLICE_PARAMS = (
+    "spec_draft", "spec_ngram", "spec_hist", "spec_method", "spec_heads",
+    "spec_heads_path", "spec_draft_model", "lora_rank", "lora_slots",
+    "lora_targets", "lora_adapters", "adapter", "kv_cache_dtype",
+    "prefill_chunk", "kv_prefix_reuse", "prefix_dram_gb", "mesh",
+    "checkpoint", "overlap", "pack_class", "pack_slo_ms", "conf_signal",
+    "embed",
+)
+
+
+def _is_off(value: Any) -> bool:
+    return value is None or value is False or value == 0 or value == ""
+
+
+def resolve_config(preset: str | None = None, **overrides) -> llama.Config:
+    if preset is None:
+        cfg = llama.Config()
+    else:
+        try:
+            cfg = PRESETS[preset]()
+        except KeyError:
+            raise KeyError(f"unknown llama preset {preset!r}; have {sorted(PRESETS)}") from None
+    if overrides:
+        fields = {f.name for f in dataclasses.fields(llama.Config)}
+        unknown = sorted(set(overrides) - fields)
+        if unknown:
+            raise TypeError(f"unknown generative parameters {unknown}")
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg
+
+
+def build_generative_component(
+    family: str = "llama",
+    *,
+    preset: str | None = None,
+    cfg: llama.Config | None = None,
+    n_slots: int = 4,
+    rng: int = 0,
+    dtype: torch.dtype | None = None,
+    params: Any = None,
+    max_new_tokens: int = 32,
+    temperature: float = 0.0,
+    eos_id: int | None = None,
+    seq_impl: str = "flash",
+    decode_block: int = 16,
+    kv_block_size: int = 16,
+    kv_blocks: int | None = None,
+    queue_max: int | None = None,
+    top_k: int = 0,
+    decode_kernel: bool = True,
+    device: str = "cuda",
+    **overrides,
+):
+    """Build a continuous-batching generative graph unit on ``device``.
+
+    ``params`` is a :class:`~seldon_core_tpu_torch.models.llama.Llama` or
+    the JAX package's ``init_params`` pytree (numpy leaves); without it the
+    weights are made from the seed ``rng``.  On ``cuda`` the attention runs
+    in the hand-written kernels only: ``seq_impl`` must be ``"flash"`` and
+    ``decode_kernel`` True."""
+    from seldon_core_tpu_torch.executor.generation import (
+        GenerativeComponent,
+        GenerativeModel,
+    )
+
+    for name in LATER_SLICE_PARAMS:
+        if name in overrides:
+            value = overrides.pop(name)
+            if not _is_off(value):
+                raise GraphUnitError(
+                    f"generative parameter {name}={value!r} is not served by the "
+                    "PyTorch port yet"
+                )
+    if family != "llama":
+        raise KeyError(f"family {family!r} has no generative contract; have ['llama']")
+    if seq_impl in ("ring", "ulysses"):
+        raise GraphUnitError(
+            f"seq_impl={seq_impl!r} (sequence parallelism) is not served by the "
+            "PyTorch port yet"
+        )
+    if seq_impl not in ("flash", "dense"):
+        raise TypeError(f"seq_impl must be one of dense/flash, got {seq_impl!r}")
+    dev = resolve_device(device)
+    if cfg is None:
+        cfg = resolve_config(preset, **overrides)
+    elif overrides:
+        raise TypeError(f"unknown generative parameters {sorted(overrides)}")
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(int(rng))
+        model_params = init_params(cfg, gen, dtype=dtype or torch.float32, device=dev)
+    elif isinstance(params, llama.Llama):
+        model_params = params
+    else:
+        model_params = params_from_jax(params, cfg, dtype=dtype, device=dev)
+    model = GenerativeModel(
+        cfg,
+        model_params,
+        n_slots=n_slots,
+        dtype=dtype,
+        seq_impl=seq_impl,
+        name=f"{family}:{preset or 'default'}",
+        decode_block=decode_block,
+        kv_block_size=kv_block_size,
+        kv_blocks=kv_blocks,
+        top_k=top_k,
+        decode_kernel=bool(decode_kernel),
+        device=dev,
+    )
+    return GenerativeComponent(
+        model,
+        max_new_tokens=max_new_tokens,
+        temperature=temperature,
+        eos_id=eos_id,
+        queue_max=queue_max,
+    )

@@ -1,0 +1,63 @@
+"""Llama weights for the port: carried over from the JAX package's pytree,
+or made from a seed.
+
+``params_from_jax`` takes the nested dict the JAX package's
+``models/llama.py::init_params`` returns (as numpy arrays, or anything ``np.asarray``
+accepts) and builds a :class:`~seldon_core_tpu_torch.models.llama.Llama`
+key by key with the stacked layout kept, so the two frameworks run the
+same numbers.  ``init_params`` makes full-width weights from a
+``torch.Generator`` directly on the device, with the JAX package's
+initial distribution (normal / sqrt(hidden), norms at one); the numbers
+differ from JAX's, since the generators do.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from seldon_core_tpu_torch.models.llama import LAYER_KEYS, Config, Llama, param_shapes
+
+
+def _flatten(tree: dict) -> dict:
+    flat = {}
+    for key, value in tree.items():
+        if key == "layers":
+            for lk in LAYER_KEYS:
+                flat[f"layers/{lk}"] = value[lk]
+        else:
+            flat[key] = value
+    return flat
+
+
+def params_from_jax(tree: dict, cfg: Config, *, dtype=None, device="cpu") -> Llama:
+    """The JAX ``init_params`` pytree -> :class:`Llama` on ``device``.
+    ``dtype`` None keeps each array's float type (bf16 arrays, which numpy
+    cannot hold natively, arrive as float32)."""
+    tensors = {}
+    for key, arr in _flatten(tree).items():
+        a = np.asarray(arr)
+        # a writable copy (device arrays export read-only views); float types
+        # numpy lacks (ml_dtypes bfloat16) arrive as float32
+        a = np.array(a, dtype=a.dtype if a.dtype.kind == "f" else np.float32)
+        t = torch.from_numpy(a)
+        tensors[key] = t.to(device=device, dtype=dtype or t.dtype)
+    return Llama(cfg, tensors)
+
+
+@torch.no_grad()
+def init_params(cfg: Config, generator: torch.Generator, dtype=torch.float32,
+                device="cpu") -> Llama:
+    """Seeded full-width weights, made on ``device`` one tensor at a time
+    (the f32 staging copy never exceeds the largest single weight)."""
+    s = 1.0 / math.sqrt(cfg.hidden)
+    tensors = {}
+    for key, shape in param_shapes(cfg).items():
+        if key in ("ln_f", "layers/ln_att", "layers/ln_mlp"):
+            tensors[key] = torch.ones(shape, dtype=dtype, device=device)
+        else:
+            w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+            tensors[key] = w.mul_(s).to(dtype)
+    return Llama(cfg, tensors)

@@ -1,0 +1,151 @@
+"""Flash attention: a hand-written CUDA kernel for Hopper and its plain
+PyTorch version.
+
+Replaces the JAX package's Pallas TPU kernel ``ops/flash_attention.py
+::flash_attention`` (``pallas_call`` at :120), which the llama prefill runs
+with ``seq_impl="flash"``.  The kernel lives in ``csrc/flash_attention.cu``:
+one block per (batch*head, 64-row query tile), K/V tiles in shared memory,
+the online softmax in f32 registers, key tiles past the diagonal skipped.
+On an H100 the prefill attention is bound by operations; this first
+version runs them on the CUDA cores (tensor cores are later work), and its
+times stand in PERF.md.
+
+Unlike the TPU kernel it takes any sequence length (the ragged edge is
+masked in the kernel, so ``_fit_block`` has no counterpart) and K/V with
+fewer heads than Q (KV divides H; head ``h`` reads KV head
+``h // (H // KV)``), so the model need not repeat K/V.  K/V already
+repeated to H heads still work, which is the JAX adapter's contract.
+
+Dispatch is by device: a tensor on the CPU takes the plain version, a CUDA
+tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from seldon_core_tpu_torch.ops import _build
+
+KERNEL_DIMS = (16, 32, 64, 128)
+
+
+def _dense_causal_attention(q, k, v):
+    """``(B, L, H, D)`` causal attention with a bottom-right aligned mask
+    (the model zoo's dense path); k/v carry H heads."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    ql, kl = q.shape[1], k.shape[1]
+    rows = torch.arange(ql, device=q.device)[:, None] + (kl - ql)
+    mask = rows >= torch.arange(kl, device=q.device)[None, :]
+    s = s.masked_fill(~mask, torch.finfo(s.dtype).min)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _full_attention(q, k, v):
+    """``(B, L, H, D)`` attention with no mask; k/v carry H heads."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _repeat_heads(kv, n_heads: int, head_dim: int = 2):
+    reps = n_heads // kv.shape[head_dim]
+    return kv if reps == 1 else kv.repeat_interleave(reps, dim=head_dim)
+
+
+def _attention_blhd_plain(q, k, v, causal: bool):
+    H = q.shape[2]
+    kf, vf = _repeat_heads(k, H), _repeat_heads(v, H)
+    return _dense_causal_attention(q, kf, vf) if causal else _full_attention(q, kf, vf)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True):
+    """The plain version of :func:`flash_attention`, ``(B, H, S, D)``."""
+    out = _attention_blhd_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal
+    )
+    return out.transpose(1, 2)
+
+
+def _check_shapes(q, k, v, causal: bool) -> None:
+    """Shape rules both versions share; ``q/k/v`` are ``(B, H, S, D)``
+    views."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("flash attention takes 4-D q, k, v")
+    B, H, Sq, D = q.shape
+    if k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    if k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    KV = k.shape[1]
+    if KV < 1 or H % KV:
+        raise ValueError(f"q heads {H} must be a multiple of kv heads {KV}")
+    if causal and k.shape[2] != Sq:
+        raise ValueError(
+            f"causal flash attention needs equal q and k lengths, got {Sq} and "
+            f"{k.shape[2]}"
+        )
+
+
+def _launch(q, k, v, o, causal: bool) -> None:
+    """Launch the kernel on ``(B, H, S, D)``-indexed views (any strides
+    with D contiguous)."""
+    if not (q.device == k.device == v.device == o.device):
+        raise ValueError("q, k, v must lie on one device")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
+        torch.float32, torch.float16, torch.bfloat16,
+    ):
+        raise TypeError(
+            f"flash attention kernel takes one float dtype, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if D not in KERNEL_DIMS:
+        raise ValueError(f"flash attention kernel takes head_dim in {KERNEL_DIMS}, got {D}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
+        if t.stride(3) != 1:
+            raise ValueError(f"flash attention kernel needs {name}'s last dim contiguous")
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        code = lib.sct_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            _build.DTYPE_CODES[q.dtype], B, H, KV, Sq, Sk, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+            1.0 / math.sqrt(D), int(causal), _build.stream_handle(q.device),
+        )
+    _build.check(code, "flash_attention")
+    _build.LAUNCHES["flash_attention"] += 1
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """``(B, H, S, D)`` attention over ``k/v (B, KV, S, D)`` (KV divides H).
+
+    Causal attention masks ``col > row`` and needs equal q and k lengths;
+    rows with nothing visible are zeros."""
+    _check_shapes(q, k, v, causal)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    _launch(q, k, v, o, causal)
+    return o
+
+
+def flash_causal_attention_blhd(q, k, v):
+    """The model zoo's ``(B, L, H, D)`` causal attention contract
+    (``models/llama.py::_layer``); k/v may carry fewer heads than q."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    _check_shapes(qt, kt, vt, True)
+    if q.device.type == "cpu":
+        return _attention_blhd_plain(q, k, v, True)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    _launch(qt, kt, vt, o.transpose(1, 2), True)
+    return o

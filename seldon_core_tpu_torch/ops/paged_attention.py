@@ -1,0 +1,155 @@
+"""Paged decode attention: a hand-written CUDA kernel for Hopper and its
+plain PyTorch version.
+
+Replaces the JAX package's Pallas TPU kernel ``ops/paged_attention.py
+::paged_decode_attention`` (``pallas_call`` at :163), the attention read of
+every decode step.  The kernel lives in ``csrc/paged_attention.cu``: one
+block per (slot, KV head) reads the block table itself, walks the slot's
+pages once through shared memory (dequantizing int8 pages against their
+per-(position, head) scales) and keeps the online softmax in f32.  On an
+H100 a decode step is bound by the bytes it reads, so nothing intermediate
+is written to device memory.  At 8 slots x 8 KV heads it runs 64 blocks on
+132 SMs; splitting the window over more blocks is later work.
+
+Query ``j`` of slot ``s`` sees pool rows ``[0, pos[s] + j]``; grouped
+queries read the un-repeated KV heads (query row ``r = j * groups + g``).
+Rows with nothing visible are zeros, as in the TPU kernel.
+
+Dispatch is by device: a tensor on the CPU takes the plain version, a CUDA
+tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from seldon_core_tpu_torch.ops import _build
+
+KERNEL_DIMS = (16, 32, 64, 128)
+_SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block may use
+
+
+def paged_decode_attention_plain(
+    q, k_pages, v_pages, table, pos, *, k_scale=None, v_scale=None
+):
+    """The gather path of ``paged_decode_attention_reference`` (the JAX
+    package's XLA read side), with rows that see nothing set to zeros to
+    match the kernel."""
+    S, L, H, D = q.shape
+    NB, BS, KV, _ = k_pages.shape
+    WB = table.shape[1]
+    W = WB * BS
+    groups = H // KV
+    idx = table.long()
+    kw = k_pages[idx]  # (S, WB, BS, KV, D)
+    vw = v_pages[idx]
+    if k_scale is not None:
+        kw = (kw.float() * k_scale[idx][..., None].float()).to(q.dtype)
+        vw = (vw.float() * v_scale[idx][..., None].float()).to(q.dtype)
+    kw = kw.reshape(S, W, KV, D)
+    vw = vw.reshape(S, W, KV, D)
+    positions = pos.long()[:, None] + torch.arange(L, device=q.device)[None, :]
+    valid = torch.arange(W, device=q.device)[None, None, :] <= positions[:, :, None]
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(S, L, KV, groups, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kw) * scale
+    vmask = valid[:, None, None, :, :]  # (S, 1, 1, L, W)
+    s = s.masked_fill(~vmask, torch.finfo(s.dtype).min)
+    p = torch.softmax(s, dim=-1) * vmask.any(dim=-1, keepdim=True)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, vw)
+    return o.reshape(S, L, H, D)
+
+
+def _check(q, k_pages, v_pages, table, pos, k_scale, v_scale) -> None:
+    if q.ndim != 4 or k_pages.ndim != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(
+            f"paged attention takes q (S, L, H, D) and pages (NB, BS, KV, D), got "
+            f"{tuple(q.shape)}, {tuple(k_pages.shape)}, {tuple(v_pages.shape)}"
+        )
+    S, L, H, D = q.shape
+    NB, BS, KV, Dk = k_pages.shape
+    if Dk != D or KV < 1 or H % KV:
+        raise ValueError(f"q {tuple(q.shape)} does not fit pages {tuple(k_pages.shape)}")
+    if table.ndim != 2 or table.shape[0] != S or pos.shape != (S,):
+        raise ValueError(
+            f"table must be (S, WB) and pos (S,) for S={S}, got "
+            f"{tuple(table.shape)} and {tuple(pos.shape)}"
+        )
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale go together")
+    if k_scale is not None and (
+        k_scale.shape != (NB, BS, KV) or v_scale.shape != (NB, BS, KV)
+    ):
+        raise ValueError(f"scales must be (NB, BS, KV) = {(NB, BS, KV)}")
+
+
+def _launch(q, k_pages, v_pages, table, pos, k_scale, v_scale):
+    S, L, H, D = q.shape
+    NB, BS, KV, _ = k_pages.shape
+    WB = table.shape[1]
+    tensors = [q, k_pages, v_pages, table, pos]
+    if k_scale is not None:
+        tensors += [k_scale, v_scale]
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("paged attention inputs must lie on one device")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("paged attention kernel needs contiguous inputs")
+    if q.dtype not in (torch.float32, torch.float16, torch.bfloat16):
+        raise TypeError(f"paged attention kernel takes float queries, got {q.dtype}")
+    if k_scale is None:
+        if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+            raise TypeError("float pages must have the queries' dtype")
+    elif not (
+        k_pages.dtype == v_pages.dtype == torch.int8
+        and k_scale.dtype == v_scale.dtype == q.dtype
+    ):
+        raise TypeError("quantized pages are int8 with scales in the queries' dtype")
+    if table.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise TypeError("table and pos must be int32")
+    if D not in KERNEL_DIMS:
+        raise ValueError(f"paged attention kernel takes head_dim in {KERNEL_DIMS}, got {D}")
+    R = L * (H // KV)
+    smem = 4 * (R * (D + 1) + 2 * BS * (D + 1) + R * (BS + 1) + R * D + 3 * R)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"paged attention kernel needs {smem} bytes of shared memory for "
+            f"{R} query rows and {BS}-row pages; the card has {_SMEM_LIMIT}"
+        )
+    out = torch.empty_like(q)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        code = lib.sct_paged_decode_attention(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            None if k_scale is None else k_scale.data_ptr(),
+            None if v_scale is None else v_scale.data_ptr(),
+            table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[k_pages.dtype],
+            S, L, H, KV, D, NB, BS, WB, 1.0 / math.sqrt(D),
+            _build.stream_handle(q.device),
+        )
+    _build.check(code, "paged_decode_attention")
+    _build.LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+def paged_decode_attention(
+    q, k_pages, v_pages, table, pos, *, k_scale=None, v_scale=None
+):
+    """Attention for ``L`` decode queries per slot over ONE layer's paged
+    KV pool.
+
+    ``q (S, L, H, D)`` post-RoPE queries; ``k_pages``/``v_pages
+    (NB, BS, KV, D)`` float, or int8 with ``k_scale``/``v_scale
+    (NB, BS, KV)``; ``table (S, WB)`` the physical blocks each slot's
+    window reads; ``pos (S,)`` each slot's base position.  Returns
+    ``(S, L, H, D)`` in q's dtype."""
+    _check(q, k_pages, v_pages, table, pos, k_scale, v_scale)
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(
+            q, k_pages, v_pages, table, pos, k_scale=k_scale, v_scale=v_scale
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged attention runs on cpu or cuda, not {q.device}")
+    return _launch(q, k_pages, v_pages, table, pos, k_scale, v_scale)

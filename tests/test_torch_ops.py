@@ -1,0 +1,150 @@
+"""The PyTorch port's attention ops against the JAX package's Pallas kernels.
+
+On the CPU each port wrapper runs its plain PyTorch version (the CUDA
+kernels build and run only on the card, where ``chip_smoke.py`` holds them
+against these same plain versions).  The JAX side runs its Pallas kernels
+in interpret mode, as ``tests/test_ops.py`` does.  Inputs come from seeded
+numpy and are fed to both frameworks; tolerance rtol = atol = 2e-5 in f32
+(the same sums in another order).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seldon_core_tpu.models.llama import _dense_causal_attention as jax_dense_causal
+from seldon_core_tpu.models.llama import _gqa_repeat as jax_gqa_repeat
+from seldon_core_tpu.ops import flash_attention as jax_flash
+from seldon_core_tpu.ops import flash_causal_attention_blhd as jax_blhd
+from seldon_core_tpu.ops import paged_decode_attention as jax_paged
+from seldon_core_tpu_torch import ops
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _normal(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+class TestFlashAttention:
+    @pytest.mark.parametrize("shape", [(1, 2, 128, 64), (1, 1, 64, 128)])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_matches_pallas_kernel(self, shape, causal):
+        rng = np.random.default_rng(0)
+        q, k, v = (_normal(rng, *shape) for _ in range(3))
+        want = jax_flash(*map(jnp.asarray, (q, k, v)), causal=causal, block_q=64, block_k=64)
+        got = ops.flash_attention(*_t(q, k, v), causal=causal)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+    @pytest.mark.parametrize("seq", [48, 97, 120])
+    def test_blhd_matches_pallas_adapter(self, seq):
+        # 97 is prime: the JAX adapter tiles it as one 97-row block, the
+        # port needs no tile that divides S
+        rng = np.random.default_rng(seq)
+        q, k, v = (_normal(rng, 2, seq, 4, 32) for _ in range(3))
+        want = jax_blhd(*map(jnp.asarray, (q, k, v)))
+        got = ops.flash_causal_attention_blhd(*_t(q, k, v))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+    def test_prime_length_past_one_tile_matches_dense(self):
+        # 131: the Pallas adapter would degrade to 1-row tiles; the port
+        # is pinned to the dense reference the adapter is held to
+        rng = np.random.default_rng(131)
+        q, k, v = (_normal(rng, 1, 131, 2, 16) for _ in range(3))
+        want = jax_dense_causal(*map(jnp.asarray, (q, k, v)))
+        got = ops.flash_causal_attention_blhd(*_t(q, k, v))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+    @pytest.mark.parametrize("n_heads,n_kv", [(8, 2), (6, 3)])
+    def test_grouped_kv_equals_repeated_kv(self, n_heads, n_kv):
+        """The port takes un-repeated K/V (KV divides H); the JAX adapter
+        receives K/V repeated to H heads.  Both give the same attention."""
+        rng = np.random.default_rng(n_heads * 10 + n_kv)
+        q = _normal(rng, 1, 80, n_heads, 16)
+        k, v = (_normal(rng, 1, 80, n_kv, 16) for _ in range(2))
+        kf, vf = (jax_gqa_repeat(jnp.asarray(x), n_heads) for x in (k, v))
+        want = jax_blhd(jnp.asarray(q), kf, vf)
+        got = ops.flash_causal_attention_blhd(*_t(q, k, v))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        repeated = ops.flash_causal_attention_blhd(*_t(q, np.asarray(kf), np.asarray(vf)))
+        np.testing.assert_allclose(repeated.numpy(), got.numpy(), **TOL)
+
+    def test_rejects_what_neither_version_takes(self):
+        q = torch.zeros(1, 2, 16, 8)
+        with pytest.raises(ValueError, match="equal q and k lengths"):
+            ops.flash_attention(q, torch.zeros(1, 2, 8, 8), torch.zeros(1, 2, 8, 8))
+        with pytest.raises(ValueError, match="multiple of kv heads"):
+            ops.flash_attention(torch.zeros(1, 3, 16, 8), q, q)
+
+
+class TestPagedDecodeAttention:
+    """The port's paged decode attention against the Pallas kernel, over the
+    cases of ``tests/test_ops.py::TestPagedDecodeAttention``."""
+
+    def _compare(self, S, L, KV, G, D, NB, BS, WB, *, quant=False, seed=0, pos=None):
+        rng = np.random.default_rng(seed)
+        H = KV * G
+        q = _normal(rng, S, L, H, D)
+        table = rng.integers(0, NB, (S, WB)).astype(np.int32)
+        if pos is None:
+            pos = rng.integers(0, WB * BS - L, S)  # deliberately off block boundaries
+        pos = np.asarray(pos, np.int32)
+        kw = {}
+        if quant:
+            k = rng.integers(-127, 128, (NB, BS, KV, D)).astype(np.int8)
+            v = rng.integers(-127, 128, (NB, BS, KV, D)).astype(np.int8)
+            kw = {
+                "k_scale": (rng.random((NB, BS, KV)) * 0.1).astype(np.float32),
+                "v_scale": (rng.random((NB, BS, KV)) * 0.1).astype(np.float32),
+            }
+        else:
+            k, v = _normal(rng, NB, BS, KV, D), _normal(rng, NB, BS, KV, D)
+        want = jax_paged(
+            *map(jnp.asarray, (q, k, v, table, pos)),
+            **{name: jnp.asarray(a) for name, a in kw.items()},
+        )
+        got = ops.paged_decode_attention(
+            *_t(q, k, v, table, pos), **{name: _t(a)[0] for name, a in kw.items()}
+        )
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        return got.numpy(), v
+
+    @pytest.mark.parametrize("L", [1, 3, 5])
+    def test_query_counts(self, L):
+        self._compare(3, L, 2, 2, 16, 9, 16, 3, seed=L)
+
+    @pytest.mark.parametrize("KV,G", [(1, 4), (2, 2), (3, 2), (4, 1)])
+    def test_gqa_head_counts(self, KV, G):
+        self._compare(2, 2, KV, G, 16, 7, 8, 3, seed=KV * 10 + G)
+
+    @pytest.mark.parametrize("BS,WB", [(4, 7), (16, 2), (8, 5)])
+    def test_positions_off_block_boundaries(self, BS, WB):
+        self._compare(4, 2, 2, 2, 8, 11, BS, WB, seed=BS)
+
+    @pytest.mark.parametrize("seed,shape", [(0, (3, 2, 2, 2, 16, 9, 16, 3)),
+                                            (7, (2, 1, 2, 4, 8, 5, 4, 4))])
+    def test_int8_pages(self, seed, shape):
+        self._compare(*shape, quant=True, seed=seed)
+
+    def test_zero_position_sees_one_row(self):
+        rng = np.random.default_rng(3)
+        q = _normal(rng, 2, 1, 4, 8)
+        k, v = _normal(rng, 5, 4, 2, 8), _normal(rng, 5, 4, 2, 8)
+        table = np.array([[1, 2], [3, 4]], np.int32)
+        pos = np.zeros(2, np.int32)
+        want = jax_paged(*map(jnp.asarray, (q, k, v, table, pos)))
+        got = ops.paged_decode_attention(*_t(q, k, v, table, pos))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        # one visible row: attention returns exactly that row's v
+        np.testing.assert_allclose(got.numpy()[0, 0, 0], v[1, 0, 0], **TOL)
+
+    def test_rows_that_see_nothing_are_zeros(self):
+        # pos = -1: no pool row is visible; the Pallas kernel writes zeros
+        # there (its XLA reference would write a uniform softmax)
+        got, _ = self._compare(2, 1, 2, 2, 8, 5, 4, 2, pos=[-1, -1])
+        assert not got.any()
