@@ -6,20 +6,31 @@
 Phases, each printing one JSON line:
 
 1. ``build``: the CUDA kernels are compiled from ``seldon_core_tpu_torch/csrc``
-   (one nvcc per source, all started together) and loaded.
+   (one nvcc per source, all started together) and loaded; the line lists
+   each kernel's registers, shared memory and spills (``ptxas -v``) and its
+   ``HGMMA``/``HMMA`` count (``cuobjdump -sass``).
 2. ``kernel_check``: each kernel against its plain PyTorch version on the
    card, at the main path's shapes (llama3-1b: H=32, KV=8, D=64, 16-row
-   pages) in bf16 and f32, plus ragged lengths, speculative query counts,
-   position 0 and int8 pages.
+   pages): flash attention at every prefill bucket, ragged and prime
+   lengths, grouped and repeated K/V, strided views, no mask, other head
+   dims, in bf16, f16 and f32; paged attention at 1-4 queries per slot,
+   int8 pages, position 0, positions on and off page boundaries, one split
+   and many, slots whose later splits are empty and rows that see nothing,
+   and at head dim 128 (llama3-8b) and 8- and 32-row pages.
 3. ``reference``: a small model's logits and greedy tokens on the card
    against the same weights on the CPU (plain versions).
 4. ``serve``: the engine boots in-process on 127.0.0.1 with a
    ``JAX_GENERATIVE`` llama3-1b bf16 graph (seeded weights, 8 slots,
    16-step decode blocks) and answers concurrent strData requests over
-   HTTP; the kernels' launch counts are read around this phase.
-5. ``kernel_times``: each kernel's time at the main path's shapes beside
+   HTTP; the kernels' launch counts are read around this phase, and it
+   fails unless every decode block cost exactly one host sync.
+5. ``kernel_times``: each kernel's time at the main path's shapes and at a
+   long one (flash at S=2048, paged at 8 slots near position 2000) beside
    its plain version, one PyTorch library call where there is one, and the
-   least time the card could take (its bound).
+   least time the card could take (its bound).  ``ms`` replays the
+   launches from a CUDA graph; ``eager_ms`` launches them from Python one
+   by one, as the eager decode step does; ``host_ms`` is the host's cost
+   of one call.
 
 Then the card's name and power limit (nvidia-smi), one line listing the
 kernels, and as the last line ``{"ok": true, "device": {...}}``.  Any
@@ -52,11 +63,18 @@ BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
 # absolute one covers f32 noise near zero.
 F32_TOL = (2e-4, 2e-4)
 BF16_TOL = (1e-4, 4e-3)
+# The 16-bit flash kernel also rounds each probability once to the input's
+# type before P.V (wgmma takes 16-bit operands): at most u = 2**-8 (bf16)
+# or 2**-11 (f16) of each p, so its output may move by u * (P.|V|) more,
+# with P.|V| from the plain version in f32.
+P_ROUNDING = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
 SERVE_PRESET = "llama3-1b"
 SERVE_SLOTS = 8
 SERVE_BLOCK = 16
 MAX_NEW = 32
 VERIFY_PROMPT = [5, 9, 2, 17, 3]
+SERVE_LENGTHS = (5, 17, 64, 100, 211, 333, 480, 600)  # the wave's prompt lengths
+LONG_POS = [1990, 1995, 2000, 2001, 2007, 1999, 2010, 2015]  # K2's long timing: near a 2048 window
 
 
 def emit(obj: dict) -> None:
@@ -71,7 +89,39 @@ def _sync():
 
 def time_ms(fn, arg_sets, iters: int = 20) -> float:
     """Mean device time of ``fn(*args)`` over ``iters`` launches, cycling
-    through ``arg_sets`` so that no launch finds its inputs in L2."""
+    through ``arg_sets`` so that no launch finds its inputs in L2.  The
+    launches are captured in one CUDA graph and replayed, so the host's cost
+    of a call (``host_ms``) does not leave the card idle between them.  The
+    warm-up runs on the capture stream, so that nothing a wrapper keeps per
+    stream is first allocated inside the capture."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for args in arg_sets[:3]:
+            fn(*args)
+    _sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    _sync()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def eager_ms(fn, arg_sets, iters: int = 20) -> float:
+    """Mean time per call of ``iters`` eager calls of ``fn`` launched back to
+    back, CUDA events around them (PR 1's ``time_ms``): where a call's host
+    cost exceeds its kernel's time, this is what the eager decode step
+    pays per call, not the kernel's own time."""
     import torch
 
     for args in arg_sets[:3]:
@@ -86,25 +136,45 @@ def time_ms(fn, arg_sets, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, arg_sets, iters: int = 50) -> float:
+    """Mean host time of one eager call of ``fn`` (checks, allocation and
+    the launch's enqueue): 50 calls never fill the launch queue, so the
+    card's own time does not enter."""
+    for args in arg_sets[:3]:
+        fn(*args)
+    _sync()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    t1 = time.perf_counter()
+    _sync()
+    return (t1 - t0) * 1e3 / iters
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name: str, got, want, tol: tuple[float, float], **shape) -> dict:
+def compare(name: str, got, want, tol: tuple[float, float], extra=None, **shape) -> dict:
+    """``got`` against ``want`` within ``tol[0] + tol[1] * |want|``, plus
+    ``extra`` (a tensor like ``want``) where a kernel rounds more than once."""
     import torch
 
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: kernel output not finite at {shape}")
     err = (got.float() - want.float()).abs()
     limit = tol[0] + tol[1] * want.float().abs()
+    if extra is not None:
+        limit = limit + extra
     max_abs = float(err.max()) if err.numel() else 0.0
     ok = bool((err <= limit).all())
     rec = {
         "kernel": name, **shape, "max_abs_err": max_abs,
         "max_rel_err": float((err / want.float().abs().clamp_min(1e-6)).max()) if err.numel() else 0.0,
-        "atol": tol[0], "rtol": tol[1], "ok": ok,
+        "max_err_over_limit": float((err / limit).max()) if err.numel() else 0.0,
+        "atol": tol[0], "rtol": tol[1], "p_rounding": extra is not None, "ok": ok,
     }
     if not ok:
         emit({"phase": "kernel_check", **rec})
@@ -120,20 +190,21 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     _build.library()
+    seconds = time.perf_counter() - t0
     emit({
-        "phase": "build", "seconds": time.perf_counter() - t0,
-        "nvcc_seconds": _build.build_seconds,
+        "phase": "build", "seconds": seconds, "nvcc_seconds": _build.build_seconds,
         "sources": [f"seldon_core_tpu_torch/csrc/{s}" for s in _build.SOURCES],
+        "kernels": _build.kernel_report(),
     })
 
 
-def _flash_inputs(S, H, KV, D, dtype, seed):
+def _flash_inputs(S, H, KV, D, dtype, seed, B=1):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn(1, S, H, D, generator=g, device="cuda").to(dtype)
-    k = torch.randn(1, S, KV, D, generator=g, device="cuda").to(dtype)
-    v = torch.randn(1, S, KV, D, generator=g, device="cuda").to(dtype)
+    q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, S, KV, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, S, KV, D, generator=g, device="cuda").to(dtype)
     return q, k, v
 
 
@@ -164,6 +235,99 @@ def _f32(x):
     return x.float() if x.is_floating_point() else x
 
 
+PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)  # llama3-1b, max_seq 2048
+
+
+def _flash_cases():
+    """(dtype name, case) for every flash check: ``case`` holds the entry
+    (``blhd`` or ``bhsd``), shapes and how q/k/v are laid out."""
+    cases = []
+    for dn in ("bfloat16", "float16", "float32"):
+        lengths = PREFILL_BUCKETS + (100, 257) if dn == "bfloat16" else (16, 100, 257, 2048)
+        for S in lengths:
+            cases.append((dn, {"entry": "blhd", "S": S, "H": 32, "KV": 8, "D": 64}))
+        cases += [
+            (dn, {"entry": "blhd", "S": 257, "H": 32, "KV": 32, "D": 64}),  # K/V repeated to H
+            (dn, {"entry": "blhd", "S": 257, "H": 32, "KV": 8, "D": 64, "fused": True}),
+            (dn, {"entry": "bhsd", "S": 257, "Sk": 257, "H": 32, "KV": 8, "D": 64}),
+            (dn, {"entry": "bhsd", "S": 100, "Sk": 257, "H": 32, "KV": 8, "D": 64}),
+            (dn, {"entry": "blhd", "S": 300, "H": 16, "KV": 4, "D": 128, "B": 2}),
+            (dn, {"entry": "blhd", "S": 150, "H": 8, "KV": 2, "D": 32}),
+            (dn, {"entry": "blhd", "S": 70, "H": 4, "KV": 4, "D": 16}),
+        ]
+    return cases
+
+
+def _flash_check(fa, dn, case, seed):
+    """One flash case against the plain version in f32 on the same inputs."""
+    import torch
+
+    dtype = getattr(torch, dn)
+    S, H, KV, D, B = case["S"], case["H"], case["KV"], case["D"], case.get("B", 1)
+    if case["entry"] == "bhsd":  # (B, H, S, D), no mask, Sq may differ from Sk
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        q = torch.randn(B, H, S, D, generator=g, device="cuda").to(dtype)
+        k = torch.randn(B, KV, case["Sk"], D, generator=g, device="cuda").to(dtype)
+        v = torch.randn(B, KV, case["Sk"], D, generator=g, device="cuda").to(dtype)
+        got = fa.flash_attention(q, k, v, causal=False)
+        want = fa.flash_attention_plain(_f32(q), _f32(k), _f32(v), causal=False)
+        pv = fa.flash_attention_plain(_f32(q), _f32(k), _f32(v).abs(), causal=False)
+    else:
+        if case.get("fused"):  # strided views into one (B, S, H + 2 KV, D) projection
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            qkv = torch.randn(B, S, H + 2 * KV, D, generator=g, device="cuda").to(dtype)
+            q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+        else:
+            q, k, v = _flash_inputs(S, H, KV, D, dtype, seed=seed, B=B)
+        got = fa.flash_causal_attention_blhd(q, k, v)
+        want = fa._attention_blhd_plain(_f32(q), _f32(k), _f32(v), True)
+        pv = fa._attention_blhd_plain(_f32(q), _f32(k), _f32(v).abs(), True)
+    if dn == "float32":
+        return compare("flash_attention", got, want, F32_TOL, dtype=dn, **case)
+    return compare("flash_attention", got, want, BF16_TOL, P_ROUNDING[dn] * pv, dtype=dn, **case)
+
+
+def _paged_cases():
+    """(dtype name, case) for every paged check: llama3-1b heads (H=32,
+    KV=8, D=64) over 16-row pages unless ``case`` names another head dim
+    (``D``, 128 is llama3-8b's) or page size (``BS``)."""
+    boundary = [15, 16, 17, 31, 32, 0, 1, 47]  # on and off 16-row page edges
+    mixed = [0, 3, 40, 300, 1000, 2040, 17, 2000]  # short slots leave later splits empty
+    idle = [-1, 500, -1, 1000, 7, -1, 31, 2000]  # -1: an inactive slot sees nothing
+    cases = []
+    for dn in ("bfloat16", "float32"):  # llama3-8b's head dim
+        cases += [
+            (dn, {"L": 1, "WB": 64, "D": 128}),
+            (dn, {"L": 3, "WB": 128, "D": 128, "pos": mixed}),
+            (dn, {"L": 1, "WB": 64, "D": 128, "quant": True}),
+            (dn, {"L": 1, "WB": 128, "D": 128, "pos": idle}),
+        ]
+    for BS, WB in ((32, 64), (8, 256)):  # other page sizes at D=64
+        cases += [
+            ("bfloat16", {"L": 1, "WB": WB, "BS": BS, "pos": mixed}),
+            ("bfloat16", {"L": 2, "WB": 4, "BS": BS,
+                          "pos": [BS - 1, BS, BS + 1, 2 * BS - 1, 2 * BS, 0, 1, 3 * BS - 1]}),
+            ("bfloat16", {"L": 3, "WB": WB, "BS": BS, "pos": mixed, "quant": True}),
+            ("float16", {"L": 1, "WB": WB, "BS": BS, "quant": True}),
+            ("bfloat16", {"L": 1, "WB": WB, "BS": BS, "pos": idle}),
+            ("float32", {"L": 2, "WB": WB, "BS": BS, "pos": [p if p >= 0 else -3 for p in idle]}),
+        ]
+    for dn in ("bfloat16", "float32", "float16"):
+        cases += [(dn, {"L": L, "WB": 64}) for L in ((1, 2, 3, 4) if dn == "bfloat16" else (1, 3))]
+        cases += [
+            (dn, {"L": 1, "WB": 64, "quant": True}),
+            (dn, {"L": 3, "WB": 64, "quant": True}),
+            (dn, {"L": 1, "WB": 64, "pos": [0] * 8}),
+            (dn, {"L": 2, "WB": 8, "pos": boundary}),
+            (dn, {"L": 1, "WB": 2}),  # a window of 2 pages: one split
+            (dn, {"L": 1, "WB": 128, "pos": mixed}),
+            (dn, {"L": 4, "WB": 128, "pos": mixed, "quant": True}),
+            (dn, {"L": 1, "WB": 128, "pos": idle}),
+            (dn, {"L": 3, "WB": 128, "pos": [p if p >= 0 else -2 for p in idle]}),
+        ]
+    return cases
+
+
 def phase_kernel_check() -> dict:
     """Every kernel against its plain version, run in f32 on the kernel's
     own inputs; returns the bf16 main-path errors for the kernels line."""
@@ -177,41 +341,50 @@ def phase_kernel_check() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     checks = []
     main_err = {}
-    H, KV, D = 32, 8, 64
-    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-        dn = str(dtype).split(".")[-1]
-        for S in (16, 100, 2048):
-            q, k, v = _flash_inputs(S, H, KV, D, dtype, seed=S)
-            got = fa.flash_causal_attention_blhd(q, k, v)
-            want = fa._attention_blhd_plain(_f32(q), _f32(k), _f32(v), True)
-            rec = compare("flash_attention", got, want, tol, S=S, H=H, KV=KV, D=D, dtype=dn)
-            checks.append(rec)
-            if S == 2048 and dtype == torch.bfloat16:
-                main_err["flash_attention"] = rec["max_abs_err"]
-        # K/V already repeated to H heads (the JAX adapter's contract), and
-        # the (B, H, S, D) entry without a mask
-        q, k, v = _flash_inputs(100, H, H, D, dtype, seed=7)
-        got = fa.flash_causal_attention_blhd(q, k, v)
-        want = fa._attention_blhd_plain(_f32(q), _f32(k), _f32(v), True)
-        checks.append(compare("flash_attention", got, want, tol, S=100, H=H, KV=H, D=D, dtype=dn))
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in _flash_inputs(100, H, KV, D, dtype, 8))
-        got = fa.flash_attention(qt, kt, vt, causal=False)
-        want = fa.flash_attention_plain(_f32(qt), _f32(kt), _f32(vt), causal=False)
-        checks.append(compare("flash_attention", got, want, tol, S=100, H=H, KV=KV, D=D, dtype=dn, causal=False))
-        for L, quant, pos in ((1, False, None), (3, False, None), (1, False, [0] * 8),
-                              (1, True, None), (3, True, None)):
-            args, kw = _paged_inputs(8, L, H, KV, D, 16, 1025, 64, dtype, seed=L + 10 * quant,
-                                     quant=quant, pos=pos)
-            got = pa.paged_decode_attention(*args, **kw)
-            want = pa.paged_decode_attention_plain(
-                *map(_f32, args), **{n: _f32(x) for n, x in kw.items()})
-            rec = compare("paged_decode_attention", got, want, tol, S=8, L=L, H=H, KV=KV, D=D,
-                          BS=16, WB=64, int8=quant, pos0=pos is not None, dtype=dn)
-            checks.append(rec)
-            if L == 1 and not quant and pos is None and dtype == torch.bfloat16:
-                main_err["paged_decode_attention"] = rec["max_abs_err"]
+    for i, (dn, case) in enumerate(_flash_cases()):
+        rec = _flash_check(fa, dn, case, seed=i)
+        checks.append(rec)
+        if dn == "bfloat16" and case == {"entry": "blhd", "S": 1024, "H": 32, "KV": 8, "D": 64}:
+            main_err["flash_attention"] = rec["max_abs_err"]
+    H, KV = 32, 8
+    for i, (dn, case) in enumerate(_paged_cases()):
+        dtype = getattr(torch, dn)
+        WB, L, D, BS = case["WB"], case["L"], case.get("D", 64), case.get("BS", 16)
+        args, kw = _paged_inputs(8, L, H, KV, D, BS, 1 + 8 * WB, WB, dtype, seed=1000 + i,
+                                 quant=case.get("quant", False), pos=case.get("pos"))
+        got = pa.paged_decode_attention(*args, **kw)
+        want = pa.paged_decode_attention_plain(
+            *map(_f32, args), **{n: _f32(x) for n, x in kw.items()})
+        splits, per = pa.plan_splits(WB)
+        rec = compare("paged_decode_attention", got, want, F32_TOL if dn == "float32" else BF16_TOL,
+                      S=8, H=H, KV=KV, splits=splits, per=per, dtype=dn,
+                      **{"D": D, "BS": BS, **case})
+        checks.append(rec)
+        if dn == "bfloat16" and case == {"L": 1, "WB": 64}:
+            main_err["paged_decode_attention"] = rec["max_abs_err"]
+    # a slot's result must not follow the window width (which follows the
+    # batch's longest slot): the same pages under a 64- and a 128-entry
+    # window give the same bits
+    args, _ = _paged_inputs(8, 1, H, KV, 64, 16, 1 + 8 * 128, 128, torch.bfloat16, seed=999,
+                            pos=[5, 100, 333, 500, 777, 900, 1000, 1015])
+    q, k, v, table, pos = args
+    narrow = pa.paged_decode_attention(q, k, v, table[:, :64].contiguous(), pos)
+    wide = pa.paged_decode_attention(q, k, v, table, pos)
+    if not torch.equal(narrow, wide):
+        raise AssertionError("paged attention's result follows the window width")
+    checks.append({"kernel": "paged_decode_attention", "window_invariant": True, "WB": [64, 128],
+                   "max_abs_err": 0.0, "max_err_over_limit": 0.0})
     _sync()
-    emit({"phase": "kernel_check", "cases": len(checks), "ok": True, "checks": checks})
+    worst = max(checks, key=lambda r: r["max_err_over_limit"])
+    # one short entry per case: the shape keys, the largest error, err/limit
+    skip = {"kernel", "max_abs_err", "max_rel_err", "max_err_over_limit", "atol", "rtol",
+            "p_rounding", "ok"}
+    emit({"phase": "kernel_check", "cases": len(checks), "ok": True,
+          "max_err_over_limit": worst["max_err_over_limit"], "worst_case": worst,
+          "checks": [
+              f"{r['kernel']} " + " ".join(f"{k}={v}" for k, v in r.items() if k not in skip)
+              + f" err={r['max_abs_err']:.3g} err/limit={r['max_err_over_limit']:.3g}"
+              for r in checks]})
     return main_err
 
 
@@ -286,7 +459,7 @@ def _get(port: int, path: str) -> int:
 
 
 def phase_serve(device: str = "cuda", preset: str = SERVE_PRESET,
-                lengths=(5, 17, 64, 100, 211, 333, 480, 600), seed: int = 0) -> dict:
+                lengths=SERVE_LENGTHS, seed: int = 0) -> dict:
     """Boot the engine in-process and answer concurrent strData requests over
     HTTP; returns what the kernel lines need (launch counts, main-path
     shapes)."""
@@ -376,9 +549,14 @@ def phase_serve(device: str = "cuda", preset: str = SERVE_PRESET,
                 "decode_step_ms": 1e3 * model.block_seconds / max(1, model.steps),
                 "decode_blocks": blocks, "host_syncs": syncs,
                 "host_syncs_per_block": syncs / max(1, blocks),
-                "launches": launches, "verify_prompt_tokens": outs[0][:8], "ok": True,
+                "launches": launches, "verify_prompt_tokens": outs[0][:8],
+                # the decode contract: exactly one host sync per decode block
+                "ok": blocks > 0 and syncs == blocks,
             }
             emit(rec)
+            if not rec["ok"]:
+                raise AssertionError(
+                    f"{syncs} host syncs over {blocks} decode blocks; the contract is one each")
             rec["pos"] = [min(len(p) + MAX_NEW // 2, model.cfg.max_seq - 1)
                           for p in prompts[:SERVE_SLOTS]]
             rec["bucket"] = model.fit_bucket(max(lengths))
@@ -391,40 +569,36 @@ def phase_serve(device: str = "cuda", preset: str = SERVE_PRESET,
     return asyncio.run(run())
 
 
-def phase_kernel_times(serve: dict) -> dict:
-    """Each kernel at the main path's shapes: kernel, plain version, one
-    library call where there is one, and the bound."""
+def _flash_times(fa, S: int) -> dict:
+    """K1 at B=1, S, llama3-1b heads, bf16: one input set per layer so no
+    launch finds its inputs in L2."""
     import torch
 
-    fa = importlib.import_module("seldon_core_tpu_torch.ops.flash_attention")
-    pa = importlib.import_module("seldon_core_tpu_torch.ops.paged_attention")
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    H, KV, D, BS, layers = 32, 8, 64, 16, 16
-    out = {}
-    # K1: one prefill at the largest bucket the served prompts used, one
-    # input set per layer so no launch finds its inputs in L2
-    S = serve["bucket"]
+    H, KV, D, layers = 32, 8, 64, 16
     sets = [_flash_inputs(S, H, KV, D, torch.bfloat16, seed=100 + i) for i in range(layers)]
     bhsd = [tuple(x.transpose(1, 2).contiguous() for x in s) for s in sets]
     nbytes = 2 * (2 * S * H * D + 2 * S * KV * D)
     flops = 4 * D * H * S * (S + 1) / 2
     b_ms, b_by = bound(nbytes, flops)
-    out["flash_attention"] = {
+    return {
         "shape": {"B": 1, "S": S, "H": H, "KV": KV, "D": D, "dtype": "bfloat16"},
         "ms": time_ms(fa.flash_causal_attention_blhd, sets),
+        "eager_ms": eager_ms(fa.flash_causal_attention_blhd, sets),
+        "host_ms": host_ms(fa.flash_causal_attention_blhd, sets),
         "plain_ms": time_ms(lambda q, k, v: fa._attention_blhd_plain(q, k, v, True), sets, 5),
         "library_ms": time_ms(
             lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True), bhsd),
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
     }
-    # K2: one decode step's read for the served slots at their mid-answer
-    # positions, over the window bucket the scheduler picked; one pool per
-    # layer, as in the model
-    pos = serve["pos"]
-    window = 64  # the scheduler's window bucket for these positions
-    while window < max(pos) + SERVE_BLOCK + 1:
-        window *= 2
-    WB = window // BS
+
+
+def _paged_times(pa, pos: list[int], WB: int) -> dict:
+    """K2: one decode step's read for SERVE_SLOTS slots at ``pos`` over a
+    ``WB``-entry window, bf16, one pool per layer as in the model."""
+    import torch
+
+    H, KV, D, BS, layers = 32, 8, 64, 16, 16
     NB = 1 + SERVE_SLOTS * WB
     sets = []
     for i in range(layers):
@@ -439,16 +613,51 @@ def phase_kernel_times(serve: dict) -> dict:
               + 4 * pages + 4 * SERVE_SLOTS)
     flops = sum(4 * H * D * (p + 1) for p in pos)
     b_ms, b_by = bound(nbytes, flops)
-    out["paged_decode_attention"] = {
+    return {
         "shape": {"S": SERVE_SLOTS, "L": 1, "H": H, "KV": KV, "D": D, "BS": BS, "WB": WB,
                   "pos": pos, "dtype": "bfloat16"},
         "ms": time_ms(pa.paged_decode_attention, sets),
+        "eager_ms": eager_ms(pa.paged_decode_attention, sets),
+        "host_ms": host_ms(pa.paged_decode_attention, sets),
         "plain_ms": time_ms(pa.paged_decode_attention_plain, sets, 5),
         "library_ms": None,  # no single PyTorch call reads a paged pool
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
     }
+
+
+def window_entries(pos: list[int]) -> int:
+    """The table entries of the window bucket the scheduler picks for slots
+    at ``pos`` (16-row pages)."""
+    window = 64
+    while window < max(pos) + SERVE_BLOCK + 1:
+        window *= 2
+    return window // 16
+
+
+def kernel_times(fa, pa, bucket: int, pos: list[int]) -> dict:
+    """Each kernel at the main path's shapes (``served``: the flash bucket
+    and the served slots' positions) and a long one (``long``)."""
+    return {
+        "flash_attention": {"served": _flash_times(fa, bucket), "long": _flash_times(fa, 2048)},
+        "paged_decode_attention": {"served": _paged_times(pa, pos, window_entries(pos)),
+                                   "long": _paged_times(pa, LONG_POS, 128)},
+    }
+
+
+def phase_kernel_times(serve: dict) -> dict:
+    """Each kernel at the main path's shapes (``served``) and a long one
+    (``long``): kernel, plain version, one library call where there is one,
+    and the bound."""
+    fa = importlib.import_module("seldon_core_tpu_torch.ops.flash_attention")
+    pa = importlib.import_module("seldon_core_tpu_torch.ops.paged_attention")
+    # K1 at the largest bucket the served prompts used; K2 for the served
+    # slots at their mid-answer positions over the scheduler's window bucket
+    out = kernel_times(fa, pa, serve["bucket"], serve["pos"])
+    for t in out["paged_decode_attention"].values():
+        t["splits"], t["per"] = pa.plan_splits(t["shape"]["WB"])
+        t["grid_blocks"] = t["splits"] * t["shape"]["KV"] * SERVE_SLOTS
     emit({"phase": "kernel_times", **out})
-    return out
+    return {name: t["served"] for name, t in out.items()}
 
 
 # each kernel's source and the TPU kernel it replaces (provenance strings;

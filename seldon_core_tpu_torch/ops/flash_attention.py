@@ -1,14 +1,25 @@
-"""Flash attention: a hand-written CUDA kernel for Hopper and its plain
+"""Flash attention: hand-written CUDA kernels for Hopper and their plain
 PyTorch version.
 
 Replaces the JAX package's Pallas TPU kernel ``ops/flash_attention.py
 ::flash_attention`` (``pallas_call`` at :120), which the llama prefill runs
-with ``seq_impl="flash"``.  The kernel lives in ``csrc/flash_attention.cu``:
-one block per (batch*head, 64-row query tile), K/V tiles in shared memory,
-the online softmax in f32 registers, key tiles past the diagonal skipped.
-On an H100 the prefill attention is bound by operations; this first
-version runs them on the CUDA cores (tensor cores are later work), and its
-times stand in PERF.md.
+with ``seq_impl="flash"``.  On an H100 the prefill attention is bound by
+operations (~S/2 multiply-adds per byte read at D = 64), so the scores
+never touch device memory and the products run on the tensor cores.  The
+kernels live in ``csrc/flash_attention.cu``:
+
+* bf16 and f16 (the served path): one CTA per (batch*head, 128-row query
+  tile); a producer warpgroup streams 64-key K/V tiles by TMA into a
+  3-stage shared-memory ring; two consumer warpgroups run ``wgmma`` for
+  Q.K^T (the next tile's while this tile's softmax runs) and, with the
+  probabilities rounded once to the input's type in registers, for P.V,
+  the online softmax in f32 between them.  TMA needs 16-byte aligned
+  pointers and strides: a view that has neither is copied contiguous
+  first.
+* f32: the SIMT kernel of the first port (f32 FMAs on the CUDA cores), so
+  f32 callers keep full f32 products.
+
+Their times beside the bound stand in PERF.md.
 
 Unlike the TPU kernel it takes any sequence length (the ragged edge is
 masked in the kernel, so ``_fit_block`` has no counterpart) and K/V with
@@ -17,7 +28,7 @@ fewer heads than Q (KV divides H; head ``h`` reads KV head
 repeated to H heads still work, which is the JAX adapter's contract.
 
 Dispatch is by device: a tensor on the CPU takes the plain version, a CUDA
-tensor launches the kernel or raises.
+tensor launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -91,6 +102,15 @@ def _check_shapes(q, k, v, causal: bool) -> None:
         )
 
 
+def _tma_ready(t) -> bool:
+    """Whether TMA can address ``t`` as it is: a 16-byte aligned pointer
+    and 16-byte multiples for every stride of a dim longer than 1."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        n == 1 or (st * size) % 16 == 0 for n, st in zip(t.shape[:3], t.stride()[:3])
+    )
+
+
 def _launch(q, k, v, o, causal: bool) -> None:
     """Launch the kernel on ``(B, H, S, D)``-indexed views (any strides
     with D contiguous)."""
@@ -110,6 +130,8 @@ def _launch(q, k, v, o, causal: bool) -> None:
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
         if t.stride(3) != 1:
             raise ValueError(f"flash attention kernel needs {name}'s last dim contiguous")
+    if q.dtype != torch.float32:
+        q, k, v = (t if _tma_ready(t) else t.contiguous() for t in (q, k, v))
     lib = _build.library()
     with torch.cuda.device(q.device):
         code = lib.sct_flash_attention_fwd(

@@ -3,13 +3,27 @@ plain PyTorch version.
 
 Replaces the JAX package's Pallas TPU kernel ``ops/paged_attention.py
 ::paged_decode_attention`` (``pallas_call`` at :163), the attention read of
-every decode step.  The kernel lives in ``csrc/paged_attention.cu``: one
-block per (slot, KV head) reads the block table itself, walks the slot's
-pages once through shared memory (dequantizing int8 pages against their
-per-(position, head) scales) and keeps the online softmax in f32.  On an
-H100 a decode step is bound by the bytes it reads, so nothing intermediate
-is written to device memory.  At 8 slots x 8 KV heads it runs 64 blocks on
-132 SMs; splitting the window over more blocks is later work.
+every decode step.  On an H100 a decode step is bound by the bytes it
+reads, so the kernel (``csrc/paged_attention.cu``, one kernel for every
+dtype: f32, f16 or bf16 queries over pages of the same type or int8 pages
+with per-(position, head) scales) reads each visible pool row once and
+keeps many of them in flight: split-KV flash-decoding in one launch.
+
+* :func:`plan_splits` cuts each slot's table into runs of ``per``
+  entries from the window width alone (never ``pos`` or the table, so a
+  decode step needs no host sync; and ``per`` is fixed, so a slot's result
+  does not depend on its batch).  The grid is ``(splits, KV * row chunks,
+  S)``; a split that starts past the slot's last visible row exits at
+  once.
+* Inside a block 4 warps take 16-row units of the pages in turn, each
+  through a 3-unit ring of 16-byte ``cp.async`` copies (2 units in flight
+  while one is computed); a K row read serves every query row of its group
+  (up to ``ROWS_PER_BLOCK``); the online softmax runs in f32 per warp;
+  int8 pages are dequantized in registers.
+* The last split block to finish for a (slot, KV head, row chunk) merges
+  the splits' f32 partials by log-sum-exp weights (found by an atomic
+  counter that the wrapper keeps per device and stream and the kernel
+  resets), so the combine costs no second launch.
 
 Query ``j`` of slot ``s`` sees pool rows ``[0, pos[s] + j]``; grouped
 queries read the un-repeated KV heads (query row ``r = j * groups + g``).
@@ -28,7 +42,38 @@ import torch
 from seldon_core_tpu_torch.ops import _build
 
 KERNEL_DIMS = (16, 32, 64, 128)
-_SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block may use
+ROWS_PER_BLOCK = 4  # query rows one block serves (csrc/paged_attention.cu RB)
+PER_SPLIT = 8  # table entries one split covers at most: ~2 units per warp at 16-row pages
+
+
+def plan_splits(WB: int) -> tuple[int, int]:
+    """``(splits, per)``: each slot's ``WB`` table entries cut into
+    ``splits`` contiguous runs of ``per = min(PER_SPLIT, WB)`` (the last may
+    be shorter, none is empty).  The kernel runs ``S * KV * ceil(R /
+    ROWS_PER_BLOCK) * splits`` blocks, 512 at the served shape (8 slots x 8
+    KV heads, a 64-entry window), and a split past its slot's last visible
+    row exits at once.  ``per`` never follows the window width: the window
+    follows the batch's longest slot, so a ``per`` that followed it would
+    change a slot's summation order, and a greedy token, with the requests
+    it shares a batch with."""
+    per = min(PER_SPLIT, WB)
+    return -(-WB // per), per
+
+
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _counter_buffer(device: torch.device, n: int) -> torch.Tensor:
+    """The split counters of ``device``'s current stream, all 0 between
+    launches (the kernel's last block resets its own).  Launches on one
+    stream run in order, so they may share counters; a launch on another
+    stream gets its own."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def paged_decode_attention_plain(
@@ -110,14 +155,17 @@ def _launch(q, k_pages, v_pages, table, pos, k_scale, v_scale):
         raise TypeError("table and pos must be int32")
     if D not in KERNEL_DIMS:
         raise ValueError(f"paged attention kernel takes head_dim in {KERNEL_DIMS}, got {D}")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged attention kernel needs 16-byte aligned pages")
     R = L * (H // KV)
-    smem = 4 * (R * (D + 1) + 2 * BS * (D + 1) + R * (BS + 1) + R * D + 3 * R)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"paged attention kernel needs {smem} bytes of shared memory for "
-            f"{R} query rows and {BS}-row pages; the card has {_SMEM_LIMIT}"
-        )
+    splits, per = plan_splits(WB)
     out = torch.empty_like(q)
+    part = counters = None
+    if splits > 1:
+        rows = S * KV * -(-R // ROWS_PER_BLOCK)
+        part = torch.empty(rows * splits * ROWS_PER_BLOCK * (D + 2), dtype=torch.float32,
+                           device=q.device)
+        counters = _counter_buffer(q.device, rows)
     lib = _build.library()
     with torch.cuda.device(q.device):
         code = lib.sct_paged_decode_attention(
@@ -125,8 +173,10 @@ def _launch(q, k_pages, v_pages, table, pos, k_scale, v_scale):
             None if k_scale is None else k_scale.data_ptr(),
             None if v_scale is None else v_scale.data_ptr(),
             table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if counters is None else counters.data_ptr(),
             _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[k_pages.dtype],
-            S, L, H, KV, D, NB, BS, WB, 1.0 / math.sqrt(D),
+            S, L, H, KV, D, NB, BS, WB, splits, per, 1.0 / math.sqrt(D),
             _build.stream_handle(q.device),
         )
     _build.check(code, "paged_decode_attention")

@@ -19,6 +19,7 @@ from seldon_core_tpu.ops import flash_attention as jax_flash
 from seldon_core_tpu.ops import flash_causal_attention_blhd as jax_blhd
 from seldon_core_tpu.ops import paged_decode_attention as jax_paged
 from seldon_core_tpu_torch import ops
+from seldon_core_tpu_torch.ops import paged_attention as paged_ops
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -148,3 +149,102 @@ class TestPagedDecodeAttention:
         # there (its XLA reference would write a uniform softmax)
         got, _ = self._compare(2, 1, 2, 2, 8, 5, 4, 2, pos=[-1, -1])
         assert not got.any()
+
+
+class TestSplitKV:
+    """The split-KV decomposition of the paged decode kernel, on the CPU:
+    the host planner, and per-split partials (the plain version's arithmetic
+    restricted to each split's run of table entries) merged by log-sum-exp
+    weights, as the kernel's last block merges them."""
+
+    @pytest.mark.parametrize("WB", [64, 128, 7, 1, 3, 2048, 2, 16, 9])
+    def test_planner_covers_each_entry_once(self, WB):
+        splits, per = paged_ops.plan_splits(WB)
+        runs = [range(s * per, min(WB, (s + 1) * per)) for s in range(splits)]
+        assert all(len(r) for r in runs)  # no empty run
+        assert sorted(i for r in runs for i in r) == list(range(WB))
+        assert per >= 2 or WB < 2
+        assert per <= paged_ops.PER_SPLIT
+
+    def test_planner_reads_shapes_only(self):
+        # the served decode step: 8 slots x 8 KV heads, window 1024, 16-row
+        # pages -> at least two blocks per SM, from the window width alone
+        splits, per = paged_ops.plan_splits(64)
+        assert 8 * 8 * splits >= 2 * 132 and per >= 2
+        assert paged_ops.plan_splits(3) == (1, 3)  # a small window: one split
+
+    @pytest.mark.parametrize("WB", [16, 64, 128, 512])
+    def test_split_size_does_not_follow_the_window(self, WB):
+        # the window follows the batch's longest slot; a slot's split runs
+        # (and so its summation order) must not
+        assert paged_ops.plan_splits(WB)[1] == paged_ops.plan_splits(1024)[1]
+
+    @staticmethod
+    def _split_partials(q, k, v, table, pos, splits, per, k_scale=None, v_scale=None):
+        """(m, l, acc) per split, the plain version's arithmetic over the
+        split's pool rows: m the row max of the visible scores (-inf where
+        none), l and acc the sums of exp(s - m) and exp(s - m) * v."""
+        S, L, H, D = q.shape
+        NB, BS, KV, _ = k.shape
+        WB = table.shape[1]
+        groups = H // KV
+        idx = table.long()
+        kw, vw = k[idx].float(), v[idx].float()
+        if k_scale is not None:
+            kw = kw * k_scale[idx][..., None].float()
+            vw = vw * v_scale[idx][..., None].float()
+        kw, vw = kw.reshape(S, WB * BS, KV, D), vw.reshape(S, WB * BS, KV, D)
+        qg = q.float().reshape(S, L, KV, groups, D)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kw) / np.sqrt(D)  # (S, KV, G, L, W)
+        col = torch.arange(WB * BS)
+        visible = col[None, None, :] <= pos.long()[:, None, None] + torch.arange(L)[None, :, None]
+        out = []
+        for sp in range(splits):
+            run = (col >= sp * per * BS) & (col < (sp + 1) * per * BS)
+            ok = (visible & run[None, None, :])[:, None, None]  # (S, 1, 1, L, W)
+            m = s.masked_fill(~ok, -np.inf).amax(-1)
+            e = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[..., None]) * ok
+            out.append((m, e.sum(-1), torch.einsum("bkgqs,bskd->bkgqd", e, vw)))
+        return out
+
+    @staticmethod
+    def _merge(partials, S, L, H, D):
+        M = torch.stack([m for m, _, _ in partials]).amax(0)
+        Mz = torch.where(torch.isinf(M), 0.0, M)
+        w = [torch.exp(m - Mz) for m, _, _ in partials]  # exp(-inf) = 0 for empty splits
+        lsum = sum(wi * li for wi, (_, li, _) in zip(w, partials))
+        acc = sum(wi[..., None] * ai for wi, (_, _, ai) in zip(w, partials))
+        o = torch.where(lsum[..., None] > 0, acc / lsum.clamp_min(1e-30)[..., None], 0.0)
+        return o.permute(0, 3, 1, 2, 4).reshape(S, L, H, D)  # (S, KV, G, L, D) -> (S, L, H, D)
+
+    @pytest.mark.parametrize("case", [
+        dict(L=1, WB=16, pos=[0, 0, 0]),                  # position 0: one visible row
+        dict(L=1, WB=16, pos=[3, 130, 255]),              # mixed lengths: empty later splits
+        dict(L=3, WB=12, pos=[15, 16, 100]),              # on and off page edges
+        dict(L=1, WB=16, pos=[-1, 40, -1]),               # inactive slots see nothing
+        dict(L=3, WB=12, pos=[-2, 7, 180]),               # rows that see nothing beside rows that do
+        dict(L=2, WB=16, pos=[9, 200, 31], quant=True),   # int8 pages
+        dict(L=1, WB=2, pos=[5, 30, 0]),                  # one split
+    ])
+    def test_merged_splits_equal_the_unsplit_plain_version(self, case):
+        rng = np.random.default_rng(case["WB"] * 10 + case["L"])
+        S, L, KV, G, D, BS, WB = 3, case["L"], 2, 2, 16, 16, case["WB"]
+        NB = 1 + S * WB
+        H = KV * G
+        q = _normal(rng, S, L, H, D)
+        table = np.stack([rng.permutation(NB - 1)[:WB] + 1 for _ in range(S)]).astype(np.int32)
+        kw = {}
+        if case.get("quant"):
+            k = rng.integers(-127, 128, (NB, BS, KV, D)).astype(np.int8)
+            v = rng.integers(-127, 128, (NB, BS, KV, D)).astype(np.int8)
+            kw = {n: _t((rng.random((NB, BS, KV)) * 0.05).astype(np.float32))[0]
+                  for n in ("k_scale", "v_scale")}
+        else:
+            k, v = _normal(rng, NB, BS, KV, D), _normal(rng, NB, BS, KV, D)
+        qt, kt, vt, tt, pt = _t(q, k, v, table, np.asarray(case["pos"], np.int32))
+        splits, per = paged_ops.plan_splits(WB)
+        assert (splits > 1) == (WB > 2)
+        parts = self._split_partials(qt, kt, vt, tt, pt, splits, per, **kw)
+        got = self._merge(parts, S, L, H, D)
+        want = paged_ops.paged_decode_attention_plain(qt, kt, vt, tt, pt, **kw)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
