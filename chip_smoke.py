@@ -17,23 +17,46 @@ Phases, each printing one JSON line:
    int8 pages, position 0, positions on and off page boundaries, one split
    and many, slots whose later splits are empty and rows that see nothing,
    and at head dim 128 (llama3-8b) and 8- and 32-row pages.
-3. ``reference``: a small model's logits and greedy tokens on the card
-   against the same weights on the CPU (plain versions).
+3. ``reference``: a 2-layer model at llama3-1b width in f32 on the card
+   against the same weights on the CPU (plain versions): prefill logits,
+   teacher-forced decode logits and greedy tokens over a float pool and
+   over an int8 pool (16 steps; the int8 pool bytes equal but for a stated
+   share of one-step rounding ties); then, on the card, a prompt whose
+   first 2 blocks are already in the prefix index against the same prompt
+   cold, and ``prefill_chunk=64`` over a 300-token prompt against the
+   monolithic prefill (first-token logits, 16 greedy tokens, and the
+   reuse and chunk counts those two must show; the same in bf16 is
+   reported, not gated).
 4. ``serve``: the engine boots in-process on 127.0.0.1 with a
    ``JAX_GENERATIVE`` llama3-1b bf16 graph (seeded weights, 8 slots,
-   16-step decode blocks) and answers concurrent strData requests over
-   HTTP; the kernels' launch counts are read around this phase, and it
-   fails unless every decode block cost exactly one host sync.
-5. ``kernel_times``: each kernel's time at the main path's shapes and at a
-   long one (flash at S=2048, paged at 8 slots near position 2000) beside
-   its plain version, one PyTorch library call where there is one, and the
-   least time the card could take (its bound).  ``ms`` replays the
-   launches from a CUDA graph; ``eager_ms`` launches them from Python one
-   by one, as the eager decode step does; ``host_ms`` is the host's cost
-   of one call.
+   16-step decode blocks, float pool) and answers concurrent strData
+   requests over HTTP; the kernels' launch counts are read around this
+   phase, and it fails unless every decode block cost exactly one host
+   sync.
+5. ``serve_cached``: the same graph with ``kv_cache_dtype=int8``,
+   ``kv_prefix_reuse=true`` and ``prefill_chunk=256``: one warm request (a
+   512-token prefix + 24), then a wave of six requests sharing that prefix
+   and, 0.2 s later while they decode, two unshared ones of 1500 and 1900
+   tokens that the scheduler paces chunk by chunk.  It fails unless every
+   reply is 200 with 32 valid tokens, six prefills reused the prefix, a
+   chunk was paced while streams decoded (``chunks_paced``; chunks run
+   back to back with no live stream are not counted), each decode block
+   cost one host sync and both kernels
+   launched; it prints TTFT of the shared and the long requests, the
+   block time after a paced chunk and without one, and the pool's bytes
+   per 2048-token slot, int8 and bf16.
+6. ``kernel_times``: each kernel's time at the main path's shapes and at a
+   long one (flash at S=2048, paged at 8 slots near position 2000; paged
+   also over int8 pages with bf16 scales at both) beside its plain
+   version, one PyTorch library call where there is one, and the least
+   time the card could take (its bound).  ``ms`` replays the launches
+   from a CUDA graph; ``eager_ms`` launches them from Python one by one,
+   as the eager decode step does; ``host_ms`` is the host's cost of one
+   call.
 
 Then the card's name and power limit (nvidia-smi), one line listing the
-kernels, and as the last line ``{"ok": true, "device": {...}}``.  Any
+kernels (launches summed over both serve phases), and as the last line
+``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero before that line.  Without CUDA, or without
 the repository beside this file, it exits non-zero and prints no result.
 """
@@ -45,6 +68,7 @@ import concurrent.futures
 import importlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -75,6 +99,19 @@ MAX_NEW = 32
 VERIFY_PROMPT = [5, 9, 2, 17, 3]
 SERVE_LENGTHS = (5, 17, 64, 100, 211, 333, 480, 600)  # the wave's prompt lengths
 LONG_POS = [1990, 1995, 2000, 2001, 2007, 1999, 2010, 2015]  # K2's long timing: near a 2048 window
+# serve_cached: a shared 512-token prefix, six shared prompts' suffix
+# lengths, two unshared long prompts chunked by 256 (6 and 8 chunks)
+CACHED_PREFIX = 512
+CACHED_CHUNK = 256
+SHARED_SUFFIXES = (8, 17, 24, 33, 47, 64)
+LONG_LENGTHS = (1500, 1900)
+LONG_DELAY_S = 0.2
+# int8 pools on the card and the CPU quantize K/V rounded ~1e-6 apart; a
+# row whose x / scale sits that close to a half step rounds the other way.
+# A flipped byte moves that element by one step and the next layer's K/V
+# by more, so ties multiply with depth: at most this share of the int8
+# bytes may differ, each by exactly one step.
+INT8_TIE_SHARE = 0.01
 
 
 def emit(obj: dict) -> None:
@@ -388,10 +425,132 @@ def phase_kernel_check() -> dict:
     return main_err
 
 
+def _card_vs_cpu(cfg, params: dict, prompt, device: str, steps: int,
+                 kv_dtype: str | None = None) -> dict:
+    """Prefill ``prompt`` and run ``steps`` decode steps on the CPU and on
+    ``device`` with the same weights, both fed the card's greedy tokens;
+    returns the logits of each, each side's greedy tokens and the pools."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models import llama
+
+    n = len(prompt)
+    bucket = 16
+    while bucket < n:
+        bucket *= 2
+    padded = np.zeros((1, bucket), np.int32)
+    padded[0, :n] = prompt
+    row = np.zeros(cfg.max_seq // 16, np.int32)
+    row[:10] = np.arange(1, 11)
+    caches = {d: llama.init_paged_cache(cfg, 2, 24, 16, device=d, kv_dtype=kv_dtype)
+              for d in ("cpu", device)}
+    logits = {}
+    for d in ("cpu", device):
+        lg, _ = llama.prefill_slot_paged(
+            params[d], torch.from_numpy(padded).to(d), n, 0, row, caches[d], cfg
+        )
+        logits[d] = [lg.float().cpu()]
+    toks = {"cpu": [], device: []}
+    feed = int(torch.argmax(logits[device][0]))
+    active = torch.tensor([True, False])
+    for _ in range(steps):
+        for d in ("cpu", device):
+            lg, _ = llama.decode_slots_paged(
+                params[d], torch.tensor([feed, 0], dtype=torch.int32, device=d), caches[d],
+                active.to(d), cfg, window=256,
+            )
+            logits[d].append(lg[0].float().cpu())
+            toks[d].append(int(torch.argmax(lg[0])))
+        feed = toks[device][-1]  # both devices see the same tokens
+    err = max(float((a - b).abs().max()) for a, b in zip(logits["cpu"], logits[device]))
+    scale = max(float(a.abs().max()) for a in logits["cpu"])
+    return {"err": err, "scale": scale, "greedy_equal": toks["cpu"] == toks[device],
+            "caches": caches}
+
+
+def _first_and_greedy(model, slot: int, prompt, steps: int = 16):
+    """Admit ``prompt`` into ``slot`` of a GenerativeModel and decode
+    ``steps`` greedy tokens; returns the first token's logits (the last
+    prefill call's, read where the model samples them) and the tokens."""
+    import numpy as np
+
+    caught = []
+    sample = model._sample_first
+
+    def keep(logits, payload):
+        caught.append(logits.float().cpu())
+        return sample(logits, payload)
+
+    model._sample_first = keep
+    try:
+        first = model.admit(slot, np.asarray(prompt, np.int32), 0.0, 0, reserve_tokens=steps + 1)
+    finally:
+        del model._sample_first
+    S = model.n_slots
+    active = np.zeros(S, bool)
+    active[slot] = True
+    cur = np.zeros(S, np.int32)
+    cur[slot] = first
+    toks, _ = model.step_k(cur, active, np.zeros(S, np.float32), 0, np.full(S, -1, np.int32),
+                           np.full(S, steps, np.int32), steps)
+    return caught[-1], [first] + toks[:, slot].tolist()
+
+
+def _reuse_and_chunk_checks(cfg, params, device: str) -> list[dict]:
+    """On the card: a prompt whose first 2 blocks are in the prefix index
+    against the same prompt cold, and ``prefill_chunk=64`` over a 300-token
+    prompt against the monolithic prefill.  The cold and monolithic
+    prefills run flash attention (K1), the suffix prefills torch matmuls.
+    Each check also holds the model's counters to what it must have done
+    (one reuse of 32 tokens; five 64-token chunks), so that a cold prefill
+    is never compared with a cold prefill."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.executor.generation import GenerativeModel
+
+    rng = np.random.default_rng(7)
+    prefix = rng.integers(0, cfg.vocab_size, 32).tolist()  # 2 blocks of 16
+    prompt = prefix + rng.integers(0, cfg.vocab_size, 68).tolist()  # 100 tokens
+    long_prompt = rng.integers(0, cfg.vocab_size, 300).tolist()
+
+    def model(**kw):
+        return GenerativeModel(cfg, params, n_slots=2, decode_block=16, device=device, **kw)
+
+    out = []
+    cold = _first_and_greedy(model(), 1, prompt)
+    warm_model = model(prefix_reuse=True)
+    warm_model.admit(0, np.asarray(prefix + rng.integers(0, cfg.vocab_size, 9).tolist(),
+                                   np.int32), 0.0, 0)
+    warm_model.release_slot(0)  # its 2 full blocks go into the index
+    warm = _first_and_greedy(warm_model, 1, prompt)
+    out.append(("prefix_reuse", cold, warm,
+                {"prefills_reused": warm_model.prefills_reused,
+                 "tokens_reused": warm_model.prefix_snapshot()["tokens_reused"]},
+                {"prefills_reused": 1, "tokens_reused": 32}))
+    mono = _first_and_greedy(model(), 1, long_prompt)
+    chunk_model = model(prefill_chunk=64)
+    chunked = _first_and_greedy(chunk_model, 1, long_prompt)
+    out.append(("chunked", mono, chunked, {"prefill_chunks": chunk_model.prefill_chunks},
+                {"prefill_chunks": 5}))
+    recs = []
+    for name, (want_lg, want_toks), (got_lg, got_toks), counts, want_counts in out:
+        err = float((want_lg - got_lg).abs().max())
+        scale = float(want_lg.abs().max())
+        tol = 1e-3 * max(1.0, scale)
+        recs.append({"check": name, "first_logit_err": err, "logit_scale": scale, "tol": tol,
+                     "greedy_equal": want_toks == got_toks, "tokens": got_toks[:8], **counts,
+                     "counts_want": want_counts, "counts_ok": counts == want_counts,
+                     "ok": err <= tol and want_toks == got_toks and counts == want_counts})
+    return recs
+
+
 def phase_reference(device: str = "cuda") -> None:
     """The model at llama3-1b head geometry (2 layers, f32) on ``device``
     against the same weights on the CPU, where the plain versions run:
-    prefill logits, then teacher-forced decode logits and greedy tokens."""
+    prefill logits, then teacher-forced decode logits and greedy tokens,
+    over a float pool and an int8 pool; then prefix reuse against a cold
+    prefill and chunked against monolithic prefill, on the card."""
     import dataclasses
 
     import numpy as np
@@ -405,40 +564,45 @@ def phase_reference(device: str = "cuda") -> None:
     gen = torch.Generator(device="cpu").manual_seed(1)
     cpu = init_params(cfg, gen, dtype=torch.float32, device="cpu")
     dev = init_params(cfg, torch.Generator(device="cpu").manual_seed(1), device="cpu").to(device)
+    params = {"cpu": cpu, device: dev}
     prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, 100).astype(np.int32)
-    padded = np.zeros((1, 128), np.int32)
-    padded[0, :100] = prompt
-    row = np.zeros(cfg.max_seq // 16, np.int32)
-    row[:10] = np.arange(1, 11)
-    caches = {d: llama.init_paged_cache(cfg, 2, 24, 16, device=d) for d in ("cpu", device)}
-    logits = {}
-    for d, params in (("cpu", cpu), (device, dev)):
-        lg, _ = llama.prefill_slot_paged(
-            params, torch.from_numpy(padded).to(d), 100, 0, row, caches[d], cfg
-        )
-        logits[d] = [lg.float().cpu()]
-    toks = {"cpu": [], device: []}
-    feed = int(torch.argmax(logits[device][0]))
-    active = torch.tensor([True, False])
-    for _ in range(8):
-        for d, params in (("cpu", cpu), (device, dev)):
-            lg, _ = llama.decode_slots_paged(
-                params, torch.tensor([feed, 0], dtype=torch.int32, device=d), caches[d],
-                active.to(d), cfg, window=256,
-            )
-            logits[d].append(lg[0].float().cpu())
-            toks[d].append(int(torch.argmax(lg[0])))
-        feed = toks[device][-1]  # both devices see the same tokens
-    err = max(float((a - b).abs().max()) for a, b in zip(logits["cpu"], logits[device]))
-    scale = max(float(a.abs().max()) for a in logits["cpu"])
-    tol = 1e-3 * max(1.0, scale)
+    flt = _card_vs_cpu(cfg, params, prompt, device, 8)
+    tol = 1e-3 * max(1.0, flt["scale"])
     rec = {"phase": "reference", "config": "llama3-1b heads, 2 layers, f32",
-           "prefill_len": 100, "decode_steps": 8, "max_abs_logit_err": err,
-           "logit_scale": scale, "tol": tol, "greedy_equal": toks["cpu"] == toks[device]}
-    rec["ok"] = err <= tol and rec["greedy_equal"]
+           "prefill_len": 100, "decode_steps": 8, "max_abs_logit_err": flt["err"],
+           "logit_scale": flt["scale"], "tol": tol, "greedy_equal": flt["greedy_equal"]}
+    rec["ok"] = flt["err"] <= tol and rec["greedy_equal"]
+    q = _card_vs_cpu(cfg, params, prompt, device, 16, kv_dtype="int8")
+    qtol = 1e-3 * max(1.0, q["scale"])
+    flips, written, worst = 0, 0, 0
+    for key in ("k", "v"):
+        a, b = (q["caches"][d][key].cpu().int() for d in ("cpu", device))
+        flips += int((a != b).sum())
+        worst = max(worst, int((a - b).abs().max()))
+        written += int((a != 0).sum())
+    scale_err = max(float((q["caches"]["cpu"][k] - q["caches"][device][k].cpu()).abs().max())
+                    for k in ("k_scale", "v_scale"))
+    rec["int8"] = {
+        "prefill_len": 100, "decode_steps": 16, "max_abs_logit_err": q["err"],
+        "logit_scale": q["scale"], "tol": qtol, "greedy_equal": q["greedy_equal"],
+        "bytes_written": written, "bytes_differing": flips, "max_byte_diff": worst,
+        "tie_share_limit": INT8_TIE_SHARE, "max_abs_scale_err": scale_err,
+        "ok": (q["err"] <= qtol and q["greedy_equal"] and worst <= 1
+               and flips <= INT8_TIE_SHARE * written),
+    }
+    rcfg = dataclasses.replace(cfg, max_seq=512)
+    rec["card_only"] = _reuse_and_chunk_checks(rcfg, dev, device)
+    rec["ok"] = rec["ok"] and rec["int8"]["ok"] and all(r["ok"] for r in rec["card_only"])
+    # the same in bf16 (the served dtype), reported and not gated: K1 rounds
+    # probabilities to bf16 where the suffix's matmuls do not
+    bf16 = init_params(cfg, torch.Generator(device="cpu").manual_seed(1), device="cpu").to(
+        device=device, dtype=torch.bfloat16)
+    rec["card_only_bf16"] = [
+        {**{k: v for k, v in r.items() if k != "ok"}, "within_tol": r["ok"], "gated": False}
+        for r in _reuse_and_chunk_checks(rcfg, bf16, device)]
     emit(rec)
     if not rec["ok"]:
-        raise AssertionError("the model on the card disagrees with the CPU reference")
+        raise AssertionError("the model on the card disagrees with its reference")
 
 
 def _post(port: int, body: dict, timeout: float = 600.0) -> tuple[int, dict]:
@@ -465,40 +629,15 @@ def phase_serve(device: str = "cuda", preset: str = SERVE_PRESET,
     shapes)."""
     import numpy as np
 
-    from seldon_core_tpu_torch.engine.app import EngineApp
-    from seldon_core_tpu_torch.engine.service import PredictionService
-    from seldon_core_tpu_torch.graph.spec import PredictorSpec
     from seldon_core_tpu_torch.ops import _build
 
-    spec = PredictorSpec.from_dict({
-        "name": "smoke",
-        "graph": {
-            "name": "gen", "type": "MODEL", "implementation": "JAX_GENERATIVE",
-            "parameters": [
-                {"name": "family", "value": "llama", "type": "STRING"},
-                {"name": "preset", "value": preset, "type": "STRING"},
-                {"name": "dtype", "value": "bfloat16", "type": "STRING"},
-                {"name": "n_slots", "value": str(SERVE_SLOTS), "type": "INT"},
-                {"name": "decode_block", "value": str(SERVE_BLOCK), "type": "INT"},
-                {"name": "max_new_tokens", "value": str(MAX_NEW), "type": "INT"},
-                {"name": "rng", "value": str(seed), "type": "INT"},
-            ],
-        },
-    })
+    spec = _serve_spec(preset, seed)
     rng = np.random.default_rng(seed)
 
     async def run() -> dict:
-        app = EngineApp(PredictionService(spec, device=device))
-        await app.start("127.0.0.1", 0)
+        app, boot_s = await _boot(spec, device)
         port = app.port
-        t0 = time.perf_counter()
-        boot = asyncio.create_task(app.boot())
         try:
-            while await asyncio.to_thread(_get, port, "/ready") != 200:
-                if boot.done():
-                    boot.result()  # raises the boot failure
-                await asyncio.sleep(0.2)
-            boot_s = time.perf_counter() - t0
             model = app.service.walker.component.model
             vocab = model.cfg.vocab_size
             prompts = [VERIFY_PROMPT] + [
@@ -534,7 +673,7 @@ def phase_serve(device: str = "cuda", preset: str = SERVE_PRESET,
             missing = [k for k, n in launches.items() if n == 0]
             if missing:
                 raise AssertionError(f"the served path never launched {missing}")
-            ttft = sorted(app.service.walker.component.scheduler.ttft_s)
+            ttft = sorted(t for _, t in app.service.walker.component.scheduler.ttft)
             rec = {
                 "phase": "serve", "preset": preset, "dtype": "bfloat16",
                 "n_slots": SERVE_SLOTS, "decode_block": SERVE_BLOCK,
@@ -562,8 +701,210 @@ def phase_serve(device: str = "cuda", preset: str = SERVE_PRESET,
             rec["bucket"] = model.fit_bucket(max(lengths))
             return rec
         finally:
-            if not boot.done():
-                boot.cancel()
+            await app.close()
+
+    return asyncio.run(run())
+
+
+def _serve_spec(preset: str, seed: int, **extra):
+    """The smoke's ``JAX_GENERATIVE`` graph: llama ``preset`` in bf16 with
+    seeded weights, 8 slots, 16-step blocks, 32 new tokens; ``extra`` adds
+    graph parameters (name -> (value, type))."""
+    from seldon_core_tpu_torch.graph.spec import PredictorSpec
+
+    params = {"family": ("llama", "STRING"), "preset": (preset, "STRING"),
+              "dtype": ("bfloat16", "STRING"), "n_slots": (SERVE_SLOTS, "INT"),
+              "decode_block": (SERVE_BLOCK, "INT"), "max_new_tokens": (MAX_NEW, "INT"),
+              "rng": (seed, "INT"), **extra}
+    return PredictorSpec.from_dict({
+        "name": "smoke",
+        "graph": {
+            "name": "gen", "type": "MODEL", "implementation": "JAX_GENERATIVE",
+            "parameters": [{"name": k, "value": str(v), "type": t}
+                           for k, (v, t) in params.items()],
+        },
+    })
+
+
+async def _boot(spec, device: str):
+    """Start the engine on a free port and wait until it is ready (warmup
+    included); returns the app and the seconds that took."""
+    from seldon_core_tpu_torch.engine.app import EngineApp
+    from seldon_core_tpu_torch.engine.service import PredictionService
+
+    app = EngineApp(PredictionService(spec, device=device))
+    await app.start("127.0.0.1", 0)
+    t0 = time.perf_counter()
+    boot = asyncio.create_task(app.boot())
+    try:
+        while await asyncio.to_thread(_get, app.port, "/ready") != 200:
+            if boot.done():
+                boot.result()  # raises the boot failure
+            await asyncio.sleep(0.2)
+    except BaseException:
+        boot.cancel()
+        await app.close()
+        raise
+    await boot
+    return app, time.perf_counter() - t0
+
+
+def _check_replies(replies, prompts, vocab: int) -> list[list[int]]:
+    outs = []
+    for (status, body), p in zip(replies, prompts):
+        if status != 200 or body["status"]["code"] != 200:
+            raise AssertionError(f"request failed: {body}")
+        toks = json.loads(body["strData"])["tokens"]
+        if len(toks) != MAX_NEW or not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"bad reply for a {len(p)}-token prompt: {toks}")
+        outs.append(toks)
+    return outs
+
+
+def _record_blocks(model) -> list:
+    """Log, on ``model``'s instance, each decode block (with its seconds)
+    and each admission and paced chunk dispatched before it."""
+    events = []
+    step_k, admit, chunk = model.step_k, model.admit_dispatch, model.prefill_chunk_dispatch
+
+    def logged_step(*a, **kw):
+        out = step_k(*a, **kw)
+        events.append(("block", model.last_block_s))
+        return out
+
+    def logged_admit(*a, **kw):
+        events.append(("admit", None))
+        return admit(*a, **kw)
+
+    def logged_chunk(*a, **kw):
+        t0 = time.perf_counter()
+        out = chunk(*a, **kw)
+        events.append(("chunk", time.perf_counter() - t0))  # host time, no sync
+        return out
+
+    model.step_k, model.admit_dispatch, model.prefill_chunk_dispatch = (
+        logged_step, logged_admit, logged_chunk)
+    return events
+
+
+def _block_times(events) -> dict:
+    """Mean decode-block milliseconds after nothing else was dispatched since
+    the previous block, and after exactly one paced chunk (and no
+    admission); and the host's mean time to dispatch a chunk."""
+    clean, after_chunk, since = [], [], []
+    chunk_s = [sec for kind, sec in events if kind == "chunk"]
+    for kind, sec in events:
+        if kind != "block":
+            since.append(kind)
+            continue
+        if not since:
+            clean.append(sec)
+        elif since == ["chunk"]:
+            after_chunk.append(sec)
+        since = []
+
+    def mean(xs):
+        return sum(xs) / len(xs) if xs else None
+
+    return {"blocks_clean": len(clean), "block_ms_clean": 1e3 * mean(clean) if clean else None,
+            "blocks_after_chunk": len(after_chunk),
+            "block_ms_after_chunk": 1e3 * mean(after_chunk) if after_chunk else None,
+            "chunk_dispatch_ms": 1e3 * mean(chunk_s) if chunk_s else None}
+
+
+def phase_serve_cached(device: str = "cuda", preset: str = SERVE_PRESET, seed: int = 1) -> dict:
+    """The serve graph with int8 KV, prefix reuse and chunked prefill: a warm
+    request, then six prompts sharing its 512-token prefix and, while they
+    decode, two long unshared ones.  Returns the kernels' launch counts."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.models import llama
+    from seldon_core_tpu_torch.ops import _build
+
+    spec = _serve_spec(preset, seed, kv_cache_dtype=("int8", "STRING"),
+                       kv_prefix_reuse=("true", "BOOL"), prefill_chunk=(CACHED_CHUNK, "INT"))
+    rng = np.random.default_rng(seed)
+
+    async def run() -> dict:
+        app, boot_s = await _boot(spec, device)
+        port = app.port
+        try:
+            comp = app.service.walker.component
+            model, sched = comp.model, comp.scheduler
+            vocab = model.cfg.vocab_size
+            prefix = rng.integers(0, vocab, CACHED_PREFIX).tolist()
+            warm = prefix + rng.integers(0, vocab, 24).tolist()
+            shared = [prefix + rng.integers(0, vocab, n).tolist() for n in SHARED_SUFFIXES]
+            longs = [rng.integers(0, vocab, n).tolist() for n in LONG_LENGTHS]
+
+            def body(p):
+                return {"strData": json.dumps({"tokens": p, "max_new_tokens": MAX_NEW})}
+
+            _check_replies([await asyncio.to_thread(_post, port, body(warm))], [warm], vocab)
+            events = _record_blocks(model)
+            _build.reset_launches()  # this phase's run starts here
+            before = {
+                "blocks": model.decode_blocks, "syncs": model.host_syncs, "steps": model.steps,
+                "block_s": model.block_seconds, "reused": model.prefills_reused,
+                "tokens_reused": model.prefix_snapshot()["tokens_reused"],
+                "paced": sched.chunks_paced, "chunks": model.prefill_chunks,
+                "ttft": len(sched.ttft),
+            }
+            loop = asyncio.get_running_loop()
+            t1 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(len(shared) + len(longs)) as clients:
+                first = [loop.run_in_executor(clients, _post, port, body(p)) for p in shared]
+                await asyncio.sleep(LONG_DELAY_S)  # the shared streams are decoding by now
+                late = [loop.run_in_executor(clients, _post, port, body(p)) for p in longs]
+                replies = await asyncio.gather(*first, *late)
+            wave_s = time.perf_counter() - t1
+            launches = dict(_build.LAUNCHES)
+            _check_replies(replies, shared + longs, vocab)
+            snap = model.prefix_snapshot()
+            blocks = model.decode_blocks - before["blocks"]
+            syncs = model.host_syncs - before["syncs"]
+            steps = model.steps - before["steps"]
+            ttft = list(sched.ttft)[before["ttft"]:]
+            t_shared = sorted(t for n, t in ttft if n < min(LONG_LENGTHS))
+            t_long = sorted(t for n, t in ttft if n >= min(LONG_LENGTHS))
+            missing = [k for k, n in launches.items() if n == 0]
+            rec = {
+                "phase": "serve_cached", "preset": preset, "dtype": "bfloat16",
+                "kv_cache_dtype": model.kv_dtype, "prefill_chunk": model.prefill_chunk,
+                "kv_prefix_reuse": model.prefix_index is not None, "n_slots": SERVE_SLOTS,
+                "decode_block": SERVE_BLOCK, "max_new_tokens": MAX_NEW,
+                "prompt_lens": [len(p) for p in shared + longs], "warm_prompt_len": len(warm),
+                "long_delay_s": LONG_DELAY_S, "boot_and_warmup_s": boot_s, "wave_s": wave_s,
+                "ttft_s_shared_p50": statistics.median(t_shared), "ttft_s_shared_max": t_shared[-1],
+                "ttft_s_long_p50": statistics.median(t_long), "ttft_s_long_max": t_long[-1],
+                "ttft_s_long": t_long,
+                "wave_tokens_per_s": (len(shared) + len(longs)) * MAX_NEW / wave_s,
+                "decode_step_ms": 1e3 * (model.block_seconds - before["block_s"]) / max(1, steps),
+                **_block_times(events),
+                "prefills_reused": model.prefills_reused - before["reused"],
+                "tokens_reused": snap["tokens_reused"] - before["tokens_reused"],
+                "prefill_chunks": model.prefill_chunks - before["chunks"],
+                "chunks_paced": sched.chunks_paced - before["paced"],
+                "decode_blocks": blocks, "host_syncs": syncs,
+                "host_syncs_per_block": syncs / max(1, blocks), "launches": launches,
+                "kv_bytes_per_2048_slot": {
+                    "int8": model.kv_bytes_per_slot(),
+                    "bfloat16": llama.paged_kv_slot_bytes(model.cfg, model.kv_block_size,
+                                                          dtype="bfloat16"),
+                },
+                "kv_slots_per_card": model.kv_slots_per_chip(),
+            }
+            rec["ok"] = (rec["prefills_reused"] >= len(shared)
+                         and rec["tokens_reused"] >= len(shared) * CACHED_PREFIX
+                         and rec["chunks_paced"] >= 1 and blocks > 0 and syncs == blocks
+                         and not missing)
+            emit(rec)
+            if not rec["ok"]:
+                raise AssertionError(
+                    "serve_cached: reuse, pacing, one host sync per block or a kernel's "
+                    f"launch is missing (kernels never launched: {missing})")
+            return rec
+        finally:
             await app.close()
 
     return asyncio.run(run())
@@ -593,33 +934,45 @@ def _flash_times(fa, S: int) -> dict:
     }
 
 
-def _paged_times(pa, pos: list[int], WB: int) -> dict:
+def _paged_times(pa, pos: list[int], WB: int, quant: bool = False) -> dict:
     """K2: one decode step's read for SERVE_SLOTS slots at ``pos`` over a
-    ``WB``-entry window, bf16, one pool per layer as in the model."""
+    ``WB``-entry window, bf16 queries over bf16 pages or (``quant``) over
+    int8 pages with bf16 scales, one pool per layer as in the model."""
     import torch
 
     H, KV, D, BS, layers = 32, 8, 64, 16, 16
     NB = 1 + SERVE_SLOTS * WB
     sets = []
     for i in range(layers):
-        (q, k, v, table, p), _ = _paged_inputs(SERVE_SLOTS, 1, H, KV, D, BS, NB, WB,
-                                               torch.bfloat16, seed=200 + i, pos=pos)
-        sets.append((q, k, v, table, p))
-    # the function needs rows [0, pos] of each slot and the table entries
-    # of the pages that hold them
+        (q, k, v, table, p), kw = _paged_inputs(SERVE_SLOTS, 1, H, KV, D, BS, NB, WB,
+                                                torch.bfloat16, seed=200 + i, pos=pos,
+                                                quant=quant)
+        sets.append((q, k, v, table, p) + ((kw["k_scale"], kw["v_scale"]) if quant else ()))
+
+    def kernel(*args):
+        return pa.paged_decode_attention(*args[:5], k_scale=args[5], v_scale=args[6])
+
+    def plain(*args):
+        return pa.paged_decode_attention_plain(*args[:5], k_scale=args[5], v_scale=args[6])
+
+    if not quant:  # the bf16 rows time the wrappers themselves, as before
+        kernel, plain = pa.paged_decode_attention, pa.paged_decode_attention_plain
+
+    # the function needs rows [0, pos] of each slot (int8 rows carry a bf16
+    # scale per KV head) and the table entries of the pages that hold them
     rows = sum(p + 1 for p in pos)
     pages = sum(p // BS + 1 for p in pos)
-    nbytes = (2 * 2 * SERVE_SLOTS * H * D + 2 * 2 * rows * KV * D
-              + 4 * pages + 4 * SERVE_SLOTS)
+    row_bytes = KV * (D + 2) if quant else 2 * KV * D
+    nbytes = 2 * 2 * SERVE_SLOTS * H * D + 2 * rows * row_bytes + 4 * pages + 4 * SERVE_SLOTS
     flops = sum(4 * H * D * (p + 1) for p in pos)
     b_ms, b_by = bound(nbytes, flops)
     return {
         "shape": {"S": SERVE_SLOTS, "L": 1, "H": H, "KV": KV, "D": D, "BS": BS, "WB": WB,
-                  "pos": pos, "dtype": "bfloat16"},
-        "ms": time_ms(pa.paged_decode_attention, sets),
-        "eager_ms": eager_ms(pa.paged_decode_attention, sets),
-        "host_ms": host_ms(pa.paged_decode_attention, sets),
-        "plain_ms": time_ms(pa.paged_decode_attention_plain, sets, 5),
+                  "pos": pos, "dtype": "bfloat16", "pages": "int8" if quant else "bfloat16"},
+        "ms": time_ms(kernel, sets),
+        "eager_ms": eager_ms(kernel, sets),
+        "host_ms": host_ms(kernel, sets),
+        "plain_ms": time_ms(plain, sets, 5),
         "library_ms": None,  # no single PyTorch call reads a paged pool
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
     }
@@ -636,11 +989,16 @@ def window_entries(pos: list[int]) -> int:
 
 def kernel_times(fa, pa, bucket: int, pos: list[int]) -> dict:
     """Each kernel at the main path's shapes (``served``: the flash bucket
-    and the served slots' positions) and a long one (``long``)."""
+    and the served slots' positions) and a long one (``long``); the paged
+    kernel also over int8 pages at both."""
     return {
         "flash_attention": {"served": _flash_times(fa, bucket), "long": _flash_times(fa, 2048)},
-        "paged_decode_attention": {"served": _paged_times(pa, pos, window_entries(pos)),
-                                   "long": _paged_times(pa, LONG_POS, 128)},
+        "paged_decode_attention": {
+            "served": _paged_times(pa, pos, window_entries(pos)),
+            "long": _paged_times(pa, LONG_POS, 128),
+            "served_int8": _paged_times(pa, pos, window_entries(pos), quant=True),
+            "long_int8": _paged_times(pa, LONG_POS, 128, quant=True),
+        },
     }
 
 
@@ -680,7 +1038,9 @@ def main() -> int:
     errs = phase_kernel_check()
     phase_reference()
     serve = phase_serve()
+    cached = phase_serve_cached()
     times = phase_kernel_times(serve)
+    launches = {name: serve["launches"][name] + cached["launches"][name] for name in KERNELS}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False,
@@ -689,7 +1049,7 @@ def main() -> int:
           f"nvidia-smi: {smi.stderr.strip()}", flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": origin,
-         "launches": serve["launches"][name], "max_abs_err": errs[name],
+         "launches": launches[name], "max_abs_err": errs[name],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
          "library_ms": times[name]["library_ms"]}

@@ -1,13 +1,20 @@
 """Generative serving: slot-based continuous batching on PyTorch.
 
-The plain path of the JAX package's ``executor/generation.py``:
+The paged path of the JAX package's ``executor/generation.py``:
 
-* a paged KV pool holds ``n_slots`` independent sequences, each with its
-  own position; blocks are reserved at admission for ``prompt +
+* a paged KV pool (float, or int8 with per-row scales:
+  ``kv_cache_dtype``) holds ``n_slots`` independent sequences, each with
+  its own position; blocks are reserved at admission for ``prompt +
   max_new_tokens`` (block 0 is the sink inactive slots write into, never
   handed out), so no request runs out of KV mid-flight;
 * **admission** prefills one request's prompt into a free slot, right-
-  padded to a power-of-two bucket (a multiple of the block size);
+  padded to a power-of-two bucket (a multiple of the block size).  With
+  ``prefix_reuse`` the prompt's leading full blocks already in the prefix
+  index (``cache/prefix.py``) are referenced, not prefilled: only the
+  suffix runs (``llama.prefill_suffix_paged``).  With ``prefill_chunk``
+  a long prompt is prefilled in block-aligned chunks, every chunk after
+  the first as the suffix program over the slot's own blocks; while
+  decode streams are live the scheduler paces one chunk per sync point;
 * **decode** runs ``decode_block`` steps for every slot in one call, with
   tokens, the active mask, the remaining budgets and eos kept on the
   device, and ONE host fetch per block (``decode_blocks`` and
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from seldon_core_tpu_torch import resolve_device
+from seldon_core_tpu_torch.cache.prefix import PrefixIndex
 from seldon_core_tpu_torch.contract.payload import DataKind, Payload
 from seldon_core_tpu_torch.graph.units import GraphUnitError, SeldonComponent
 from seldon_core_tpu_torch.models import llama
@@ -68,9 +76,15 @@ class GenerativeModel:
     """Slot-cache generation engine for the llama family on one device.
 
     Calls must not interleave (they update the pool in place); an internal
-    lock serializes them.  On ``cuda`` the prefill attention and the decode
-    attention are the hand-written kernels: ``seq_impl`` must be
-    ``"flash"`` and ``decode_kernel`` True there.
+    lock serializes them, the prefix index's bookkeeping included.  On
+    ``cuda`` the prefill attention and the decode attention are the
+    hand-written kernels: ``seq_impl`` must be ``"flash"`` and
+    ``decode_kernel`` True there.
+
+    ``kv_cache_dtype`` (``"int8"`` or unset; env ``SCT_KV_DTYPE``),
+    ``prefill_chunk`` (tokens, rounded up to a block multiple; env
+    ``SCT_PREFILL_CHUNK``) and ``prefix_reuse`` (env ``SCT_CACHE_PREFIX=1``)
+    are normalized as the JAX package does.
     """
 
     def __init__(
@@ -87,6 +101,9 @@ class GenerativeModel:
         kv_blocks: int | None = None,
         top_k: int = 0,
         decode_kernel: bool = True,
+        kv_cache_dtype: str | None = None,
+        prefill_chunk: int | None = None,
+        prefix_reuse: bool | None = None,
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
@@ -115,6 +132,21 @@ class GenerativeModel:
         self.top_k = int(top_k or 0)
         self.params = params.to(device=self.device, dtype=dtype) if dtype else params.to(self.device)
         self.dtype = self.params.tok_emb.dtype
+        if kv_cache_dtype is None:
+            kv_cache_dtype = os.environ.get("SCT_KV_DTYPE") or None
+        if kv_cache_dtype in ("", "auto", "bf16", "bfloat16", "float32", "fp32"):
+            kv_cache_dtype = None  # the pool's float dtype: the default layout
+        if kv_cache_dtype not in (None, "int8"):
+            raise GraphUnitError(f"kv_cache_dtype must be 'int8' or unset, got {kv_cache_dtype!r}")
+        self.kv_dtype: str | None = kv_cache_dtype
+        if prefill_chunk is None:
+            prefill_chunk = int(os.environ.get("SCT_PREFILL_CHUNK", "0") or 0)
+        prefill_chunk = max(0, int(prefill_chunk))
+        if prefill_chunk:
+            prefill_chunk = min(-(-prefill_chunk // kv_block_size) * kv_block_size, cfg.max_seq)
+        self.prefill_chunk = prefill_chunk
+        if prefix_reuse is None:
+            prefix_reuse = os.environ.get("SCT_CACHE_PREFIX", "0") == "1"
 
         self.kv_block_size = kv_block_size
         self.max_blocks_per_slot = cfg.max_seq // kv_block_size
@@ -127,10 +159,19 @@ class GenerativeModel:
                 f"(+sink); need >= {1 + self.max_blocks_per_slot}"
             )
         self._free_blocks: list[int] = list(range(1, self.kv_blocks))
-        self._slot_blocks: dict[int, list[int]] = {}
+        self._slot_blocks: dict[int, list[int]] = {}  # owned blocks per slot
+        # KV prefix reuse: a radix index over token-id prefixes -> ref-
+        # counted blocks of this pool; per slot, the prompt (inserted at
+        # release) and how many leading blocks were matched (shared refs);
+        # only slots whose prompt prefill completed may give blocks to the
+        # index: a cancelled or failed one holds blocks nobody wrote
+        self.prefix_index = PrefixIndex(kv_block_size) if prefix_reuse else None
+        self._slot_prompt: dict[int, np.ndarray] = {}
+        self._slot_matched: dict[int, int] = {}
+        self._slot_filled: set[int] = set()
         self._cache = llama.init_paged_cache(
             cfg, self.n_slots, self.kv_blocks, kv_block_size, dtype=self.dtype,
-            device=self.device,
+            device=self.device, kv_dtype=self.kv_dtype,
         )
         self.prefill_buckets = tuple(
             b for b in _prefill_buckets(cfg.max_seq) if b >= kv_block_size
@@ -140,6 +181,8 @@ class GenerativeModel:
         self._pos_ceiling = np.zeros(self.n_slots, np.int64)
         self._lock = threading.RLock()
         self.prefills = 0
+        self.prefills_reused = 0  # admissions that skipped a reused prefix
+        self.prefill_chunks = 0  # chunked-prefill chunk dispatches
         self.steps = 0
         self.decode_blocks = 0
         self.host_syncs = 0  # device->host fetches made by decode blocks
@@ -169,25 +212,79 @@ class GenerativeModel:
         prompt+generation will reach ``total_tokens``; returns the slot's
         zero-padded table row.  Raises :class:`OutOfKVBlocks` when the pool
         cannot cover it right now."""
-        total = min(int(total_tokens), self.cfg.max_seq)
-        need = -(-total // self.kv_block_size)
-        self.release_slot(slot)  # a stale reservation on this slot is dead
-        if len(self._free_blocks) < need:
-            raise OutOfKVBlocks(f"need {need} KV blocks, {len(self._free_blocks)} free")
-        got = self._free_blocks[-need:] if need else []
-        if need:
-            del self._free_blocks[-need:]
-        self._slot_blocks[int(slot)] = got
-        row = np.zeros(self.max_blocks_per_slot, np.int32)
-        row[:need] = got
+        row, _ = self.reserve_for_prompt(slot, None, total_tokens)
         return row
 
-    def release_slot(self, slot: int) -> None:
-        """Return ``slot``'s blocks to the pool (idempotent)."""
+    def reserve_for_prompt(
+        self, slot: int, prompt: np.ndarray | None, total_tokens: int,
+    ) -> tuple[np.ndarray, int]:
+        """Prompt-aware reservation: with prefix reuse on, the longest chain
+        of the prompt's full blocks already in the index is REFERENCED
+        (shared, immutable) instead of allocated, and only the rest comes
+        from the free pool (unreferenced index blocks are reclaimed before
+        :class:`OutOfKVBlocks` is raised).  Returns ``(table row,
+        prefix_len)``: the caller skips ``prefix_len`` tokens of prefill."""
+        slot = int(slot)
+        total = min(int(total_tokens), self.cfg.max_seq)
+        need = -(-total // self.kv_block_size)
         with self._lock:  # the event loop releases while admissions run in a thread
-            blocks = self._slot_blocks.pop(int(slot), None)
-            if blocks:
-                self._free_blocks.extend(blocks)
+            self.release_slot(slot)  # a stale reservation on this slot is dead
+            matched: list[int] = []
+            if self.prefix_index is not None and prompt is not None:
+                # never the WHOLE prompt: the suffix program needs at least
+                # one real token to produce the first sampled logits
+                max_reuse = (int(prompt.size) - 1) // self.kv_block_size
+                if max_reuse > 0:
+                    matched = self.prefix_index.match(prompt, min(max_reuse, need))
+            own_need = need - len(matched)
+            if len(self._free_blocks) < own_need and self.prefix_index is not None:
+                self._free_blocks.extend(
+                    self.prefix_index.evict(own_need - len(self._free_blocks))
+                )
+            if len(self._free_blocks) < own_need:
+                if matched:
+                    self.prefix_index.release(prompt, len(matched))
+                raise OutOfKVBlocks(f"need {own_need} KV blocks, {len(self._free_blocks)} free")
+            got = self._free_blocks[-own_need:] if own_need else []
+            if own_need:
+                del self._free_blocks[-own_need:]
+            self._slot_blocks[slot] = got
+            if self.prefix_index is not None and prompt is not None:
+                self._slot_prompt[slot] = np.asarray(prompt, np.int32).copy()
+                self._slot_matched[slot] = len(matched)
+        row = np.zeros(self.max_blocks_per_slot, np.int32)
+        row[: len(matched)] = matched
+        row[len(matched):need] = got
+        return row, len(matched) * self.kv_block_size
+
+    def release_slot(self, slot: int) -> None:
+        """Return ``slot``'s owned blocks to the pool and drop its shared-
+        prefix refs (idempotent).  With prefix reuse on, the completed
+        prompt's FULL owned blocks are absorbed into the index (zero-ref,
+        evictable) instead of freed, so the next prompt sharing the prefix
+        finds them; a prompt whose prefill never completed (cancelled or
+        failed) gives none."""
+        slot = int(slot)
+        with self._lock:  # the event loop releases while admissions run in a thread
+            matched = self._slot_matched.pop(slot, 0)
+            prompt = self._slot_prompt.pop(slot, None)
+            blocks = self._slot_blocks.pop(slot, None)
+            filled = slot in self._slot_filled
+            self._slot_filled.discard(slot)
+            if matched and prompt is not None:
+                self.prefix_index.release(prompt, matched)
+            if not blocks:
+                return
+            if prompt is not None and filled:
+                # owned blocks are table positions [matched, need); the first
+                # (full prompt blocks - matched) hold complete prompt K/V only
+                full = int(prompt.size) // self.kv_block_size
+                insertable = blocks[: max(0, full - matched)]
+                if insertable:
+                    rejected = self.prefix_index.insert(prompt, insertable, matched)
+                    absorbed = set(insertable) - set(rejected)
+                    blocks = [b for b in blocks if b not in absorbed]
+            self._free_blocks.extend(blocks)
 
     @property
     def free_block_count(self) -> int:
@@ -195,31 +292,165 @@ class GenerativeModel:
 
     # ----------------------------------------------------------- prefill
 
+    def _count_prefill(self, payload: dict, *, reused: bool = False) -> None:
+        """A chunked admission counts ONE logical prefill (on its final
+        chunk) plus one ``prefill_chunks`` tick per chunk dispatched;
+        ``prefills_reused`` counts only admissions whose reservation matched
+        a shared prefix, never the suffix calls chunking itself makes.  The
+        logical prefill's end marks the slot's prompt as written."""
+        ch = payload.get("chunk")
+        if ch is None:
+            self.prefills += 1
+            self.prefills_reused += int(reused)
+            self._slot_filled.add(payload["slot"])
+            return
+        self.prefill_chunks += 1
+        if ch["last"]:
+            self.prefills += 1
+            self.prefills_reused += int(ch["reused"])
+            self._slot_filled.add(payload["slot"])
+
+    def _sample_first(self, logits, payload: dict) -> torch.Tensor:
+        temp = torch.full((1,), float(payload["temperature"]), device=self.device)
+        gen = self._generator(payload["seed"])
+        return llama.sample_tokens(logits[None], temp, gen, self.top_k)[0]
+
+    def _exec_prefill(self, payload: dict) -> torch.Tensor:
+        """Cold prefill of ``payload["padded"]`` into the slot's blocks; the
+        sampled token stays on the device."""
+        with self._lock, torch.no_grad():
+            logits, _ = llama.prefill_slot_paged(
+                self.params, self._h2d(payload["padded"]), payload["length"], payload["slot"],
+                self._h2d(payload["blocks"]), self._cache, self.cfg, seq_impl=self.seq_impl,
+            )
+            tok = self._sample_first(logits, payload)
+            self._count_prefill(payload)
+        return tok
+
+    def _exec_prefill_suffix(self, payload: dict) -> torch.Tensor:
+        """Suffix prefill over the ``prefix_len`` rows the slot's blocks
+        already hold (a reused prefix or earlier chunks)."""
+        with self._lock, torch.no_grad():
+            logits, _ = llama.prefill_suffix_paged(
+                self.params, self._h2d(payload["padded"]), payload["prefix_len"],
+                payload["length"], payload["slot"], self._h2d(payload["blocks"]),
+                self._h2d(payload["suffix_blocks"]), self._cache, self.cfg,
+                prefix_window=payload["window"],
+            )
+            tok = self._sample_first(logits, payload)
+            self._count_prefill(payload, reused=True)
+        return tok
+
+    def _prefix_window(self, prefix_len: int) -> int:
+        """Smallest power-of-two multiple of the block size covering
+        ``prefix_len``, capped at max_seq."""
+        w = self.kv_block_size
+        while w < prefix_len:
+            w *= 2
+        return min(w, self.cfg.max_seq)
+
+    def _padded(self, seg: np.ndarray) -> np.ndarray:
+        padded = np.zeros((1, self.fit_bucket(seg.size)), np.int32)
+        padded[0, : seg.size] = seg
+        return padded
+
+    def _suffix_payload(self, seg: np.ndarray, prefix_len: int, length: int, slot: int,
+                        row: np.ndarray, temperature: float, seed: int) -> dict:
+        """The suffix program's inputs for ``seg``, the prompt's tokens at
+        ``[prefix_len, length)``; a bucket that runs past the reservation
+        pads its block list with the sink 0."""
+        padded = self._padded(seg)
+        pb = prefix_len // self.kv_block_size
+        suffix_blocks = np.zeros(padded.shape[1] // self.kv_block_size, np.int32)
+        avail = row[pb: pb + suffix_blocks.size]
+        suffix_blocks[: avail.size] = avail
+        return {
+            "padded": padded, "prefix_len": int(prefix_len), "length": int(length),
+            "slot": int(slot), "blocks": row, "suffix_blocks": suffix_blocks,
+            "window": self._prefix_window(prefix_len), "temperature": float(temperature),
+            "seed": int(seed),
+        }
+
     def admit_dispatch(
         self, slot: int, prompt: np.ndarray, temperature: float, seed: int,
         reserve_tokens: int = 0,
     ) -> torch.Tensor:
         """Prefill ``prompt`` (1-D ids) into ``slot`` WITHOUT fetching the
         sampled token (a 0-d device tensor is returned), so several
-        admissions cost one host fetch (:meth:`fetch_tokens`)."""
+        admissions cost one host fetch (:meth:`fetch_tokens`).  A reused
+        prefix skips its prefill; a prompt longer than ``prefill_chunk``
+        runs its chunks back to back (the scheduler paces them instead,
+        through :meth:`admit_chunk_plan`, while streams decode)."""
         prompt = np.asarray(prompt, np.int32).ravel()
         L = int(prompt.size)
         if L < 1:
             raise GraphUnitError("empty prompt")
-        bucket = self.fit_bucket(L)
-        padded = np.zeros((1, bucket), np.int32)
-        padded[0, :L] = prompt
-        with self._lock, torch.no_grad():
-            row = self.reserve_blocks(slot, L + max(0, int(reserve_tokens)))
-            self._pos_ceiling[int(slot)] = L  # prefill wrote rows [0, L)
-            logits, _ = llama.prefill_slot_paged(
-                self.params, self._h2d(padded), L, int(slot), self._h2d(row),
-                self._cache, self.cfg, seq_impl=self.seq_impl,
+        if self.prefill_chunk and L > self.prefill_chunk:
+            plan = self.admit_chunk_plan(slot, prompt, temperature, seed, reserve_tokens)
+            tok = None
+            for i in range(len(plan["payloads"])):
+                tok = self.prefill_chunk_dispatch(plan, i)
+            return tok
+        self.fit_bucket(L)  # a prompt too long raises before any block is reserved
+        with self._lock:
+            row, prefix_len = self.reserve_for_prompt(
+                slot, prompt, L + max(0, int(reserve_tokens))
             )
-            temp = torch.full((1,), float(temperature), device=self.device)
-            tok = llama.sample_tokens(logits[None], temp, self._generator(seed), self.top_k)[0]
-            self.prefills += 1
-        return tok
+            self._pos_ceiling[int(slot)] = L  # prefill wrote rows [0, L)
+            if prefix_len > 0:
+                return self._exec_prefill_suffix(self._suffix_payload(
+                    prompt[prefix_len:], prefix_len, L, slot, row, temperature, seed))
+            return self._exec_prefill({
+                "padded": self._padded(prompt), "length": L, "slot": int(slot),
+                "blocks": row, "temperature": float(temperature), "seed": int(seed),
+            })
+
+    def admit_chunk_plan(
+        self, slot: int, prompt: np.ndarray, temperature: float, seed: int,
+        reserve_tokens: int = 0,
+    ) -> dict:
+        """Reserve ``slot``'s blocks and lay the admission out as prefill
+        chunks of ``prefill_chunk`` tokens, after the reused prefix if one
+        matched.  Nothing touches the device here: the scheduler dispatches
+        one chunk per decode sync point (:meth:`prefill_chunk_dispatch`).
+        Chunk 0 (when nothing was reused) is the cold prefill; every later
+        chunk is the suffix program over the slot's own blocks; the last
+        samples with the admission's seed, as the monolithic prefill does."""
+        prompt = np.asarray(prompt, np.int32).ravel()
+        L = int(prompt.size)
+        if L < 1:
+            raise GraphUnitError("empty prompt")
+        with self._lock:
+            row, prefix_len = self.reserve_for_prompt(
+                slot, prompt, L + max(0, int(reserve_tokens))
+            )
+            self._pos_ceiling[int(slot)] = L
+        C = self.prefill_chunk or L
+        starts = list(range(prefix_len, L, C))
+        payloads = []
+        for idx, s in enumerate(starts):
+            e = min(s + C, L)
+            meta = {"last": idx == len(starts) - 1, "reused": prefix_len > 0}
+            if s == 0:
+                payloads.append(("prefill", {
+                    "padded": self._padded(prompt[:e]), "length": e, "slot": int(slot),
+                    "blocks": row, "temperature": float(temperature), "seed": int(seed),
+                    "chunk": meta,
+                }))
+            else:
+                payload = self._suffix_payload(prompt[s:e], s, e, slot, row, temperature, seed)
+                payloads.append(("suffix", {**payload, "chunk": meta}))
+        return {"slot": int(slot), "payloads": payloads}
+
+    def prefill_chunk_dispatch(self, plan: dict, i: int) -> torch.Tensor:
+        """Dispatch chunk ``i`` of an :meth:`admit_chunk_plan` admission.
+        Returns the chunk's sampled token on the device: only the final
+        chunk's is the request's first token; the others are never
+        fetched, so chunking adds no host sync."""
+        kind, payload = plan["payloads"][i]
+        if kind == "prefill":
+            return self._exec_prefill(payload)
+        return self._exec_prefill_suffix(payload)
 
     def fetch_tokens(self, toks: list[torch.Tensor]) -> list[int]:
         """One device->host fetch for several admissions' first tokens."""
@@ -233,6 +464,49 @@ class GenerativeModel:
         return self.fetch_tokens(
             [self.admit_dispatch(slot, prompt, temperature, seed, reserve_tokens)]
         )[0]
+
+    # ------------------------------------------------------ pool accounting
+
+    def kv_bytes_per_block(self) -> int:
+        """Device bytes one KV block costs in this pool (scales included)."""
+        return sum(
+            self._cache[key].nbytes // self.kv_blocks
+            for key in ("k", "v", "k_scale", "v_scale") if key in self._cache
+        )
+
+    def kv_bytes_per_slot(self) -> int:
+        """Device bytes one max_seq slot costs in this pool's layout."""
+        return llama.paged_kv_slot_bytes(
+            self.cfg, self.kv_block_size, kv_dtype=self.kv_dtype, dtype=self.dtype
+        )
+
+    def kv_slots_per_chip(self, hbm_bytes: int | None = None) -> int:
+        """Max-seq sequences this pool layout fits on the device after the
+        weights.  The budget defaults to ``SCT_HBM_GB`` when set, else the
+        card's memory (``torch.cuda.get_device_properties``); a CPU model
+        needs one of the two."""
+        if hbm_bytes is None:
+            if os.environ.get("SCT_HBM_GB"):
+                hbm_bytes = int(float(os.environ["SCT_HBM_GB"]) * (1 << 30))
+            elif self.device.type == "cuda":
+                hbm_bytes = torch.cuda.get_device_properties(self.device).total_memory
+            else:
+                raise ValueError("kv_slots_per_chip on the CPU needs hbm_bytes or SCT_HBM_GB")
+        param_bytes = sum(p.nbytes for p in self.params.parameters())
+        return max(0, int((hbm_bytes - param_bytes) // self.kv_bytes_per_slot()))
+
+    def prefix_snapshot(self) -> dict | None:
+        """The KV prefix index's state (None when reuse is off)."""
+        if self.prefix_index is None:
+            return None
+        with self._lock:
+            snap = self.prefix_index.snapshot()
+            snap.update(
+                free_blocks=len(self._free_blocks), pool_blocks=self.kv_blocks - 1,
+                prefills=self.prefills, prefills_reused=self.prefills_reused,
+                digest=self.prefix_index.digest(),
+            )
+        return snap
 
     # ------------------------------------------------------------ decode
 
@@ -314,16 +588,22 @@ class GenerativeModel:
     # ------------------------------------------------------ warmup/reset
 
     def warmup(self) -> int:
-        """Run every prefill bucket and one decode block per window bucket
-        once (the kernel build, the allocator and cuBLAS handles are then
-        off the request path).  A no-op once traffic has touched the
-        cache."""
+        """Run every prefill bucket, one suffix prefill when prefix reuse or
+        chunking is on, and one decode block per window bucket once (the
+        kernel build, the allocator and cuBLAS handles are then off the
+        request path).  A no-op once traffic has touched the cache."""
         with self._lock:
             if self.prefills or self.steps:
                 return 0
             n = 0
             for b in self.prefill_buckets:
                 self.admit(0, np.ones(b, np.int32), 0.0, 0)
+                n += 1
+            if self.prefix_index is not None or self.prefill_chunk:
+                bs = self.kv_block_size
+                row = self.reserve_blocks(0, 2 * bs)
+                self._exec_prefill_suffix(
+                    self._suffix_payload(np.ones(bs, np.int32), bs, 2 * bs, 0, row, 0.0, 0))
                 n += 1
             S = self.n_slots
             for w in self._window_buckets():
@@ -334,16 +614,22 @@ class GenerativeModel:
                 )
                 n += 1
             self.reset()
+            if self.prefix_index is not None:  # warmup's hits are not traffic
+                self.prefix_index = PrefixIndex(self.kv_block_size)
             self.prefills = self.steps = self.decode_blocks = self.host_syncs = 0
+            self.prefills_reused = self.prefill_chunks = 0
             self.tokens_emitted, self.block_seconds = 0, 0.0
             return n
 
     def reset(self) -> None:
-        """Zero every slot position and reclaim every reservation."""
+        """Zero every slot position, reclaim every reservation and empty the
+        prefix index (every entry is unreferenced once the slots are)."""
         with self._lock:
             self._pos_ceiling[:] = 0
             for slot in list(self._slot_blocks):
                 self.release_slot(slot)
+            if self.prefix_index is not None:
+                self._free_blocks.extend(self.prefix_index.flush())
             self._cache["pos"].zero_()
 
 
@@ -362,7 +648,16 @@ class GenerationScheduler:
     """Continuous-batching front: admits queued requests into free slots at
     each sync point (between decode blocks), runs blocks, delivers tokens
     and reaps finished slots.  The intake is bounded (``maxsize``,
-    default 256): overflow raises :class:`QueueFull`."""
+    default 256): overflow raises :class:`QueueFull`.
+
+    With the model's ``prefill_chunk`` on, an admission whose prompt is
+    longer than a chunk arrives while decode streams are live is paced:
+    one chunk per sync point (``chunks_paced`` counts the chunks dispatched
+    while streams were live), so a long
+    prompt delays the live streams by one chunk per decode block, not by
+    its whole prefill.  An idle scheduler admits it at once.  Each sync
+    point costs at most one host fetch for all the first tokens it
+    produced; intermediate chunks' tokens are never fetched."""
 
     def __init__(self, model: GenerativeModel, *, maxsize: int | None = None):
         self.model = model
@@ -370,11 +665,16 @@ class GenerationScheduler:
         # admitted to a slot but not to the KV pool (OutOfKVBlocks): retried
         # ahead of the queue as completions free blocks
         self._overflow: list[_Request] = []
+        # chunked admissions in progress, oldest first:
+        # {"req", "slot", "plan", "i": next chunk}
+        self._prefilling: list[dict] = []
+        self.chunks_paced = 0
         self._maxsize = 256 if maxsize is None else int(maxsize)
         self._wake: asyncio.Event | None = None
         self._task: asyncio.Task | None = None
         self._closed = False
-        self.ttft_s: collections.deque[float] = collections.deque(maxlen=4096)
+        # (prompt length, seconds from submit to first token) per request
+        self.ttft: collections.deque[tuple[int, float]] = collections.deque(maxlen=4096)
         # random base so sampled streams differ across restarts; within one
         # process the sequence is deterministic
         self._seed = int.from_bytes(os.urandom(4), "little")
@@ -456,7 +756,7 @@ class GenerationScheduler:
 
     def _token_done(self, req: _Request, tok: int) -> bool:
         if not req.out:
-            self.ttft_s.append(time.perf_counter() - req.t0)
+            self.ttft.append((int(req.prompt.size), time.perf_counter() - req.t0))
         req.out.append(tok)
         if req.eos_id is not None and tok == req.eos_id:
             return True
@@ -471,9 +771,13 @@ class GenerationScheduler:
 
     def _reap(self, slots, active) -> None:
         """Drop requests whose client vanished (cancelled future): from the
-        queues before a prefill is spent, from slots mid-generation."""
+        queues before a prefill is spent, from slots mid-prefill or
+        mid-generation."""
         for q in (self._waiting, self._overflow):
             q[:] = [r for r in q if not r.future.done()]
+        for ent in [e for e in self._prefilling if e["req"].future.done()]:
+            self._prefilling.remove(ent)
+            self.model.release_slot(ent["slot"])
         for i, req in enumerate(slots):
             if req is not None and req.future.done():
                 slots[i] = None
@@ -492,20 +796,47 @@ class GenerationScheduler:
                     self._finish(req, i, slots, active)
 
     def _fail_inflight(self, slots, active, exc: BaseException) -> None:
+        prefilling = {e["slot"] for e in self._prefilling}  # not in the decode batch
         for i, req in enumerate(slots):
             if req is not None and not req.future.done():
                 req.future.set_exception(exc)
             slots[i] = None
-            self.model.release_slot(i)
+            if i not in prefilling:
+                self.model.release_slot(i)
         active[:] = False
 
-    async def _admit_batch(self, batch, slots, cur, temps, active) -> None:
-        free = [i for i in range(len(slots)) if not active[i]]
+    def _start(self, req: _Request, slot: int, tok: int, slots, cur, temps, active) -> None:
+        """A prefilled request's first token: it joins the decode batch."""
+        slots[slot] = req
+        cur[slot] = tok
+        temps[slot] = req.temperature
+        active[slot] = True
+        if self._token_done(req, tok):
+            self._finish(req, slot, slots, active)
+
+    async def _sync_point(self, batch, slots, cur, temps, active) -> None:
+        """Admit ``batch`` into free slots and advance the oldest chunked
+        admission by one chunk; ONE host fetch brings back every first
+        token this produced."""
+        prefilling = {e["slot"] for e in self._prefilling}
+        free = [i for i in range(len(slots)) if not active[i] and i not in prefilling]
+        # pace chunks only while decode streams are live
+        live = bool(active.any())
+        chunk_c = self.model.prefill_chunk if live else 0
+        head = self._prefilling[0] if self._prefilling else None
 
         def dispatch_and_fetch():
-            placed, errors, starved = [], [], []
+            placed, errors, starved, chunked = [], [], [], []
             for req, slot in zip(batch, free):
                 try:
+                    if chunk_c and req.prompt.size > chunk_c:
+                        # reserve only: the chunks go one per sync point
+                        plan = self.model.admit_chunk_plan(
+                            slot, req.prompt, req.temperature, self._next_seed(),
+                            reserve_tokens=req.max_new_tokens,
+                        )
+                        chunked.append({"req": req, "slot": slot, "plan": plan, "i": 0})
+                        continue
                     tok = self.model.admit_dispatch(
                         slot, req.prompt, req.temperature, self._next_seed(),
                         reserve_tokens=req.max_new_tokens,
@@ -515,24 +846,41 @@ class GenerationScheduler:
                     starved.append(req)
                 except Exception as exc:  # noqa: BLE001 - routed to the future
                     errors.append((req, exc))
-            # one host fetch for every admitted first token
-            toks = self.model.fetch_tokens([t for _, _, t in placed])
-            return placed, toks, errors, starved
+            ent = head if head is not None else (chunked[0] if chunked else None)
+            toks = [t for _, _, t in placed]
+            chunk_err = None
+            if ent is not None:
+                try:
+                    tok = self.model.prefill_chunk_dispatch(ent["plan"], ent["i"])
+                    if ent["i"] == len(ent["plan"]["payloads"]) - 1:
+                        toks.append(tok)  # the request's first token
+                except Exception as exc:  # noqa: BLE001 - routed to the future
+                    chunk_err = exc
+            # one host fetch for every first token of this sync point
+            return placed, self.model.fetch_tokens(toks), errors, starved, chunked, ent, chunk_err
 
-        placed, toks, errors, starved = await asyncio.to_thread(dispatch_and_fetch)
+        placed, toks, errors, starved, chunked, ent, chunk_err = await asyncio.to_thread(
+            dispatch_and_fetch
+        )
+        self._prefilling.extend(chunked)
         self._overflow.extend(starved)
+        if chunk_err is not None:
+            errors.append((ent["req"], chunk_err))
+            self._prefilling.remove(ent)
+            self.model.release_slot(ent["slot"])
         for req, exc in errors:
             if not isinstance(exc, GraphUnitError):
                 log.error("prefill admission failed", exc_info=exc)
             if not req.future.done():
                 req.future.set_exception(exc)
         for (req, slot, _), tok in zip(placed, toks):
-            slots[slot] = req
-            cur[slot] = tok
-            temps[slot] = req.temperature
-            active[slot] = True
-            if self._token_done(req, tok):
-                self._finish(req, slot, slots, active)
+            self._start(req, slot, tok, slots, cur, temps, active)
+        if ent is not None and chunk_err is None:
+            self.chunks_paced += int(live)
+            ent["i"] += 1
+            if ent["i"] == len(ent["plan"]["payloads"]):
+                self._prefilling.remove(ent)
+                self._start(ent["req"], ent["slot"], toks[-1], slots, cur, temps, active)
 
     async def _run(self) -> None:
         S = self.model.n_slots
@@ -546,22 +894,25 @@ class GenerationScheduler:
                 if self._closed:
                     raise asyncio.CancelledError
                 self._reap(slots, active)
-                if not active.any() and not self._waiting and not self._overflow:
+                if (not active.any() and not self._waiting and not self._overflow
+                        and not self._prefilling):
                     # fully idle: park until a submit wakes us (no await
                     # between the emptiness check and clear)
                     self._wake.clear()
                     await self._wake.wait()
                     continue
                 # sync point: nothing is in flight, so admissions may prefill
-                cap_free = S - int(active.sum())
+                cap_free = S - int(active.sum()) - len(self._prefilling)
                 batch = []
                 while self._overflow and len(batch) < cap_free:
                     batch.append(self._overflow.pop(0))
                 while self._waiting and len(batch) < cap_free:
                     batch.append(self._waiting.pop(0))
-                if batch:
-                    await self._admit_batch(batch, slots, cur, temps, active)
+                if batch or self._prefilling:
+                    await self._sync_point(batch, slots, cur, temps, active)
                 if not active.any():
+                    if self._prefilling:
+                        continue  # chunks still advancing: each turn does device work
                     if self._overflow:
                         # nothing in flight can free blocks: these requests
                         # exceed the pool outright
@@ -597,6 +948,10 @@ class GenerationScheduler:
                 self._deliver(toks_seq, act_seq, slots, cur, active)
         except asyncio.CancelledError:
             err = RuntimeError("GenerationScheduler closed")
+            for ent in self._prefilling:
+                if not ent["req"].future.done():
+                    ent["req"].future.set_exception(err)
+            self._prefilling.clear()
             for i, req in enumerate(slots):
                 if req is not None and not req.future.done():
                     req.future.set_exception(err)
@@ -650,6 +1005,8 @@ class GenerativeComponent(SeldonComponent):
             {"key": f"{n}_prefills", "type": "GAUGE", "value": m.prefills},
             {"key": f"{n}_decode_blocks", "type": "GAUGE", "value": m.decode_blocks},
             {"key": f"{n}_host_syncs", "type": "GAUGE", "value": m.host_syncs},
+            {"key": f"{n}_prefills_reused", "type": "GAUGE", "value": m.prefills_reused},
+            {"key": f"{n}_prefill_chunks", "type": "GAUGE", "value": m.prefill_chunks},
         ]
 
     async def _generate_rows(self, rows, max_new_tokens, temperature, eos_id):

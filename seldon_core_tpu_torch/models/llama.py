@@ -1,7 +1,9 @@
 """Llama-family decoder for generative serving, in PyTorch.
 
-The counterpart of the JAX package's ``models/llama.py`` in its plain
-configuration: a float paged KV pool, greedy and top-k sampling.  The
+The counterpart of the JAX package's ``models/llama.py`` for paged
+serving: a float or int8 paged KV pool, the suffix prefill over a reused
+prefix or an earlier chunk (``prefill_suffix_paged``), greedy and top-k
+sampling.  The
 weights keep the JAX package's stacked per-layer layout (``wq (L, E, H,
 D)``, ``wo (L, H, D, E)``, ...) inside :class:`Llama`, an ``nn.Module``, and
 the functions below keep the JAX signatures and ``(B, L, H, D)`` layouts,
@@ -14,13 +16,18 @@ step would double it) and return the same dict.
 
 Attention runs through the hand-written kernels on the card:
 ``ops.flash_causal_attention_blhd`` in the prefill (``seq_impl="flash"``)
-and ``ops.paged_decode_attention`` in every decode step (``kernel=True``).
+and ``ops.paged_decode_attention`` in every decode step (``kernel=True``),
+which dequantizes int8 pages itself.  The suffix prefill's attention, the
+int8 quantize-on-write and the prefix gather are plain torch ops, as they
+are XLA code (not Pallas) in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -29,8 +36,8 @@ from seldon_core_tpu_torch.ops.flash_attention import _dense_causal_attention, _
 from seldon_core_tpu_torch.ops.paged_attention import paged_decode_attention_plain
 
 __all__ = [
-    "Config", "Llama", "init_paged_cache", "prefill_slot_paged",
-    "decode_slots_paged", "sample_tokens", "forward",
+    "Config", "Llama", "init_paged_cache", "paged_kv_slot_bytes", "prefill_slot_paged",
+    "prefill_suffix_paged", "decode_slots_paged", "sample_tokens", "forward",
 ]
 
 
@@ -187,31 +194,45 @@ def _select_attn(seq_impl: str):
     raise ValueError(f"seq_impl must be 'flash' or 'dense', got {seq_impl!r}")
 
 
-def _layer(x, lp, cfg: Config, positions, attn_fn):
+def _qkv(x, lp, cfg: Config, positions):
+    """The attention input of one layer: post-RoPE ``q``, ``k`` and ``v``."""
     h = _rmsnorm(x, lp["ln_att"], cfg.norm_eps)
     q = _proj_heads(h, lp["wq"])
     k = _proj_heads(h, lp["wk"])
     v = _proj_heads(h, lp["wv"])
-    q = _rope(q, positions, cfg.rope_theta)
-    k = _rope(k, positions, cfg.rope_theta)
-    o = attn_fn(q, k, v)
+    return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v
+
+
+def _layer_out(x, o, lp, cfg: Config):
+    """Output projection, residual and MLP of one layer."""
     x = x + _out_proj(o, lp["wo"])
     h = _rmsnorm(x, lp["ln_mlp"], cfg.norm_eps)
-    x = x + _mlp_block(h, lp)
-    return x, (k, v)
+    return x + _mlp_block(h, lp)
 
 
-def _prefill_core(params: Llama, tokens, cfg: Config, attn_fn):
-    """Embed + the layer loop.  Returns ``(hidden (B, L, E), (ks, vs))``
-    with ``ks``/``vs (layers, B, L, kv, hd)``."""
+def _layer(x, lp, cfg: Config, positions, attn_fn, kv_hook=None):
+    """``kv_hook(k, v) -> (k_attn, v_attn, stored)`` lets an int8 pool
+    attend the dequantized values it will hold (fake-quant: a reused
+    prefix then reads the K/V the cold prefill attended)."""
+    q, k, v = _qkv(x, lp, cfg, positions)
+    if kv_hook is None:
+        ka, va, stored = k, v, (k, v)
+    else:
+        ka, va, stored = kv_hook(k, v)
+    return _layer_out(x, attn_fn(q, ka, va), lp, cfg), stored
+
+
+def _prefill_core(params: Llama, tokens, cfg: Config, attn_fn, kv_hook=None):
+    """Embed + the layer loop.  Returns ``(hidden (B, L, E), stored)``:
+    ``(ks, vs)`` with ``(layers, B, L, kv, hd)`` each, or the kv_hook's
+    ``(qk, sk, qv, sv)`` stacked over layers the same way."""
     x = params.tok_emb[tokens.long()]
     positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
-    ks, vs = [], []
+    stored = []
     for li in range(cfg.n_layers):
-        x, (k, v) = _layer(x, params.layer(li), cfg, positions, attn_fn)
-        ks.append(k)
-        vs.append(v)
-    return x, (torch.stack(ks), torch.stack(vs))
+        x, st = _layer(x, params.layer(li), cfg, positions, attn_fn, kv_hook)
+        stored.append(st)
+    return x, tuple(torch.stack(parts) for parts in zip(*stored))
 
 
 @torch.no_grad()
@@ -236,20 +257,82 @@ def forward(params: Llama, tokens, cfg: Config, *, seq_impl: str = "flash"):
 
 def init_paged_cache(
     cfg: Config, n_slots: int, n_blocks: int, block_size: int,
-    dtype=torch.float32, device="cpu",
+    dtype=torch.float32, device="cpu", kv_dtype: str | None = None,
 ) -> dict:
+    """``kv_dtype="int8"`` stores K/V pages as int8 with one ``dtype``
+    scale per (position, kv-head): ``k_scale``/``v_scale`` of shape
+    ``(layers, n_blocks, block_size, kv_heads)``, about half the bytes of
+    a 16-bit pool.  Writes quantize per row (decode appends never rescale
+    their neighbours); reads dequantize."""
     if cfg.max_seq % block_size:
         raise ValueError(
             f"max_seq {cfg.max_seq} must be a multiple of block_size {block_size}"
         )
+    if kv_dtype not in (None, "int8"):
+        raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
     mb = cfg.max_seq // block_size
     shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+    page_dtype = torch.int8 if kv_dtype == "int8" else dtype
+    cache = {
+        "k": torch.zeros(shape, dtype=page_dtype, device=device),
+        "v": torch.zeros(shape, dtype=page_dtype, device=device),
         "pos": torch.zeros(n_slots, dtype=torch.int32, device=device),
         "table": torch.zeros(n_slots, mb, dtype=torch.int32, device=device),
     }
+    if kv_dtype == "int8":
+        cache["k_scale"] = torch.zeros(shape[:4], dtype=dtype, device=device)
+        cache["v_scale"] = torch.zeros(shape[:4], dtype=dtype, device=device)
+    return cache
+
+
+def _itemsize(dtype) -> int:
+    if isinstance(dtype, torch.dtype):
+        return dtype.itemsize
+    return 2 if str(dtype) in ("bfloat16", "bf16") else np.dtype(dtype).itemsize
+
+
+def paged_kv_slot_bytes(
+    cfg: Config, block_size: int, *, kv_dtype: str | None = None, dtype="float32"
+) -> int:
+    """Device bytes one max_seq slot costs in the paged pool.  ``dtype`` is
+    the pool's float dtype (a ``torch.dtype`` or its name; the scales use
+    it too); an int8 pool bills 1 byte per element plus one scale per
+    (position, kv-head)."""
+    itemsize = _itemsize(dtype)
+    if kv_dtype == "int8":
+        per_head = cfg.head_dim + itemsize  # int8 row + one scale
+    else:
+        per_head = cfg.head_dim * itemsize
+    return cfg.max_seq * 2 * cfg.n_kv_heads * per_head * cfg.n_layers  # K and V
+
+
+def _quant_kv(x, scale_dtype):
+    """``x (..., head_dim)`` float -> ``(int8 (..., head_dim), scale (...))``.
+    Symmetric absmax per (position, head): the largest magnitude maps to
+    exactly +-127.  ``q`` is computed against the f32 scale (rounded half
+    to even, as ``jnp.round``); only then is the scale stored in
+    ``scale_dtype``."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(xf / safe[..., None]), -127, 127).to(torch.int8)
+    return q, scale.to(scale_dtype)
+
+
+def _dequant_kv(q, scale, dtype):
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+def _fake_quant_hook(scale_dtype):
+    """kv_hook for :func:`_layer` under an int8 pool: attention sees the
+    dequantized values, the layer loop collects ``(qk, sk, qv, sv)``."""
+
+    def hook(k, v):
+        qk, sk = _quant_kv(k, scale_dtype)
+        qv, sv = _quant_kv(v, scale_dtype)
+        return _dequant_kv(qk, sk, k.dtype), _dequant_kv(qv, sv, v.dtype), (qk, sk, qv, sv)
+
+    return hook
 
 
 @torch.no_grad()
@@ -262,22 +345,100 @@ def prefill_slot_paged(
     ``tokens (1, Lpad)`` is right-padded to a bucket that is a multiple of
     the block size; ``blocks_row (max_blocks,)`` the slot's table row
     (reserved physical ids, zero-padded: pad rows land in the sink).
-    Returns ``(last_logits (V,), cache)``; the cache is updated in place."""
+    Under an int8 pool the attention sees the dequantized K/V the pool
+    will hold.  Returns ``(last_logits (V,), cache)``; the cache is
+    updated in place."""
     bs = cache["k"].shape[2]
     lp = tokens.shape[1]
     if lp % bs:
         raise ValueError(f"prefill bucket {lp} is not a multiple of block size {bs}")
-    x, (ks, vs) = _prefill_core(params, tokens, cfg, _select_attn(seq_impl))
+    quant = "k_scale" in cache
+    hook = _fake_quant_hook(cache["k_scale"].dtype) if quant else None
+    x, stored = _prefill_core(params, tokens, cfg, _select_attn(seq_impl), hook)
     lb = lp // bs
-    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    rows = (cfg.n_layers, lb, bs, cfg.n_kv_heads)
     blocks_row = torch.as_tensor(blocks_row, dtype=torch.int32, device=tokens.device)
     phys = blocks_row[:lb].long()
-    ck, cv = cache["k"], cache["v"]
-    ck[:, phys] = ks[:, 0].reshape(cfg.n_layers, lb, bs, kvh, hd).to(ck.dtype)
-    cv[:, phys] = vs[:, 0].reshape(cfg.n_layers, lb, bs, kvh, hd).to(cv.dtype)
+    names = ("k", "k_scale", "v", "v_scale") if quant else ("k", "v")
+    for name, part in zip(names, stored):
+        pool = cache[name]
+        pool[:, phys] = part[:, 0].reshape(rows + pool.shape[4:]).to(pool.dtype)
     cache["pos"][slot] = int(length)
     cache["table"][slot] = blocks_row
     h = _rmsnorm(x[0, int(length) - 1], params.ln_f, cfg.norm_eps)
+    return h @ params.head, cache
+
+
+@torch.no_grad()
+def prefill_suffix_paged(
+    params: Llama, tokens, prefix_len: int, length: int, slot: int, blocks_row,
+    suffix_blocks, cache: dict, cfg: Config, *, prefix_window: int,
+):
+    """Prefill only the SUFFIX of a prompt whose first ``prefix_len``
+    tokens already have K/V in the slot's table blocks: a reused prefix
+    (``cache/prefix.py``) or the earlier chunks of a chunked prefill.
+
+    ``tokens (1, Ls)`` is the suffix right-padded to a multiple of the
+    block size; ``prefix_len`` a multiple of the block size; ``length`` the
+    total true length; ``blocks_row`` the slot's full table row, whose
+    first ``prefix_window // bs`` entries are gathered (``prefix_window``
+    covers ``prefix_len``); ``suffix_blocks (Ls // bs,)`` the physical
+    blocks the suffix K/V is written to (sink 0 past the reservation).
+
+    The suffix queries attend ``[prefix ++ suffix]`` with the einsum, mask
+    and softmax of the dense prefill: prefix column j is visible iff
+    ``j < prefix_len``, suffix columns are causal.  Returns
+    ``(last_logits (V,), cache)``; the cache is updated in place."""
+    bs = cache["k"].shape[2]
+    ls = tokens.shape[1]
+    if ls % bs:
+        raise ValueError(f"suffix bucket {ls} is not a multiple of block size {bs}")
+    dev = tokens.device
+    pb = max(1, int(prefix_window) // bs)
+    lb = ls // bs
+    kvh, hd, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    quant = "k_scale" in cache
+    hook = _fake_quant_hook(cache["k_scale"].dtype) if quant else None
+    blocks_row = torch.as_tensor(blocks_row, dtype=torch.int32, device=dev)
+    suffix_blocks = torch.as_tensor(suffix_blocks, dtype=torch.int32, device=dev).long()
+    read_idx = blocks_row[:pb].long()
+    x = params.tok_emb[tokens.long()]  # (1, Ls, E)
+    positions = (int(prefix_len) + torch.arange(ls, device=dev))[None, :]
+    cols = torch.arange(ls, device=dev)
+    prefix_valid = torch.arange(pb * bs, device=dev)[None, :] < int(prefix_len)
+    mask = torch.cat([prefix_valid.expand(ls, pb * bs), cols[:, None] >= cols[None, :]], dim=1)
+    scale = 1.0 / math.sqrt(hd)
+    ck, cv = cache["k"], cache["v"]
+    for li in range(cfg.n_layers):
+        lp = params.layer(li)
+        q, k, v = _qkv(x, lp, cfg, positions)
+        if quant:
+            k, v, (qk, sk, qv, sv) = hook(k, v)
+            cks, cvs = cache["k_scale"][li], cache["v_scale"][li]
+            kp = _dequant_kv(ck[li][read_idx], cks[read_idx], k.dtype)
+            vp = _dequant_kv(cv[li][read_idx], cvs[read_idx], v.dtype)
+        else:
+            kp = ck[li][read_idx].to(k.dtype)
+            vp = cv[li][read_idx].to(v.dtype)
+        kf = _repeat_heads(torch.cat([kp.reshape(1, pb * bs, kvh, hd), k], dim=1), H)
+        vf = _repeat_heads(torch.cat([vp.reshape(1, pb * bs, kvh, hd), v], dim=1), H)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kf) * scale
+        s = s.masked_fill(~mask, torch.finfo(s.dtype).min)
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vf)
+        x = _layer_out(x, o, lp, cfg)
+        # written after this layer's gather: the window may reach into the
+        # first suffix blocks, whose columns the mask hides
+        if quant:
+            ck[li, suffix_blocks] = qk[0].reshape(lb, bs, kvh, hd)
+            cv[li, suffix_blocks] = qv[0].reshape(lb, bs, kvh, hd)
+            cks[suffix_blocks] = sk[0].reshape(lb, bs, kvh)
+            cvs[suffix_blocks] = sv[0].reshape(lb, bs, kvh)
+        else:
+            ck[li, suffix_blocks] = k[0].reshape(lb, bs, kvh, hd).to(ck.dtype)
+            cv[li, suffix_blocks] = v[0].reshape(lb, bs, kvh, hd).to(cv.dtype)
+    cache["pos"][slot] = int(length)
+    cache["table"][slot] = blocks_row
+    h = _rmsnorm(x[0, int(length) - int(prefix_len) - 1], params.ln_f, cfg.norm_eps)
     return h @ params.head, cache
 
 
@@ -302,15 +463,17 @@ def decode_slots_paged(
 def _decode_paged_multi(params: Llama, qtokens, cache, active, qvalid, cfg: Config, *,
                         window, kernel: bool = True):
     """Shared L-query decode body (``L = 1`` is the decode step).  This
-    step's K/V rows are written into the pool first (inactive slots and
-    positions past the table into the sink block 0), then attention reads
-    the slot's window."""
+    step's K/V rows are written into the pool first (quantized per row
+    under an int8 pool; inactive slots and positions past the table into
+    the sink block 0, scales too), then attention reads the slot's window
+    (the kernel dequantizes int8 pages itself)."""
     del active  # the write routing reads qvalid; kept for the JAX signature
     pos = cache["pos"]  # (S,)
     table = cache["table"]  # (S, MB)
     S, L = qtokens.shape
     bs = cache["k"].shape[2]
     mb = table.shape[1]
+    quant = "k_scale" in cache
     W = cfg.max_seq if window is None else min(int(window), cfg.max_seq)
     wb = max(1, W // bs)
     read_idx = table[:, :wb].contiguous()  # (S, wb) physical blocks attention reads
@@ -326,19 +489,22 @@ def _decode_paged_multi(params: Llama, qtokens, cache, active, qvalid, cfg: Conf
     ck, cv = cache["k"], cache["v"]
     for li in range(cfg.n_layers):
         lp = params.layer(li)
-        h = _rmsnorm(x, lp["ln_att"], cfg.norm_eps)
-        q = _proj_heads(h, lp["wq"])
-        k = _proj_heads(h, lp["wk"])
-        v = _proj_heads(h, lp["wv"])
-        q = _rope(q, positions, cfg.rope_theta)
-        k = _rope(k, positions, cfg.rope_theta)
+        q, k, v = _qkv(x, lp, cfg, positions)
         ckl, cvl = ck[li], cv[li]
-        ckl[write_blk, write_off] = k.to(ckl.dtype)
-        cvl[write_blk, write_off] = v.to(cvl.dtype)
-        o = attend(q.contiguous(), ckl, cvl, read_idx, pos)
-        x = x + _out_proj(o, lp["wo"])
-        h = _rmsnorm(x, lp["ln_mlp"], cfg.norm_eps)
-        x = x + _mlp_block(h, lp)
+        scales = {}
+        if quant:
+            qk, sk = _quant_kv(k, cache["k_scale"].dtype)
+            qv, sv = _quant_kv(v, cache["v_scale"].dtype)
+            scales = {"k_scale": cache["k_scale"][li], "v_scale": cache["v_scale"][li]}
+            ckl[write_blk, write_off] = qk
+            cvl[write_blk, write_off] = qv
+            scales["k_scale"][write_blk, write_off] = sk
+            scales["v_scale"][write_blk, write_off] = sv
+        else:
+            ckl[write_blk, write_off] = k.to(ckl.dtype)
+            cvl[write_blk, write_off] = v.to(cvl.dtype)
+        o = attend(q.contiguous(), ckl, cvl, read_idx, pos, **scales)
+        x = _layer_out(x, o, lp, cfg)
     x = _rmsnorm(x, params.ln_f, cfg.norm_eps)
     return x @ params.head, cache
 

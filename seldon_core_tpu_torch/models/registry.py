@@ -26,14 +26,12 @@ PRESETS = {
 }
 
 # parameters of the JAX package's generative unit that belong to later
-# slices of the port (speculation, LoRA, int8 KV, chunked prefill, prefix
-# reuse and tiers, mesh, checkpoints, the overlap pipeline, chip packing,
-# LLM-graph hooks)
+# slices of the port (speculation, LoRA, the prefix tiers, mesh,
+# checkpoints, the overlap pipeline, chip packing, LLM-graph hooks)
 LATER_SLICE_PARAMS = (
     "spec_draft", "spec_ngram", "spec_hist", "spec_method", "spec_heads",
     "spec_heads_path", "spec_draft_model", "lora_rank", "lora_slots",
-    "lora_targets", "lora_adapters", "adapter", "kv_cache_dtype",
-    "prefill_chunk", "kv_prefix_reuse", "prefix_dram_gb", "mesh",
+    "lora_targets", "lora_adapters", "adapter", "prefix_dram_gb", "mesh",
     "checkpoint", "overlap", "pack_class", "pack_slo_ms", "conf_signal",
     "embed",
 )
@@ -79,6 +77,9 @@ def build_generative_component(
     queue_max: int | None = None,
     top_k: int = 0,
     decode_kernel: bool = True,
+    kv_cache_dtype: str | None = None,
+    kv_prefix_reuse: bool | None = None,
+    prefill_chunk: int | None = None,
     device: str = "cuda",
     **overrides,
 ):
@@ -88,7 +89,11 @@ def build_generative_component(
     the JAX package's ``init_params`` pytree (numpy leaves); without it the
     weights are made from the seed ``rng``.  On ``cuda`` the attention runs
     in the hand-written kernels only: ``seq_impl`` must be ``"flash"`` and
-    ``decode_kernel`` True."""
+    ``decode_kernel`` True.  ``kv_cache_dtype="int8"`` stores the paged pool
+    quantized with per-(position, head) scales, ``kv_prefix_reuse`` shares
+    prompt-prefix KV blocks across requests and ``prefill_chunk`` prefills
+    long prompts in chunks paced between decode blocks, as in the JAX
+    package."""
     from seldon_core_tpu_torch.executor.generation import (
         GenerativeComponent,
         GenerativeModel,
@@ -135,6 +140,9 @@ def build_generative_component(
         kv_blocks=kv_blocks,
         top_k=top_k,
         decode_kernel=bool(decode_kernel),
+        kv_cache_dtype=kv_cache_dtype,
+        prefill_chunk=prefill_chunk,
+        prefix_reuse=kv_prefix_reuse,
         device=dev,
     )
     return GenerativeComponent(

@@ -158,6 +158,39 @@ def test_engine_answers_strdata_over_http():
     assert bad[0] == 400 and missing[0] == 404
 
 
+CACHED_GRAPH = _spec(family=("llama", "STRING"), preset=("tiny", "STRING"),
+                     n_slots=(2, "INT"), max_new_tokens=(6, "INT"), decode_block=(4, "INT"),
+                     kv_cache_dtype=("int8", "STRING"), kv_prefix_reuse=("true", "BOOL"),
+                     prefill_chunk=(16, "INT"))
+
+
+def test_engine_serves_int8_prefix_reuse_and_chunking_over_http():
+    """The same graph spec with the three cache parameters: a prompt, one
+    sharing its 2-block prefix, and the first again (now all but its last
+    block reused) answer 200, and greedy replies repeat."""
+    prompt = list(range(3, 43))  # 40 tokens: 3 chunks of 16
+
+    async def go():
+        app = EngineApp(PredictionService(PredictorSpec.from_dict(CACHED_GRAPH), device="cpu"))
+        await app.start("127.0.0.1", 0)
+        try:
+            await app.boot()
+            bodies = [prompt, prompt[:32] + [90, 91, 92], prompt]
+            return [await asyncio.to_thread(
+                _http, app.port, "/api/v0.1/predictions",
+                {"strData": json.dumps({"tokens": b})}) for b in bodies
+            ], app.service.walker.component.model
+        finally:
+            await app.close()
+
+    replies, model = asyncio.run(go())
+    assert [code for code, _ in replies] == [200, 200, 200]
+    toks = [json.loads(json.loads(body)["strData"])["tokens"] for _, body in replies]
+    assert all(len(t) == 6 for t in toks) and toks[2] == toks[0]
+    assert model.kv_dtype == "int8" and model.prefill_chunk == 16
+    assert model.prefills_reused == 2 and model.prefix_snapshot()["tokens_reused"] == 64
+
+
 def test_spec_parses_like_the_jax_package(monkeypatch):
     j = JaxPredictorSpec.model_validate(TINY_GRAPH)
     t = PredictorSpec.from_dict(TINY_GRAPH)
@@ -188,14 +221,26 @@ def test_codec_matches_the_jax_codec(msg):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("spec_draft", 4), ("kv_cache_dtype", "int8"), ("lora_rank", 8),
-    ("prefill_chunk", 64), ("kv_prefix_reuse", True), ("mesh", "auto"),
+    ("spec_draft", 4), ("lora_rank", 8), ("prefix_dram_gb", 1.0), ("mesh", "auto"),
     ("checkpoint", "/weights.npz"), ("overlap", True),
 ])
 def test_later_slice_parameters_raise_by_name(name, value):
     with pytest.raises(GraphUnitError, match=name):
         create_builtin(Implementation.JAX_GENERATIVE, {"preset": "tiny", name: value},
                        device="cpu")
+
+
+@pytest.mark.parametrize("name,value,feature_on", [
+    ("kv_cache_dtype", "int8",
+     lambda m: m.kv_dtype == "int8" and m._cache["k"].dtype == torch.int8 and "k_scale" in m._cache),
+    ("prefill_chunk", 64, lambda m: m.prefill_chunk == 64),
+    ("kv_prefix_reuse", True, lambda m: m.prefix_index is not None),
+])
+def test_slice3_parameters_switch_their_feature_on(name, value, feature_on):
+    comp = create_builtin(Implementation.JAX_GENERATIVE, {"preset": "tiny", name: value},
+                          device="cpu")
+    off = create_builtin(Implementation.JAX_GENERATIVE, {"preset": "tiny"}, device="cpu")
+    assert feature_on(comp.model) and not feature_on(off.model)
 
 
 def test_registry_rules():
@@ -235,6 +280,9 @@ _PROVENANCE = re.compile(r'"seldon_core_tpu/[\w/]+\.py:\d+"')
 # sct: test-hygiene-ok one short import probe in a fresh interpreter, no server or device
 def test_port_never_imports_jax_or_the_jax_package():
     sources = sorted((ROOT / "seldon_core_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    # the port's own copies of modules the JAX package also has
+    for module in ("cache/prefix.py", "models/llama.py", "executor/generation.py"):
+        assert ROOT / "seldon_core_tpu_torch" / module in sources
     hits = [
         f"{p.relative_to(ROOT)}:{i}"
         for p in sources
