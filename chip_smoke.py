@@ -16,7 +16,8 @@ Phases, each printing one JSON line:
    dims, in bf16, f16 and f32; paged attention at 1-4 queries per slot,
    int8 pages, position 0, positions on and off page boundaries, one split
    and many, slots whose later splits are empty and rows that see nothing,
-   and at head dim 128 (llama3-8b) and 8- and 32-row pages.
+   and at head dim 128 (llama3-8b) and 8- and 32-row pages; and a verify
+   pass's first query (L = 4) must give the decode step's (L = 1) bits.
 3. ``reference``: a 2-layer model at llama3-1b width in f32 on the card
    against the same weights on the CPU (plain versions): prefill logits,
    teacher-forced decode logits and greedy tokens over a float pool and
@@ -26,7 +27,11 @@ Phases, each printing one JSON line:
    cold, and ``prefill_chunk=64`` over a 300-token prompt against the
    monolithic prefill (first-token logits, 16 greedy tokens, and the
    reuse and chunk counts those two must show; the same in bf16 is
-   reported, not gated).
+   reported, not gated); and speculative decoding at ``spec_draft=3``
+   with each proposer (``ngram``, ``heads`` made from the ``lm_head``,
+   ``draft`` with ``truncate:1``): greedy streams on the card equal to
+   speculation off on the card and to speculation on on the CPU, with a
+   non-empty acceptance ledger.
 4. ``serve``: the engine boots in-process on 127.0.0.1 with a
    ``JAX_GENERATIVE`` llama3-1b bf16 graph (seeded weights, 8 slots,
    16-step decode blocks, float pool) and answers concurrent strData
@@ -45,9 +50,20 @@ Phases, each printing one JSON line:
    launched; it prints TTFT of the shared and the long requests, the
    block time after a paced chunk and without one, and the pool's bytes
    per 2048-token slot, int8 and bf16.
-6. ``kernel_times``: each kernel's time at the main path's shapes and at a
+6. ``serve_spec``: the ``serve`` graph with ``spec_draft=3``, once per
+   proposer (``ngram``; ``heads``; ``draft`` with ``truncate:auto``, 2 of
+   16 layers; and ``draft`` with ``preset:llama3-1b`` seeded as the served
+   weights, the model drafting for itself), each answering a wave of the
+   ``serve`` prompts plus a repetitive one.  It fails unless each decode
+   block cost one host sync, the paged kernel ran verify passes (L = 4),
+   for ``draft`` flash attention prefilled the draft pool, and the
+   self-draft had drafts accepted; it prints accepted tokens per
+   verify pass, ms per pass, wave tokens/s, TTFT and each stream's
+   agreement with the ``serve`` phase's (bf16: reported, not gated).
+7. ``kernel_times``: each kernel's time at the main path's shapes and at a
    long one (flash at S=2048, paged at 8 slots near position 2000; paged
-   also over int8 pages with bf16 scales at both) beside its plain
+   also over int8 pages with bf16 scales at both, and at 4 queries per
+   slot as a verify pass reads, beside the K/V bytes it reads) beside its plain
    version, one PyTorch library call where there is one, and the least
    time the card could take (its bound).  ``ms`` replays the launches
    from a CUDA graph; ``eager_ms`` launches them from Python one by one,
@@ -55,7 +71,7 @@ Phases, each printing one JSON line:
    call.
 
 Then the card's name and power limit (nvidia-smi), one line listing the
-kernels (launches summed over both serve phases), and as the last line
+kernels (launches summed over the serve phases), and as the last line
 ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero before that line.  Without CUDA, or without
 the repository beside this file, it exits non-zero and prints no result.
@@ -106,6 +122,20 @@ CACHED_CHUNK = 256
 SHARED_SUFFIXES = (8, 17, 24, 33, 47, 64)
 LONG_LENGTHS = (1500, 1900)
 LONG_DELAY_S = 0.2
+# speculation: draft length, the proposers' graph parameters, and the
+# repetitive prompt added to the serve wave (a 40-token cycle of 8 tokens)
+SPEC_DRAFT = 3
+SPEC_METHODS = {
+    "ngram": {"spec_method": ("ngram", "STRING")},
+    "heads": {"spec_method": ("heads", "STRING"), "spec_heads": (SPEC_DRAFT, "INT")},
+    "draft": {"spec_method": ("draft", "STRING"), "spec_draft_model": ("truncate:auto", "STRING")},
+    # a preset draft seeded as the served weights are (rng 0): the model
+    # drafts for itself, so drafts are accepted on the card at full width
+    # (not a deployment: the draft costs what the model does)
+    "draft_self": {"spec_method": ("draft", "STRING"),
+                   "spec_draft_model": ("preset:" + SERVE_PRESET, "STRING")},
+}
+REPEAT_CYCLE, REPEAT_LEN = 8, 40
 # int8 pools on the card and the CPU quantize K/V rounded ~1e-6 apart; a
 # row whose x / scale sits that close to a half step rounds the other way.
 # A flipped byte moves that element by one step and the next layer's K/V
@@ -411,6 +441,22 @@ def phase_kernel_check() -> dict:
         raise AssertionError("paged attention's result follows the window width")
     checks.append({"kernel": "paged_decode_attention", "window_invariant": True, "WB": [64, 128],
                    "max_abs_err": 0.0, "max_err_over_limit": 0.0})
+    # a verify pass's query 0 (chunk 0 of 4 at 4 query heads per KV head)
+    # must give the decode step's bits, also where pos + 3 starts another
+    # page or split: greedy speculation equals speculation off on it
+    for dn, quant in (("bfloat16", False), ("bfloat16", True), ("float32", False)):
+        args, kw = _paged_inputs(8, 1 + SPEC_DRAFT, H, KV, 64, 16, 1 + 8 * 64, 64,
+                                 getattr(torch, dn), seed=997, quant=quant,
+                                 pos=[125, 126, 127, 13, 300, 511, 0, 1020])
+        q, k, v, table, pos = args
+        one = pa.paged_decode_attention(q[:, :1].contiguous(), k, v, table, pos, **kw)
+        verify = pa.paged_decode_attention(q, k, v, table, pos, **kw)
+        if not torch.equal(one[:, 0], verify[:, 0]):
+            raise AssertionError(f"paged attention's query 0 at L={1 + SPEC_DRAFT} is not the "
+                                 f"L=1 result ({dn}, int8 pages: {quant})")
+        checks.append({"kernel": "paged_decode_attention", "row0_bit_equal": True, "dtype": dn,
+                       "quant": quant, "L": [1, 1 + SPEC_DRAFT], "max_abs_err": 0.0,
+                       "max_err_over_limit": 0.0})
     _sync()
     worst = max(checks, key=lambda r: r["max_err_over_limit"])
     # one short entry per case: the shape keys, the largest error, err/limit
@@ -600,9 +646,75 @@ def phase_reference(device: str = "cuda") -> None:
     rec["card_only_bf16"] = [
         {**{k: v for k, v in r.items() if k != "ok"}, "within_tol": r["ok"], "gated": False}
         for r in _reuse_and_chunk_checks(rcfg, bf16, device)]
+    del bf16
+    rec["spec"] = _spec_reference(cfg, cpu, dev, device)
+    rec["ok"] = rec["ok"] and all(r["ok"] for r in rec["spec"])
     emit(rec)
     if not rec["ok"]:
         raise AssertionError("the model on the card disagrees with its reference")
+
+
+def _streams(model, prompts, max_new: int) -> list[list[int]]:
+    """Greedy streams of ``prompts``, submitted together to a scheduler
+    over ``model``."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.executor.generation import GenerationScheduler
+
+    sched = GenerationScheduler(model)
+
+    async def go():
+        try:
+            return await asyncio.gather(*(
+                sched.submit(np.asarray(p, np.int32), max_new_tokens=max_new) for p in prompts))
+        finally:
+            await sched.close()
+
+    return [o.tolist() for o in asyncio.run(go())]
+
+
+def _spec_reference(cfg, cpu, dev, device: str) -> list[dict]:
+    """Speculative decoding (``spec_draft=3``) with each proposer, f32:
+    greedy streams on the card against speculation off on the card and
+    against speculation on on the CPU.  The heads are made once on the CPU
+    from the ``lm_head`` and carried to both devices."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.executor.generation import GenerativeModel
+    from seldon_core_tpu_torch.models import llama
+
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, 100).tolist(),
+               np.tile(rng.integers(0, cfg.vocab_size, REPEAT_CYCLE),
+                       REPEAT_LEN // REPEAT_CYCLE).tolist()]
+    max_new = 24
+    heads = llama.init_medusa_heads(torch.Generator().manual_seed(2), cfg, SPEC_DRAFT,
+                                    base_head=cpu.head)
+    methods = {"ngram": {}, "heads": {"spec_method": "heads", "medusa_heads": heads},
+               "draft": {"spec_method": "draft", "spec_draft_model": "truncate:1"}}
+
+    def model(params, d, **kw):
+        return GenerativeModel(cfg, params, n_slots=2, decode_block=16, device=d, **kw)
+
+    off = _streams(model(dev, device), prompts, max_new)
+    recs = []
+    for name, kw in methods.items():
+        on_model = model(dev, device, spec_draft=SPEC_DRAFT, **kw)
+        on = _streams(on_model, prompts, max_new)
+        on_cpu = _streams(model(cpu, "cpu", spec_draft=SPEC_DRAFT, **kw), prompts, max_new)
+        snap = on_model.spec_snapshot()
+        recs.append({
+            "method": name, "spec_draft": SPEC_DRAFT, "prompt_lens": [len(p) for p in prompts],
+            "max_new_tokens": max_new, "equal_spec_off_card": on == off,
+            "equal_spec_on_cpu": on == on_cpu, "tokens": [o[:8] for o in on],
+            "spec_verify_passes": snap["spec_verify_passes"],
+            "spec_emitted_tokens": snap["spec_emitted_tokens"],
+            "accepted_tokens_per_step": snap["accepted_tokens_per_step"],
+            "ok": (on == off and on == on_cpu and snap["spec_verify_passes"] > 0
+                   and snap["spec_emitted_tokens"] >= snap["spec_verify_passes"]),
+        })
+    return recs
 
 
 def _post(port: int, body: dict, timeout: float = 600.0) -> tuple[int, dict]:
@@ -699,6 +811,8 @@ def phase_serve(device: str = "cuda", preset: str = SERVE_PRESET,
             rec["pos"] = [min(len(p) + MAX_NEW // 2, model.cfg.max_seq - 1)
                           for p in prompts[:SERVE_SLOTS]]
             rec["bucket"] = model.fit_bucket(max(lengths))
+            # the distinct prompts and their streams, for serve_spec
+            rec["prompts"], rec["outs"] = prompts[:-1], outs[:len(prompts) - 1]
             return rec
         finally:
             await app.close()
@@ -910,6 +1024,175 @@ def phase_serve_cached(device: str = "cuda", preset: str = SERVE_PRESET, seed: i
     return asyncio.run(run())
 
 
+def _divergence(model, prompt, off, on) -> dict:
+    """Where greedy stream ``on`` first leaves ``off``, and the logits gap
+    there: logit(off's token) - logit(on's token) from one dense prefill of
+    ``prompt`` + ``off``'s tokens before that point (the model's dtype)."""
+    import torch
+
+    from seldon_core_tpu_torch.models import llama
+
+    i = next((j for j, (a, b) in enumerate(zip(off, on)) if a != b), None)
+    if i is None:
+        return {"equal_tokens": len(off), "first_divergence": None, "logit_gap": None}
+    toks = torch.tensor([list(prompt) + list(off[:i])], dtype=torch.int32, device=model.device)
+    logits = llama.forward(model.params, toks, model.cfg)[0, -1].float()
+    return {"equal_tokens": i, "first_divergence": i,
+            "logit_gap": float(logits[off[i]] - logits[on[i]]),
+            "logit_scale": float(logits.abs().max())}
+
+
+def _row0_gap(model) -> dict:
+    """A decode step (L = 1) against a verify pass's first query (L = 1 +
+    SPEC_DRAFT) on copies of one pool, with ``model``'s weights and dtype
+    (SERVE_SLOTS slots at positions 100-121): how far the logits move when
+    the matmuls see SERVE_SLOTS * (1 + SPEC_DRAFT) rows instead of
+    SERVE_SLOTS."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models import llama
+
+    cfg, dev, S, L = model.cfg, model.device, SERVE_SLOTS, 1 + SPEC_DRAFT
+    rng = np.random.default_rng(5)
+    cache = llama.init_paged_cache(cfg, S, 1 + S * 8, 16, dtype=model.dtype, device=dev)
+    for slot in range(S):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 128)).astype(np.int32))
+        row = np.zeros(cfg.max_seq // 16, np.int32)
+        row[:8] = 1 + 8 * slot + np.arange(8)
+        llama.prefill_slot_paged(model.params, toks.to(dev), 100 + 3 * slot, slot, row, cache, cfg)
+    qtok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (S, L)).astype(np.int32)).to(dev)
+    act = torch.ones(S, dtype=torch.bool, device=dev)
+    one, _ = llama.decode_slots_paged(model.params, qtok[:, 0].contiguous(),
+                                      {k: v.clone() for k, v in cache.items()}, act, cfg,
+                                      window=128)
+    verify, _ = llama.decode_slots_spec_paged(
+        model.params, qtok, {k: v.clone() for k, v in cache.items()}, act,
+        torch.ones(S, L, dtype=torch.bool, device=dev), cfg, window=128)
+    diff = (one.float() - verify[:, 0].float()).abs()
+    # whether a row of x @ W keeps its bits when the product has S * L rows
+    # instead of S, for each weight shape of a layer and the lm_head
+    lp = model.params.layer(0)
+    weights = {"wq": lp["wq"].flatten(1), "wk": lp["wk"].flatten(1), "wv": lp["wv"].flatten(1),
+               "wo": lp["wo"].flatten(0, 1), "w_gate": lp["w_gate"], "w_up": lp["w_up"],
+               "w_down": lp["w_down"], "head": model.params.head}
+    x = torch.randn(S * L, max(cfg.hidden, cfg.ffn), device=dev).to(model.dtype)
+    rows_equal = {}
+    for name, w in weights.items():
+        a = x[:, : w.shape[0]]
+        rows_equal[name] = bool(torch.equal((a @ w)[:S], a[:S].contiguous() @ w))
+    return {"dtype": str(model.dtype).replace("torch.", ""), "slots": S, "L": L,
+            "bit_equal": bool(torch.equal(one, verify[:, 0])),
+            "max_abs_logit_diff": float(diff.max()), "logit_scale": float(one.float().abs().max()),
+            "argmax_equal": int((one.argmax(-1) == verify[:, 0].argmax(-1)).sum()),
+            "matmul_rows_bit_equal": rows_equal}
+
+
+def phase_serve_spec(serve: dict, device: str = "cuda", preset: str = SERVE_PRESET,
+                     seed: int = 0) -> dict:
+    """The serve graph with ``spec_draft=3``, once per proposer: the serve
+    wave's prompts plus a repetitive one, concurrently.  Returns the
+    kernels' launch counts summed over the runs."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.ops import _build
+
+    total = {name: 0 for name in KERNELS}
+    for method, extra in SPEC_METHODS.items():
+        spec = _serve_spec(preset, seed, spec_draft=(SPEC_DRAFT, "INT"), **extra)
+
+        async def run() -> dict:
+            app, boot_s = await _boot(spec, device)
+            port = app.port
+            try:
+                comp = app.service.walker.component
+                model, sched = comp.model, comp.scheduler
+                vocab = model.cfg.vocab_size
+                rng = np.random.default_rng(seed + 100)
+                repeat = np.tile(rng.integers(0, vocab, REPEAT_CYCLE),
+                                 REPEAT_LEN // REPEAT_CYCLE).tolist()
+                prompts = serve["prompts"] + [repeat]
+                k1_draft = [0]
+                draft_prefill = model.draft_prefill_dispatch
+
+                def counted(*a, **kw):  # K1 launches made by draft-pool prefills
+                    before = _build.LAUNCHES["flash_attention"]
+                    out = draft_prefill(*a, **kw)
+                    k1_draft[0] += _build.LAUNCHES["flash_attention"] - before
+                    return out
+
+                model.draft_prefill_dispatch = counted
+                _build.reset_launches()  # this method's run starts here
+                before = {"blocks": model.decode_blocks, "syncs": model.host_syncs,
+                          "steps": model.steps, "block_s": model.block_seconds,
+                          "emitted": model.spec_emitted_tokens,
+                          "passes": model.spec_verify_passes, "ttft": len(sched.ttft),
+                          "draft_prefills": model.draft_prefills}
+                loop = asyncio.get_running_loop()
+                t1 = time.perf_counter()
+                with concurrent.futures.ThreadPoolExecutor(len(prompts)) as clients:
+                    replies = await asyncio.gather(*(
+                        loop.run_in_executor(clients, _post, port, {"strData": json.dumps(
+                            {"tokens": p, "max_new_tokens": MAX_NEW})})
+                        for p in prompts))
+                wave_s = time.perf_counter() - t1
+                launches = dict(_build.LAUNCHES)
+                by_l = {str(n): c for n, c in sorted(_build.PAGED_LAUNCHES_BY_L.items())}
+                outs = _check_replies(replies, prompts, vocab)
+                blocks = model.decode_blocks - before["blocks"]
+                syncs = model.host_syncs - before["syncs"]
+                passes = model.spec_verify_passes - before["passes"]
+                emitted = model.spec_emitted_tokens - before["emitted"]
+                steps = model.steps - before["steps"]
+                ttft = sorted(t for _, t in list(sched.ttft)[before["ttft"]:])
+                agree = [_divergence(model, p, off, on)
+                         for p, off, on in zip(serve["prompts"], serve["outs"], outs)]
+                row0 = _row0_gap(model) if method == "ngram" else None
+                rec = {
+                    "phase": "serve_spec", "method": method, "preset": preset,
+                    "dtype": "bfloat16", "spec_draft": SPEC_DRAFT,
+                    "spec": model.spec_snapshot(), "n_slots": SERVE_SLOTS,
+                    "decode_block": SERVE_BLOCK, "max_new_tokens": MAX_NEW,
+                    "prompt_lens": [len(p) for p in prompts], "boot_and_warmup_s": boot_s,
+                    "wave_s": wave_s, "wave_tokens_per_s": len(prompts) * MAX_NEW / wave_s,
+                    "ttft_s_p50": statistics.median(ttft), "ttft_s_max": ttft[-1],
+                    "verify_passes": passes, "emitted_tokens": emitted,
+                    "accepted_tokens_per_pass": emitted / max(1, passes),
+                    "ms_per_verify_pass": 1e3 * (model.block_seconds - before["block_s"])
+                    / max(1, steps),
+                    "decode_blocks": blocks, "host_syncs": syncs,
+                    "host_syncs_per_block": syncs / max(1, blocks),
+                    "launches": launches, "paged_launches_by_L": by_l,
+                    "draft_prefills": model.draft_prefills - before["draft_prefills"],
+                    "flash_launches_draft_pool": k1_draft[0],
+                    "repeat_prompt_tokens": outs[-1][:16],
+                    # bf16 at full depth: reported, not gated (near-tied
+                    # logits of seeded weights may flip a greedy argmax)
+                    "agreement_with_serve": agree,
+                    "streams_equal_to_serve": sum(a["first_divergence"] is None for a in agree),
+                    "verify_row0_vs_step": row0,
+                }
+                rec["ok"] = (blocks > 0 and syncs == blocks and passes > 0
+                             and by_l.get(str(1 + SPEC_DRAFT), 0) > 0
+                             and (not method.startswith("draft")
+                                  or (k1_draft[0] > 0 and by_l.get("1", 0) > 0))
+                             and (method != "draft_self" or emitted > passes))
+                emit(rec)
+                if not rec["ok"]:
+                    raise AssertionError(
+                        f"serve_spec {method}: one host sync per block, verify passes at "
+                        f"L={1 + SPEC_DRAFT}, the draft pool's kernels or the self-draft's "
+                        "acceptance are missing")
+                return launches
+            finally:
+                await app.close()
+
+        launches = asyncio.run(run())
+        for name in total:
+            total[name] += launches[name]
+    return total
+
+
 def _flash_times(fa, S: int) -> dict:
     """K1 at B=1, S, llama3-1b heads, bf16: one input set per layer so no
     launch finds its inputs in L2."""
@@ -934,17 +1217,18 @@ def _flash_times(fa, S: int) -> dict:
     }
 
 
-def _paged_times(pa, pos: list[int], WB: int, quant: bool = False) -> dict:
-    """K2: one decode step's read for SERVE_SLOTS slots at ``pos`` over a
-    ``WB``-entry window, bf16 queries over bf16 pages or (``quant``) over
-    int8 pages with bf16 scales, one pool per layer as in the model."""
+def _paged_times(pa, pos: list[int], WB: int, quant: bool = False, L: int = 1) -> dict:
+    """K2: one decode step's read (``L`` = 1) or one verify pass's (``L``
+    queries per slot) for SERVE_SLOTS slots at ``pos`` over a ``WB``-entry
+    window, bf16 queries over bf16 pages or (``quant``) over int8 pages
+    with bf16 scales, one pool per layer as in the model."""
     import torch
 
     H, KV, D, BS, layers = 32, 8, 64, 16, 16
     NB = 1 + SERVE_SLOTS * WB
     sets = []
     for i in range(layers):
-        (q, k, v, table, p), kw = _paged_inputs(SERVE_SLOTS, 1, H, KV, D, BS, NB, WB,
+        (q, k, v, table, p), kw = _paged_inputs(SERVE_SLOTS, L, H, KV, D, BS, NB, WB,
                                                 torch.bfloat16, seed=200 + i, pos=pos,
                                                 quant=quant)
         sets.append((q, k, v, table, p) + ((kw["k_scale"], kw["v_scale"]) if quant else ()))
@@ -958,17 +1242,22 @@ def _paged_times(pa, pos: list[int], WB: int, quant: bool = False) -> dict:
     if not quant:  # the bf16 rows time the wrappers themselves, as before
         kernel, plain = pa.paged_decode_attention, pa.paged_decode_attention_plain
 
-    # the function needs rows [0, pos] of each slot (int8 rows carry a bf16
-    # scale per KV head) and the table entries of the pages that hold them
-    rows = sum(p + 1 for p in pos)
-    pages = sum(p // BS + 1 for p in pos)
+    # the function needs rows [0, pos + L - 1] of each slot (int8 rows carry
+    # a bf16 scale per KV head) and the table entries of the pages that
+    # hold them, whatever L is; the kernel reads them once per 4-row chunk
+    # of the L * groups query rows
+    rows = sum(p + L for p in pos)
+    pages = sum((p + L - 1) // BS + 1 for p in pos)
     row_bytes = KV * (D + 2) if quant else 2 * KV * D
-    nbytes = 2 * 2 * SERVE_SLOTS * H * D + 2 * rows * row_bytes + 4 * pages + 4 * SERVE_SLOTS
-    flops = sum(4 * H * D * (p + 1) for p in pos)
+    nbytes = 2 * 2 * SERVE_SLOTS * L * H * D + 2 * rows * row_bytes + 4 * pages + 4 * SERVE_SLOTS
+    flops = sum(4 * H * D * (p + j + 1) for p in pos for j in range(L))
+    chunks = -(-L * (H // KV) // getattr(pa, "ROWS_PER_BLOCK", 4))
     b_ms, b_by = bound(nbytes, flops)
     return {
-        "shape": {"S": SERVE_SLOTS, "L": 1, "H": H, "KV": KV, "D": D, "BS": BS, "WB": WB,
+        "shape": {"S": SERVE_SLOTS, "L": L, "H": H, "KV": KV, "D": D, "BS": BS, "WB": WB,
                   "pos": pos, "dtype": "bfloat16", "pages": "int8" if quant else "bfloat16"},
+        "chunks": chunks, "kv_bytes_needed": 2 * rows * row_bytes,
+        "kv_bytes_read": chunks * 2 * rows * row_bytes,
         "ms": time_ms(kernel, sets),
         "eager_ms": eager_ms(kernel, sets),
         "host_ms": host_ms(kernel, sets),
@@ -978,11 +1267,12 @@ def _paged_times(pa, pos: list[int], WB: int, quant: bool = False) -> dict:
     }
 
 
-def window_entries(pos: list[int]) -> int:
+def window_entries(pos: list[int], rows_per_step: int = 1) -> int:
     """The table entries of the window bucket the scheduler picks for slots
-    at ``pos`` (16-row pages)."""
+    at ``pos`` (16-row pages) before a block of ``rows_per_step`` rows a
+    step (``1 + spec_draft`` in a speculative block)."""
     window = 64
-    while window < max(pos) + SERVE_BLOCK + 1:
+    while window < max(pos) + SERVE_BLOCK * rows_per_step + 1:
         window *= 2
     return window // 16
 
@@ -998,6 +1288,9 @@ def kernel_times(fa, pa, bucket: int, pos: list[int]) -> dict:
             "long": _paged_times(pa, LONG_POS, 128),
             "served_int8": _paged_times(pa, pos, window_entries(pos), quant=True),
             "long_int8": _paged_times(pa, LONG_POS, 128, quant=True),
+            "served_L4": _paged_times(pa, pos, window_entries(pos, 1 + SPEC_DRAFT),
+                                      L=1 + SPEC_DRAFT),
+            "long_L4": _paged_times(pa, LONG_POS, 128, L=1 + SPEC_DRAFT),
         },
     }
 
@@ -1013,7 +1306,7 @@ def phase_kernel_times(serve: dict) -> dict:
     out = kernel_times(fa, pa, serve["bucket"], serve["pos"])
     for t in out["paged_decode_attention"].values():
         t["splits"], t["per"] = pa.plan_splits(t["shape"]["WB"])
-        t["grid_blocks"] = t["splits"] * t["shape"]["KV"] * SERVE_SLOTS
+        t["grid_blocks"] = t["splits"] * t["shape"]["KV"] * t["chunks"] * SERVE_SLOTS
     emit({"phase": "kernel_times", **out})
     return {name: t["served"] for name, t in out.items()}
 
@@ -1039,8 +1332,10 @@ def main() -> int:
     phase_reference()
     serve = phase_serve()
     cached = phase_serve_cached()
+    spec = phase_serve_spec(serve)
     times = phase_kernel_times(serve)
-    launches = {name: serve["launches"][name] + cached["launches"][name] for name in KERNELS}
+    launches = {name: serve["launches"][name] + cached["launches"][name] + spec[name]
+                for name in KERNELS}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False,

@@ -10,7 +10,8 @@ own, one tree after another in the order given, so that two commits are
 compared on one card as ``OLD NEW NEW OLD``.  The shapes and the timings
 are ``chip_smoke.py``'s (``kernel_times``): flash attention at the served
 bucket (S=1024) and at S=2048, paged decode attention for the smoke's 8
-served slots and for 8 slots near position 2000, each with ``ms`` (launches
+served slots and for 8 slots near position 2000 (also over int8 pages, and
+at 4 queries per slot as a speculative verify pass reads), each with ``ms`` (launches
 replayed from a CUDA graph), ``eager_ms`` (launched one by one from
 Python), ``host_ms``, the plain version, the library call and the bound.
 

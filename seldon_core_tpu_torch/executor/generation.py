@@ -19,6 +19,12 @@ The paged path of the JAX package's ``executor/generation.py``:
   tokens, the active mask, the remaining budgets and eos kept on the
   device, and ONE host fetch per block (``decode_blocks`` and
   ``host_syncs`` count them);
+* **speculation** (``spec_draft``): each step of a block is a verify pass
+  that drafts ``spec_draft`` tokens per slot (``spec_method``: ``ngram``
+  from a per-slot history ring, ``heads`` from Medusa-style heads over the
+  last verified hidden, ``draft`` from a co-resident draft model over its
+  own paged KV), scores ``1 + spec_draft`` positions in one model call and
+  emits the longest agreeing prefix; greedy output equals speculation off;
 * sampling happens on the device (``sample_tokens``): only token ids cross
   to the host, never logits.
 
@@ -45,8 +51,11 @@ import torch
 from seldon_core_tpu_torch import resolve_device
 from seldon_core_tpu_torch.cache.prefix import PrefixIndex
 from seldon_core_tpu_torch.contract.payload import DataKind, Payload
+from seldon_core_tpu_torch.executor.speculative import propose_heads, propose_ngram, seed_history
 from seldon_core_tpu_torch.graph.units import GraphUnitError, SeldonComponent
 from seldon_core_tpu_torch.models import llama
+from seldon_core_tpu_torch.models.registry import resolve_config
+from seldon_core_tpu_torch.models.weights import init_params
 
 log = logging.getLogger(__name__)
 
@@ -84,7 +93,15 @@ class GenerativeModel:
     ``kv_cache_dtype`` (``"int8"`` or unset; env ``SCT_KV_DTYPE``),
     ``prefill_chunk`` (tokens, rounded up to a block multiple; env
     ``SCT_PREFILL_CHUNK``) and ``prefix_reuse`` (env ``SCT_CACHE_PREFIX=1``)
-    are normalized as the JAX package does.
+    are normalized as the JAX package does, and so are the speculation
+    parameters: ``spec_draft`` (env ``SCT_SPEC_DRAFT``; 0 is off),
+    ``spec_ngram`` (``SCT_SPEC_NGRAM``, default 3), ``spec_hist``,
+    ``spec_method`` (``SCT_SPEC_METHOD``, default ``ngram``), ``spec_heads``
+    (``SCT_SPEC_HEADS``) and ``spec_draft_model`` (``SCT_SPEC_DRAFT_MODEL``:
+    ``truncate:N``, ``truncate:auto`` or ``preset:NAME``).  ``medusa_heads``
+    carries a head block (``{"w1", "head"}``) in place of the heads made
+    from the model's ``lm_head``; ``draft_params`` carries the weights of a
+    ``preset:`` draft model in place of seeded ones.
     """
 
     def __init__(
@@ -104,6 +121,14 @@ class GenerativeModel:
         kv_cache_dtype: str | None = None,
         prefill_chunk: int | None = None,
         prefix_reuse: bool | None = None,
+        spec_draft: int | None = None,
+        spec_ngram: int | None = None,
+        spec_hist: int = 64,
+        spec_method: str | None = None,
+        spec_heads: int | None = None,
+        spec_draft_model: str | None = None,
+        medusa_heads: dict | None = None,
+        draft_params: llama.Llama | None = None,
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
@@ -147,6 +172,8 @@ class GenerativeModel:
         self.prefill_chunk = prefill_chunk
         if prefix_reuse is None:
             prefix_reuse = os.environ.get("SCT_CACHE_PREFIX", "0") == "1"
+        self._spec_config(spec_draft, spec_ngram, spec_hist, spec_method, spec_heads,
+                          spec_draft_model)
 
         self.kv_block_size = kv_block_size
         self.max_blocks_per_slot = cfg.max_seq // kv_block_size
@@ -176,6 +203,7 @@ class GenerativeModel:
         self.prefill_buckets = tuple(
             b for b in _prefill_buckets(cfg.max_seq) if b >= kv_block_size
         ) or (cfg.max_seq,)
+        self._spec_state(medusa_heads, draft_params)
         # host-side ceiling of every slot's device position (admission sets
         # it, each block adds k): sizes the attention window bucket
         self._pos_ceiling = np.zeros(self.n_slots, np.int64)
@@ -189,6 +217,294 @@ class GenerativeModel:
         self.tokens_emitted = 0
         self.block_seconds = 0.0
         self.last_block_s = 0.0
+        # the acceptance ledger: tokens emitted over productive (pass, slot)
+        # pairs, i.e. passes in which the slot emitted at least one token
+        self.spec_emitted_tokens = 0
+        self.spec_verify_passes = 0
+        self.draft_prefills = 0
+
+    # -------------------------------------------------------- speculation
+
+    def _spec_config(self, spec_draft, spec_ngram, spec_hist, spec_method, spec_heads,
+                     spec_draft_model) -> None:
+        """The speculation parameters, their env fallbacks and checks."""
+        if spec_draft is None:
+            spec_draft = int(os.environ.get("SCT_SPEC_DRAFT", "0") or 0)
+        if spec_ngram is None:
+            spec_ngram = int(os.environ.get("SCT_SPEC_NGRAM", "3") or 3)
+        self.spec_draft = max(0, int(spec_draft))
+        self.spec_ngram = max(1, int(spec_ngram))
+        self.spec_hist = max(8, int(spec_hist))
+        if self.spec_draft and self.decode_block <= 1:
+            # the draft/verify/accept loop runs inside the k-step block;
+            # dropping speculation quietly would bill every token in full
+            raise GraphUnitError(
+                f"generative model {self.name!r}: spec_draft={self.spec_draft} requires "
+                f"decode_block > 1, got decode_block={self.decode_block}: the "
+                "draft/verify/accept loop runs inside the k-step decode block.  Raise "
+                "decode_block or unset spec_draft (graph param or SCT_SPEC_DRAFT)."
+            )
+        if spec_method is None:
+            spec_method = os.environ.get("SCT_SPEC_METHOD", "") or "ngram"
+        spec_method = str(spec_method).lower()
+        if spec_method not in ("ngram", "heads", "draft"):
+            raise GraphUnitError(
+                f"spec_method must be 'ngram', 'heads', or 'draft', got {spec_method!r}"
+            )
+        self.spec_method = spec_method if self.spec_draft else None
+        if spec_heads is None:
+            spec_heads = int(os.environ.get("SCT_SPEC_HEADS", "0") or 0)
+        if spec_draft_model is None:
+            spec_draft_model = os.environ.get("SCT_SPEC_DRAFT_MODEL") or None
+        self.spec_heads = 0
+        self._draft_geom: tuple | None = None
+        if self.spec_draft:
+            if self.spec_hist <= self.spec_ngram + self.spec_draft:
+                raise GraphUnitError(
+                    f"spec_hist {self.spec_hist} must exceed spec_ngram "
+                    f"{self.spec_ngram} + spec_draft {self.spec_draft}"
+                )
+            if self.spec_method == "heads":
+                self.spec_heads = max(self.spec_draft, int(spec_heads or 0))
+            elif self.spec_method == "draft":
+                self._draft_geom = self._parse_draft_model(spec_draft_model)
+        # tokens a slot can emit per step of a block (the verify width)
+        self._tps = 1 + self.spec_draft
+
+    def _parse_draft_model(self, spec: str | None) -> tuple:
+        """``spec_draft_model`` -> ``("truncate", N)`` (the model's own first
+        N layers; ``auto`` is ``max(1, n_layers // 8)``) or ``("preset",
+        NAME)`` (a separate preset of the family, at this model's
+        max_seq)."""
+        spec = str(spec or "truncate:auto").strip()
+        kind, _, arg = spec.partition(":")
+        kind = kind.lower()
+        if kind == "truncate":
+            arg = (arg or "auto").strip().lower()
+            if arg == "auto":
+                n = max(1, int(self.cfg.n_layers) // 8)
+            else:
+                try:
+                    n = int(arg)
+                except ValueError:
+                    raise GraphUnitError(
+                        f"generative model {self.name!r}: bad truncate layer count in "
+                        f"spec_draft_model={spec!r}"
+                    ) from None
+            if not 1 <= n < int(self.cfg.n_layers):
+                raise GraphUnitError(
+                    f"generative model {self.name!r}: truncate:{n} must keep "
+                    f"1 <= N < n_layers ({self.cfg.n_layers})"
+                )
+            return ("truncate", n)
+        if kind == "preset" and arg.strip():
+            return ("preset", arg.strip())
+        raise GraphUnitError(
+            f"generative model {self.name!r}: spec_draft_model must be 'truncate:N', "
+            f"'truncate:auto', or 'preset:NAME', got {spec!r}"
+        )
+
+    def _spec_state(self, medusa_heads: dict | None, draft_params) -> None:
+        """The proposers' device state: the history ring ``(S, spec_hist)``;
+        for ``heads`` the head block and the last verified hidden ``(S, E)``
+        per slot; for ``draft`` the draft model and its own paged pool, in
+        which slot ``i`` statically owns blocks ``[1 + i*mb, 1 + (i+1)*mb)``
+        (block 0 the sink), so no draft block is ever allocated or freed."""
+        S, dev, cfg = self.n_slots, self.device, self.cfg
+        self.spec_heads_bytes = self.draft_weight_bytes = self.draft_kv_bytes = 0
+        self._hist = self._hlast = self._heads = None
+        self._draft_params = self._draft_cfg = self._draft_cache = None
+        preset_draft = self._draft_geom is not None and self._draft_geom[0] == "preset"
+        if ((medusa_heads is not None and self.spec_method != "heads")
+                or (draft_params is not None and not preset_draft)):
+            raise GraphUnitError(
+                "medusa_heads needs spec_method='heads' and draft_params a "
+                "spec_draft_model='preset:NAME'"
+            )
+        if not self.spec_draft:
+            return
+        self._hist = torch.zeros(S, self.spec_hist, dtype=torch.int32, device=dev)
+        if self.spec_method == "heads":
+            if medusa_heads is None:
+                # synthesized from the lm_head: untrained heads draft "repeat
+                # the argmax", harmless since the verify pass emits the
+                # model's own tokens
+                medusa_heads = llama.init_medusa_heads(
+                    torch.Generator(device=dev).manual_seed(0), cfg, self.spec_heads,
+                    base_head=self.params.head, dtype=self.dtype, device=dev,
+                )
+            w1, head = medusa_heads.get("w1"), medusa_heads.get("head")
+            if (w1 is None or head is None or w1.shape[0] != head.shape[0]
+                    or w1.shape[0] < self.spec_draft
+                    or tuple(w1.shape[1:]) != (cfg.hidden, cfg.hidden)
+                    or tuple(head.shape[1:]) != (cfg.hidden, cfg.vocab_size)):
+                raise GraphUnitError(
+                    f"Medusa heads must be w1 (K, E, E) and head (K, E, V) with "
+                    f"K >= spec_draft={self.spec_draft}, E={cfg.hidden}, V={cfg.vocab_size}"
+                )
+            self._heads = {"w1": w1.to(device=dev, dtype=self.dtype),
+                           "head": head.to(device=dev, dtype=self.dtype)}
+            self.spec_heads = int(w1.shape[0])
+            self.spec_heads_bytes = sum(t.nbytes for t in self._heads.values())
+            self._hlast = torch.zeros(S, cfg.hidden, dtype=self.dtype, device=dev)
+        elif self.spec_method == "draft":
+            kind, geo = self._draft_geom
+            if kind == "truncate":
+                dparams = llama.truncate_params(self.params, geo)
+                self.draft_weight_bytes = sum(t.nbytes for t in dparams.layers.values())
+            else:
+                try:
+                    dcfg = resolve_config(geo, max_seq=cfg.max_seq)
+                except KeyError as e:
+                    raise GraphUnitError(str(e)) from None
+                if dcfg.vocab_size != cfg.vocab_size:
+                    raise GraphUnitError(
+                        f"generative model {self.name!r}: draft preset {geo!r} vocab "
+                        f"{dcfg.vocab_size} != target vocab {cfg.vocab_size}"
+                    )
+                if draft_params is None:
+                    dparams = init_params(dcfg, torch.Generator(device=dev).manual_seed(0),
+                                          dtype=self.dtype, device=dev)
+                elif draft_params.cfg != dcfg:
+                    raise GraphUnitError(f"draft_params are not preset {geo!r}: {draft_params.cfg}")
+                else:
+                    dparams = draft_params.to(device=dev, dtype=self.dtype)
+                self.draft_weight_bytes = sum(p.nbytes for p in dparams.parameters())
+            self._draft_params, self._draft_cfg = dparams, dparams.cfg
+            mbd = self._draft_cfg.max_seq // self.kv_block_size
+            self._draft_cache = llama.init_paged_cache(
+                self._draft_cfg, S, 1 + S * mbd, self.kv_block_size, dtype=self.dtype, device=dev,
+            )
+            self._draft_cache["table"].copy_(
+                1 + torch.arange(S * mbd, dtype=torch.int32, device=dev).reshape(S, mbd))
+            self.draft_kv_bytes = self._draft_cache["k"].nbytes + self._draft_cache["v"].nbytes
+
+    def _with_hist(self, payload: dict, prompt: np.ndarray) -> dict:
+        """Add the history-ring seed of ``prompt`` (the tokens the prefill
+        leaves in the pool) to a prefill payload when speculation is on."""
+        if self.spec_draft:
+            payload["hist_seed"] = seed_history(prompt, self.spec_hist)
+        return payload
+
+    def _prompt_landed(self, payload: dict, tok: torch.Tensor, hidden) -> None:
+        """A prefill's speculation state, on the device: the slot's history
+        ring (the seed plus the sampled token at ``length % spec_hist``)
+        and, for ``heads``, the hidden the first drafts come from."""
+        if not self.spec_draft:
+            return
+        slot = payload["slot"]
+        self._hist[slot] = self._h2d(payload["hist_seed"])
+        self._hist[slot, int(payload["length"]) % self.spec_hist] = tok
+        if hidden is not None:
+            self._hlast[slot] = hidden.to(self._hlast.dtype)
+
+    def draft_prefill_dispatch(self, slot: int, prompt: np.ndarray) -> None:
+        """Prefill the draft model's pool for ``slot`` with the WHOLE prompt
+        (``spec_method='draft'``; a reused prefix or a chunk plan prefills
+        it whole too).  Nothing is sampled or fetched.  A no-op for the
+        other methods."""
+        if self._draft_params is None:
+            return
+        prompt = np.asarray(prompt, np.int32).ravel()
+        dc = self._draft_cache
+        with self._lock, torch.no_grad():
+            llama.prefill_slot_paged(
+                self._draft_params, self._h2d(self._padded(prompt)), prompt.size, int(slot),
+                dc["table"][int(slot)].clone(), dc, self._draft_cfg, seq_impl=self.seq_impl,
+            )
+            self.draft_prefills += 1
+
+    def _drafts(self, tok, act, window: int) -> torch.Tensor:
+        """``(S, spec_draft)`` proposals for the current tokens ``tok``."""
+        d = self.spec_draft
+        if self.spec_method == "heads":
+            return propose_heads(llama.apply_medusa_heads(self._heads, self._hlast), draft=d)
+        if self.spec_method == "draft":
+            # greedy unroll of the draft model over its own pool: each step
+            # writes the row it consumed, so rows below the draft position
+            # hold the accepted sequence once the pass re-syncs it to pos
+            cur, out = tok, []
+            for _ in range(d):
+                dlogits, _ = llama.decode_slots_paged(
+                    self._draft_params, cur, self._draft_cache, act, self._draft_cfg,
+                    window=window, kernel=self.decode_kernel,
+                )
+                cur = torch.argmax(dlogits, dim=-1).to(torch.int32)
+                out.append(cur)
+            return torch.stack(out, dim=1)
+        return propose_ngram(self._hist, self._cache["pos"], tok, n=self.spec_ngram, draft=d)
+
+    def _verify_pass(self, tok, act, rem, temps, gen, eos_t, window: int):
+        """One speculative step of a block: draft, score ``L = 1 +
+        spec_draft`` positions per slot in one model call, accept the
+        longest prefix where the drafts agree with the sampled tokens (cut
+        after an eos), advance ``pos`` and the history ring by the tokens
+        emitted.  Returns ``(out (S, L), emitted (S, L), tok, act, rem)``,
+        all on the device."""
+        S, L = self.n_slots, self._tps
+        cache = self._cache
+        pos = cache["pos"]
+        offs = torch.arange(L, device=self.device)[None, :]
+        heads = self.spec_method == "heads"
+        drafts = self._drafts(tok, act, window)
+        qtoks = torch.cat([tok[:, None], drafts.to(tok.dtype)], dim=1)
+        # draft positions at or past the remaining budget write the sink
+        qvalid = act[:, None] & (offs < rem[:, None])
+        res = llama.decode_slots_spec_paged(
+            self.params, qtoks, cache, act, qvalid, self.cfg, window=window,
+            kernel=self.decode_kernel, return_hidden=heads,
+        )
+        logits = res[0]
+        out = llama.sample_tokens(
+            logits.reshape(S * L, logits.shape[-1]), temps.repeat_interleave(L), gen, self.top_k,
+        ).reshape(S, L)
+        agree = (drafts == out[:, :-1]).to(torch.int32)
+        n_acc = torch.cumprod(agree, dim=1).sum(dim=1)
+        base = qvalid & (offs <= n_acc[:, None])
+        eos_here = base & (eos_t[:, None] >= 0) & (out == eos_t[:, None])
+        eh = eos_here.to(torch.int32)
+        emitted = base & ((torch.cumsum(eh, dim=1) - eh) == 0)
+        n_em = emitted.sum(dim=1).to(torch.int32)
+        last = torch.clamp(n_em - 1, min=0).long()
+        new_cur = torch.gather(out, 1, last[:, None])[:, 0]
+        tok = torch.where(act, new_cur, tok)
+        rem = torch.where(act, rem - n_em, rem)
+        act2 = act & ~eos_here.any(dim=1) & (rem > 0)
+        # the emitted tokens go into the ring at positions pos+1 .. pos+n_em
+        widx = (pos.long()[:, None] + 1 + offs) % self.spec_hist
+        old = torch.gather(self._hist, 1, widx)
+        self._hist.scatter_(1, widx, torch.where(emitted, out, old))
+        new_pos = torch.where(act, pos + n_em, pos)
+        if heads:
+            hid = res[2]
+            new_h = torch.gather(hid, 1, last[:, None, None].expand(S, 1, hid.shape[-1]))[:, 0]
+            self._hlast.copy_(torch.where(act[:, None], new_h.to(self._hlast.dtype), self._hlast))
+        elif self.spec_method == "draft":
+            dpos = self._draft_cache["pos"]
+            dpos.copy_(torch.where(act, new_pos, dpos))
+        pos.copy_(new_pos)
+        return out, emitted, tok, act2, rem
+
+    def spec_snapshot(self) -> dict:
+        """The speculation configuration and its acceptance ledger."""
+        ratio = (self.spec_emitted_tokens / self.spec_verify_passes
+                 if self.spec_verify_passes else None)
+        return {
+            "spec_draft": self.spec_draft,
+            "spec_ngram": self.spec_ngram if self.spec_draft else None,
+            "spec_hist": self.spec_hist if self.spec_draft else None,
+            "spec_method": self.spec_method,
+            "spec_heads": self.spec_heads or None,
+            "spec_draft_model": (f"{self._draft_geom[0]}:{self._draft_geom[1]}"
+                                 if self._draft_geom else None),
+            "spec_verify_passes": self.spec_verify_passes,
+            "spec_emitted_tokens": self.spec_emitted_tokens,
+            "accepted_tokens_per_step": round(ratio, 4) if ratio is not None else None,
+            "draft_prefills": self.draft_prefills,
+            "spec_heads_bytes": self.spec_heads_bytes,
+            "draft_weight_bytes": self.draft_weight_bytes,
+            "draft_kv_bytes": self.draft_kv_bytes,
+        }
 
     # ------------------------------------------------------------ helpers
 
@@ -318,26 +634,31 @@ class GenerativeModel:
     def _exec_prefill(self, payload: dict) -> torch.Tensor:
         """Cold prefill of ``payload["padded"]`` into the slot's blocks; the
         sampled token stays on the device."""
+        heads = self.spec_method == "heads"
         with self._lock, torch.no_grad():
-            logits, _ = llama.prefill_slot_paged(
+            res = llama.prefill_slot_paged(
                 self.params, self._h2d(payload["padded"]), payload["length"], payload["slot"],
                 self._h2d(payload["blocks"]), self._cache, self.cfg, seq_impl=self.seq_impl,
+                return_hidden=heads,
             )
-            tok = self._sample_first(logits, payload)
+            tok = self._sample_first(res[0], payload)
+            self._prompt_landed(payload, tok, res[2] if heads else None)
             self._count_prefill(payload)
         return tok
 
     def _exec_prefill_suffix(self, payload: dict) -> torch.Tensor:
         """Suffix prefill over the ``prefix_len`` rows the slot's blocks
         already hold (a reused prefix or earlier chunks)."""
+        heads = self.spec_method == "heads"
         with self._lock, torch.no_grad():
-            logits, _ = llama.prefill_suffix_paged(
+            res = llama.prefill_suffix_paged(
                 self.params, self._h2d(payload["padded"]), payload["prefix_len"],
                 payload["length"], payload["slot"], self._h2d(payload["blocks"]),
                 self._h2d(payload["suffix_blocks"]), self._cache, self.cfg,
-                prefix_window=payload["window"],
+                prefix_window=payload["window"], return_hidden=heads,
             )
-            tok = self._sample_first(logits, payload)
+            tok = self._sample_first(res[0], payload)
+            self._prompt_landed(payload, tok, res[2] if heads else None)
             self._count_prefill(payload, reused=True)
         return tok
 
@@ -380,7 +701,9 @@ class GenerativeModel:
         admissions cost one host fetch (:meth:`fetch_tokens`).  A reused
         prefix skips its prefill; a prompt longer than ``prefill_chunk``
         runs its chunks back to back (the scheduler paces them instead,
-        through :meth:`admit_chunk_plan`, while streams decode)."""
+        through :meth:`admit_chunk_plan`, while streams decode).  With
+        ``spec_method='draft'`` the draft model's pool is prefilled with the
+        whole prompt first."""
         prompt = np.asarray(prompt, np.int32).ravel()
         L = int(prompt.size)
         if L < 1:
@@ -397,13 +720,14 @@ class GenerativeModel:
                 slot, prompt, L + max(0, int(reserve_tokens))
             )
             self._pos_ceiling[int(slot)] = L  # prefill wrote rows [0, L)
+            self.draft_prefill_dispatch(slot, prompt)
             if prefix_len > 0:
-                return self._exec_prefill_suffix(self._suffix_payload(
-                    prompt[prefix_len:], prefix_len, L, slot, row, temperature, seed))
-            return self._exec_prefill({
+                return self._exec_prefill_suffix(self._with_hist(self._suffix_payload(
+                    prompt[prefix_len:], prefix_len, L, slot, row, temperature, seed), prompt))
+            return self._exec_prefill(self._with_hist({
                 "padded": self._padded(prompt), "length": L, "slot": int(slot),
                 "blocks": row, "temperature": float(temperature), "seed": int(seed),
-            })
+            }, prompt))
 
     def admit_chunk_plan(
         self, slot: int, prompt: np.ndarray, temperature: float, seed: int,
@@ -432,22 +756,26 @@ class GenerativeModel:
             e = min(s + C, L)
             meta = {"last": idx == len(starts) - 1, "reused": prefix_len > 0}
             if s == 0:
-                payloads.append(("prefill", {
+                payloads.append(("prefill", self._with_hist({
                     "padded": self._padded(prompt[:e]), "length": e, "slot": int(slot),
                     "blocks": row, "temperature": float(temperature), "seed": int(seed),
                     "chunk": meta,
-                }))
+                }, prompt[:e])))
             else:
                 payload = self._suffix_payload(prompt[s:e], s, e, slot, row, temperature, seed)
-                payloads.append(("suffix", {**payload, "chunk": meta}))
-        return {"slot": int(slot), "payloads": payloads}
+                payloads.append(("suffix", self._with_hist({**payload, "chunk": meta}, prompt[:e])))
+        return {"slot": int(slot), "payloads": payloads, "prompt": prompt}
 
     def prefill_chunk_dispatch(self, plan: dict, i: int) -> torch.Tensor:
         """Dispatch chunk ``i`` of an :meth:`admit_chunk_plan` admission.
         Returns the chunk's sampled token on the device: only the final
         chunk's is the request's first token; the others are never
-        fetched, so chunking adds no host sync."""
+        fetched, so chunking adds no host sync.  The first chunk also
+        prefills the draft model's pool with the whole prompt
+        (``spec_method='draft'``)."""
         kind, payload = plan["payloads"][i]
+        if i == 0:
+            self.draft_prefill_dispatch(plan["slot"], plan["prompt"])
         if kind == "prefill":
             return self._exec_prefill(payload)
         return self._exec_prefill_suffix(payload)
@@ -512,7 +840,8 @@ class GenerativeModel:
 
     def _window_for(self, active: np.ndarray, extra: int) -> int:
         """Smallest power-of-two window (min 64, capped at max_seq) covering
-        every ACTIVE slot's position ceiling after ``extra`` more tokens."""
+        every ACTIVE slot's position ceiling after ``extra`` more tokens (a
+        speculative block asks for ``k * (1 + spec_draft)`` rows)."""
         act = np.asarray(active, bool)
         hi = int(self._pos_ceiling[act].max()) if act.any() else 0
         need = hi + extra + 1
@@ -546,10 +875,17 @@ class GenerativeModel:
         the ``(k, S)`` was-active-at-step mask saying which are real.
         ``eos`` is per slot (-1 = none) and ``remaining`` the per-slot token
         budget; both are enforced on the device, so a slot stops writing
-        the pool the step it finishes.  One host fetch per call."""
+        the pool the step it finishes.  One host fetch per call.
+
+        With speculation on each step is a verify pass (:meth:`_verify_pass`)
+        and the results have ``k * (1 + spec_draft)`` rows, pass by pass,
+        with the EMITTED mask in place of the was-active mask; the position
+        ceiling assumes every row at dispatch and is tightened to what the
+        fetched mask says landed."""
         act_np = np.asarray(active, bool)
         k = int(k)
-        window = window or self._window_for(act_np, k)
+        tps = self._tps
+        window = window or self._window_for(act_np, k * tps)
         packed = np.stack([
             np.asarray(tokens, np.int32), act_np.astype(np.int32),
             np.asarray(eos, np.int32), np.asarray(remaining, np.int32),
@@ -562,6 +898,12 @@ class GenerativeModel:
             gen = self._generator(seed)
             toks_seq, act_seq = [], []
             for _ in range(k):
+                if self.spec_draft:
+                    out, emitted, tok, act, rem = self._verify_pass(
+                        tok, act, rem, temps, gen, eos_t, window)
+                    toks_seq.append(out.T)
+                    act_seq.append(emitted.T)
+                    continue
                 logits, _ = llama.decode_slots_paged(
                     self.params, tok, self._cache, act, self.cfg, window=window,
                     kernel=self.decode_kernel,
@@ -570,19 +912,26 @@ class GenerativeModel:
                 new = torch.where(act, new, tok)
                 rem = torch.where(act, rem - 1, rem)
                 done = (new == eos_t) | (rem <= 0)
-                toks_seq.append(new)
-                act_seq.append(act)
+                toks_seq.append(new[None])
+                act_seq.append(act[None])
                 tok, act = new, act & ~done
             # THE one host fetch of the block: tokens and mask together
-            out = torch.stack([torch.stack(toks_seq), torch.stack(act_seq).to(torch.int32)])
+            out = torch.stack([torch.cat(toks_seq), torch.cat(act_seq).to(torch.int32)])
             out = out.cpu().numpy()
             self.host_syncs += 1
             self.decode_blocks += 1
             self.steps += k
-            self._pos_ceiling[act_np] += k
+            self._pos_ceiling[act_np] += k * tps
             self.last_block_s = time.perf_counter() - t0
             self.block_seconds += self.last_block_s
             self.tokens_emitted += int(out[1].sum())
+            if self.spec_draft and act_np.any():
+                emitted = out[1].sum(axis=0).astype(np.int64)
+                self._pos_ceiling[act_np] -= k * tps - emitted[act_np]
+                # productive passes only: a slot that finished mid-block
+                # rides the rest of it inactive, as in the plain path
+                self.spec_emitted_tokens += int(emitted.sum())
+                self.spec_verify_passes += int(out[1].reshape(k, tps, -1).any(axis=1).sum())
         return out[0], out[1].astype(bool)
 
     # ------------------------------------------------------ warmup/reset
@@ -591,7 +940,9 @@ class GenerativeModel:
         """Run every prefill bucket, one suffix prefill when prefix reuse or
         chunking is on, and one decode block per window bucket once (the
         kernel build, the allocator and cuBLAS handles are then off the
-        request path).  A no-op once traffic has touched the cache."""
+        request path).  With speculation on the blocks are verify passes
+        and, for ``draft``, each admission prefills the draft pool too.  A
+        no-op once traffic has touched the cache."""
         with self._lock:
             if self.prefills or self.steps:
                 return 0
@@ -602,8 +953,9 @@ class GenerativeModel:
             if self.prefix_index is not None or self.prefill_chunk:
                 bs = self.kv_block_size
                 row = self.reserve_blocks(0, 2 * bs)
-                self._exec_prefill_suffix(
-                    self._suffix_payload(np.ones(bs, np.int32), bs, 2 * bs, 0, row, 0.0, 0))
+                self._exec_prefill_suffix(self._with_hist(
+                    self._suffix_payload(np.ones(bs, np.int32), bs, 2 * bs, 0, row, 0.0, 0),
+                    np.ones(2 * bs, np.int32)))
                 n += 1
             S = self.n_slots
             for w in self._window_buckets():
@@ -619,6 +971,7 @@ class GenerativeModel:
             self.prefills = self.steps = self.decode_blocks = self.host_syncs = 0
             self.prefills_reused = self.prefill_chunks = 0
             self.tokens_emitted, self.block_seconds = 0, 0.0
+            self.spec_emitted_tokens = self.spec_verify_passes = self.draft_prefills = 0
             return n
 
     def reset(self) -> None:
@@ -785,7 +1138,11 @@ class GenerationScheduler:
                 self.model.release_slot(i)
 
     def _deliver(self, toks_seq, act_seq, slots, cur, active) -> None:
-        """Fan one fetched block's ``(k, S)`` tokens out to their requests."""
+        """Fan one fetched block's ``(rows, S)`` tokens out to their requests:
+        ``rows`` is ``k``, or ``k * (1 + spec_draft)`` with speculation on,
+        where ``act_seq`` marks the tokens each pass emitted.  A request that
+        finishes mid-block (mid-pass too) frees its slot at once and gets
+        none of the slot's later rows."""
         for step_i in range(toks_seq.shape[0]):
             for i, req in enumerate(slots):
                 if req is None or not act_seq[step_i, i]:
@@ -1007,6 +1364,8 @@ class GenerativeComponent(SeldonComponent):
             {"key": f"{n}_host_syncs", "type": "GAUGE", "value": m.host_syncs},
             {"key": f"{n}_prefills_reused", "type": "GAUGE", "value": m.prefills_reused},
             {"key": f"{n}_prefill_chunks", "type": "GAUGE", "value": m.prefill_chunks},
+            {"key": f"{n}_spec_verify_passes", "type": "GAUGE", "value": m.spec_verify_passes},
+            {"key": f"{n}_spec_emitted_tokens", "type": "GAUGE", "value": m.spec_emitted_tokens},
         ]
 
     async def _generate_rows(self, rows, max_new_tokens, temperature, eos_id):

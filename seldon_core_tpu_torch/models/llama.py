@@ -2,8 +2,10 @@
 
 The counterpart of the JAX package's ``models/llama.py`` for paged
 serving: a float or int8 paged KV pool, the suffix prefill over a reused
-prefix or an earlier chunk (``prefill_suffix_paged``), greedy and top-k
-sampling.  The
+prefix or an earlier chunk (``prefill_suffix_paged``), the speculative
+verify pass over ``1 + draft`` positions per slot
+(``decode_slots_spec_paged``) with its draft sources (Medusa-style heads,
+a layer-truncated self-draft), greedy and top-k sampling.  The
 weights keep the JAX package's stacked per-layer layout (``wq (L, E, H,
 D)``, ``wo (L, H, D, E)``, ...) inside :class:`Llama`, an ``nn.Module``, and
 the functions below keep the JAX signatures and ``(B, L, H, D)`` layouts,
@@ -37,7 +39,8 @@ from seldon_core_tpu_torch.ops.paged_attention import paged_decode_attention_pla
 
 __all__ = [
     "Config", "Llama", "init_paged_cache", "paged_kv_slot_bytes", "prefill_slot_paged",
-    "prefill_suffix_paged", "decode_slots_paged", "sample_tokens", "forward",
+    "prefill_suffix_paged", "decode_slots_paged", "decode_slots_spec_paged", "sample_tokens",
+    "forward", "init_medusa_heads", "apply_medusa_heads", "medusa_head_bytes", "truncate_params",
 ]
 
 
@@ -338,7 +341,7 @@ def _fake_quant_hook(scale_dtype):
 @torch.no_grad()
 def prefill_slot_paged(
     params: Llama, tokens, length: int, slot: int, blocks_row, cache: dict,
-    cfg: Config, *, seq_impl: str = "flash",
+    cfg: Config, *, seq_impl: str = "flash", return_hidden: bool = False,
 ):
     """Prefill ONE request's prompt into the blocks reserved for ``slot``.
 
@@ -346,8 +349,9 @@ def prefill_slot_paged(
     the block size; ``blocks_row (max_blocks,)`` the slot's table row
     (reserved physical ids, zero-padded: pad rows land in the sink).
     Under an int8 pool the attention sees the dequantized K/V the pool
-    will hold.  Returns ``(last_logits (V,), cache)``; the cache is
-    updated in place."""
+    will hold.  Returns ``(last_logits (V,), cache)``, plus the post-
+    ``ln_f`` hidden ``(E,)`` at that position when ``return_hidden`` (the
+    Medusa heads' input); the cache is updated in place."""
     bs = cache["k"].shape[2]
     lp = tokens.shape[1]
     if lp % bs:
@@ -366,6 +370,8 @@ def prefill_slot_paged(
     cache["pos"][slot] = int(length)
     cache["table"][slot] = blocks_row
     h = _rmsnorm(x[0, int(length) - 1], params.ln_f, cfg.norm_eps)
+    if return_hidden:
+        return h @ params.head, cache, h
     return h @ params.head, cache
 
 
@@ -373,6 +379,7 @@ def prefill_slot_paged(
 def prefill_suffix_paged(
     params: Llama, tokens, prefix_len: int, length: int, slot: int, blocks_row,
     suffix_blocks, cache: dict, cfg: Config, *, prefix_window: int,
+    return_hidden: bool = False,
 ):
     """Prefill only the SUFFIX of a prompt whose first ``prefix_len``
     tokens already have K/V in the slot's table blocks: a reused prefix
@@ -439,6 +446,8 @@ def prefill_suffix_paged(
     cache["pos"][slot] = int(length)
     cache["table"][slot] = blocks_row
     h = _rmsnorm(x[0, int(length) - int(prefix_len) - 1], params.ln_f, cfg.norm_eps)
+    if return_hidden:
+        return h @ params.head, cache, h
     return h @ params.head, cache
 
 
@@ -460,13 +469,36 @@ def decode_slots_paged(
     return logits[:, 0], cache
 
 
+@torch.no_grad()
+def decode_slots_spec_paged(
+    params: Llama, qtokens, cache: dict, active, qvalid, cfg: Config, *,
+    window: int | None = None, kernel: bool = True, return_hidden: bool = False,
+):
+    """Speculative verify pass: score ``L = 1 + draft`` query positions per
+    slot in ONE model call.
+
+    ``qtokens (S, L)`` is the current token followed by the drafted ones;
+    query ``j`` runs at position ``pos + j`` and its K/V is written there.
+    ``qvalid (S, L)`` gates those writes: a draft position at or past the
+    slot's remaining budget (whose block may not be reserved) and every
+    position of an inactive slot go to the sink block 0, scales too.
+    ``cache["pos"]`` is NOT advanced: the caller moves it by the tokens it
+    accepts, and rejected rows above it are overwritten by the next pass
+    before anything reads them.  Returns ``(logits (S, L, V), cache)``,
+    plus the post-``ln_f`` hidden ``(S, L, E)`` when ``return_hidden``."""
+    return _decode_paged_multi(
+        params, qtokens, cache, active, qvalid, cfg, window=window, kernel=kernel,
+        return_hidden=return_hidden,
+    )
+
+
 def _decode_paged_multi(params: Llama, qtokens, cache, active, qvalid, cfg: Config, *,
-                        window, kernel: bool = True):
-    """Shared L-query decode body (``L = 1`` is the decode step).  This
-    step's K/V rows are written into the pool first (quantized per row
-    under an int8 pool; inactive slots and positions past the table into
-    the sink block 0, scales too), then attention reads the slot's window
-    (the kernel dequantizes int8 pages itself)."""
+                        window, kernel: bool = True, return_hidden: bool = False):
+    """Shared L-query decode body (``L = 1`` is the decode step, ``L > 1``
+    the speculative verify).  This step's K/V rows are written into the
+    pool first (quantized per row under an int8 pool; rows whose ``qvalid``
+    is false into the sink block 0, scales too), then attention reads the
+    slot's window (the kernel dequantizes int8 pages itself)."""
     del active  # the write routing reads qvalid; kept for the JAX signature
     pos = cache["pos"]  # (S,)
     table = cache["table"]  # (S, MB)
@@ -506,7 +538,63 @@ def _decode_paged_multi(params: Llama, qtokens, cache, active, qvalid, cfg: Conf
         o = attend(q.contiguous(), ckl, cvl, read_idx, pos, **scales)
         x = _layer_out(x, o, lp, cfg)
     x = _rmsnorm(x, params.ln_f, cfg.norm_eps)
+    if return_hidden:
+        return x @ params.head, cache, x
     return x @ params.head, cache
+
+
+# ---------------------------------------------------------------------------
+# draft sources for speculation: Medusa-style heads and a layer-truncated
+# self-draft.  Both only propose; the verify pass emits the model's own
+# tokens, so neither changes the output, only the acceptance rate.
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def init_medusa_heads(generator: torch.Generator, cfg: Config, n_heads: int, base_head=None,
+                      dtype=torch.float32, device="cpu") -> dict:
+    """``n_heads`` Medusa-style draft heads: head ``j`` predicts the token
+    ``j + 1`` positions past the one its input hidden emitted, as
+    ``logits_j = (h + silu(h @ w1[j])) @ head[j]`` over the post-``ln_f``
+    hidden ``h``.  ``w1`` is ``0.01 * normal`` from ``generator``; with
+    ``base_head`` (the model's ``lm_head``) each output projection starts as
+    a copy of it (untrained heads then draft "repeat the argmax"), else
+    ``0.02 * normal``."""
+    n_heads, e, v = int(n_heads), cfg.hidden, cfg.vocab_size
+    w1 = 0.01 * torch.randn((n_heads, e, e), generator=generator, device=device)
+    if base_head is not None:
+        head = base_head.to(device=device, dtype=torch.float32)[None].expand(n_heads, e, v)
+    else:
+        head = 0.02 * torch.randn((n_heads, e, v), generator=generator, device=device)
+    return {"w1": w1.to(dtype).contiguous(), "head": head.to(dtype).contiguous()}
+
+
+def apply_medusa_heads(heads: dict, h: torch.Tensor) -> torch.Tensor:
+    """Head logits ``(S, K, V)`` from per-slot hidden states ``h (S, E)``."""
+    w1 = heads["w1"]
+    hx = h.to(w1.dtype)
+    hk = hx[:, None, :] + torch.nn.functional.silu(torch.einsum("se,kef->skf", hx, w1))
+    return torch.einsum("ske,kev->skv", hk, heads["head"])
+
+
+def medusa_head_bytes(cfg: Config, n_heads: int, dtype=torch.float32) -> int:
+    """Device bytes ``n_heads`` resident Medusa heads cost."""
+    e, v = cfg.hidden, cfg.vocab_size
+    return int(n_heads) * (e * e + e * v) * _itemsize(dtype)
+
+
+def truncate_params(params: Llama, n_layers: int) -> Llama:
+    """A layer-truncated self-draft: the model's OWN first ``n_layers``
+    blocks with its embedding, final norm and ``lm_head``.  The stacked
+    layer tensors are sliced (views, no copy) and everything else is the
+    same tensor; the result's ``cfg`` has ``n_layers`` layers."""
+    n = int(n_layers)
+    dcfg = dataclasses.replace(params.cfg, n_layers=n)
+    tensors = {"tok_emb": params.tok_emb.data, "ln_f": params.ln_f.data,
+               "head": params.head.data}
+    for k in LAYER_KEYS:
+        tensors[f"layers/{k}"] = params.layers[k].data[:n]
+    return Llama(dcfg, tensors)
 
 
 def sample_tokens(logits, temperature, generator: torch.Generator, top_k: int = 0):

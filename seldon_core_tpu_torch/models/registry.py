@@ -26,11 +26,11 @@ PRESETS = {
 }
 
 # parameters of the JAX package's generative unit that belong to later
-# slices of the port (speculation, LoRA, the prefix tiers, mesh,
-# checkpoints, the overlap pipeline, chip packing, LLM-graph hooks)
+# slices of the port (trained Medusa heads from a checkpoint, LoRA, the
+# prefix tiers, mesh, checkpoints, the overlap pipeline, chip packing,
+# LLM-graph hooks)
 LATER_SLICE_PARAMS = (
-    "spec_draft", "spec_ngram", "spec_hist", "spec_method", "spec_heads",
-    "spec_heads_path", "spec_draft_model", "lora_rank", "lora_slots",
+    "spec_heads_path", "lora_rank", "lora_slots",
     "lora_targets", "lora_adapters", "adapter", "prefix_dram_gb", "mesh",
     "checkpoint", "overlap", "pack_class", "pack_slo_ms", "conf_signal",
     "embed",
@@ -80,6 +80,12 @@ def build_generative_component(
     kv_cache_dtype: str | None = None,
     kv_prefix_reuse: bool | None = None,
     prefill_chunk: int | None = None,
+    spec_draft: int | None = None,
+    spec_ngram: int | None = None,
+    spec_hist: int = 64,
+    spec_method: str | None = None,
+    spec_heads: int | None = None,
+    spec_draft_model: str | None = None,
     device: str = "cuda",
     **overrides,
 ):
@@ -93,7 +99,11 @@ def build_generative_component(
     quantized with per-(position, head) scales, ``kv_prefix_reuse`` shares
     prompt-prefix KV blocks across requests and ``prefill_chunk`` prefills
     long prompts in chunks paced between decode blocks, as in the JAX
-    package."""
+    package.  ``spec_draft`` turns on speculative decoding with the
+    proposer ``spec_method`` (``ngram``, ``heads`` with ``spec_heads``
+    heads made from the model's ``lm_head``, or ``draft`` with
+    ``spec_draft_model``); ``spec_ngram``/``spec_hist`` size the n-gram
+    proposer."""
     from seldon_core_tpu_torch.executor.generation import (
         GenerativeComponent,
         GenerativeModel,
@@ -143,6 +153,12 @@ def build_generative_component(
         kv_cache_dtype=kv_cache_dtype,
         prefill_chunk=prefill_chunk,
         prefix_reuse=kv_prefix_reuse,
+        spec_draft=spec_draft,
+        spec_ngram=spec_ngram,
+        spec_hist=spec_hist,
+        spec_method=spec_method,
+        spec_heads=spec_heads,
+        spec_draft_model=spec_draft_model,
         device=dev,
     )
     return GenerativeComponent(

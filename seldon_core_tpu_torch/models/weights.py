@@ -8,7 +8,9 @@ key by key with the stacked layout kept, so the two frameworks run the
 same numbers.  ``init_params`` makes full-width weights from a
 ``torch.Generator`` directly on the device, with the JAX package's
 initial distribution (normal / sqrt(hidden), norms at one); the numbers
-differ from JAX's, since the generators do.
+differ from JAX's, since the generators do.  ``medusa_heads_from_jax``
+carries the JAX package's Medusa head block (``{"w1", "head"}``) the same
+way, for a model that drafts with those heads.
 """
 
 from __future__ import annotations
@@ -32,19 +34,29 @@ def _flatten(tree: dict) -> dict:
     return flat
 
 
+def _tensor(arr, dtype, device) -> torch.Tensor:
+    a = np.asarray(arr)
+    # a writable copy (device arrays export read-only views); float types
+    # numpy lacks (ml_dtypes bfloat16) arrive as float32
+    a = np.array(a, dtype=a.dtype if a.dtype.kind == "f" else np.float32)
+    t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
 def params_from_jax(tree: dict, cfg: Config, *, dtype=None, device="cpu") -> Llama:
     """The JAX ``init_params`` pytree -> :class:`Llama` on ``device``.
     ``dtype`` None keeps each array's float type (bf16 arrays, which numpy
     cannot hold natively, arrive as float32)."""
-    tensors = {}
-    for key, arr in _flatten(tree).items():
-        a = np.asarray(arr)
-        # a writable copy (device arrays export read-only views); float types
-        # numpy lacks (ml_dtypes bfloat16) arrive as float32
-        a = np.array(a, dtype=a.dtype if a.dtype.kind == "f" else np.float32)
-        t = torch.from_numpy(a)
-        tensors[key] = t.to(device=device, dtype=dtype or t.dtype)
+    tensors = {key: _tensor(arr, dtype, device) for key, arr in _flatten(tree).items()}
     return Llama(cfg, tensors)
+
+
+def medusa_heads_from_jax(heads: dict, dtype=None, device="cpu") -> dict:
+    """The JAX ``init_medusa_heads`` block (``w1 (K, E, E)``, ``head (K, E,
+    V)``) -> the same dict of tensors on ``device``."""
+    if set(heads) != {"w1", "head"}:
+        raise ValueError(f"Medusa heads need keys ['head', 'w1'], got {sorted(heads)}")
+    return {key: _tensor(heads[key], dtype, device) for key in ("w1", "head")}
 
 
 @torch.no_grad()

@@ -14,11 +14,14 @@ instructions in each kernel's SASS.
 Every C entry returns the launch's ``cudaError_t``; :func:`check` raises
 on anything but 0.  ``LAUNCHES`` counts kernel launches per wrapper (a
 launch made anywhere adds one), so a run can show that its path went
-through the kernels.
+through the kernels; ``PAGED_LAUNCHES_BY_L`` splits the paged kernel's
+count by its query positions per slot (1 in a decode step, ``1 +
+spec_draft`` in a speculative verify pass).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -50,6 +53,7 @@ DTYPE_CODES = {
 }
 
 LAUNCHES = {"flash_attention": 0, "paged_decode_attention": 0}
+PAGED_LAUNCHES_BY_L: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -70,6 +74,7 @@ build_seconds: float | None = None  # nvcc wall time of this process's build
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    PAGED_LAUNCHES_BY_L.clear()
 
 
 def _cuda_tool(name: str) -> str | None:

@@ -221,7 +221,7 @@ def test_codec_matches_the_jax_codec(msg):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("spec_draft", 4), ("lora_rank", 8), ("prefix_dram_gb", 1.0), ("mesh", "auto"),
+    ("spec_heads_path", "/heads.npz"), ("lora_rank", 8), ("prefix_dram_gb", 1.0), ("mesh", "auto"),
     ("checkpoint", "/weights.npz"), ("overlap", True),
 ])
 def test_later_slice_parameters_raise_by_name(name, value):
