@@ -16,8 +16,9 @@ Phases, each printing one JSON line:
    dims, in bf16, f16 and f32; paged attention at 1-4 queries per slot,
    int8 pages, position 0, positions on and off page boundaries, one split
    and many, slots whose later splits are empty and rows that see nothing,
-   and at head dim 128 (llama3-8b) and 8- and 32-row pages; and a verify
-   pass's first query (L = 4) must give the decode step's (L = 1) bits.
+   and at head dim 128 (llama3-8b) and 8- and 32-row pages; and every
+   query j of a verify pass (L = 4) must give the bits of a decode step
+   (L = 1) at pos + j.
 3. ``reference``: a 2-layer model at llama3-1b width in f32 on the card
    against the same weights on the CPU (plain versions): prefill logits,
    teacher-forced decode logits and greedy tokens over a float pool and
@@ -56,11 +57,33 @@ Phases, each printing one JSON line:
    weights, the model drafting for itself), each answering a wave of the
    ``serve`` prompts plus a repetitive one.  It fails unless each decode
    block cost one host sync, the paged kernel ran verify passes (L = 4),
-   for ``draft`` flash attention prefilled the draft pool, and the
-   self-draft had drafts accepted; it prints accepted tokens per
-   verify pass, ms per pass, wave tokens/s, TTFT and each stream's
-   agreement with the ``serve`` phase's (bf16: reported, not gated).
-7. ``kernel_times``: each kernel's time at the main path's shapes and at a
+   for ``draft`` flash attention prefilled the draft pool, the
+   self-draft had drafts accepted, and every greedy stream equals the
+   ``serve`` phase's bit for bit (bf16; the verify pass runs the ops
+   whose rows the card rounds otherwise at 32 rows than at 8 once per
+   query position); it prints accepted tokens per verify pass, ms per
+   pass, wave tokens/s, TTFT, each stream's agreement, and (``ngram``)
+   each verify row against a plain step at pos + j and which ops of a
+   layer keep a row's bits at 32 rows.
+7. ``serve_disagg``: two engines in one process over loopback HTTP, the
+   ``serve`` graph with explicit ``kv_blocks``: A in the ``prefill`` role
+   (``SCT_DISAGG_DECODE`` naming B) and B in the ``decode`` role.  The
+   serve wave's distinct prompts through A's ``/disagg/generate`` must
+   all answer ``mode == "disagg"`` with ``serve``'s streams bit for bit,
+   with flash attention launched on A only and paged attention on B only;
+   again with int8 pools against a unified int8 wave on B.  B refuses a
+   frame of 8-row pages (409); a third engine C pulls a prompt's
+   512-token prefix chain from A (``SCT_PREFIX_PEER_PULL=1``, the
+   ``x-sct-prefix-peer`` header) and serves it from the peer tier with
+   A's tokens; with B stopped, A answers ``unified-fallback`` with the
+   same tokens and its free-block count back where it was.  Then the
+   DRAM tier: ``prefix_dram_gb`` with a 128-block pool in which a
+   1500-token prompt evicts a warmed 512-token prefix, promoted back for
+   a prompt sharing it, must give the streams of a pool with room for
+   all of it.  It prints handoff bytes per request, export and import
+   ms, TTFT (client send to the decode engine's first token) and wave
+   tokens/s beside ``serve``'s, and the DRAM tier's counters.
+8. ``kernel_times``: each kernel's time at the main path's shapes and at a
    long one (flash at S=2048, paged at 8 slots near position 2000; paged
    also over int8 pages with bf16 scales at both, and at 4 queries per
    slot as a verify pass reads, beside the K/V bytes it reads) beside its plain
@@ -441,20 +464,23 @@ def phase_kernel_check() -> dict:
         raise AssertionError("paged attention's result follows the window width")
     checks.append({"kernel": "paged_decode_attention", "window_invariant": True, "WB": [64, 128],
                    "max_abs_err": 0.0, "max_err_over_limit": 0.0})
-    # a verify pass's query 0 (chunk 0 of 4 at 4 query heads per KV head)
-    # must give the decode step's bits, also where pos + 3 starts another
-    # page or split: greedy speculation equals speculation off on it
+    # every query j of a verify pass (chunk j of 4 at 4 query heads per KV
+    # head) must give the bits of a decode step (L = 1) at pos + j, also
+    # where pos + j starts another page or split: greedy speculation
+    # equals speculation off on it
     for dn, quant in (("bfloat16", False), ("bfloat16", True), ("float32", False)):
         args, kw = _paged_inputs(8, 1 + SPEC_DRAFT, H, KV, 64, 16, 1 + 8 * 64, 64,
                                  getattr(torch, dn), seed=997, quant=quant,
                                  pos=[125, 126, 127, 13, 300, 511, 0, 1020])
         q, k, v, table, pos = args
-        one = pa.paged_decode_attention(q[:, :1].contiguous(), k, v, table, pos, **kw)
         verify = pa.paged_decode_attention(q, k, v, table, pos, **kw)
-        if not torch.equal(one[:, 0], verify[:, 0]):
-            raise AssertionError(f"paged attention's query 0 at L={1 + SPEC_DRAFT} is not the "
-                                 f"L=1 result ({dn}, int8 pages: {quant})")
-        checks.append({"kernel": "paged_decode_attention", "row0_bit_equal": True, "dtype": dn,
+        for j in range(1 + SPEC_DRAFT):
+            one = pa.paged_decode_attention(q[:, j:j + 1].contiguous(), k, v, table,
+                                            (pos + j).to(torch.int32), **kw)
+            if not torch.equal(one[:, 0], verify[:, j]):
+                raise AssertionError(f"paged attention's query {j} at L={1 + SPEC_DRAFT} is not "
+                                     f"the L=1 result at pos+{j} ({dn}, int8 pages: {quant})")
+        checks.append({"kernel": "paged_decode_attention", "rows_bit_equal": True, "dtype": dn,
                        "quant": quant, "L": [1, 1 + SPEC_DRAFT], "max_abs_err": 0.0,
                        "max_err_over_limit": 0.0})
     _sync()
@@ -726,6 +752,19 @@ def _post(port: int, body: dict, timeout: float = 600.0) -> tuple[int, dict]:
         return resp.status, json.loads(resp.read())
 
 
+def _call(port: int, path: str, body, headers: dict | None = None,
+          timeout: float = 600.0) -> tuple[int, bytes]:
+    """POST ``body`` (a dict as JSON, or bytes) to ``path`` -> (status, body)."""
+    data = body if isinstance(body, bytes) else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers=headers or {}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
 def _get(port: int, path: str) -> int:
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as resp:
@@ -840,13 +879,14 @@ def _serve_spec(preset: str, seed: int, **extra):
     })
 
 
-async def _boot(spec, device: str):
-    """Start the engine on a free port and wait until it is ready (warmup
-    included); returns the app and the seconds that took."""
+async def _boot(spec, device: str, **engine):
+    """Start the engine (``engine``: its role and decode peers) on a free
+    port and wait until it is ready (warmup included); returns the app and
+    the seconds that took."""
     from seldon_core_tpu_torch.engine.app import EngineApp
     from seldon_core_tpu_torch.engine.service import PredictionService
 
-    app = EngineApp(PredictionService(spec, device=device))
+    app = EngineApp(PredictionService(spec, device=device), **engine)
     await app.start("127.0.0.1", 0)
     t0 = time.perf_counter()
     boot = asyncio.create_task(app.boot())
@@ -1042,12 +1082,14 @@ def _divergence(model, prompt, off, on) -> dict:
             "logit_scale": float(logits.abs().max())}
 
 
-def _row0_gap(model) -> dict:
-    """A decode step (L = 1) against a verify pass's first query (L = 1 +
-    SPEC_DRAFT) on copies of one pool, with ``model``'s weights and dtype
-    (SERVE_SLOTS slots at positions 100-121): how far the logits move when
-    the matmuls see SERVE_SLOTS * (1 + SPEC_DRAFT) rows instead of
-    SERVE_SLOTS."""
+def _verify_rows_vs_steps(model) -> dict:
+    """A verify pass (L = 1 + SPEC_DRAFT) against L plain decode steps fed
+    the pass's tokens, on copies of one pool, with ``model``'s weights,
+    dtype and ``row_split`` (SERVE_SLOTS slots at positions 100-121): for
+    each query j whether its logits are the step's at pos + j bit for bit,
+    and the pools' bytes after; the same pass with no op split, for
+    comparison; and which ops of a layer and the ``lm_head`` keep a row's
+    bits at SERVE_SLOTS * L rows against SERVE_SLOTS."""
     import numpy as np
     import torch
 
@@ -1063,29 +1105,39 @@ def _row0_gap(model) -> dict:
         llama.prefill_slot_paged(model.params, toks.to(dev), 100 + 3 * slot, slot, row, cache, cfg)
     qtok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (S, L)).astype(np.int32)).to(dev)
     act = torch.ones(S, dtype=torch.bool, device=dev)
-    one, _ = llama.decode_slots_paged(model.params, qtok[:, 0].contiguous(),
-                                      {k: v.clone() for k, v in cache.items()}, act, cfg,
-                                      window=128)
-    verify, _ = llama.decode_slots_spec_paged(
-        model.params, qtok, {k: v.clone() for k, v in cache.items()}, act,
-        torch.ones(S, L, dtype=torch.bool, device=dev), cfg, window=128)
-    diff = (one.float() - verify[:, 0].float()).abs()
-    # whether a row of x @ W keeps its bits when the product has S * L rows
-    # instead of S, for each weight shape of a layer and the lm_head
-    lp = model.params.layer(0)
-    weights = {"wq": lp["wq"].flatten(1), "wk": lp["wk"].flatten(1), "wv": lp["wv"].flatten(1),
-               "wo": lp["wo"].flatten(0, 1), "w_gate": lp["w_gate"], "w_up": lp["w_up"],
-               "w_down": lp["w_down"], "head": model.params.head}
-    x = torch.randn(S * L, max(cfg.hidden, cfg.ffn), device=dev).to(model.dtype)
-    rows_equal = {}
-    for name, w in weights.items():
-        a = x[:, : w.shape[0]]
-        rows_equal[name] = bool(torch.equal((a @ w)[:S], a[:S].contiguous() @ w))
-    return {"dtype": str(model.dtype).replace("torch.", ""), "slots": S, "L": L,
-            "bit_equal": bool(torch.equal(one, verify[:, 0])),
-            "max_abs_logit_diff": float(diff.max()), "logit_scale": float(one.float().abs().max()),
-            "argmax_equal": int((one.argmax(-1) == verify[:, 0].argmax(-1)).sum()),
-            "matmul_rows_bit_equal": rows_equal}
+    valid = torch.ones(S, L, dtype=torch.bool, device=dev)
+
+    def verify(row_split):
+        pool = {k: v.clone() for k, v in cache.items()}
+        out, _ = llama.decode_slots_spec_paged(model.params, qtok, pool, act, valid, cfg,
+                                               window=128, row_split=row_split)
+        return out, pool
+
+    stepped = {k: v.clone() for k, v in cache.items()}
+    steps = []
+    for j in range(L):
+        out, _ = llama.decode_slots_paged(model.params, qtok[:, j].contiguous(), stepped, act, cfg,
+                                          window=128)
+        steps.append(out)
+    recs = {}
+    for name, split in (("row_split", model._row_split), ("unsplit", frozenset())):
+        out, pool = verify(split)
+        diffs = [float((steps[j].float() - out[:, j].float()).abs().max()) for j in range(L)]
+        recs[name] = {
+            "ops": sorted(split),
+            "rows_bit_equal": [bool(torch.equal(steps[j], out[:, j])) for j in range(L)],
+            "max_abs_logit_diff": diffs,
+            "argmax_equal": [int((steps[j].argmax(-1) == out[:, j].argmax(-1)).sum())
+                             for j in range(L)],
+            "pool_bit_equal": all(torch.equal(pool[k][:, 1:], stepped[k][:, 1:])
+                                  for k in ("k", "v")),
+        }
+    variant = llama.row_variant_ops(cfg, S, L, model.dtype, dev)
+    return {"dtype": str(model.dtype).replace("torch.", ""), "slots": S, "L": L, **recs,
+            "logit_scale": float(steps[0].float().abs().max()),
+            "ops_rows_bit_equal": {op: op not in variant for op in llama.ROW_OPS},
+            "bit_equal": all(recs["row_split"]["rows_bit_equal"])
+            and recs["row_split"]["pool_bit_equal"]}
 
 
 def phase_serve_spec(serve: dict, device: str = "cuda", preset: str = SERVE_PRESET,
@@ -1147,7 +1199,7 @@ def phase_serve_spec(serve: dict, device: str = "cuda", preset: str = SERVE_PRES
                 ttft = sorted(t for _, t in list(sched.ttft)[before["ttft"]:])
                 agree = [_divergence(model, p, off, on)
                          for p, off, on in zip(serve["prompts"], serve["outs"], outs)]
-                row0 = _row0_gap(model) if method == "ngram" else None
+                rows = _verify_rows_vs_steps(model) if method == "ngram" else None
                 rec = {
                     "phase": "serve_spec", "method": method, "preset": preset,
                     "dtype": "bfloat16", "spec_draft": SPEC_DRAFT,
@@ -1166,23 +1218,27 @@ def phase_serve_spec(serve: dict, device: str = "cuda", preset: str = SERVE_PRES
                     "draft_prefills": model.draft_prefills - before["draft_prefills"],
                     "flash_launches_draft_pool": k1_draft[0],
                     "repeat_prompt_tokens": outs[-1][:16],
-                    # bf16 at full depth: reported, not gated (near-tied
-                    # logits of seeded weights may flip a greedy argmax)
+                    # gated: greedy speculation on equals off, bit for bit,
+                    # in bf16 at full depth too (the verify pass runs the
+                    # ops in spec.row_split once per query position)
                     "agreement_with_serve": agree,
                     "streams_equal_to_serve": sum(a["first_divergence"] is None for a in agree),
-                    "verify_row0_vs_step": row0,
+                    "verify_rows_vs_steps": rows,
                 }
                 rec["ok"] = (blocks > 0 and syncs == blocks and passes > 0
                              and by_l.get(str(1 + SPEC_DRAFT), 0) > 0
                              and (not method.startswith("draft")
                                   or (k1_draft[0] > 0 and by_l.get("1", 0) > 0))
-                             and (method != "draft_self" or emitted > passes))
+                             and (method != "draft_self" or emitted > passes)
+                             and rec["streams_equal_to_serve"] == len(agree)
+                             and (rows is None or rows["bit_equal"]))
                 emit(rec)
                 if not rec["ok"]:
                     raise AssertionError(
                         f"serve_spec {method}: one host sync per block, verify passes at "
-                        f"L={1 + SPEC_DRAFT}, the draft pool's kernels or the self-draft's "
-                        "acceptance are missing")
+                        f"L={1 + SPEC_DRAFT}, the draft pool's kernels, the self-draft's "
+                        "acceptance, the streams of spec off or the verify rows' bits are "
+                        "missing")
                 return launches
             finally:
                 await app.close()
@@ -1191,6 +1247,383 @@ def phase_serve_spec(serve: dict, device: str = "cuda", preset: str = SERVE_PRES
         for name in total:
             total[name] += launches[name]
     return total
+
+
+DISAGG_KV_BLOCKS = 1 + SERVE_SLOTS * 64  # each engine's pool: 8 slots of up to 1024 rows
+# the least pool a 2048-token request fits in (128 blocks + the sink): the
+# 1500-token prompt's 96 blocks do not fit beside the warmed 33-block chain
+DRAM_POOL_BLOCKS = 129
+DRAM_GB = 1.0
+
+
+def _gen(port: int, prompt, headers=None) -> tuple[int, dict]:
+    code, body = _call(port, "/disagg/generate", {"tokens": prompt, "max_new_tokens": MAX_NEW},
+                       headers)
+    return code, json.loads(body)
+
+
+async def _wave(port: int, prompts, path: str = "/disagg/generate") -> tuple[list, float, list]:
+    """``prompts`` concurrently -> (replies, wave seconds, client send times)."""
+    loop = asyncio.get_running_loop()
+    sent = [0.0] * len(prompts)
+
+    def one(i):
+        sent[i] = time.perf_counter()
+        if path == "/disagg/generate":
+            return _gen(port, prompts[i])
+        return _post(port, {"strData": json.dumps({"tokens": prompts[i],
+                                                   "max_new_tokens": MAX_NEW})})
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as clients:
+        replies = await asyncio.gather(*(loop.run_in_executor(clients, one, i)
+                                         for i in range(len(prompts))))
+    return replies, time.perf_counter() - t0, sent
+
+
+def _timed(obj, name: str, log: list) -> None:
+    """Wrap ``obj.name`` on the instance to log its host seconds."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            log.append(time.perf_counter() - t0)
+
+    setattr(obj, name, timed)
+
+
+def _first_token_times(sched) -> dict:
+    """Log, on ``sched``'s instance, when each request's first token lands
+    (the decode engine admits an import): prompt tuple -> times."""
+    seen: dict = {}
+    start = sched._start
+
+    def logged(req, *a, **kw):
+        seen.setdefault(tuple(req.prompt.tolist()), []).append(time.perf_counter())
+        return start(req, *a, **kw)
+
+    sched._start = logged
+    return seen
+
+
+async def _disagg_wave(a, b, prompts) -> dict:
+    """The wave through prefill engine ``a`` (handing off to ``b``): the
+    streams, modes, launches by engine, TTFT (client send to the decode
+    engine's first token), export and import costs, handoff bytes."""
+    from seldon_core_tpu_torch.ops import _build
+
+    ma, mb = (x.service.walker.component.model for x in (a, b))
+    sb = b.service.walker.component.scheduler
+    firsts = _first_token_times(sb)
+    attach: list = []
+    _timed(mb, "attach_imported", attach)
+    before = {"a": dict(a.disagg_stats), "b": dict(b.disagg_stats), "a_blocks": ma.decode_blocks,
+              "b_prefills": mb.prefills, "b_blocks": mb.decode_blocks, "b_syncs": mb.host_syncs,
+              "b_steps": mb.steps, "b_block_s": mb.block_seconds}
+    _build.reset_launches()  # this wave's run starts here
+    replies, wave_s, sent = await _wave(a.port, prompts)
+    launches = dict(_build.LAUNCHES)
+    del sb._start, mb.attach_imported  # the instance wrappers
+    ttft = []
+    for i, p in enumerate(prompts):
+        times = firsts.get(tuple(p), [])
+        if times:
+            ttft.append(times.pop(0) - sent[i])
+    da = {k: a.disagg_stats[k] - before["a"][k] for k in ("handoffs_ok", "handoff_bytes",
+                                                          "export_s", "local_fallbacks")}
+    db = {k: b.disagg_stats[k] - before["b"][k] for k in ("imports_ok", "import_decode_s")}
+    n = max(1, da["handoffs_ok"])
+    rows = sum(-(-len(p) // 16) * 16 for p in prompts)  # the prompt blocks' rows shipped
+    blocks = mb.decode_blocks - before["b_blocks"]
+    syncs = mb.host_syncs - before["b_syncs"]
+    return {
+        "replies": replies, "modes": [body.get("mode") for _, body in replies],
+        "outs": [body.get("tokens") for _, body in replies],
+        "wave_s": wave_s, "wave_tokens_per_s": len(prompts) * MAX_NEW / wave_s,
+        "ttft_s_p50": statistics.median(ttft) if ttft else None,
+        "ttft_s_max": max(ttft) if ttft else None,
+        "ttft_prefill_engine_s_p50": statistics.median(
+            t for _, t in list(a.service.walker.component.scheduler.ttft)[-len(prompts):]),
+        "handoffs": da["handoffs_ok"], "imports": db["imports_ok"],
+        "local_fallbacks": da["local_fallbacks"],
+        "handoff_bytes_per_request": da["handoff_bytes"] / n,
+        "handoff_bytes_per_prompt_row": da["handoff_bytes"] / max(1, rows),
+        "export_ms": 1e3 * da["export_s"] / n,
+        "import_ms": 1e3 * (db["import_decode_s"] + sum(attach)) / max(1, db["imports_ok"]),
+        "import_frame_decode_ms": 1e3 * db["import_decode_s"] / max(1, db["imports_ok"]),
+        "import_attach_host_ms": 1e3 * sum(attach) / max(1, len(attach)),
+        "launches_prefill_engine": {"flash_attention": launches["flash_attention"]},
+        "launches_decode_engine": {"paged_decode_attention": launches["paged_decode_attention"]},
+        "launches": launches,
+        # the attribution holds: the prefill engine decoded nothing, the
+        # decode engine prefilled nothing
+        "prefill_engine_decode_blocks": ma.decode_blocks - before["a_blocks"],
+        "decode_engine_prefills": mb.prefills - before["b_prefills"],
+        "decode_blocks": blocks, "host_syncs": syncs,
+        "decode_step_ms": 1e3 * (mb.block_seconds - before["b_block_s"])
+        / max(1, mb.steps - before["b_steps"]),
+    }
+
+
+def _streams_equal(want, got) -> int:
+    return sum(a == b for a, b in zip(want, got))
+
+
+def phase_serve_disagg(serve: dict, device: str = "cuda", preset: str = SERVE_PRESET,
+                       seed: int = 0) -> dict:
+    """Two engines in one process over loopback HTTP, prefill role (A) and
+    decode role (B), answer the serve wave's distinct prompts through
+    ``/disagg/generate``: the streams must equal ``serve``'s bit for bit,
+    bf16 pools and again int8 pools (against a unified int8 wave); A
+    answers ``unified-fallback`` with B stopped and leaks no block; B
+    refuses a frame of another block size (409).  A third engine (C)
+    pulls a shared prefix's chain from A and serves it from the peer tier
+    with A's tokens.  Then the DRAM tier: a pool small enough that a long
+    prompt evicts a warmed 512-token prefix, with ``prefix_dram_gb`` set,
+    must give the pressure-free run's streams.  Returns the kernels'
+    launch counts summed over the runs."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.disagg import handoff
+    from seldon_core_tpu_torch.ops import _build
+
+    blocks = {"kv_blocks": (DISAGG_KV_BLOCKS, "INT")}
+    reuse = {"kv_prefix_reuse": ("true", "BOOL")}
+    int8 = {"kv_cache_dtype": ("int8", "STRING")}
+    prompts = serve["prompts"]  # the serve wave's distinct prompts
+    total = {name: 0 for name in KERNELS}
+
+    def add(launches):
+        for name in total:
+            total[name] += launches[name]
+
+    async def pair(extra: dict, **a_extra):
+        b, b_s = await _boot(_serve_spec(preset, seed, **blocks, **extra), device, role="decode")
+        os.environ["SCT_DISAGG_DECODE"] = f"127.0.0.1:{b.port}"
+        try:
+            a, a_s = await _boot(_serve_spec(preset, seed, **blocks, **extra, **a_extra), device,
+                                 role="prefill")
+        finally:
+            del os.environ["SCT_DISAGG_DECODE"]
+        return a, b, a_s + b_s
+
+    async def run() -> dict:
+        rec = {"phase": "serve_disagg", "preset": preset, "dtype": "bfloat16",
+               "n_slots": SERVE_SLOTS, "kv_block_size": 16, "kv_blocks": DISAGG_KV_BLOCKS,
+               "max_new_tokens": MAX_NEW, "prompt_lens": [len(p) for p in prompts],
+               "kv_bytes_per_row_computed": 2 * 16 * 8 * 64 * 2}
+        # ---- bf16 pools: A (prefill role, with prefix reuse for the peer
+        # tier) hands off to B (decode role)
+        a, b, boot_s = await pair({}, **reuse)
+        c = None
+        try:
+            ma = a.service.walker.component.model
+            free0 = ma.free_block_count
+            wave = await _disagg_wave(a, b, prompts)
+            add(wave["launches"])
+            outs = wave.pop("outs")
+            wave.pop("replies")
+            rec["bf16"] = {**wave, "boot_s": boot_s,
+                           "streams_equal_to_serve": _streams_equal(serve["outs"], outs),
+                           "serve_wave_tokens_per_s": serve["wave_tokens_per_s"],
+                           "serve_ttft_s_p50": serve["ttft_s_p50"]}
+            # a frame of another block size: B refuses it (409)
+            sched_a = a.service.walker.component.scheduler
+            await _pins_back(sched_a)  # the wave's pinned slots
+            args, kw = _pinned_handoff(ma, prompts[0])
+            frame = handoff.decode_handoff(await asyncio.to_thread(
+                handoff.build_handoff_frame, *args, **kw))
+            ma.release_slot(0)
+            k, v = (t.reshape(t.shape[0], -1, 8, *t.shape[3:]) for t in (frame["k"], frame["v"]))
+            skew = handoff.encode_handoff(frame["prompt"], frame["first_token"], k, v,
+                                          block_size=8, max_new_tokens=MAX_NEW)
+            code, body = await asyncio.to_thread(_call, b.port, "/disagg/import", skew)
+            rec["block_size_skew"] = {"status": code, "body": body[:160].decode(errors="replace")}
+            # the peer tier: C pulls A's chain for a prompt sharing the
+            # 600-token prompt's first 512 tokens (32 blocks), then A serves
+            # the same prompt from its own index: both prefill the same
+            # 40-token suffix over the same bytes
+            os.environ["SCT_PREFIX_PEER_PULL"] = "1"
+            c, _ = await _boot(_serve_spec(preset, seed, **blocks, **reuse), device)
+            shared = prompts[-1][:CACHED_PREFIX] + np.random.default_rng(seed + 7).integers(
+                0, ma.cfg.vocab_size, 40).tolist()
+            _build.reset_launches()
+            code_c, at_c = await asyncio.to_thread(
+                _gen, c.port, shared, {"x-sct-prefix-peer": f"127.0.0.1:{a.port}"})
+            code_a, at_a = await asyncio.to_thread(_gen, a.port, shared)
+            add(_build.LAUNCHES)
+            snap = c.service.walker.component.model.prefix_snapshot()
+            rec["peer"] = {"prompt_len": len(shared), "status": [code_a, code_c],
+                           "modes": [at_a.get("mode"), at_c.get("mode")],
+                           "tokens_equal_to_a": at_a.get("tokens") == at_c.get("tokens"),
+                           "tier_peer_hits": snap["tiers"]["peer"]["hits"],
+                           "tier_peer_promotions": snap["tiers"]["peer"]["promotions"],
+                           "pull": dict(c.prefix_pull_stats),
+                           "a_serves": a.prefix_pull_stats["serves_ok"]}
+            rec["peer"]["tier"] = "peer" if rec["peer"]["tier_peer_hits"] == 1 else None
+            # B stopped: A decodes locally, the same tokens, no block leaked.
+            # The 5-token prompt has no full block, so its streams are the
+            # cold prefill's; the longest prompt's pinned slot matches and
+            # then hands A's index its full blocks, so the account counts
+            # blocks held by the index alone as well as free ones
+            await b.close()
+            before = await _block_account(ma, sched_a)
+            _build.reset_launches()
+            long_p = max(prompts, key=len)
+            fb = [await asyncio.to_thread(_gen, a.port, p) for p in (prompts[0], prompts[0], long_p)]
+            add(_build.LAUNCHES)
+            after = await _block_account(ma, sched_a)
+            # the same prompt as a unified request on A: the same reused
+            # blocks and suffix prefill as the fallback's
+            code_u, unified = await asyncio.to_thread(_post, a.port, {"strData": json.dumps(
+                {"tokens": long_p, "max_new_tokens": MAX_NEW})})
+            rec["fallback"] = {
+                "prompt_lens": [len(prompts[0])] * 2 + [len(long_p)],
+                "modes": [body.get("mode") for _, body in fb],
+                "streams_equal_to_serve": _streams_equal(serve["outs"][:1] * 2,
+                                                         [body.get("tokens") for _, body in fb]),
+                "long_equal_to_unified": code_u == 200 and fb[2][1].get("tokens") == json.loads(
+                    unified["strData"])["tokens"],
+                "long_equal_to_serve": fb[2][1].get("tokens")
+                == serve["outs"][prompts.index(long_p)],
+                "blocks_before": before, "blocks_after": after,
+                "free_blocks_at_boot": free0, "stats": dict(a.disagg_stats)}
+        finally:
+            os.environ.pop("SCT_PREFIX_PEER_PULL", None)
+            for app in (a, b, c):
+                if app is not None:
+                    await app.close()
+        # ---- int8 pools: a unified int8 wave on B, then the handoff
+        a, b, _ = await pair(int8)
+        try:
+            _build.reset_launches()
+            unified, _, _ = await _wave(b.port, prompts)
+            add(_build.LAUNCHES)
+            wave = await _disagg_wave(a, b, prompts)
+            add(wave["launches"])
+            outs = wave.pop("outs")
+            wave.pop("replies")
+            rec["int8"] = {**wave, "unified_modes": sorted({body["mode"] for _, body in unified}),
+                           "streams_equal_to_unified_int8": _streams_equal(
+                               [body["tokens"] for _, body in unified], outs)}
+        finally:
+            await a.close()
+            await b.close()
+        try:
+            rec["dram"] = await _dram_tier(preset, seed, device, add)
+        except Exception as e:  # noqa: BLE001 - the record is printed, then the phase fails
+            rec["dram"] = {"ok": False, "error": f"{type(e).__name__}: {e}"}
+        return rec
+
+    rec = asyncio.run(run())
+    bf, q, peer, fb, dram = rec["bf16"], rec["int8"], rec["peer"], rec["fallback"], rec["dram"]
+    rec["ok"] = (
+        bf["modes"] == ["disagg"] * len(prompts) and bf["streams_equal_to_serve"] == len(prompts)
+        and bf["launches_prefill_engine"]["flash_attention"] > 0
+        and bf["launches_decode_engine"]["paged_decode_attention"] > 0
+        and bf["prefill_engine_decode_blocks"] == 0 and bf["decode_engine_prefills"] == 0
+        and bf["host_syncs"] == bf["decode_blocks"] > 0
+        and q["modes"] == ["disagg"] * len(prompts) and q["unified_modes"] == ["unified"]
+        and q["streams_equal_to_unified_int8"] == len(prompts)
+        and rec["block_size_skew"]["status"] == 409
+        and peer["status"] == [200, 200] and peer["tokens_equal_to_a"] and peer["tier"] == "peer"
+        and fb["modes"] == ["unified-fallback"] * 3 and fb["streams_equal_to_serve"] == 2
+        and fb["long_equal_to_unified"]
+        and fb["blocks_after"]["reclaimable"] == fb["blocks_before"]["reclaimable"]
+        == fb["blocks_after"]["pool"] and fb["blocks_after"]["referenced"] == 0
+        and dram["ok"])
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError("serve_disagg: a handoff, fallback, refusal, tier or stream check "
+                             "failed (see the record above)")
+    return total
+
+
+async def _pins_back(sched, timeout_s: float = 10.0) -> None:
+    """Wait, ``timeout_s`` at most, until ``sched`` has released every slot
+    a handoff pinned."""
+    deadline = time.perf_counter() + timeout_s
+    while (sched._external or sched._external_release) and time.perf_counter() < deadline:
+        await asyncio.sleep(0.01)
+
+
+async def _block_account(model, sched) -> dict:
+    """Where an idle reuse-on pool's blocks are, once ``sched``'s pinned
+    slots have gone back: free, held by the prefix index alone (the two are
+    ``reclaimable``), or referenced by an entry still in use.  A block
+    neither free nor in the index has leaked; so has a slot still pinned
+    after 10 s."""
+    await _pins_back(sched)
+    snap = model.prefix_snapshot()
+    held = snap["entries"] - snap["referenced"]
+    return {"free": snap["free_blocks"], "index_only": held, "referenced": snap["referenced"],
+            "reclaimable": snap["free_blocks"] + held, "pool": snap["pool_blocks"]}
+
+
+def _pinned_handoff(model, prompt):
+    """Prefill ``prompt`` into slot 0 of ``model`` (an engine's model, idle)
+    -> the arguments of ``build_handoff_frame``."""
+    import numpy as np
+
+    p = np.asarray(prompt, np.int32)
+    tok = model.admit(0, p, 0.0, 0, reserve_tokens=MAX_NEW)
+    return (model, 0, p, tok), {"max_new_tokens": MAX_NEW}
+
+
+async def _dram_tier(preset: str, seed: int, device: str, add) -> dict:
+    """A warmed 512-token prefix, a 1500-token prompt that evicts it from a
+    128-block pool into the DRAM tier, then a prompt sharing the prefix
+    (promoted back): the streams against the same requests on a pool with
+    room for all of it."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.models.registry import resolve_config
+    from seldon_core_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(seed + 3)
+    vocab = resolve_config(preset).vocab_size
+    prefix = rng.integers(0, vocab, CACHED_PREFIX).tolist()
+    prompts = [prefix + rng.integers(0, vocab, 24).tolist(),
+               rng.integers(0, vocab, LONG_LENGTHS[0]).tolist(),
+               prefix + rng.integers(0, vocab, 40).tolist()]
+    reuse = {"kv_prefix_reuse": ("true", "BOOL"), "prefix_dram_gb": (DRAM_GB, "FLOAT")}
+    runs = {}
+    for name, extra in (("pressure", {"kv_blocks": (DRAM_POOL_BLOCKS, "INT")}), ("room", {})):
+        app, _ = await _boot(_serve_spec(preset, seed, **reuse, **extra), device)
+        try:
+            comp = app.service.walker.component
+            promote: list = []
+            _timed(comp.model, "_promote", promote)
+            _build.reset_launches()
+            outs = []
+            for p in prompts:
+                code, body = await asyncio.to_thread(_post, app.port, {"strData": json.dumps(
+                    {"tokens": p, "max_new_tokens": MAX_NEW})})
+                outs.append(json.loads(body["strData"])["tokens"] if code == 200 else None)
+            add(_build.LAUNCHES)
+            snap = comp.model.prefix_snapshot()
+            dram = snap["tiers"]["dram"]
+            runs[name] = {"outs": outs, "ttft_s": [t for _, t in comp.scheduler.ttft][-3:],
+                          "demotions": dram["demotions"], "promotions": dram["promotions"],
+                          "dram_hits": dram["dram_hits"], "dram_bytes": dram["bytes"],
+                          "promote_host_ms": [1e3 * t for t in promote],
+                          "free_blocks": snap["free_blocks"], "pool_blocks": snap["pool_blocks"]}
+        finally:
+            await app.close()
+    p, r = runs["pressure"], runs["room"]
+    rec = {"prompt_lens": [len(x) for x in prompts], "pool_blocks": DRAM_POOL_BLOCKS - 1,
+           "prefix_dram_gb": DRAM_GB,
+           "streams_equal_to_no_pressure": _streams_equal(r["outs"], p["outs"]),
+           **{k: p[k] for k in ("demotions", "promotions", "dram_hits", "dram_bytes",
+                                "promote_host_ms")},
+           "ttft_s_pressure": p["ttft_s"], "ttft_s_room": r["ttft_s"],
+           "room_demotions": r["demotions"]}
+    rec["ok"] = (rec["streams_equal_to_no_pressure"] == len(prompts) and p["demotions"] >= 1
+                 and p["promotions"] >= 1 and p["dram_hits"] >= 1 and r["demotions"] == 0)
+    return rec
 
 
 def _flash_times(fa, S: int) -> dict:
@@ -1333,9 +1766,10 @@ def main() -> int:
     serve = phase_serve()
     cached = phase_serve_cached()
     spec = phase_serve_spec(serve)
+    split = phase_serve_disagg(serve)
     times = phase_kernel_times(serve)
     launches = {name: serve["launches"][name] + cached["launches"][name] + spec[name]
-                for name in KERNELS}
+                + split[name] for name in KERNELS}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False,

@@ -1,12 +1,37 @@
 """The engine: a REST front for one predictor, on the stdlib alone.
 
     python -m seldon_core_tpu_torch.engine.app --port 8000 [--device cuda|cpu]
+        [--role prefill|decode|unified] [--disagg-decode host:port,...]
 
 Serves ``POST /api/v0.1/predictions`` (a SeldonMessage JSON body),
 ``GET /ping`` and ``GET /ready`` (true once the graph's units are built and
 warmed) with a minimal HTTP/1.1 handler on ``asyncio.start_server``:
 Content-Length bodies, keep-alive unless the client says ``close``.  The
 predictor comes from ``ENGINE_PREDICTOR`` as for the JAX engine.
+
+The disaggregated routes of the JAX engine, for a graph with one
+generative unit:
+
+* ``POST /disagg/generate`` (``{"tokens": [...], "max_new_tokens": N,
+  ...}``, or the same JSON in ``strData``): a ``prefill`` engine with
+  decode peers prefills into a pinned slot, exports the KV handoff frame,
+  POSTs it to a peer's ``/disagg/import`` and relays its tokens (``mode:
+  "disagg"``); any failure of the handoff decodes locally (``mode:
+  "unified-fallback"``, the same tokens, no block leaked).  Other engines
+  generate locally (``mode: "unified"``).  With ``SCT_PREFIX_PEER_PULL=1``
+  and an ``x-sct-prefix-peer: host:port`` header, the prompt's prefix
+  chain is first pulled from that peer and installed.
+* ``POST /disagg/import`` (a handoff frame): import and decode; a prefill
+  engine answers 409, a malformed frame 400, a pool of another block size
+  or KV layout 409.
+* ``POST /disagg/prefix/pull`` (``{"tokens": [...], "max_blocks": N}``):
+  the longest prefix chain this engine holds, as a prefix-chain frame, or
+  404.
+* ``GET /stats/disagg``: the role, the peers and the handoff and pull
+  ledgers.
+
+Outbound calls to peers use asyncio streams (``SCT_DISAGG_TIMEOUT_S``,
+default 30 s).
 """
 
 from __future__ import annotations
@@ -17,26 +42,40 @@ import contextlib
 import json
 import logging
 import os
+import random
+import time
 
-from seldon_core_tpu_torch import resolve_device
+import numpy as np
+
+from seldon_core_tpu_torch import disagg, resolve_device
 from seldon_core_tpu_torch.contract.codec import (
     CodecError,
     failure_status_dict,
     payload_from_json,
     payload_to_dict,
 )
+from seldon_core_tpu_torch.disagg.handoff import (
+    HandoffError,
+    apply_handoff,
+    build_handoff_frame,
+    check_pool,
+    decode_handoff,
+    decode_prefix_chain,
+    encode_prefix_chain,
+)
 from seldon_core_tpu_torch.engine.service import PredictionService, load_predictor_spec
-from seldon_core_tpu_torch.executor.generation import QueueFull
+from seldon_core_tpu_torch.executor.generation import GenerativeComponent, QueueFull
 from seldon_core_tpu_torch.graph.units import GraphUnitError
 
 log = logging.getLogger(__name__)
 
 MAX_BODY = 64 << 20
+MAX_FRAME_BODY = 1 << 30  # a handoff frame: 64 MiB for a 2048-token llama3-1b prompt
 MAX_HEADERS = 100
 _REASONS = {
     200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
-    413: "Payload Too Large", 429: "Too Many Requests", 500: "Internal Server Error",
-    501: "Not Implemented", 503: "Service Unavailable",
+    409: "Conflict", 413: "Payload Too Large", 429: "Too Many Requests",
+    500: "Internal Server Error", 501: "Not Implemented", 503: "Service Unavailable",
 }
 
 
@@ -71,19 +110,59 @@ async def _read_request(reader: asyncio.StreamReader):
         length = int(headers.get("content-length", "0"))
     except ValueError:
         raise _BadRequest(400, "bad Content-Length") from None
-    if length < 0 or length > MAX_BODY:
-        raise _BadRequest(413, f"body of {length} bytes exceeds {MAX_BODY}")
+    path = target.split("?", 1)[0]
+    limit = MAX_FRAME_BODY if path == "/disagg/import" else MAX_BODY
+    if length < 0 or length > limit:
+        raise _BadRequest(413, f"body of {length} bytes exceeds {limit}")
     body = await reader.readexactly(length) if length else b""
-    return method.upper(), target.split("?", 1)[0], version, headers, body
+    return method.upper(), path, version, headers, body
 
 
-def _response(status: int, body: bytes, ctype: str, keep_alive: bool) -> bytes:
+def _response(status: int, body: bytes, ctype: str, keep_alive: bool,
+              extra: dict[str, str] | None = None) -> bytes:
+    more = "".join(f"{k}: {v}\r\n" for k, v in (extra or {}).items())
     head = (
         f"HTTP/1.1 {status} {_REASONS.get(status, 'Unknown')}\r\n"
-        f"Content-Type: {ctype}\r\nContent-Length: {len(body)}\r\n"
+        f"Content-Type: {ctype}\r\nContent-Length: {len(body)}\r\n{more}"
         f"Connection: {'keep-alive' if keep_alive else 'close'}\r\n\r\n"
     )
     return head.encode("latin-1") + body
+
+
+async def http_post(target: str, path: str, body: bytes, ctype: str,
+                    timeout: float) -> tuple[int, dict[str, str], bytes]:
+    """POST ``body`` to ``http://target/path`` over one asyncio connection
+    (closed after the reply) -> ``(status, headers, body)``."""
+
+    async def go():
+        host, _, port = target.rpartition(":")
+        reader, writer = await asyncio.open_connection(host or "127.0.0.1", int(port))
+        try:
+            writer.write((f"POST {path} HTTP/1.1\r\nHost: {target}\r\n"
+                          f"Content-Type: {ctype}\r\nContent-Length: {len(body)}\r\n"
+                          "Connection: close\r\n\r\n").encode("latin-1"))
+            writer.write(body)
+            await writer.drain()
+            status_line = await reader.readline()
+            try:
+                status = int(status_line.split(b" ", 2)[1])
+            except (IndexError, ValueError):
+                raise ConnectionError(f"bad status line from {target}: {status_line!r}") from None
+            headers: dict[str, str] = {}
+            while (line := await reader.readline()) not in (b"\r\n", b"\n", b""):
+                name, _, value = line.decode("latin-1").partition(":")
+                headers[name.strip().lower()] = value.strip()
+            if "content-length" in headers:
+                data = await reader.readexactly(int(headers["content-length"]))
+            else:
+                data = await reader.read()
+            return status, headers, data
+        finally:
+            writer.close()
+            with contextlib.suppress(ConnectionError):
+                await writer.wait_closed()
+
+    return await asyncio.wait_for(go(), timeout)
 
 
 def _json(status: int, obj: dict) -> tuple[int, bytes, str]:
@@ -91,13 +170,32 @@ def _json(status: int, obj: dict) -> tuple[int, bytes, str]:
 
 
 class EngineApp:
-    """The engine's HTTP front over one :class:`PredictionService`."""
+    """The engine's HTTP front over one :class:`PredictionService`.
+    ``role`` and ``decode_upstreams`` default to ``SCT_ENGINE_ROLE`` and
+    ``SCT_DISAGG_DECODE``; an unknown role raises ``ValueError``."""
 
-    def __init__(self, service: PredictionService):
+    def __init__(self, service: PredictionService, *, role: str | None = None,
+                 decode_upstreams: list[str] | None = None):
         self.service = service
         self.ready = False
         self.boot_error: str | None = None
         self._server: asyncio.base_events.Server | None = None
+        self.role = disagg.resolve_role(role)
+        self.decode_upstreams = (list(decode_upstreams) if decode_upstreams is not None
+                                 else disagg.decode_upstreams())
+        self._handoff_timeout_s = float(os.environ.get("SCT_DISAGG_TIMEOUT_S", "30") or 30.0)
+        self._handoff_inflight: dict[str, int] = {}
+        # the handoff ledger (seconds and bytes summed over handoffs) and
+        # the peer pull ledger; a pull's failure only costs the shortcut
+        self.disagg_stats = {
+            "handoffs_ok": 0, "handoffs_failed": 0, "local_fallbacks": 0,
+            "imports_ok": 0, "imports_failed": 0, "handoff_bytes": 0,
+            "export_s": 0.0, "import_decode_s": 0.0,
+        }
+        self.prefix_pull_stats = {
+            "pulls_ok": 0, "pulls_failed": 0, "pull_misses": 0, "pull_bytes": 0,
+            "pull_blocks": 0, "serves_ok": 0, "serve_misses": 0,
+        }
 
     @property
     def port(self) -> int:
@@ -124,7 +222,12 @@ class EngineApp:
             await self._server.wait_closed()
         await self.service.close()
 
-    async def _route(self, method: str, path: str, body: bytes) -> tuple[int, bytes, str]:
+    async def _route(self, method: str, path: str, body: bytes,
+                     headers: dict[str, str]) -> tuple:
+        """-> ``(status, body, content type)``, plus a dict of extra
+        response headers where a route sets some."""
+        if path.startswith("/disagg/") or path == "/stats/disagg":
+            return await self._disagg_route(method, path, body, headers)
         if path == "/ping":
             return 200, b"pong", "text/plain"
         if path == "/ready":
@@ -136,14 +239,16 @@ class EngineApp:
         if path == "/api/v0.1/predictions":
             if method != "POST":
                 return _json(405, failure_status_dict(405, "POST a SeldonMessage"))
-            return await self._predictions(body)
+            return await self._predictions(body, headers)
         return _json(404, failure_status_dict(404, f"no route {path}"))
 
-    async def _predictions(self, body: bytes) -> tuple[int, bytes, str]:
+    async def _predictions(self, body: bytes, headers: dict[str, str]) -> tuple[int, bytes, str]:
         if not self.ready:
             return _json(503, failure_status_dict(503, "engine is not ready"))
         try:
-            out = await self.service.predict(payload_from_json(body))
+            payload = payload_from_json(body)
+            await self._pull_prefix_from_header(payload, headers)
+            out = await self.service.predict(payload)
         except CodecError as e:
             return _json(400, failure_status_dict(400, str(e)))
         except QueueFull as e:
@@ -153,6 +258,251 @@ class EngineApp:
         resp = payload_to_dict(out)
         resp["status"] = {"code": 200, "status": "SUCCESS"}
         return _json(200, resp)
+
+    # -------------------------------------------- disaggregated prefill/decode
+
+    def _generative_unit(self):
+        """The graph's generative component, or None (the port's walker
+        serves one MODEL node)."""
+        walker = self.service.walker
+        comp = getattr(walker, "component", None) if walker is not None else None
+        return comp if isinstance(comp, GenerativeComponent) else None
+
+    async def _disagg_route(self, method: str, path: str, body: bytes,
+                            headers: dict[str, str]) -> tuple:
+        if path == "/stats/disagg":
+            return _json(200, {"disagg": {
+                "role": self.role, "decode_upstreams": list(self.decode_upstreams),
+                "handoff_inflight": dict(self._handoff_inflight), **self.disagg_stats,
+                "prefix_pull": dict(self.prefix_pull_stats),
+            }})
+        routes = {"/disagg/generate": self._disagg_generate, "/disagg/import": self._disagg_import,
+                  "/disagg/prefix/pull": self._disagg_prefix_pull}
+        if path not in routes:
+            return _json(404, failure_status_dict(404, f"no route {path}"))
+        if method != "POST":
+            return _json(405, failure_status_dict(405, f"POST to {path}"))
+        if path == "/disagg/import" and self.role == disagg.ROLE_PREFILL:
+            return _json(409, failure_status_dict(
+                409, "a prefill-role engine does not import KV handoffs"))
+        if not self.ready:
+            return _json(503, failure_status_dict(503, "engine is not ready"))
+        unit = self._generative_unit()
+        if unit is None:
+            return _json(400, failure_status_dict(400, "the graph has no generative unit"))
+        return await routes[path](unit, body, headers)
+
+    @staticmethod
+    def _parse_generate_body(body: bytes, unit) -> tuple:
+        """The generative strData contract -> ``(prompt, max_new,
+        temperature, eos)``; raises :class:`CodecError`."""
+        try:
+            obj = json.loads(body)
+            if isinstance(obj, dict) and "strData" in obj:
+                obj = json.loads(obj["strData"])
+            prompt = obj.get("tokens")
+            if (not isinstance(prompt, (list, tuple)) or not prompt
+                    or isinstance(prompt[0], (list, tuple))):
+                raise CodecError("disagg generate takes ONE prompt: a flat 'tokens' list")
+            max_new = obj.get("max_new_tokens")
+            max_new = int(max_new) if max_new is not None else unit.max_new_tokens
+            temperature = obj.get("temperature")
+            temperature = float(temperature) if temperature is not None else unit.temperature
+            eos = obj.get("eos_id", unit.eos_id)
+            return (np.asarray(prompt, np.int32), max_new, temperature,
+                    int(eos) if eos is not None else None)
+        except CodecError:
+            raise
+        except (ValueError, TypeError, AttributeError) as e:
+            raise CodecError(f"bad generate body: {e}") from None
+
+    async def _disagg_generate(self, unit, body: bytes, headers: dict[str, str]) -> tuple:
+        """Prefill here and hand the KV to a decode peer (a prefill engine
+        with peers and more than one token to make), else generate here."""
+        try:
+            prompt, max_new, temperature, eos = self._parse_generate_body(body, unit)
+        except CodecError as e:
+            return _json(400, failure_status_dict(400, str(e)))
+        peer = headers.get("x-sct-prefix-peer")
+        if peer and self._peer_pull_enabled():
+            await self._maybe_pull_prefix(unit, prompt, peer, headers.get("x-sct-prefix-depth"))
+        try:
+            if self.role == disagg.ROLE_PREFILL and self.decode_upstreams and max_new > 1:
+                tokens, mode = await self._prefill_and_handoff(unit, prompt, max_new,
+                                                               temperature, eos)
+            else:
+                out = await unit.scheduler.submit(prompt, max_new_tokens=max_new,
+                                                  temperature=temperature, eos_id=eos)
+                tokens, mode = [int(t) for t in out], disagg.ROLE_UNIFIED
+        except QueueFull as e:
+            return _json(429, failure_status_dict(429, str(e)))
+        except GraphUnitError as e:
+            return _json(500, failure_status_dict(500, str(e)))
+        return _json(200, {"tokens": tokens, "mode": mode})
+
+    async def _prefill_and_handoff(self, unit, prompt, max_new: int, temperature: float,
+                                   eos: int | None) -> tuple[list[int], str]:
+        """Prefill into a pinned slot, export and POST the handoff, relay the
+        peer's tokens.  The slot is released whatever happens, and any
+        failure decodes locally instead."""
+        sched = unit.scheduler
+        slot, tok1 = await sched.submit_prefill(prompt, temperature=temperature)
+        try:
+            t0 = time.perf_counter()
+            frame = await asyncio.to_thread(
+                build_handoff_frame, unit.model, slot, prompt, tok1, max_new_tokens=max_new,
+                temperature=temperature, eos_id=eos)
+            self.disagg_stats["export_s"] += time.perf_counter() - t0
+            self.disagg_stats["handoff_bytes"] += len(frame)
+            tokens = await self._send_handoff(frame)
+            self.disagg_stats["handoffs_ok"] += 1
+            return tokens, "disagg"
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:  # noqa: BLE001 - the request falls back, never fails
+            self.disagg_stats["handoffs_failed"] += 1
+            log.warning("KV handoff failed (%s: %s); decoding locally", type(e).__name__, e)
+        finally:
+            sched.release_external(slot)
+        self.disagg_stats["local_fallbacks"] += 1
+        out = await sched.submit(prompt, max_new_tokens=max_new, temperature=temperature,
+                                 eos_id=eos)
+        return [int(t) for t in out], "unified-fallback"
+
+    async def _send_handoff(self, frame: bytes) -> list[int]:
+        """POST one frame to a decode peer (the one configured, or the less
+        busy of two picked at random) and return its tokens."""
+        ups = self.decode_upstreams
+        if len(ups) == 1:
+            target = ups[0]
+        else:
+            a, b = random.sample(ups, 2)
+            target = min((a, b), key=lambda u: self._handoff_inflight.get(u, 0))
+        self._handoff_inflight[target] = self._handoff_inflight.get(target, 0) + 1
+        try:
+            status, _, data = await http_post(target, "/disagg/import", frame,
+                                              "application/octet-stream", self._handoff_timeout_s)
+        finally:
+            self._handoff_inflight[target] -= 1
+        if status != 200:
+            raise RuntimeError(f"decode peer {target} answered {status}: {data[:200]!r}")
+        return [int(t) for t in json.loads(data)["tokens"]]
+
+    async def _disagg_import(self, unit, body: bytes, headers: dict[str, str]) -> tuple:
+        """Import a prefill engine's handoff at the next sync point, decode
+        to the end, answer the tokens (the first included)."""
+        t0 = time.perf_counter()
+        try:
+            payload = await asyncio.to_thread(decode_handoff, body)
+        except (ValueError, HandoffError) as e:
+            self.disagg_stats["imports_failed"] += 1
+            return _json(400, failure_status_dict(400, f"bad handoff frame: {e}"))
+        self.disagg_stats["import_decode_s"] += time.perf_counter() - t0
+        try:
+            out = await apply_handoff(unit, payload)
+        except HandoffError as e:  # a good frame for another pool
+            self.disagg_stats["imports_failed"] += 1
+            return _json(409, failure_status_dict(409, str(e)))
+        except QueueFull as e:
+            self.disagg_stats["imports_failed"] += 1
+            return _json(429, failure_status_dict(429, str(e)))
+        except GraphUnitError as e:
+            self.disagg_stats["imports_failed"] += 1
+            return _json(500, failure_status_dict(500, str(e)))
+        self.disagg_stats["imports_ok"] += 1
+        return _json(200, {"tokens": [int(t) for t in out]})
+
+    async def _disagg_prefix_pull(self, unit, body: bytes, headers: dict[str, str]) -> tuple:
+        """Serve the longest prefix chain this engine holds for the tokens,
+        as a prefix-chain frame (404 when it holds none)."""
+        try:
+            req = json.loads(body)
+            toks = req.get("tokens")
+            if not (isinstance(toks, list) and toks
+                    and all(isinstance(t, int) and not isinstance(t, bool) for t in toks)):
+                raise ValueError("a prefix pull takes a flat 'tokens' list")
+            max_blocks = int(req.get("max_blocks", 64))
+        except (ValueError, TypeError, AttributeError) as e:
+            return _json(400, failure_status_dict(400, str(e)))
+        tokens = np.asarray(toks, np.int32)
+        exported = await asyncio.to_thread(unit.model.export_prefix_kv, tokens, max_blocks)
+        if exported is None:
+            self.prefix_pull_stats["serve_misses"] += 1
+            return _json(404, failure_status_dict(404, "no prefix chain for these tokens"))
+        depth, k, v, k_scale, v_scale = exported
+        frame = await asyncio.to_thread(encode_prefix_chain, tokens, k, v,
+                                        block_size=unit.model.kv_block_size,
+                                        k_scale=k_scale, v_scale=v_scale)
+        self.prefix_pull_stats["serves_ok"] += 1
+        return 200, frame, "application/octet-stream", {"x-sct-prefix-depth": str(int(depth))}
+
+    @staticmethod
+    def _peer_pull_enabled() -> bool:
+        return os.environ.get("SCT_PREFIX_PEER_PULL", "0") == "1"
+
+    async def _pull_prefix_from_header(self, payload, headers: dict[str, str]) -> None:
+        """The predictions path's peer pull: with ``x-sct-prefix-peer`` set
+        and pulls on, a strData request's flat prompt pulls its chain."""
+        peer = headers.get("x-sct-prefix-peer")
+        unit = self._generative_unit() if peer and self._peer_pull_enabled() else None
+        if unit is None or not isinstance(payload.data, str):
+            return
+        try:
+            toks = json.loads(payload.data).get("tokens")
+        except (ValueError, AttributeError):
+            return
+        if (isinstance(toks, list) and toks
+                and all(isinstance(t, int) and not isinstance(t, bool) for t in toks)):
+            await self._maybe_pull_prefix(unit, np.asarray(toks, np.int32), peer,
+                                          headers.get("x-sct-prefix-depth"))
+
+    async def _maybe_pull_prefix(self, unit, tokens, peer: str, depth_hint=None) -> bool:
+        """Pull ``tokens``' prefix chain from ``peer`` and install it at the
+        next sync point, unless the local tiers already hold as deep a
+        chain.  Any failure only counts in the ledger: the request then
+        prefills as it would have (the chain enters the pool only through
+        ``install_prefix_chain``, all or nothing)."""
+        model = unit.model
+        if model.prefix_index is None:
+            return False
+        tokens = np.asarray(tokens, np.int32).ravel()
+        cap = min(tokens.size // model.kv_block_size, model.max_blocks_per_slot)
+        if cap < 1:
+            return False
+        try:
+            hint = int(depth_hint) if depth_hint else 0
+        except (TypeError, ValueError):
+            hint = 0
+        have = model.prefix_index.peek_depth(tokens, cap)
+        if model.host_store is not None and have < cap:
+            have = max(have, model.host_store.peek_depth(tokens, have + 1, cap))
+        if have >= cap or (hint and have >= hint):
+            return False  # nothing a pull could add
+        try:
+            req = json.dumps({"tokens": [int(t) for t in tokens], "max_blocks": int(cap)})
+            status, _, frame = await http_post(peer, "/disagg/prefix/pull", req.encode(),
+                                               "application/json", self._handoff_timeout_s)
+            if status == 404:  # the peer no longer holds it: a miss
+                self.prefix_pull_stats["pull_misses"] += 1
+                return False
+            if status != 200:
+                raise RuntimeError(f"peer {peer} answered {status}: {frame[:200]!r}")
+            payload = await asyncio.to_thread(decode_prefix_chain, frame)
+            check_pool(model, payload, "prefix chain")
+            absorbed = await unit.scheduler.install_prefix(
+                payload["tokens"], payload["k"], payload["v"],
+                k_scale=payload.get("k_scale"), v_scale=payload.get("v_scale"))
+            self.prefix_pull_stats["pulls_ok"] += 1
+            self.prefix_pull_stats["pull_bytes"] += len(frame)
+            self.prefix_pull_stats["pull_blocks"] += int(absorbed)
+            return absorbed > 0
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:  # noqa: BLE001 - costs the shortcut, never the request
+            self.prefix_pull_stats["pulls_failed"] += 1
+            log.warning("peer prefix pull from %s failed (%s: %s); prefilling", peer,
+                        type(e).__name__, e)
+            return False
 
     async def _handle(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
         try:
@@ -169,13 +519,15 @@ class EngineApp:
                 conn = headers.get("connection", "").lower()
                 keep = conn == "keep-alive" if version == "HTTP/1.0" else conn != "close"
                 try:
-                    status, payload, ctype = await self._route(method, path, body)
+                    status, payload, ctype, *extra = await self._route(
+                        method, path, body, headers)
                 except Exception as e:  # noqa: BLE001 - the connection must get an answer
                     log.exception("request %s %s failed", method, path)
                     status, payload, ctype = _json(
                         500, failure_status_dict(500, f"{type(e).__name__}: {e}")
                     )
-                writer.write(_response(status, payload, ctype, keep))
+                    extra = []
+                writer.write(_response(status, payload, ctype, keep, *extra))
                 await writer.drain()
                 if not keep:
                     break
@@ -187,11 +539,12 @@ class EngineApp:
                 await writer.wait_closed()
 
 
-async def _serve(host: str, port: int, device: str) -> None:
+async def _serve(host: str, port: int, device: str, role: str | None,
+                 decode: str | None) -> None:
     service = PredictionService(load_predictor_spec(), device=device)
-    app = EngineApp(service)
+    app = EngineApp(service, role=role, decode_upstreams=disagg.decode_upstreams(decode))
     await app.start(host, port)
-    log.info("engine listening on %s:%d (device %s)", host, app.port, device)
+    log.info("engine listening on %s:%d (device %s, role %s)", host, app.port, device, app.role)
     try:
         await app.boot()
         log.info("engine ready")
@@ -207,11 +560,17 @@ def main(argv: list[str] | None = None) -> None:
         "--port", type=int, default=int(os.environ.get("ENGINE_SERVER_PORT", "8000"))
     )
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--role", default=None, choices=disagg.ROLES,
+                        help=f"disaggregated serving role (default: ${disagg.ROLE_ENV} or unified)")
+    parser.add_argument("--disagg-decode", default=None, metavar="HOST:PORT,...",
+                        help=f"a prefill engine's decode peers (default: "
+                             f"${disagg.DECODE_UPSTREAMS_ENV})")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     resolve_device(args.device)
+    disagg.resolve_role(args.role)  # an unknown role in the env fails here
     with contextlib.suppress(KeyboardInterrupt):
-        asyncio.run(_serve(args.host, args.port, args.device))
+        asyncio.run(_serve(args.host, args.port, args.device, args.role, args.disagg_decode))
 
 
 if __name__ == "__main__":

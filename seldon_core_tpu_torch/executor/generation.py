@@ -26,7 +26,15 @@ The paged path of the JAX package's ``executor/generation.py``:
   own paged KV), scores ``1 + spec_draft`` positions in one model call and
   emits the longest agreeing prefix; greedy output equals speculation off;
 * sampling happens on the device (``sample_tokens``): only token ids cross
-  to the host, never logits.
+  to the host, never logits;
+* **handoff between engines**: a prefill engine exports a pinned slot's
+  prompt blocks (``export_slot_kv``) and a decode engine imports them
+  (``attach_imported``, longest-prefix reuse applied), each with one
+  host<->device copy; **prefix tiers**: with ``prefix_dram_gb`` an index
+  eviction demotes its blocks into host DRAM (``cache/tiers.py``) and a
+  later match promotes them back, and a peer's chain is exported
+  (``export_prefix_kv``) and installed (``install_prefix_chain``).  All
+  of it runs at sync points, never inside a decode block.
 
 ``GenerationScheduler`` is the asyncio front (``submit(prompt) ->
 generated ids``); ``GenerativeComponent`` adapts it to the graph-unit
@@ -50,6 +58,7 @@ import torch
 
 from seldon_core_tpu_torch import resolve_device
 from seldon_core_tpu_torch.cache.prefix import PrefixIndex
+from seldon_core_tpu_torch.cache.tiers import HostPrefixStore
 from seldon_core_tpu_torch.contract.payload import DataKind, Payload
 from seldon_core_tpu_torch.executor.speculative import propose_heads, propose_ngram, seed_history
 from seldon_core_tpu_torch.graph.units import GraphUnitError, SeldonComponent
@@ -93,7 +102,10 @@ class GenerativeModel:
     ``kv_cache_dtype`` (``"int8"`` or unset; env ``SCT_KV_DTYPE``),
     ``prefill_chunk`` (tokens, rounded up to a block multiple; env
     ``SCT_PREFILL_CHUNK``) and ``prefix_reuse`` (env ``SCT_CACHE_PREFIX=1``)
-    are normalized as the JAX package does, and so are the speculation
+    are normalized as the JAX package does, and so is ``prefix_dram_gb``
+    (env ``SCT_PREFIX_DRAM_GB``; with prefix reuse on, index evictions are
+    kept in a host-DRAM store of that many GiB and promoted back on a
+    match), and so are the speculation
     parameters: ``spec_draft`` (env ``SCT_SPEC_DRAFT``; 0 is off),
     ``spec_ngram`` (``SCT_SPEC_NGRAM``, default 3), ``spec_hist``,
     ``spec_method`` (``SCT_SPEC_METHOD``, default ``ngram``), ``spec_heads``
@@ -121,6 +133,7 @@ class GenerativeModel:
         kv_cache_dtype: str | None = None,
         prefill_chunk: int | None = None,
         prefix_reuse: bool | None = None,
+        prefix_dram_gb: float | None = None,
         spec_draft: int | None = None,
         spec_ngram: int | None = None,
         spec_hist: int = 64,
@@ -196,6 +209,19 @@ class GenerativeModel:
         self._slot_prompt: dict[int, np.ndarray] = {}
         self._slot_matched: dict[int, int] = {}
         self._slot_filled: set[int] = set()
+        self._slot_row: dict[int, np.ndarray] = {}  # the reservation's table row
+        # the host-DRAM tier under the index (cache/tiers.py): evicted
+        # chain levels are kept there and promoted back on a match
+        if prefix_dram_gb is not None and float(prefix_dram_gb) > 0 and not prefix_reuse:
+            raise GraphUnitError("prefix_dram_gb keeps evicted prefix blocks: it needs "
+                                 "kv_prefix_reuse on")
+        if prefix_dram_gb is None:
+            prefix_dram_gb = float(os.environ.get("SCT_PREFIX_DRAM_GB", "0") or 0)
+        self._dram_bytes = int(float(prefix_dram_gb) * (1 << 30)) if prefix_reuse else 0
+        self.host_store = (HostPrefixStore(kv_block_size, self._dram_bytes)
+                           if self._dram_bytes > 0 else None)
+        # chain levels a peer pull installed that no admission has used yet
+        self._peer_chains: set = set()
         self._cache = llama.init_paged_cache(
             cfg, self.n_slots, self.kv_blocks, kv_block_size, dtype=self.dtype,
             device=self.device, kv_dtype=self.kv_dtype,
@@ -222,6 +248,14 @@ class GenerativeModel:
         self.spec_emitted_tokens = 0
         self.spec_verify_passes = 0
         self.draft_prefills = 0
+        self._zero_tier_counters()
+
+    def _zero_tier_counters(self) -> None:
+        self.imports = 0  # handoffs imported into this pool
+        self.dram_hits = 0  # admissions that promoted >= 1 level from DRAM
+        self.peer_hits = 0  # admissions whose prefix a peer pull installed
+        self.peer_installs = 0  # chain levels installed from peer pulls
+        self.peer_serves = 0  # chains exported to pulling peers
 
     # -------------------------------------------------------- speculation
 
@@ -314,6 +348,7 @@ class GenerativeModel:
         self.spec_heads_bytes = self.draft_weight_bytes = self.draft_kv_bytes = 0
         self._hist = self._hlast = self._heads = None
         self._draft_params = self._draft_cfg = self._draft_cache = None
+        self._row_split = frozenset()
         preset_draft = self._draft_geom is not None and self._draft_geom[0] == "preset"
         if ((medusa_heads is not None and self.spec_method != "heads")
                 or (draft_params is not None and not preset_draft)):
@@ -323,6 +358,9 @@ class GenerativeModel:
             )
         if not self.spec_draft:
             return
+        # the ops whose rows this device rounds otherwise at S * (1 + d)
+        # rows than at S: the verify pass runs them per query position
+        self._row_split = llama.row_variant_ops(cfg, S, self._tps, self.dtype, dev)
         self._hist = torch.zeros(S, self.spec_hist, dtype=torch.int32, device=dev)
         if self.spec_method == "heads":
             if medusa_heads is None:
@@ -452,7 +490,7 @@ class GenerativeModel:
         qvalid = act[:, None] & (offs < rem[:, None])
         res = llama.decode_slots_spec_paged(
             self.params, qtoks, cache, act, qvalid, self.cfg, window=window,
-            kernel=self.decode_kernel, return_hidden=heads,
+            kernel=self.decode_kernel, return_hidden=heads, row_split=self._row_split,
         )
         logits = res[0]
         out = llama.sample_tokens(
@@ -504,6 +542,7 @@ class GenerativeModel:
             "spec_heads_bytes": self.spec_heads_bytes,
             "draft_weight_bytes": self.draft_weight_bytes,
             "draft_kv_bytes": self.draft_kv_bytes,
+            "row_split": sorted(self._row_split),
         }
 
     # ------------------------------------------------------------ helpers
@@ -537,26 +576,32 @@ class GenerativeModel:
         """Prompt-aware reservation: with prefix reuse on, the longest chain
         of the prompt's full blocks already in the index is REFERENCED
         (shared, immutable) instead of allocated, and only the rest comes
-        from the free pool (unreferenced index blocks are reclaimed before
-        :class:`OutOfKVBlocks` is raised).  Returns ``(table row,
-        prefix_len)``: the caller skips ``prefix_len`` tokens of prefill."""
+        from the free pool (unreferenced index blocks are reclaimed, and
+        demoted to the DRAM tier when it is on, before
+        :class:`OutOfKVBlocks` is raised).  Demoted levels that extend the
+        match are promoted into the leading owned blocks with one indexed
+        copy.  Returns ``(table row, prefix_len)``: the caller skips
+        ``prefix_len`` tokens of prefill."""
         slot = int(slot)
         total = min(int(total_tokens), self.cfg.max_seq)
         need = -(-total // self.kv_block_size)
         with self._lock:  # the event loop releases while admissions run in a thread
             self.release_slot(slot)  # a stale reservation on this slot is dead
             matched: list[int] = []
+            promoted: list[tuple] = []
             if self.prefix_index is not None and prompt is not None:
                 # never the WHOLE prompt: the suffix program needs at least
                 # one real token to produce the first sampled logits
-                max_reuse = (int(prompt.size) - 1) // self.kv_block_size
+                max_reuse = min((int(prompt.size) - 1) // self.kv_block_size, need)
                 if max_reuse > 0:
-                    matched = self.prefix_index.match(prompt, min(max_reuse, need))
+                    matched = self.prefix_index.match(prompt, max_reuse)
+                if self.host_store is not None and max_reuse > len(matched):
+                    # demoted levels extending the match come out of the
+                    # free pool like owned blocks: the need is the same
+                    promoted = self.host_store.match(prompt, len(matched) + 1, max_reuse)
             own_need = need - len(matched)
-            if len(self._free_blocks) < own_need and self.prefix_index is not None:
-                self._free_blocks.extend(
-                    self.prefix_index.evict(own_need - len(self._free_blocks))
-                )
+            if len(self._free_blocks) < own_need:
+                self._demote_and_free(own_need - len(self._free_blocks))
             if len(self._free_blocks) < own_need:
                 if matched:
                     self.prefix_index.release(prompt, len(matched))
@@ -564,14 +609,26 @@ class GenerativeModel:
             got = self._free_blocks[-own_need:] if own_need else []
             if own_need:
                 del self._free_blocks[-own_need:]
+            n_promoted = 0
+            if promoted:
+                try:
+                    self._promote(got[: len(promoted)], promoted)
+                    n_promoted = len(promoted)
+                    self.host_store.drop([e[0] for e in promoted])
+                    self.dram_hits += 1
+                except Exception:  # noqa: BLE001 - costs the shortcut, not the request
+                    log.warning("generative model %r: DRAM prefix promotion failed; "
+                                "prefilling instead", self.name, exc_info=True)
             self._slot_blocks[slot] = got
+            row = np.zeros(self.max_blocks_per_slot, np.int32)
+            row[: len(matched)] = matched
+            row[len(matched):need] = got
+            self._slot_row[slot] = row.copy()
             if self.prefix_index is not None and prompt is not None:
                 self._slot_prompt[slot] = np.asarray(prompt, np.int32).copy()
                 self._slot_matched[slot] = len(matched)
-        row = np.zeros(self.max_blocks_per_slot, np.int32)
-        row[: len(matched)] = matched
-        row[len(matched):need] = got
-        return row, len(matched) * self.kv_block_size
+                self._credit_peer_tier(prompt, len(matched))
+        return row, (len(matched) + n_promoted) * self.kv_block_size
 
     def release_slot(self, slot: int) -> None:
         """Return ``slot``'s owned blocks to the pool and drop its shared-
@@ -587,6 +644,7 @@ class GenerativeModel:
             blocks = self._slot_blocks.pop(slot, None)
             filled = slot in self._slot_filled
             self._slot_filled.discard(slot)
+            self._slot_row.pop(slot, None)
             if matched and prompt is not None:
                 self.prefix_index.release(prompt, matched)
             if not blocks:
@@ -605,6 +663,290 @@ class GenerativeModel:
     @property
     def free_block_count(self) -> int:
         return len(self._free_blocks)
+
+    # ------------------------------------------ KV handoff and prefix tiers
+    #
+    # Exports, imports, demotions, promotions and peer installs are gathers
+    # and indexed copies on the pool, in place (no pool copy), each moving
+    # its blocks in ONE host<->device copy.  The scheduler runs imports,
+    # demotions, promotions and installs at its sync points, never inside
+    # a decode block.
+
+    def _pool_keys(self) -> list[str]:
+        return [k for k in ("k", "v", "k_scale", "v_scale") if k in self._cache]
+
+    def _fetch_blocks(self, phys) -> dict[str, torch.Tensor]:
+        """Blocks ``phys`` of every pool tensor (K, V and an int8 pool's
+        scales, ``(layers, n, block_size, ...)`` each) on the host, through
+        one device-to-host copy of their bytes."""
+        idx = self._h2d(np.asarray(phys, np.int64))
+        with self._lock:
+            parts = [self._cache[key].index_select(1, idx) for key in self._pool_keys()]
+            flat = torch.cat([p.reshape(-1).view(torch.uint8) for p in parts]).cpu()
+        out, off = {}, 0
+        for key, p in zip(self._pool_keys(), parts):
+            n = p.numel() * p.element_size()
+            out[key] = flat[off: off + n].view(p.dtype).reshape(p.shape)
+            off += n
+        return out
+
+    def _put_blocks(self, phys, blocks: dict) -> None:
+        """Write host blocks (``(layers, n, block_size, ...)`` per pool
+        tensor) into the pool at ``phys``: one host-to-device copy of their
+        bytes, then one in-place ``index_copy_`` per pool tensor.  Float
+        blocks take the pool's float dtype; int8 blocks and their scales
+        are the pool's bytes verbatim (callers check the layout)."""
+        keys = self._pool_keys()
+        parts = [torch.as_tensor(blocks[key]).to(self._cache[key].dtype).contiguous()
+                 for key in keys]
+        flat = torch.cat([p.reshape(-1).view(torch.uint8) for p in parts]).to(self.device)
+        idx = self._h2d(np.asarray(phys, np.int64))
+        off = 0
+        with self._lock:
+            for key, p in zip(keys, parts):
+                n = p.numel() * p.element_size()
+                self._cache[key].index_copy_(1, idx, flat[off: off + n].view(p.dtype).view(p.shape))
+                off += n
+
+    def _check_blocks(self, what: str, k, v, k_scale, v_scale, depth: int) -> tuple:
+        """``(k, v, k_scale, v_scale)`` as tensors after the shape and layout
+        checks an import or install makes: a config, block-size or layout
+        skew raises :class:`GraphUnitError`."""
+        k, v = torch.as_tensor(k), torch.as_tensor(v)
+        cfg, bs = self.cfg, self.kv_block_size
+        expect = (cfg.n_layers, depth, bs, cfg.n_kv_heads, cfg.head_dim)
+        if tuple(k.shape) != expect or tuple(v.shape) != expect:
+            raise GraphUnitError(
+                f"{what} KV shape {tuple(k.shape)} does not match this pool's {expect} "
+                "(config or block-size skew)"
+            )
+        if bool(self.kv_dtype) != (k_scale is not None):
+            raise GraphUnitError(
+                f"{what} KV dtype skew: the pool is {self.kv_dtype or 'float'} but the "
+                f"blocks {'carry' if k_scale is not None else 'lack'} int8 scales; pools "
+                "must share kv_cache_dtype"
+            )
+        if k_scale is None:
+            if not (k.is_floating_point() and v.is_floating_point()):
+                raise GraphUnitError(f"{what} KV of dtype {k.dtype} into a float pool")
+            return k, v, None, None
+        k_scale, v_scale = torch.as_tensor(k_scale), torch.as_tensor(v_scale)
+        if k.dtype != torch.int8 or v.dtype != torch.int8:
+            raise GraphUnitError(f"{what} KV of dtype {k.dtype} into an int8 pool")
+        if tuple(k_scale.shape) != expect[:4] or tuple(v_scale.shape) != expect[:4]:
+            raise GraphUnitError(
+                f"{what} KV scale shape {tuple(k_scale.shape)} does not match this pool's "
+                f"{expect[:4]}"
+            )
+        return k, v, k_scale, v_scale
+
+    def export_slot_kv(self, slot: int, prompt_len: int) -> tuple:
+        """``slot``'s prompt blocks on the host for a handoff: ``(k, v)``,
+        ``(layers, ceil(prompt_len / bs), bs, kv_heads, head_dim)`` each, or
+        ``(k, v, k_scale, v_scale)`` from an int8 pool (its bytes verbatim).
+        The slot's reservation pins the blocks, shared prefix blocks too,
+        until the owner releases it."""
+        row = self._slot_row.get(int(slot))
+        if row is None:
+            raise GraphUnitError(f"slot {slot} holds no reservation to export")
+        nb = -(-int(prompt_len) // self.kv_block_size)
+        got = self._fetch_blocks(row[:nb])
+        return tuple(got[key] for key in self._pool_keys())
+
+    def export_spec_state(self, slot: int) -> dict | None:
+        """The proposer state a handoff carries (codec v5): the method and,
+        for ``heads``, the slot's last verified hidden (one device-to-host
+        copy).  ``draft`` carries no tensor (the importer prefills its draft
+        pool from the prompt); ``None`` for ``ngram`` and no speculation
+        (the history ring is rebuilt from the prompt)."""
+        if not self.spec_method or self.spec_method == "ngram":
+            return None
+        state: dict = {"method": self.spec_method}
+        if self.spec_method == "heads":
+            with self._lock:
+                state["hlast"] = self._hlast[int(slot)].cpu()
+        return state
+
+    def attach_imported(
+        self, slot: int, prompt: np.ndarray, k, v, *, reserve_tokens: int = 0,
+        k_scale=None, v_scale=None, first_token: int | None = None,
+        spec_state: dict | None = None,
+    ) -> None:
+        """Install another engine's exported prompt KV into ``slot``: reserve
+        blocks (longest-prefix reuse applies: blocks this pool already
+        holds for the leading prompt blocks are referenced, not rewritten;
+        equal prefixes hold equal bytes), copy the novel blocks in, set the
+        slot's position and table, and seed speculation (the history ring
+        from the prompt and ``first_token``; the carried Medusa hidden, or
+        zeros; the draft pool's prefill).  The slot then decodes as if it
+        had prefilled here.  An int8 pool takes the int8 blocks and scales
+        verbatim.  A shape, layout or block-size skew raises
+        :class:`GraphUnitError`, a full pool :class:`OutOfKVBlocks`; a
+        failed import releases every block it took."""
+        prompt = np.asarray(prompt, np.int32).ravel()
+        L = int(prompt.size)
+        if L < 1:
+            raise GraphUnitError("empty prompt")
+        bs = self.kv_block_size
+        nb = -(-L // bs)
+        k, v, k_scale, v_scale = self._check_blocks("imported", k, v, k_scale, v_scale, nb)
+        slot = int(slot)
+        with self._lock, torch.no_grad():
+            row, prefix_len = self.reserve_for_prompt(slot, prompt, L + max(0, int(reserve_tokens)))
+            skip = prefix_len // bs
+            try:
+                if skip < nb:
+                    parts = {"k": k, "v": v, "k_scale": k_scale, "v_scale": v_scale}
+                    self._put_blocks(row[skip:nb], {key: parts[key][:, skip:]
+                                                    for key in self._pool_keys()})
+                self._cache["pos"][slot] = L
+                self._cache["table"][slot] = self._h2d(row)
+                if self.spec_draft:
+                    seed = seed_history(prompt, self.spec_hist)
+                    if first_token is not None:
+                        seed[L % self.spec_hist] = int(first_token)
+                    self._hist[slot] = self._h2d(seed)
+                if self._hlast is not None:
+                    # a frame without the hidden costs the first pass's
+                    # acceptance, never output
+                    hl = (spec_state or {}).get("hlast")
+                    self._hlast[slot] = (torch.as_tensor(hl).to(self.device, self._hlast.dtype)
+                                         if hl is not None else 0)
+                self.draft_prefill_dispatch(slot, prompt)
+            except BaseException:
+                self.release_slot(slot)
+                raise
+            self._pos_ceiling[slot] = L
+            self._slot_filled.add(slot)  # its prompt blocks hold complete K/V
+            self.imports += 1
+
+    def _demote_and_free(self, shortfall: int) -> None:
+        """Evict up to ``shortfall`` blocks of zero-ref prefix chains into
+        the free pool, demoting the victims' blocks into the DRAM store
+        first (one device-to-host copy for the whole victim set).  Without
+        the DRAM tier this is plain eviction."""
+        if self.prefix_index is None or shortfall <= 0:
+            return
+        victims = self.prefix_index.evict_entries(shortfall)
+        if not victims:
+            return
+        if self.host_store is not None:
+            try:
+                got = self._fetch_blocks([b for _k, _d, b in victims])
+                # shallowest level first, so a rejected level truncates its
+                # chain's tail instead of stranding it
+                order = sorted(range(len(victims)),
+                               key=lambda j: (victims[j][0][0], len(victims[j][0][1])))
+                rejected: list[tuple] = []
+                for i in order:
+                    key, depth, _block = victims[i]
+                    if any(key[0] == r[0] and key[1].startswith(r[1]) for r in rejected):
+                        continue
+                    level = {name: t[:, i].clone() for name, t in got.items()}
+                    if not self.host_store.put(key, depth, level["k"], level["v"],
+                                               level.get("k_scale"), level.get("v_scale")):
+                        rejected.append(key)
+            except Exception:  # noqa: BLE001 - the blocks are freed either way
+                log.warning("generative model %r: DRAM prefix demotion failed; dropping %d "
+                            "evicted blocks", self.name, len(victims), exc_info=True)
+        self._free_blocks.extend(b for _k, _d, b in victims)
+
+    def _credit_peer_tier(self, prompt: np.ndarray, n_matched: int) -> None:
+        """Count a peer hit when a matched level came from a peer pull no
+        admission has used yet (the credit is used up: later matches of
+        those levels are plain index hits)."""
+        if n_matched and self._peer_chains:
+            keys = {HostPrefixStore.level_key(prompt, lvl, self.kv_block_size, b"")
+                    for lvl in range(1, n_matched + 1)}
+            if keys & self._peer_chains:
+                self._peer_chains -= keys
+                self.peer_hits += 1
+
+    def _promote(self, blocks: list[int], entries: list[tuple]) -> None:
+        """Copy DRAM store entries (``(key, depth, k, v, k_scale, v_scale)``,
+        one block each) into pool ``blocks``."""
+        names = self._pool_keys()
+        col = {"k": 2, "v": 3, "k_scale": 4, "v_scale": 5}
+        self._put_blocks(blocks, {name: torch.stack([e[col[name]] for e in entries], 1)
+                                  for name in names})
+
+    def export_prefix_kv(self, tokens: np.ndarray, max_blocks: int = 64) -> tuple | None:
+        """Serve a peer's prefix pull: the longest chain this pool holds for
+        ``tokens`` (index levels, then the DRAM levels that extend them) as
+        ``(depth, k, v, k_scale, v_scale)`` on the host, KV ``(layers, depth,
+        block_size, kv_heads, head_dim)``; None on no match.  The index
+        levels are ref-pinned while they are fetched, so an admission's
+        eviction cannot free or demote them mid-export."""
+        if self.prefix_index is None:
+            return None
+        tokens = np.asarray(tokens, np.int32).ravel()
+        cap = min(int(max_blocks), int(tokens.size) // self.kv_block_size,
+                  self.max_blocks_per_slot)
+        if cap < 1:
+            return None
+        blocks: dict | None = None
+        pinned = self.prefix_index.acquire(tokens, cap)
+        depth = len(pinned)
+        if pinned:
+            try:
+                blocks = self._fetch_blocks([b for _k, _d, b in pinned])
+            finally:
+                self.prefix_index.release(tokens, depth)
+        if self.host_store is not None and depth < cap:
+            ext = self.host_store.match(tokens, depth + 1, cap)
+            if ext:
+                col = {"k": 2, "v": 3, "k_scale": 4, "v_scale": 5}
+                more = {name: torch.stack([e[col[name]] for e in ext], 1)
+                        for name in self._pool_keys()}
+                blocks = more if blocks is None else {
+                    name: torch.cat([blocks[name], more[name]], 1) for name in blocks}
+                depth += len(ext)
+        if not depth:
+            return None
+        self.peer_serves += 1
+        return depth, blocks["k"], blocks["v"], blocks.get("k_scale"), blocks.get("v_scale")
+
+    def install_prefix_chain(self, tokens: np.ndarray, k, v, k_scale=None, v_scale=None) -> int:
+        """Install a peer-pulled chain into the pool and the index (the
+        scheduler calls it at a sync point).  Only levels deeper than what
+        is resident are installed, as zero-ref index entries, evictable
+        like an absorbed prompt.  Returns the levels installed (0 when all
+        were resident or the pool has no block to spare); a failure frees
+        every block it took."""
+        if self.prefix_index is None:
+            raise GraphUnitError(f"model {self.name!r} has no prefix index to install into")
+        tokens = np.asarray(tokens, np.int32).ravel()
+        bs = self.kv_block_size
+        depth = int(k.shape[1]) if getattr(k, "ndim", 0) == 5 else 0
+        if depth < 1:
+            raise GraphUnitError(f"pulled chain KV shape {tuple(k.shape)} has no block")
+        k, v, k_scale, v_scale = self._check_blocks("pulled chain", k, v, k_scale, v_scale, depth)
+        if int(tokens.size) < depth * bs:
+            raise GraphUnitError("pulled chain tokens do not cover its blocks")
+        with self._lock, torch.no_grad():
+            have = self.prefix_index.peek_depth(tokens, depth)
+            if have >= depth:
+                return 0
+            n_new = depth - have
+            if len(self._free_blocks) < n_new:
+                self._demote_and_free(n_new - len(self._free_blocks))
+            if len(self._free_blocks) < n_new:
+                return 0  # the pool is too full to cache a pull; nothing taken
+            got = self._free_blocks[-n_new:]
+            del self._free_blocks[-n_new:]
+            try:
+                parts = {"k": k, "v": v, "k_scale": k_scale, "v_scale": v_scale}
+                self._put_blocks(got, {key: parts[key][:, have:] for key in self._pool_keys()})
+                rejected = self.prefix_index.insert(tokens, got, have)
+            except BaseException:
+                self._free_blocks.extend(got)
+                raise
+            self._free_blocks.extend(rejected)
+            for lvl in range(have + 1, depth + 1):
+                self._peer_chains.add(HostPrefixStore.level_key(tokens, lvl, bs, b""))
+            absorbed = n_new - len(rejected)
+            self.peer_installs += absorbed
+            return absorbed
 
     # ----------------------------------------------------------- prefill
 
@@ -832,8 +1174,29 @@ class GenerativeModel:
             snap.update(
                 free_blocks=len(self._free_blocks), pool_blocks=self.kv_blocks - 1,
                 prefills=self.prefills, prefills_reused=self.prefills_reused,
-                digest=self.prefix_index.digest(),
+                kv_imports=self.imports, digest=self.prefix_index.digest(),
             )
+            # the same six fields for every tier, zero where a tier has no
+            # such flow, as the JAX package reports them
+            tiers = {
+                "hbm": {"hits": snap["hits"], "misses": snap["misses"], "promotions": 0,
+                        "demotions": snap["evicted"],
+                        "bytes": len(self.prefix_index) * self.kv_bytes_per_block(),
+                        "pull_count": 0},
+                "peer": {"hits": self.peer_hits, "misses": 0, "promotions": self.peer_installs,
+                         "demotions": 0, "bytes": 0, "pull_count": self.peer_serves},
+            }
+            if self.host_store is not None:
+                st = self.host_store.snapshot()
+                tiers["dram"] = {
+                    **{key: st[key] for key in ("hits", "misses", "promotions", "demotions",
+                                                "bytes")},
+                    "pull_count": 0, "dram_hits": self.dram_hits,
+                    **{key: st[key] for key in ("entries", "budget_bytes", "evictions",
+                                                "rejected")},
+                    "digest": self.host_store.digest(),
+                }
+            snap["tiers"] = tiers
         return snap
 
     # ------------------------------------------------------------ decode
@@ -968,6 +1331,9 @@ class GenerativeModel:
             self.reset()
             if self.prefix_index is not None:  # warmup's hits are not traffic
                 self.prefix_index = PrefixIndex(self.kv_block_size)
+            if self.host_store is not None:
+                self.host_store = HostPrefixStore(self.kv_block_size, self._dram_bytes)
+            self._zero_tier_counters()
             self.prefills = self.steps = self.decode_blocks = self.host_syncs = 0
             self.prefills_reused = self.prefill_chunks = 0
             self.tokens_emitted, self.block_seconds = 0, 0.0
@@ -976,13 +1342,17 @@ class GenerativeModel:
 
     def reset(self) -> None:
         """Zero every slot position, reclaim every reservation and empty the
-        prefix index (every entry is unreferenced once the slots are)."""
+        prefix index (every entry is unreferenced once the slots are) and
+        the DRAM tier."""
         with self._lock:
             self._pos_ceiling[:] = 0
             for slot in list(self._slot_blocks):
                 self.release_slot(slot)
             if self.prefix_index is not None:
                 self._free_blocks.extend(self.prefix_index.flush())
+            if self.host_store is not None:  # demoted chains must not outlive a reset
+                self.host_store.flush()
+            self._peer_chains.clear()
             self._cache["pos"].zero_()
 
 
@@ -995,6 +1365,10 @@ class _Request:
     future: asyncio.Future
     out: list[int] = dataclasses.field(default_factory=list)
     t0: float = 0.0
+    # a handoff's prefill half: prefill, pin the slot, resolve (slot, token)
+    prefill_only: bool = False
+    # a handoff's decode half: the first token and the blocks to import
+    imported: dict | None = None
 
 
 class GenerationScheduler:
@@ -1010,7 +1384,15 @@ class GenerationScheduler:
     prompt delays the live streams by one chunk per decode block, not by
     its whole prefill.  An idle scheduler admits it at once.  Each sync
     point costs at most one host fetch for all the first tokens it
-    produced; intermediate chunks' tokens are never fetched."""
+    produced; intermediate chunks' tokens are never fetched.
+
+    The two halves of a handoff between engines enter here too:
+    :meth:`submit_prefill` prefills into a slot that stays PINNED (out of
+    admission, its blocks unreclaimable) until :meth:`release_external`
+    returns it, and :meth:`submit_imported` admits another engine's
+    prompt KV and decodes it.  Imports, releases of pinned slots and
+    peer-pulled prefix installs (:meth:`install_prefix`) all happen at a
+    sync point, never while a decode block is in flight."""
 
     def __init__(self, model: GenerativeModel, *, maxsize: int | None = None):
         self.model = model
@@ -1022,6 +1404,11 @@ class GenerationScheduler:
         # {"req", "slot", "plan", "i": next chunk}
         self._prefilling: list[dict] = []
         self.chunks_paced = 0
+        # slots pinned by submit_prefill, their pending releases, and the
+        # peer-pulled chains waiting for a sync point
+        self._external: set[int] = set()
+        self._external_release: list[int] = []
+        self._prefix_installs: list[tuple[dict, asyncio.Future]] = []
         self._maxsize = 256 if maxsize is None else int(maxsize)
         self._wake: asyncio.Event | None = None
         self._task: asyncio.Task | None = None
@@ -1043,15 +1430,7 @@ class GenerationScheduler:
             self._wake = asyncio.Event()
             self._task = asyncio.get_running_loop().create_task(self._run())
 
-    async def submit(
-        self,
-        prompt: np.ndarray,
-        *,
-        max_new_tokens: int = 32,
-        temperature: float = 0.0,
-        eos_id: int | None = None,
-    ) -> np.ndarray:
-        """Generate up to ``max_new_tokens`` ids for a 1-D prompt."""
+    def _validate_prompt(self, prompt) -> np.ndarray:
         if self._closed:
             raise RuntimeError("GenerationScheduler is closed")
         prompt = np.asarray(prompt, np.int32).ravel()
@@ -1067,20 +1446,18 @@ class GenerationScheduler:
             raise GraphUnitError(
                 f"prompt length {prompt.size} must be < max_seq {self.model.cfg.max_seq}"
             )
-        if max_new_tokens < 1:
-            return np.zeros(0, np.int32)
-        max_new_tokens = min(int(max_new_tokens), self.model.cfg.max_seq - int(prompt.size))
+        return prompt
+
+    async def _enqueue(self, req: _Request):
+        """Queue ``req`` (bounded intake) and wait for its future."""
         depth = len(self._waiting) + len(self._overflow)
         if self._maxsize and depth >= self._maxsize:
             raise QueueFull(f"generation queue is full ({depth} waiting, cap {self._maxsize})")
         self._ensure_run_task()
-        fut: asyncio.Future = asyncio.get_running_loop().create_future()
-        req = _Request(prompt, max_new_tokens, float(temperature), eos_id, fut,
-                       t0=time.perf_counter())
         self._waiting.append(req)
         self._wake.set()
         try:
-            return await fut
+            return await req.future
         except asyncio.CancelledError:
             # the client is gone: withdraw before a slot is spent (in-slot
             # requests are reaped by the run loop via the cancelled future)
@@ -1089,6 +1466,96 @@ class GenerationScheduler:
             if req in self._overflow:
                 self._overflow.remove(req)
             raise
+
+    def _request(self, prompt, max_new_tokens, temperature, eos_id, **kw) -> _Request:
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        return _Request(prompt, int(max_new_tokens), float(temperature), eos_id, fut,
+                        t0=time.perf_counter(), **kw)
+
+    async def submit(
+        self,
+        prompt: np.ndarray,
+        *,
+        max_new_tokens: int = 32,
+        temperature: float = 0.0,
+        eos_id: int | None = None,
+    ) -> np.ndarray:
+        """Generate up to ``max_new_tokens`` ids for a 1-D prompt."""
+        prompt = self._validate_prompt(prompt)
+        if max_new_tokens < 1:
+            return np.zeros(0, np.int32)
+        max_new_tokens = min(int(max_new_tokens), self.model.cfg.max_seq - int(prompt.size))
+        return await self._enqueue(self._request(prompt, max_new_tokens, temperature, eos_id))
+
+    async def submit_prefill(self, prompt: np.ndarray, *,
+                             temperature: float = 0.0) -> tuple[int, int]:
+        """A handoff's prefill half: prefill ``prompt`` into a free slot and
+        return ``(slot, first_token)`` without decoding.  The slot stays
+        PINNED until :meth:`release_external` returns it, so its blocks can
+        be exported at leisure and a failed handoff leaks nothing."""
+        prompt = self._validate_prompt(prompt)
+        return await self._enqueue(self._request(prompt, 1, temperature, None,
+                                                 prefill_only=True))
+
+    async def submit_imported(
+        self, prompt: np.ndarray, *, first_token: int, k, v, max_new_tokens: int = 32,
+        temperature: float = 0.0, eos_id: int | None = None, k_scale=None, v_scale=None,
+        spec_state: dict | None = None,
+    ) -> np.ndarray:
+        """A handoff's decode half: go on with a generation whose prompt KV
+        (``k``/``v``, and an int8 pool's scales) and first sampled token
+        another engine made.  The blocks are imported at the next sync
+        point; the result, the first token included, is what a unified
+        engine returns for the same request."""
+        prompt = self._validate_prompt(prompt)
+        max_new_tokens = min(max(1, int(max_new_tokens)),
+                             self.model.cfg.max_seq - int(prompt.size))
+        return await self._enqueue(self._request(
+            prompt, max_new_tokens, temperature, eos_id,
+            imported={"first_token": int(first_token), "k": k, "v": v, "k_scale": k_scale,
+                      "v_scale": v_scale, "spec": spec_state},
+        ))
+
+    def release_external(self, slot: int) -> None:
+        """Return a :meth:`submit_prefill`-pinned slot; the release runs at
+        the next sync point (idempotent there)."""
+        self._external_release.append(int(slot))
+        if self._wake is not None:
+            self._wake.set()
+
+    def _drain_external_releases(self) -> None:
+        while self._external_release:
+            slot = self._external_release.pop()
+            self._external.discard(slot)
+            self.model.release_slot(slot)
+
+    async def install_prefix(self, tokens: np.ndarray, k, v, *, k_scale=None,
+                             v_scale=None) -> int:
+        """Install a peer-pulled prefix chain into the pool and the index at
+        the next sync point; resolves to the chain levels installed."""
+        if self._closed:
+            raise RuntimeError("GenerationScheduler is closed")
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._prefix_installs.append(({"tokens": tokens, "k": k, "v": v, "k_scale": k_scale,
+                                       "v_scale": v_scale}, fut))
+        self._ensure_run_task()
+        self._wake.set()
+        return await fut
+
+    async def _drain_prefix_installs(self) -> None:
+        while self._prefix_installs:
+            payload, fut = self._prefix_installs.pop(0)
+            try:
+                n = await asyncio.to_thread(
+                    self.model.install_prefix_chain, payload["tokens"], payload["k"],
+                    payload["v"], payload["k_scale"], payload["v_scale"],
+                )
+            except Exception as e:  # noqa: BLE001 - routed to the caller
+                if not fut.done():
+                    fut.set_exception(e)
+                continue
+            if not fut.done():
+                fut.set_result(n)
 
     async def close(self) -> None:
         self._closed = True
@@ -1176,7 +1643,8 @@ class GenerationScheduler:
         admission by one chunk; ONE host fetch brings back every first
         token this produced."""
         prefilling = {e["slot"] for e in self._prefilling}
-        free = [i for i in range(len(slots)) if not active[i] and i not in prefilling]
+        free = [i for i in range(len(slots))
+                if not active[i] and i not in prefilling and i not in self._external]
         # pace chunks only while decode streams are live
         live = bool(active.any())
         chunk_c = self.model.prefill_chunk if live else 0
@@ -1186,7 +1654,17 @@ class GenerationScheduler:
             placed, errors, starved, chunked = [], [], [], []
             for req, slot in zip(batch, free):
                 try:
-                    if chunk_c and req.prompt.size > chunk_c:
+                    if req.imported is not None:  # a handoff: import, no prefill
+                        imp = req.imported
+                        self.model.attach_imported(
+                            slot, req.prompt, imp["k"], imp["v"],
+                            reserve_tokens=req.max_new_tokens, k_scale=imp["k_scale"],
+                            v_scale=imp["v_scale"], first_token=imp["first_token"],
+                            spec_state=imp["spec"],
+                        )
+                        placed.append((req, slot, imp["first_token"]))
+                        continue
+                    if chunk_c and not req.prefill_only and req.prompt.size > chunk_c:
                         # reserve only: the chunks go one per sync point
                         plan = self.model.admit_chunk_plan(
                             slot, req.prompt, req.temperature, self._next_seed(),
@@ -1204,7 +1682,7 @@ class GenerationScheduler:
                 except Exception as exc:  # noqa: BLE001 - routed to the future
                     errors.append((req, exc))
             ent = head if head is not None else (chunked[0] if chunked else None)
-            toks = [t for _, _, t in placed]
+            toks = [t for _, _, t in placed]  # device tensors; an import's is an int
             chunk_err = None
             if ent is not None:
                 try:
@@ -1214,7 +1692,10 @@ class GenerationScheduler:
                 except Exception as exc:  # noqa: BLE001 - routed to the future
                     chunk_err = exc
             # one host fetch for every first token of this sync point
-            return placed, self.model.fetch_tokens(toks), errors, starved, chunked, ent, chunk_err
+            fetched = iter(self.model.fetch_tokens(
+                [t for t in toks if isinstance(t, torch.Tensor)]))
+            toks = [next(fetched) if isinstance(t, torch.Tensor) else int(t) for t in toks]
+            return placed, toks, errors, starved, chunked, ent, chunk_err
 
         placed, toks, errors, starved, chunked, ent, chunk_err = await asyncio.to_thread(
             dispatch_and_fetch
@@ -1231,7 +1712,14 @@ class GenerationScheduler:
             if not req.future.done():
                 req.future.set_exception(exc)
         for (req, slot, _), tok in zip(placed, toks):
-            self._start(req, slot, tok, slots, cur, temps, active)
+            if not req.prefill_only:
+                self._start(req, slot, tok, slots, cur, temps, active)
+            elif req.future.done():  # the client left during the prefill
+                self.model.release_slot(slot)
+            else:  # pinned until release_external
+                self.ttft.append((int(req.prompt.size), time.perf_counter() - req.t0))
+                self._external.add(slot)
+                req.future.set_result((slot, int(tok)))
         if ent is not None and chunk_err is None:
             self.chunks_paced += int(live)
             ent["i"] += 1
@@ -1251,15 +1739,21 @@ class GenerationScheduler:
                 if self._closed:
                     raise asyncio.CancelledError
                 self._reap(slots, active)
+                # sync point: no block is in flight, so pinned slots may go
+                # back to the pool and pulled chains may take blocks
+                self._drain_external_releases()
+                if self._prefix_installs:
+                    await self._drain_prefix_installs()
                 if (not active.any() and not self._waiting and not self._overflow
-                        and not self._prefilling):
+                        and not self._prefilling and not self._external_release
+                        and not self._prefix_installs):
                     # fully idle: park until a submit wakes us (no await
                     # between the emptiness check and clear)
                     self._wake.clear()
                     await self._wake.wait()
                     continue
                 # sync point: nothing is in flight, so admissions may prefill
-                cap_free = S - int(active.sum()) - len(self._prefilling)
+                cap_free = S - int(active.sum()) - len(self._prefilling) - len(self._external)
                 batch = []
                 while self._overflow and len(batch) < cap_free:
                     batch.append(self._overflow.pop(0))
@@ -1270,6 +1764,21 @@ class GenerationScheduler:
                 if not active.any():
                     if self._prefilling:
                         continue  # chunks still advancing: each turn does device work
+                    cap_free = S - len(self._prefilling) - len(self._external)
+                    if (self._external and (self._waiting or self._overflow)
+                            and (cap_free == 0 or not self._waiting)
+                            and not self._external_release and not self._prefix_installs):
+                        # nothing can be admitted: every free slot, or the
+                        # blocks the overflow needs, is pinned by a handoff
+                        # in flight.  Park until a release or a submit wakes
+                        # the loop (no await between the check and clear);
+                        # the timeout reaps parked clients within 50 ms.
+                        self._wake.clear()
+                        try:
+                            await asyncio.wait_for(self._wake.wait(), timeout=0.05)
+                        except asyncio.TimeoutError:
+                            pass
+                        continue
                     if self._overflow:
                         # nothing in flight can free blocks: these requests
                         # exceed the pool outright
@@ -1305,6 +1814,12 @@ class GenerationScheduler:
                 self._deliver(toks_seq, act_seq, slots, cur, active)
         except asyncio.CancelledError:
             err = RuntimeError("GenerationScheduler closed")
+            for _payload, fut in self._prefix_installs:
+                if not fut.done():
+                    fut.set_exception(err)
+            self._prefix_installs.clear()
+            self._external.clear()
+            self._external_release.clear()
             for ent in self._prefilling:
                 if not ent["req"].future.done():
                     ent["req"].future.set_exception(err)

@@ -40,7 +40,7 @@ from seldon_core_tpu_torch.ops.paged_attention import paged_decode_attention_pla
 __all__ = [
     "Config", "Llama", "init_paged_cache", "paged_kv_slot_bytes", "prefill_slot_paged",
     "prefill_suffix_paged", "decode_slots_paged", "decode_slots_spec_paged", "sample_tokens",
-    "forward", "init_medusa_heads", "apply_medusa_heads", "medusa_head_bytes", "truncate_params",
+    "forward", "row_variant_ops", "init_medusa_heads", "apply_medusa_heads", "medusa_head_bytes", "truncate_params",
 ]
 
 
@@ -147,8 +147,34 @@ class Llama(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _rmsnorm(x, w, eps):
-    var = x.float().square().mean(dim=-1, keepdim=True)
+def _per_query(fn, x, split: bool):
+    """``fn`` over ``x (S, L, ...)``: in one call, or (``split``, L > 1) once
+    per query position over a contiguous ``(S, 1, ...)`` slice, which is
+    the plain decode step's shape; the rows keep their order."""
+    if not split or x.shape[1] == 1:
+        return fn(x)
+    xt = x.transpose(0, 1).contiguous()
+    return torch.cat([fn(xt[j].unsqueeze(1)) for j in range(x.shape[1])], dim=1)
+
+
+def _plain(name, fn, t):
+    """The default op hook of the layer helpers: ``fn(t)`` in one call."""
+    return fn(t)
+
+
+def _row_split_op(names: frozenset):
+    """An op hook that runs the ops in ``names`` once per query position
+    (:func:`_per_query`) and the others in one call."""
+    def op(name, fn, t):
+        return _per_query(fn, t, name in names)
+
+    return op
+
+
+def _rmsnorm(x, w, eps, op=_plain):
+    """RMS norm over the last dim; its one sum, the mean of squares, is the
+    op ``norm``."""
+    var = op("norm", lambda t: t.mean(dim=-1, keepdim=True), x.float().square())
     return (x * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
@@ -170,10 +196,11 @@ def _proj_heads(h, w):
     return (h @ w.reshape(E, H * D)).unflatten(-1, (H, D))
 
 
-def _mlp_block(h, lp):
+def _mlp_block(h, lp, op=_plain):
     """SwiGLU MLP."""
-    act = torch.nn.functional.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
-    return act @ lp["w_down"]
+    act = (torch.nn.functional.silu(op("w_gate", lambda t: t @ lp["w_gate"], h))
+           * op("w_up", lambda t: t @ lp["w_up"], h))
+    return op("w_down", lambda t: t @ lp["w_down"], act)
 
 
 def _out_proj(o, wo):
@@ -197,20 +224,21 @@ def _select_attn(seq_impl: str):
     raise ValueError(f"seq_impl must be 'flash' or 'dense', got {seq_impl!r}")
 
 
-def _qkv(x, lp, cfg: Config, positions):
-    """The attention input of one layer: post-RoPE ``q``, ``k`` and ``v``."""
-    h = _rmsnorm(x, lp["ln_att"], cfg.norm_eps)
-    q = _proj_heads(h, lp["wq"])
-    k = _proj_heads(h, lp["wk"])
-    v = _proj_heads(h, lp["wv"])
+def _qkv(x, lp, cfg: Config, positions, op=_plain):
+    """The attention input of one layer: post-RoPE ``q``, ``k`` and ``v``.
+    ``op(name, fn, t)`` runs each named op (:data:`ROW_OPS`) of the layer."""
+    h = _rmsnorm(x, lp["ln_att"], cfg.norm_eps, op)
+    q = op("wq", lambda t: _proj_heads(t, lp["wq"]), h)
+    k = op("wk", lambda t: _proj_heads(t, lp["wk"]), h)
+    v = op("wv", lambda t: _proj_heads(t, lp["wv"]), h)
     return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v
 
 
-def _layer_out(x, o, lp, cfg: Config):
+def _layer_out(x, o, lp, cfg: Config, op=_plain):
     """Output projection, residual and MLP of one layer."""
-    x = x + _out_proj(o, lp["wo"])
-    h = _rmsnorm(x, lp["ln_mlp"], cfg.norm_eps)
-    return x + _mlp_block(h, lp)
+    x = x + op("wo", lambda t: _out_proj(t, lp["wo"]), o)
+    h = _rmsnorm(x, lp["ln_mlp"], cfg.norm_eps, op)
+    return x + _mlp_block(h, lp, op)
 
 
 def _layer(x, lp, cfg: Config, positions, attn_fn, kv_hook=None):
@@ -473,6 +501,7 @@ def decode_slots_paged(
 def decode_slots_spec_paged(
     params: Llama, qtokens, cache: dict, active, qvalid, cfg: Config, *,
     window: int | None = None, kernel: bool = True, return_hidden: bool = False,
+    row_split: frozenset = frozenset(),
 ):
     """Speculative verify pass: score ``L = 1 + draft`` query positions per
     slot in ONE model call.
@@ -484,21 +513,73 @@ def decode_slots_spec_paged(
     position of an inactive slot go to the sink block 0, scales too.
     ``cache["pos"]`` is NOT advanced: the caller moves it by the tokens it
     accepts, and rejected rows above it are overwritten by the next pass
-    before anything reads them.  Returns ``(logits (S, L, V), cache)``,
-    plus the post-``ln_f`` hidden ``(S, L, E)`` when ``return_hidden``."""
+    before anything reads them.  ``row_split`` names the ops run once per
+    query position (:func:`row_variant_ops`), so that row ``j``'s bits are
+    those of a plain step at ``pos + j``.  Returns ``(logits (S, L, V),
+    cache)``, plus the post-``ln_f`` hidden ``(S, L, E)`` when
+    ``return_hidden``."""
     return _decode_paged_multi(
         params, qtokens, cache, active, qvalid, cfg, window=window, kernel=kernel,
-        return_hidden=return_hidden,
+        return_hidden=return_hidden, row_split=row_split,
     )
 
 
+# the ops of the decode body whose rows a library may reduce in an order
+# that follows the row count: the RMS norms' mean of squares and the
+# products, by weight
+ROW_OPS = ("norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "head")
+
+
+@torch.no_grad()
+def row_variant_ops(cfg: Config, n_rows: int, L: int, dtype=torch.float32, device="cpu",
+                    seed: int = 0) -> frozenset:
+    """The :data:`ROW_OPS` whose rows get other bits on ``device`` in
+    ``dtype`` when the op sees ``n_rows * L`` rows instead of ``n_rows``.
+    A library picks its algorithm, and with it the order of a row's sums,
+    by the shape (never by the values), so the probe runs each op's shapes
+    on made-up values whose sums cancel: a product of ``[a, -a]`` rows with
+    ``[w; w]`` is 0 but for the rounding of its partial sums, which any
+    other summation order changes; for the norm it compares the f32 mean of
+    squares, the one sum in :func:`_rmsnorm`.  A verify pass runs the ops
+    found once per query position (``row_split``), so that its rows equal
+    the plain step's bit for bit."""
+    if L <= 1:
+        return frozenset()
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    rows = int(n_rows) * int(L)
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    shapes = {"wq": (cfg.hidden, H * D), "wk": (cfg.hidden, KV * D), "wv": (cfg.hidden, KV * D),
+              "wo": (H * D, cfg.hidden), "w_gate": (cfg.hidden, cfg.ffn),
+              "w_up": (cfg.hidden, cfg.ffn), "w_down": (cfg.ffn, cfg.hidden),
+              "head": (cfg.hidden, cfg.vocab_size)}
+    out = set()
+    for name, (K, N) in shapes.items():
+        a = torch.randn(rows, 1, K // 2, generator=gen, device=device)
+        w = torch.randn(K // 2, N, generator=gen, device=device)
+        x = torch.cat([a, -a], dim=-1).to(dtype)
+        w = torch.cat([w, w]).to(dtype)
+        if not torch.equal((x @ w)[: int(n_rows)], x[: int(n_rows)].contiguous() @ w):
+            out.add(name)
+    x = torch.randn(rows, 1, cfg.hidden, generator=gen, device=device).to(dtype)
+
+    def sumsq(t):
+        return t.float().square().mean(dim=-1, keepdim=True)
+
+    if not torch.equal(sumsq(x)[: int(n_rows)], sumsq(x[: int(n_rows)].contiguous())):
+        out.add("norm")
+    return frozenset(out)
+
+
 def _decode_paged_multi(params: Llama, qtokens, cache, active, qvalid, cfg: Config, *,
-                        window, kernel: bool = True, return_hidden: bool = False):
+                        window, kernel: bool = True, return_hidden: bool = False,
+                        row_split: frozenset = frozenset()):
     """Shared L-query decode body (``L = 1`` is the decode step, ``L > 1``
     the speculative verify).  This step's K/V rows are written into the
     pool first (quantized per row under an int8 pool; rows whose ``qvalid``
     is false into the sink block 0, scales too), then attention reads the
-    slot's window (the kernel dequantizes int8 pages itself)."""
+    slot's window (the kernel dequantizes int8 pages itself).  The ops
+    named in ``row_split`` (:func:`row_variant_ops`) run once per query
+    position, as the plain step runs them; the math is the same."""
     del active  # the write routing reads qvalid; kept for the JAX signature
     pos = cache["pos"]  # (S,)
     table = cache["table"]  # (S, MB)
@@ -519,9 +600,10 @@ def _decode_paged_multi(params: Llama, qtokens, cache, active, qvalid, cfg: Conf
     write_off = positions % bs
     attend = paged_decode_attention if kernel else paged_decode_attention_plain
     ck, cv = cache["k"], cache["v"]
+    op = _row_split_op(row_split) if row_split else _plain
     for li in range(cfg.n_layers):
         lp = params.layer(li)
-        q, k, v = _qkv(x, lp, cfg, positions)
+        q, k, v = _qkv(x, lp, cfg, positions, op)
         ckl, cvl = ck[li], cv[li]
         scales = {}
         if quant:
@@ -536,11 +618,12 @@ def _decode_paged_multi(params: Llama, qtokens, cache, active, qvalid, cfg: Conf
             ckl[write_blk, write_off] = k.to(ckl.dtype)
             cvl[write_blk, write_off] = v.to(cvl.dtype)
         o = attend(q.contiguous(), ckl, cvl, read_idx, pos, **scales)
-        x = _layer_out(x, o, lp, cfg)
-    x = _rmsnorm(x, params.ln_f, cfg.norm_eps)
+        x = _layer_out(x, o, lp, cfg, op)
+    x = _rmsnorm(x, params.ln_f, cfg.norm_eps, op)
+    logits = op("head", lambda t: t @ params.head, x)
     if return_hidden:
-        return x @ params.head, cache, x
-    return x @ params.head, cache
+        return logits, cache, x
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------

@@ -26,12 +26,11 @@ PRESETS = {
 }
 
 # parameters of the JAX package's generative unit that belong to later
-# slices of the port (trained Medusa heads from a checkpoint, LoRA, the
-# prefix tiers, mesh, checkpoints, the overlap pipeline, chip packing,
-# LLM-graph hooks)
+# slices of the port (trained Medusa heads from a checkpoint, LoRA, mesh,
+# checkpoints, the overlap pipeline, chip packing, LLM-graph hooks)
 LATER_SLICE_PARAMS = (
     "spec_heads_path", "lora_rank", "lora_slots",
-    "lora_targets", "lora_adapters", "adapter", "prefix_dram_gb", "mesh",
+    "lora_targets", "lora_adapters", "adapter", "mesh",
     "checkpoint", "overlap", "pack_class", "pack_slo_ms", "conf_signal",
     "embed",
 )
@@ -80,6 +79,7 @@ def build_generative_component(
     kv_cache_dtype: str | None = None,
     kv_prefix_reuse: bool | None = None,
     prefill_chunk: int | None = None,
+    prefix_dram_gb: float | None = None,
     spec_draft: int | None = None,
     spec_ngram: int | None = None,
     spec_hist: int = 64,
@@ -99,7 +99,9 @@ def build_generative_component(
     quantized with per-(position, head) scales, ``kv_prefix_reuse`` shares
     prompt-prefix KV blocks across requests and ``prefill_chunk`` prefills
     long prompts in chunks paced between decode blocks, as in the JAX
-    package.  ``spec_draft`` turns on speculative decoding with the
+    package; ``prefix_dram_gb`` (with ``kv_prefix_reuse``; env
+    ``SCT_PREFIX_DRAM_GB``) keeps evicted prefix blocks in that many GiB of
+    host DRAM and promotes them back on a match.  ``spec_draft`` turns on speculative decoding with the
     proposer ``spec_method`` (``ngram``, ``heads`` with ``spec_heads``
     heads made from the model's ``lm_head``, or ``draft`` with
     ``spec_draft_model``); ``spec_ngram``/``spec_hist`` size the n-gram
@@ -153,6 +155,7 @@ def build_generative_component(
         kv_cache_dtype=kv_cache_dtype,
         prefill_chunk=prefill_chunk,
         prefix_reuse=kv_prefix_reuse,
+        prefix_dram_gb=None if prefix_dram_gb is None else float(prefix_dram_gb),
         spec_draft=spec_draft,
         spec_ngram=spec_ngram,
         spec_hist=spec_hist,

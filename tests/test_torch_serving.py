@@ -221,7 +221,7 @@ def test_codec_matches_the_jax_codec(msg):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("spec_heads_path", "/heads.npz"), ("lora_rank", 8), ("prefix_dram_gb", 1.0), ("mesh", "auto"),
+    ("spec_heads_path", "/heads.npz"), ("lora_rank", 8), ("pack_class", "batch"), ("mesh", "auto"),
     ("checkpoint", "/weights.npz"), ("overlap", True),
 ])
 def test_later_slice_parameters_raise_by_name(name, value):
@@ -281,7 +281,8 @@ _PROVENANCE = re.compile(r'"seldon_core_tpu/[\w/]+\.py:\d+"')
 def test_port_never_imports_jax_or_the_jax_package():
     sources = sorted((ROOT / "seldon_core_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     # the port's own copies of modules the JAX package also has
-    for module in ("cache/prefix.py", "models/llama.py", "executor/generation.py"):
+    for module in ("cache/prefix.py", "cache/tiers.py", "models/llama.py",
+                   "executor/generation.py", "executor/multihost.py", "disagg/handoff.py"):
         assert ROOT / "seldon_core_tpu_torch" / module in sources
     hits = [
         f"{p.relative_to(ROOT)}:{i}"

@@ -469,3 +469,48 @@ def test_warmup_runs_verify_passes_and_a_draft_prefill(tiny, monkeypatch):
     assert m.warmup() == len(m.prefill_buckets) + 1
     assert calls["verify"] == 4 and calls["draft"] == len(m.prefill_buckets)
     assert (m.spec_emitted_tokens, m.spec_verify_passes, m.draft_prefills) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["float", "int8"])
+@pytest.mark.parametrize("slots,split", [(4, "probed"), (4, "all"), (1, "probed")],
+                         ids=["4slots-probed", "4slots-all", "1slot-probed"])
+def test_verify_rows_equal_plain_steps_bit_for_bit(tiny, kv_dtype, slots, split):
+    """A verify pass at L = 4 against four plain steps on a copy of one
+    pool, teacher-forced with the pass's tokens: every row a slot's budget
+    covers has the step's logits and writes the step's pool bytes, bit for
+    bit (budgets 4, 2, 1 and 3 end inside the pass).  The ops run per
+    query position are those the device rounds otherwise at 4x the rows
+    (``probed``; on this CPU every op at one slot) or all of them."""
+    _, _, tcfg, tparams = tiny
+    L = 4
+    row_split = (tl.row_variant_ops(tcfg, slots, L) if split == "probed"
+                 else frozenset(tl.ROW_OPS))
+    rng = np.random.default_rng(11)
+    cache = tl.init_paged_cache(tcfg, slots, 1 + 4 * slots, BS, kv_dtype=kv_dtype)
+    for s in range(slots):
+        n = int(rng.integers(5, 40))
+        padded = np.zeros((1, 64), np.int32)
+        padded[0, :n] = rng.integers(0, tcfg.vocab_size, n)
+        row = np.zeros(tcfg.max_seq // BS, np.int32)
+        row[:] = 1 + 4 * s + np.arange(4)
+        tl.prefill_slot_paged(tparams, torch.from_numpy(padded), n, s, row, cache, tcfg,
+                              seq_impl="dense")
+    qtok = torch.from_numpy(rng.integers(0, tcfg.vocab_size, (slots, L)).astype(np.int32))
+    budget = torch.tensor([4, 2, 1, 3][:slots])
+    qvalid = torch.arange(L)[None, :] < budget[:, None]
+    act = torch.ones(slots, dtype=torch.bool)
+    passed = {k: v.clone() for k, v in cache.items()}
+    verify, _ = tl.decode_slots_spec_paged(tparams, qtok, passed, act, qvalid, tcfg, window=64,
+                                           row_split=row_split)
+    stepped = {k: v.clone() for k, v in cache.items()}
+    for j in range(L):
+        step, _ = tl.decode_slots_paged(tparams, qtok[:, j].contiguous(), stepped, qvalid[:, j],
+                                        tcfg, window=64)
+        for s in range(slots):
+            if qvalid[s, j]:
+                assert torch.equal(verify[s, j], step[s]), (s, j)
+    for key in ("k", "v", "k_scale", "v_scale"):
+        if key in cache:  # block 0 is the sink the rows past a budget go to
+            assert torch.equal(passed[key][:, 1:], stepped[key][:, 1:]), key
+    if slots == 1 and split == "probed":
+        assert row_split  # the split path ran
