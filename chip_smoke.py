@@ -13,7 +13,10 @@ Phases, each printing one JSON line:
    card, at the main path's shapes (llama3-1b: H=32, KV=8, D=64, 16-row
    pages): flash attention at every prefill bucket, ragged and prime
    lengths, grouped and repeated K/V, strided views, no mask, other head
-   dims, in bf16, f16 and f32; paged attention at 1-4 queries per slot,
+   dims, in bf16, f16 and f32, and its bottom-right causal variant (Sq
+   suffix rows over Sk >= Sq keys, 80 over 592 as served), whose rows must
+   be the bits of the same rows of a cold causal call over the whole
+   padded bucket; paged attention at 1-4 queries per slot,
    int8 pages, position 0, positions on and off page boundaries, one split
    and many, slots whose later splits are empty and rows that see nothing,
    and at head dim 128 (llama3-8b) and 8- and 32-row pages; and every
@@ -27,31 +30,44 @@ Phases, each printing one JSON line:
    first 2 blocks are already in the prefix index against the same prompt
    cold, and ``prefill_chunk=64`` over a 300-token prompt against the
    monolithic prefill (first-token logits, 16 greedy tokens, and the
-   reuse and chunk counts those two must show; the same in bf16 is
-   reported, not gated); and speculative decoding at ``spec_draft=3``
+   reuse and chunk counts those two must show; in bf16, over a float and
+   an int8 pool, the logits must be bit-equal); and speculative decoding
+   at ``spec_draft=3``
    with each proposer (``ngram``, ``heads`` made from the ``lm_head``,
    ``draft`` with ``truncate:1``): greedy streams on the card equal to
    speculation off on the card and to speculation on on the CPU, with a
    non-empty acceptance ledger.
-4. ``serve``: the engine boots in-process on 127.0.0.1 with a
+4. ``graphs``: a decode block replayed from its CUDA graph against the
+   same block run eagerly on the card from the same state (llama3-1b
+   width, 4 layers, bf16, 8 slots, 16-step blocks): tokens, emitted mask
+   and every pool byte bit-equal, and the same kernel launches counted,
+   for a float pool (greedy, sampled, sampled with top-k), an int8 pool
+   (greedy, sampled) and each proposer (greedy; ``ngram`` sampled too).
+5. ``serve``: the engine boots in-process on 127.0.0.1 with a
    ``JAX_GENERATIVE`` llama3-1b bf16 graph (seeded weights, 8 slots,
    16-step decode blocks, float pool) and answers concurrent strData
-   requests over HTTP; the kernels' launch counts are read around this
-   phase, and it fails unless every decode block cost exactly one host
-   sync.
-5. ``serve_cached``: the same graph with ``kv_cache_dtype=int8``,
+   requests over HTTP, every block a graph replay with the overlap on; the
+   kernels' launch counts are read around this phase, and it fails unless
+   every decode block cost exactly one host sync, a block continued from
+   the carry, the captures stayed those of warmup (one per window
+   bucket), and the same wave with the overlap off and on the eager loop
+   gave the same streams; it prints a cold prefill's ms with and without
+   the row tiles.
+6. ``serve_cached``: the same graph with ``kv_cache_dtype=int8``,
    ``kv_prefix_reuse=true`` and ``prefill_chunk=256``: one warm request (a
    512-token prefix + 24), then a wave of six requests sharing that prefix
-   and, 0.2 s later while they decode, two unshared ones of 1500 and 1900
-   tokens that the scheduler paces chunk by chunk.  It fails unless every
-   reply is 200 with 32 valid tokens, six prefills reused the prefix, a
-   chunk was paced while streams decoded (``chunks_paced``; chunks run
-   back to back with no live stream are not counted), each decode block
-   cost one host sync and both kernels
-   launched; it prints TTFT of the shared and the long requests, the
-   block time after a paced chunk and without one, and the pool's bytes
-   per 2048-token slot, int8 and bf16.
-6. ``serve_spec``: the ``serve`` graph with ``spec_draft=3``, once per
+   (64 new tokens each) and, once their first block is delivered, two
+   unshared ones of 1500 and 1900 tokens that the scheduler paces chunk by
+   chunk.  It fails unless every reply is 200 with its valid tokens, six
+   prefills reused the prefix, a chunk was paced while streams decoded
+   (``chunks_paced``; chunks run back to back with no live stream are not
+   counted), each decode block cost one host sync, both kernels launched,
+   the suffix prefills launched flash attention, and every stream equals
+   the same prompt's on a fresh int8 engine with reuse and chunking off;
+   it prints TTFT of the shared and the long requests, the block time
+   after a paced chunk and without one, a suffix prefill's and a chunk's
+   host ms, and the pool's bytes per 2048-token slot, int8 and bf16.
+7. ``serve_spec``: the ``serve`` graph with ``spec_draft=3``, once per
    proposer (``ngram``; ``heads``; ``draft`` with ``truncate:auto``, 2 of
    16 layers; and ``draft`` with ``preset:llama3-1b`` seeded as the served
    weights, the model drafting for itself), each answering a wave of the
@@ -65,7 +81,7 @@ Phases, each printing one JSON line:
    pass, wave tokens/s, TTFT, each stream's agreement, and (``ngram``)
    each verify row against a plain step at pos + j and which ops of a
    layer keep a row's bits at 32 rows.
-7. ``serve_disagg``: two engines in one process over loopback HTTP, the
+8. ``serve_disagg``: two engines in one process over loopback HTTP, the
    ``serve`` graph with explicit ``kv_blocks``: A in the ``prefill`` role
    (``SCT_DISAGG_DECODE`` naming B) and B in the ``decode`` role.  The
    serve wave's distinct prompts through A's ``/disagg/generate`` must
@@ -76,15 +92,25 @@ Phases, each printing one JSON line:
    512-token prefix chain from A (``SCT_PREFIX_PEER_PULL=1``, the
    ``x-sct-prefix-peer`` header) and serves it from the peer tier with
    A's tokens; with B stopped, A answers ``unified-fallback`` with the
-   same tokens and its free-block count back where it was.  Then the
+   same tokens (the 600-token prompt's reused prefix and suffix prefill
+   give ``serve``'s cold stream) and its free-block count back where it
+   was.  Then the
    DRAM tier: ``prefix_dram_gb`` with a 128-block pool in which a
    1500-token prompt evicts a warmed 512-token prefix, promoted back for
    a prompt sharing it, must give the streams of a pool with room for
    all of it.  It prints handoff bytes per request, export and import
    ms, TTFT (client send to the decode engine's first token) and wave
    tokens/s beside ``serve``'s, and the DRAM tier's counters.
-8. ``kernel_times``: each kernel's time at the main path's shapes and at a
-   long one (flash at S=2048, paged at 8 slots near position 2000; paged
+9. ``serve_stream``: the serve graph streams a reply over
+   ``/api/v0.1/predictions/stream`` (SSE): it must equal the unstreamed
+   reply, in one write per decode block (the first token alone); a client
+   that leaves mid-stream frees its slot once (the free block count comes
+   back, none twice); ``/pause`` turns ``/ready`` to 503 and ``/unpause``
+   back.
+10. ``kernel_times``: each kernel's time at the main path's shapes and at a
+   long one (flash at S=2048 and its variant at 80 rows over 592 keys,
+   against SDPA with the lower-right causal mask; paged at 8 slots near
+   position 2000; paged
    also over int8 pages with bf16 scales at both, and at 4 queries per
    slot as a verify pass reads, beside the K/V bytes it reads) beside its plain
    version, one PyTorch library call where there is one, and the least
@@ -143,8 +169,8 @@ LONG_POS = [1990, 1995, 2000, 2001, 2007, 1999, 2010, 2015]  # K2's long timing:
 CACHED_PREFIX = 512
 CACHED_CHUNK = 256
 SHARED_SUFFIXES = (8, 17, 24, 33, 47, 64)
+SHARED_NEW = 64  # the shared streams decode 4 blocks: live while the long prompts' chunks pace
 LONG_LENGTHS = (1500, 1900)
-LONG_DELAY_S = 0.2
 # speculation: draft length, the proposers' graph parameters, and the
 # repetitive prompt added to the serve wave (a 40-token cycle of 8 tokens)
 SPEC_DRAFT = 3
@@ -341,6 +367,11 @@ def _flash_cases():
             (dn, {"entry": "blhd", "S": 257, "H": 32, "KV": 8, "D": 64, "fused": True}),
             (dn, {"entry": "bhsd", "S": 257, "Sk": 257, "H": 32, "KV": 8, "D": 64}),
             (dn, {"entry": "bhsd", "S": 100, "Sk": 257, "H": 32, "KV": 8, "D": 64}),
+            # the bottom-right causal variant (suffix prefills): a served
+            # shape (80 suffix rows over a 512-row prefix) and ragged ones
+            (dn, {"entry": "blhd", "S": 80, "Sk": 592, "H": 32, "KV": 8, "D": 64}),
+            (dn, {"entry": "blhd", "S": 100, "Sk": 357, "H": 32, "KV": 8, "D": 64}),
+            (dn, {"entry": "blhd", "S": 16, "Sk": 1040, "H": 32, "KV": 8, "D": 64}),
             (dn, {"entry": "blhd", "S": 300, "H": 16, "KV": 4, "D": 128, "B": 2}),
             (dn, {"entry": "blhd", "S": 150, "H": 8, "KV": 2, "D": 32}),
             (dn, {"entry": "blhd", "S": 70, "H": 4, "KV": 4, "D": 16}),
@@ -368,7 +399,8 @@ def _flash_check(fa, dn, case, seed):
             qkv = torch.randn(B, S, H + 2 * KV, D, generator=g, device="cuda").to(dtype)
             q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
         else:
-            q, k, v = _flash_inputs(S, H, KV, D, dtype, seed=seed, B=B)
+            q, k, v = _flash_inputs(case.get("Sk", S), H, KV, D, dtype, seed=seed, B=B)
+            q = q[:, -S:]  # Sk > S: the last S rows' queries, bottom-right causal
         got = fa.flash_causal_attention_blhd(q, k, v)
         want = fa._attention_blhd_plain(_f32(q), _f32(k), _f32(v), True)
         pv = fa._attention_blhd_plain(_f32(q), _f32(k), _f32(v).abs(), True)
@@ -483,6 +515,25 @@ def phase_kernel_check() -> dict:
         checks.append({"kernel": "paged_decode_attention", "rows_bit_equal": True, "dtype": dn,
                        "quant": quant, "L": [1, 1 + SPEC_DRAFT], "max_abs_err": 0.0,
                        "max_err_over_limit": 0.0})
+    # the causal variant's rows are a cold prefill's rows: the suffix rows
+    # [P, P + Sq) of a causal call over the whole padded bucket, bit for
+    # bit (key tiles from column 0 on both; tiles a row sees nothing of
+    # change nothing), in bf16 (wgmma) and f32 (SIMT), with scores as a
+    # model makes them too (queries x 6: a row max of tens, whose product
+    # with log2(e) * scale rounds)
+    for dn, gain in (("bfloat16", 1.0), ("bfloat16", 6.0), ("float32", 1.0), ("float32", 6.0)):
+        for P, Sq, bucket in ((512, 80, 1024), (16, 16, 32), (272, 64, 512), (32, 68, 128),
+                              (1024, 1024, 2048), (512, 16, 1024)):
+            q, k, v = _flash_inputs(bucket, H, KV, 64, getattr(torch, dn), seed=P + Sq)
+            q = (q.float() * gain).to(q.dtype)
+            cold = fa.flash_causal_attention_blhd(q, k, v)
+            suffix = fa.flash_causal_attention_blhd(q[:, P:P + Sq], k[:, :P + Sq], v[:, :P + Sq])
+            if not torch.equal(cold[:, P:P + Sq], suffix):
+                raise AssertionError(f"flash attention's suffix rows at P={P}, Sq={Sq} are not "
+                                     f"the cold prefill's rows over {bucket} ({dn}, q x {gain})")
+            checks.append({"kernel": "flash_attention", "suffix_rows_bit_equal": True, "dtype": dn,
+                           "q_gain": gain, "P": P, "Sq": Sq, "bucket": bucket,
+                           "max_abs_err": 0.0, "max_err_over_limit": 0.0})
     _sync()
     worst = max(checks, key=lambda r: r["max_err_over_limit"])
     # one short entry per case: the shape keys, the largest error, err/limit
@@ -569,14 +620,16 @@ def _first_and_greedy(model, slot: int, prompt, steps: int = 16):
     return caught[-1], [first] + toks[:, slot].tolist()
 
 
-def _reuse_and_chunk_checks(cfg, params, device: str) -> list[dict]:
+def _reuse_and_chunk_checks(cfg, params, device: str, exact: bool = False,
+                            kv_cache_dtype: str | None = None) -> list[dict]:
     """On the card: a prompt whose first 2 blocks are in the prefix index
     against the same prompt cold, and ``prefill_chunk=64`` over a 300-token
-    prompt against the monolithic prefill.  The cold and monolithic
-    prefills run flash attention (K1), the suffix prefills torch matmuls.
-    Each check also holds the model's counters to what it must have done
-    (one reuse of 32 tokens; five 64-token chunks), so that a cold prefill
-    is never compared with a cold prefill."""
+    prompt against the monolithic prefill.  Every prefill runs flash
+    attention (K1), the suffix prefills its bottom-right causal variant
+    over the gathered prefix.  Each check also holds the model's counters
+    to what it must have done (one reuse of 32 tokens; five 64-token
+    chunks), so that a cold prefill is never compared with a cold prefill.
+    ``exact`` gates bit-equal first logits (else a tolerance)."""
     import numpy as np
 
     from seldon_core_tpu_torch.executor.generation import GenerativeModel
@@ -587,7 +640,8 @@ def _reuse_and_chunk_checks(cfg, params, device: str) -> list[dict]:
     long_prompt = rng.integers(0, cfg.vocab_size, 300).tolist()
 
     def model(**kw):
-        return GenerativeModel(cfg, params, n_slots=2, decode_block=16, device=device, **kw)
+        return GenerativeModel(cfg, params, n_slots=2, decode_block=16, device=device,
+                               kv_cache_dtype=kv_cache_dtype, **kw)
 
     out = []
     cold = _first_and_greedy(model(), 1, prompt)
@@ -610,10 +664,13 @@ def _reuse_and_chunk_checks(cfg, params, device: str) -> list[dict]:
         err = float((want_lg - got_lg).abs().max())
         scale = float(want_lg.abs().max())
         tol = 1e-3 * max(1.0, scale)
-        recs.append({"check": name, "first_logit_err": err, "logit_scale": scale, "tol": tol,
+        recs.append({"check": name, "kv_cache_dtype": kv_cache_dtype, "first_logit_err": err,
+                     "logit_scale": scale, "tol": 0.0 if exact else tol, "bit_equal": err == 0.0,
                      "greedy_equal": want_toks == got_toks, "tokens": got_toks[:8], **counts,
                      "counts_want": want_counts, "counts_ok": counts == want_counts,
-                     "ok": err <= tol and want_toks == got_toks and counts == want_counts})
+                     "prefill_split": sorted(warm_model._prefill_split),
+                     "ok": (err == 0.0 if exact else err <= tol) and want_toks == got_toks
+                     and counts == want_counts})
     return recs
 
 
@@ -665,13 +722,14 @@ def phase_reference(device: str = "cuda") -> None:
     rcfg = dataclasses.replace(cfg, max_seq=512)
     rec["card_only"] = _reuse_and_chunk_checks(rcfg, dev, device)
     rec["ok"] = rec["ok"] and rec["int8"]["ok"] and all(r["ok"] for r in rec["card_only"])
-    # the same in bf16 (the served dtype), reported and not gated: K1 rounds
-    # probabilities to bf16 where the suffix's matmuls do not
+    # the same in bf16 (the served dtype), float and int8 pools, gated bit
+    # for bit: the suffix prefill runs K1's variant over the gathered prefix
+    # and every prefill runs the row-variant ops in the same row tiles
     bf16 = init_params(cfg, torch.Generator(device="cpu").manual_seed(1), device="cpu").to(
         device=device, dtype=torch.bfloat16)
-    rec["card_only_bf16"] = [
-        {**{k: v for k, v in r.items() if k != "ok"}, "within_tol": r["ok"], "gated": False}
-        for r in _reuse_and_chunk_checks(rcfg, bf16, device)]
+    rec["card_only_bf16"] = [r for kv in (None, "int8") for r in _reuse_and_chunk_checks(
+        rcfg, bf16, device, exact=True, kv_cache_dtype=kv)]
+    rec["ok"] = rec["ok"] and all(r["ok"] for r in rec["card_only_bf16"])
     del bf16
     rec["spec"] = _spec_reference(cfg, cpu, dev, device)
     rec["ok"] = rec["ok"] and all(r["ok"] for r in rec["spec"])
@@ -743,6 +801,127 @@ def _spec_reference(cfg, cpu, dev, device: str) -> list[dict]:
     return recs
 
 
+GRAPH_LAYERS = 4  # the graphs phase cuts llama3-1b's depth: replay vs eager is per layer
+
+
+def _device_state(model) -> dict:
+    """Every device tensor a decode block may write: the pool (pages,
+    scales, positions, tables), the speculation state, the draft pool."""
+    state = {f"cache.{k}": v for k, v in model._cache.items()}
+    for name in ("_hist", "_hlast"):
+        if getattr(model, name) is not None:
+            state[name] = getattr(model, name)
+    if model._draft_cache is not None:
+        state.update({f"draft.{k}": v for k, v in model._draft_cache.items()})
+    return state
+
+
+def _replay_vs_eager(model, prompts, temperature: float) -> dict:
+    """Admit ``prompts`` into ``model``'s slots, then run one block eagerly
+    (the eager yardstick) and, from the same state, one block replayed from
+    its CUDA graph: tokens, mask and every pool byte must be equal, and the
+    replay must count the launches the eager block made."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.ops import _build
+
+    S, k = model.n_slots, model.decode_block
+    cur = np.zeros(S, np.int32)
+    for i, p in enumerate(prompts):
+        cur[i] = model.admit(i, np.asarray(p, np.int32), temperature, 11 + i,
+                             reserve_tokens=k * model._tps + 1)
+    active = np.arange(S) < len(prompts)
+    args = (cur, active, np.full(S, temperature, np.float32), 1234, np.full(S, -1, np.int32),
+            np.full(S, 1000, np.int32), k)
+    before = {n: t.clone() for n, t in _device_state(model).items()}
+    ceiling = model._pos_ceiling.copy()
+
+    def restore():
+        for n, t in _device_state(model).items():
+            t.copy_(before[n])
+        model._pos_ceiling[:] = ceiling
+
+    # capture first (its warm-up run writes the sink block), then both
+    # blocks from the same state
+    with torch.no_grad():
+        model._graph(k, model._window_for(active, k * model._tps))
+    compiles = model.program_compiles
+    restore()
+    model._eager_on_card = True
+    _build.reset_launches()
+    eager = model.step_k(*args)
+    eager_launches = dict(_build.LAUNCHES)
+    eager_state = {n: t.clone() for n, t in _device_state(model).items()}
+    model._eager_on_card = False
+    restore()
+    _build.reset_launches()
+    replay = model.step_k(*args)
+    replay_launches = dict(_build.LAUNCHES)
+    _sync()
+    differ = [n for n, t in _device_state(model).items() if not torch.equal(t, eager_state[n])]
+    ok = (bool(np.array_equal(eager[0], replay[0])) and bool(np.array_equal(eager[1], replay[1]))
+          and not differ and eager_launches == replay_launches
+          and model.program_compiles == compiles == 1)
+    return {"tokens_equal": bool(np.array_equal(eager[0], replay[0])),
+            "mask_equal": bool(np.array_equal(eager[1], replay[1])),
+            "state_differs": differ, "tokens_emitted": int(eager[1].sum()),
+            "captures": model.program_compiles, "launches_eager": eager_launches,
+            "launches_replay": replay_launches, "ok": ok}
+
+
+def phase_graphs(device: str = "cuda", preset: str = SERVE_PRESET) -> None:
+    """A decode block replayed from its CUDA graph against the same block
+    run eagerly on the card, from the same state, bit for bit (tokens,
+    emitted mask, every pool byte), at llama3-1b width cut to GRAPH_LAYERS
+    layers, bf16, 8 slots, 16-step blocks: a float pool (greedy, sampled,
+    sampled with top_k), an int8 pool, and each proposer at
+    ``spec_draft=3`` (greedy, and ``ngram`` sampled)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.executor.generation import GenerativeModel
+    from seldon_core_tpu_torch.models.registry import resolve_config
+    from seldon_core_tpu_torch.models.weights import init_params
+
+    cfg = dataclasses.replace(resolve_config(preset), n_layers=GRAPH_LAYERS)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         dtype=torch.bfloat16, device=device)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in SERVE_LENGTHS]
+    cases = {
+        "float_greedy": ({}, 0.0), "float_sampled": ({}, 0.8),
+        "float_sampled_top_k": ({"top_k": 40}, 0.8),
+        "int8_greedy": ({"kv_cache_dtype": "int8"}, 0.0),
+        "int8_sampled": ({"kv_cache_dtype": "int8"}, 0.8),
+        "ngram_greedy": ({"spec_draft": SPEC_DRAFT}, 0.0),
+        "ngram_sampled": ({"spec_draft": SPEC_DRAFT}, 0.8),
+        "heads_greedy": ({"spec_draft": SPEC_DRAFT, "spec_method": "heads"}, 0.0),
+        "draft_greedy": ({"spec_draft": SPEC_DRAFT, "spec_method": "draft",
+                          "spec_draft_model": "truncate:1"}, 0.0),
+    }
+    recs = {}
+    for name, (kw, temperature) in cases.items():
+        model = GenerativeModel(cfg, params, n_slots=SERVE_SLOTS, decode_block=SERVE_BLOCK,
+                                device=device, **kw)
+        recs[name] = {"temperature": temperature, **kw,
+                      **_replay_vs_eager(model, prompts, temperature)}
+        recs[name]["program"] = {key: v for key, v in model.program_snapshot().items()
+                                 if key != "graphs"}
+        recs[name]["graph"] = model.program_snapshot()["graphs"][0]
+        del model
+        torch.cuda.empty_cache()
+    rec = {"phase": "graphs", "preset": preset, "layers": GRAPH_LAYERS, "dtype": "bfloat16",
+           "n_slots": SERVE_SLOTS, "decode_block": SERVE_BLOCK,
+           "prompt_lens": [len(p) for p in prompts], "cases": recs,
+           "ok": all(r["ok"] for r in recs.values())}
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError("graphs: a replayed block is not the eager block bit for bit")
+
+
 def _post(port: int, body: dict, timeout: float = 600.0) -> tuple[int, dict]:
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/api/v0.1/predictions", data=json.dumps(body).encode(),
@@ -795,22 +974,40 @@ def phase_serve(device: str = "cuda", preset: str = SERVE_PRESET,
                 rng.integers(0, vocab, n).tolist() for n in lengths if n != len(VERIFY_PROMPT)
             ]
             prompts.append(prompts[3])  # a repeat inside the concurrent wave
+            sched = app.service.walker.component.scheduler
+            warm = model.program_snapshot()
             _build.reset_launches()  # the main path's run starts here
-            model_before = (model.decode_blocks, model.host_syncs)
-            t1 = time.perf_counter()
-            loop = asyncio.get_running_loop()
-            with concurrent.futures.ThreadPoolExecutor(len(prompts)) as clients:
-                replies = await asyncio.gather(*(
-                    loop.run_in_executor(clients, _post, port, {"strData": json.dumps(
-                        {"tokens": p, "max_new_tokens": MAX_NEW})})
-                    for p in prompts
-                ))
-            wave_s = time.perf_counter() - t1
+            model_before = (model.decode_blocks, model.host_syncs, model.overlapped,
+                            model.steps, model.block_seconds)
+            replies, wave_s = await _serve_wave(port, prompts)
             again = await asyncio.to_thread(_post, port, {"strData": json.dumps(
                 {"tokens": VERIFY_PROMPT, "max_new_tokens": MAX_NEW})})
             launches = dict(_build.LAUNCHES)
             blocks = model.decode_blocks - model_before[0]
             syncs = model.host_syncs - model_before[1]
+            overlapped = model.overlapped - model_before[2]
+            step_ms = 1e3 * (model.block_seconds - model_before[4]) / max(
+                1, model.steps - model_before[3])
+            breaks = dict(sched.overlap_breaks)
+            served = model.program_snapshot()
+            # the same wave with the overlap off, then on the eager loop
+            # (the yardstick), then as served again (the first wave's
+            # order effects): greedy streams must not move
+            yardsticks = {}
+            for name, overlap, eager in (("overlap_off", False, False),
+                                         ("eager", False, True), ("overlap_again", True, False)):
+                sched.overlap, model._eager_on_card = overlap, eager
+                before = (model.steps, model.block_seconds, len(sched.ttft))
+                yard, yard_s = await _serve_wave(port, prompts)
+                yard_ttft = sorted(t for _, t in list(sched.ttft)[before[2]:])
+                yardsticks[name] = {
+                    "outs": _check_replies(yard, prompts, model.cfg.vocab_size),
+                    "wave_s": yard_s, "wave_tokens_per_s": len(prompts) * MAX_NEW / yard_s,
+                    "ttft_s_p50": yard_ttft[len(yard_ttft) // 2],
+                    "decode_step_ms": 1e3 * (model.block_seconds - before[1])
+                    / max(1, model.steps - before[0])}
+            sched.overlap, model._eager_on_card = True, False
+            tiles = _prefill_tile_cost(model)
             outs = []
             for (status, body), p in zip(replies + [again], prompts + [VERIFY_PROMPT]):
                 toks = json.loads(body["strData"])["tokens"]
@@ -824,7 +1021,10 @@ def phase_serve(device: str = "cuda", preset: str = SERVE_PRESET,
             missing = [k for k, n in launches.items() if n == 0]
             if missing:
                 raise AssertionError(f"the served path never launched {missing}")
-            ttft = sorted(t for _, t in app.service.walker.component.scheduler.ttft)
+            ttft = sorted(t for _, t in list(sched.ttft)[:len(prompts) + 1])
+            equal = {name: _streams_equal(outs[:len(prompts)], y.pop("outs"))
+                     for name, y in yardsticks.items()}
+            buckets = len(model._window_buckets())
             rec = {
                 "phase": "serve", "preset": preset, "dtype": "bfloat16",
                 "n_slots": SERVE_SLOTS, "decode_block": SERVE_BLOCK,
@@ -834,19 +1034,32 @@ def phase_serve(device: str = "cuda", preset: str = SERVE_PRESET,
                 "ttft_s_p50": ttft[len(ttft) // 2], "ttft_s_max": ttft[-1],
                 # end to end: every token the wave generated over its wall time
                 "wave_tokens_per_s": len(prompts) * MAX_NEW / wave_s,
-                # the model step alone: decode-block tokens over block time
-                "decode_tokens_per_s": model.tokens_emitted / model.block_seconds,
-                "decode_step_ms": 1e3 * model.block_seconds / max(1, model.steps),
+                # a step: the device time of the blocks (one replay each)
+                # over their steps
+                "decode_step_ms": step_ms,
                 "decode_blocks": blocks, "host_syncs": syncs,
                 "host_syncs_per_block": syncs / max(1, blocks),
+                "overlapped": overlapped, "overlap_breaks": breaks,
+                "program_compiles_after_warmup": warm["program_compiles"],
+                "program_compiles_after_serving": served["program_compiles"],
+                "window_buckets": buckets, "program_hits": served["program_hits"],
+                "graphs": warm["graphs"],
+                "streams_equal": equal, "yardsticks": yardsticks, "prefill_tiles": tiles,
                 "launches": launches, "verify_prompt_tokens": outs[0][:8],
-                # the decode contract: exactly one host sync per decode block
-                "ok": blocks > 0 and syncs == blocks,
+                # the decode contract: one host sync per decode block, blocks
+                # continued off the carry, every block a replay of a graph
+                # captured at warmup, the streams of the overlap off and of
+                # the eager loop
+                "ok": (blocks > 0 and syncs == blocks and overlapped >= 1
+                       and warm["program_compiles"] == served["program_compiles"] == buckets
+                       and all(n == len(prompts) for n in equal.values())),
             }
             emit(rec)
             if not rec["ok"]:
                 raise AssertionError(
-                    f"{syncs} host syncs over {blocks} decode blocks; the contract is one each")
+                    f"serve: {syncs} host syncs over {blocks} decode blocks, {overlapped} "
+                    "continued, captures after warmup or streams against overlap off and "
+                    "the eager loop (see the record)")
             rec["pos"] = [min(len(p) + MAX_NEW // 2, model.cfg.max_seq - 1)
                           for p in prompts[:SERVE_SLOTS]]
             rec["bucket"] = model.fit_bucket(max(lengths))
@@ -857,6 +1070,51 @@ def phase_serve(device: str = "cuda", preset: str = SERVE_PRESET,
             await app.close()
 
     return asyncio.run(run())
+
+
+async def _serve_wave(port: int, prompts) -> tuple[list, float]:
+    """``prompts`` posted concurrently -> (replies, wave seconds)."""
+    loop = asyncio.get_running_loop()
+    t1 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as clients:
+        replies = await asyncio.gather(*(
+            loop.run_in_executor(clients, _post, port, {"strData": json.dumps(
+                {"tokens": p, "max_new_tokens": MAX_NEW})})
+            for p in prompts
+        ))
+    return replies, time.perf_counter() - t1
+
+
+def _prefill_tile_cost(model, buckets=(256, 1024, 2048), iters: int = 3) -> dict:
+    """A cold prefill's device ms (CUDA events, the host's enqueue
+    included) at each bucket with the model's row-tiled ops
+    (``_prefill_split`` in ``llama.PREFILL_ROW_TILE``-row tiles) and with
+    every op in one call, into a scratch pool."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models import llama
+
+    cfg = model.cfg
+    cache = llama.init_paged_cache(cfg, 1, 1 + cfg.max_seq // 16, 16, dtype=model.dtype,
+                                   device=model.device)
+    row = np.arange(1, 1 + cfg.max_seq // 16, dtype=np.int32)
+    out = {"ops": sorted(model._prefill_split), "tile_rows": llama.PREFILL_ROW_TILE}
+    for b in buckets:
+        toks = torch.from_numpy(np.random.default_rng(b).integers(
+            0, cfg.vocab_size, (1, b)).astype(np.int32)).to(model.device)
+        for name, op in (("tiled_ms", model._prefill_op), ("one_call_ms", llama._plain)):
+            times = []
+            for _ in range(iters + 1):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                llama.prefill_slot_paged(model.params, toks, b, 0, row, cache, cfg, op=op)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            out.setdefault(str(b), {})[name] = statistics.median(times[1:])
+    return out
 
 
 def _serve_spec(preset: str, seed: int, **extra):
@@ -903,13 +1161,16 @@ async def _boot(spec, device: str, **engine):
     return app, time.perf_counter() - t0
 
 
-def _check_replies(replies, prompts, vocab: int) -> list[list[int]]:
+def _check_replies(replies, prompts, vocab: int, max_new=MAX_NEW) -> list[list[int]]:
+    """Each reply 200 with ``max_new`` (an int, or one per prompt) valid
+    token ids; returns the token lists."""
     outs = []
-    for (status, body), p in zip(replies, prompts):
+    news = max_new if isinstance(max_new, (list, tuple)) else [max_new] * len(prompts)
+    for (status, body), p, n in zip(replies, prompts, news):
         if status != 200 or body["status"]["code"] != 200:
             raise AssertionError(f"request failed: {body}")
         toks = json.loads(body["strData"])["tokens"]
-        if len(toks) != MAX_NEW or not all(0 <= t < vocab for t in toks):
+        if len(toks) != n or not all(0 <= t < vocab for t in toks):
             raise AssertionError(f"bad reply for a {len(p)}-token prompt: {toks}")
         outs.append(toks)
     return outs
@@ -919,10 +1180,10 @@ def _record_blocks(model) -> list:
     """Log, on ``model``'s instance, each decode block (with its seconds)
     and each admission and paced chunk dispatched before it."""
     events = []
-    step_k, admit, chunk = model.step_k, model.admit_dispatch, model.prefill_chunk_dispatch
+    fetch, admit, chunk = model.step_k_fetch, model.admit_dispatch, model.prefill_chunk_dispatch
 
-    def logged_step(*a, **kw):
-        out = step_k(*a, **kw)
+    def logged_step(*a, **kw):  # at the block's fetch: its seconds on the card
+        out = fetch(*a, **kw)
         events.append(("block", model.last_block_s))
         return out
 
@@ -936,7 +1197,7 @@ def _record_blocks(model) -> list:
         events.append(("chunk", time.perf_counter() - t0))  # host time, no sync
         return out
 
-    model.step_k, model.admit_dispatch, model.prefill_chunk_dispatch = (
+    model.step_k_fetch, model.admit_dispatch, model.prefill_chunk_dispatch = (
         logged_step, logged_admit, logged_chunk)
     return events
 
@@ -991,11 +1252,35 @@ def phase_serve_cached(device: str = "cuda", preset: str = SERVE_PRESET, seed: i
             shared = [prefix + rng.integers(0, vocab, n).tolist() for n in SHARED_SUFFIXES]
             longs = [rng.integers(0, vocab, n).tolist() for n in LONG_LENGTHS]
 
-            def body(p):
-                return {"strData": json.dumps({"tokens": p, "max_new_tokens": MAX_NEW})}
+            def body(p, max_new=MAX_NEW):
+                return {"strData": json.dumps({"tokens": p, "max_new_tokens": max_new})}
 
+            news = [SHARED_NEW] * len(shared) + [MAX_NEW] * len(longs)
             _check_replies([await asyncio.to_thread(_post, port, body(warm))], [warm], vocab)
             events = _record_blocks(model)
+            # the long prompts arrive once the shared streams' first block
+            # is delivered: they decode then, so the chunks are paced
+            decoding = asyncio.Event()
+            deliver = sched._deliver
+
+            def delivered(*a, **kw):
+                deliver(*a, **kw)
+                decoding.set()
+
+            sched._deliver = delivered
+            # K1 launches and host seconds of the suffix prefills (reused
+            # prefixes and every chunk after the first)
+            suffix = {"flash_launches": 0, "host_s": []}
+            exec_suffix = model._exec_prefill_suffix
+
+            def counted_suffix(payload):
+                k1, t0 = _build.LAUNCHES["flash_attention"], time.perf_counter()
+                out = exec_suffix(payload)
+                suffix["host_s"].append(time.perf_counter() - t0)
+                suffix["flash_launches"] += _build.LAUNCHES["flash_attention"] - k1
+                return out
+
+            model._exec_prefill_suffix = counted_suffix
             _build.reset_launches()  # this phase's run starts here
             before = {
                 "blocks": model.decode_blocks, "syncs": model.host_syncs, "steps": model.steps,
@@ -1007,13 +1292,15 @@ def phase_serve_cached(device: str = "cuda", preset: str = SERVE_PRESET, seed: i
             loop = asyncio.get_running_loop()
             t1 = time.perf_counter()
             with concurrent.futures.ThreadPoolExecutor(len(shared) + len(longs)) as clients:
-                first = [loop.run_in_executor(clients, _post, port, body(p)) for p in shared]
-                await asyncio.sleep(LONG_DELAY_S)  # the shared streams are decoding by now
+                first = [loop.run_in_executor(clients, _post, port, body(p, SHARED_NEW))
+                         for p in shared]
+                await asyncio.wait_for(decoding.wait(), 600)
                 late = [loop.run_in_executor(clients, _post, port, body(p)) for p in longs]
                 replies = await asyncio.gather(*first, *late)
             wave_s = time.perf_counter() - t1
             launches = dict(_build.LAUNCHES)
-            _check_replies(replies, shared + longs, vocab)
+            outs = _check_replies(replies, shared + longs, vocab, news)
+            del model._exec_prefill_suffix, sched._deliver
             snap = model.prefix_snapshot()
             blocks = model.decode_blocks - before["blocks"]
             syncs = model.host_syncs - before["syncs"]
@@ -1028,11 +1315,11 @@ def phase_serve_cached(device: str = "cuda", preset: str = SERVE_PRESET, seed: i
                 "kv_prefix_reuse": model.prefix_index is not None, "n_slots": SERVE_SLOTS,
                 "decode_block": SERVE_BLOCK, "max_new_tokens": MAX_NEW,
                 "prompt_lens": [len(p) for p in shared + longs], "warm_prompt_len": len(warm),
-                "long_delay_s": LONG_DELAY_S, "boot_and_warmup_s": boot_s, "wave_s": wave_s,
+                "max_new_tokens_each": news, "boot_and_warmup_s": boot_s, "wave_s": wave_s,
                 "ttft_s_shared_p50": statistics.median(t_shared), "ttft_s_shared_max": t_shared[-1],
                 "ttft_s_long_p50": statistics.median(t_long), "ttft_s_long_max": t_long[-1],
                 "ttft_s_long": t_long,
-                "wave_tokens_per_s": (len(shared) + len(longs)) * MAX_NEW / wave_s,
+                "wave_tokens_per_s": sum(news) / wave_s,
                 "decode_step_ms": 1e3 * (model.block_seconds - before["block_s"]) / max(1, steps),
                 **_block_times(events),
                 "prefills_reused": model.prefills_reused - before["reused"],
@@ -1047,19 +1334,40 @@ def phase_serve_cached(device: str = "cuda", preset: str = SERVE_PRESET, seed: i
                                                           dtype="bfloat16"),
                 },
                 "kv_slots_per_card": model.kv_slots_per_chip(),
+                "suffix_prefills": len(suffix["host_s"]),
+                "suffix_flash_launches": suffix["flash_launches"],
+                "suffix_prefill_host_ms": 1e3 * statistics.mean(suffix["host_s"])
+                if suffix["host_s"] else None,
+                "overlapped": model.overlapped,
+                "overlap_breaks": dict(sched.overlap_breaks),
             }
-            rec["ok"] = (rec["prefills_reused"] >= len(shared)
-                         and rec["tokens_reused"] >= len(shared) * CACHED_PREFIX
-                         and rec["chunks_paced"] >= 1 and blocks > 0 and syncs == blocks
-                         and not missing)
-            emit(rec)
-            if not rec["ok"]:
-                raise AssertionError(
-                    "serve_cached: reuse, pacing, one host sync per block or a kernel's "
-                    f"launch is missing (kernels never launched: {missing})")
-            return rec
         finally:
             await app.close()
+        # the same prompts on a fresh engine with reuse and chunking off:
+        # shared-prefix streams equal cold ones, chunked equal monolithic
+        cold_spec = _serve_spec(preset, seed, kv_cache_dtype=("int8", "STRING"))
+        cold_app, _ = await _boot(cold_spec, device)
+        try:
+            cold = [_check_replies([await asyncio.to_thread(_post, cold_app.port, body(p, n))],
+                                   [p], vocab, n)[0] for p, n in zip(shared + longs, news)]
+        finally:
+            await cold_app.close()
+        rec["shared_equal_to_cold"] = _streams_equal(cold[:len(shared)], outs[:len(shared)])
+        rec["chunked_equal_to_monolithic"] = _streams_equal(cold[len(shared):],
+                                                            outs[len(shared):])
+        rec["ok"] = (rec["prefills_reused"] >= len(shared)
+                     and rec["tokens_reused"] >= len(shared) * CACHED_PREFIX
+                     and rec["chunks_paced"] >= 1 and blocks > 0 and syncs == blocks
+                     and not missing and rec["suffix_flash_launches"] > 0
+                     and rec["shared_equal_to_cold"] == len(shared)
+                     and rec["chunked_equal_to_monolithic"] == len(longs))
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(
+                "serve_cached: reuse, pacing, one host sync per block, a kernel's launch "
+                f"(never launched: {missing}), K1 in the suffix prefills, or reused and "
+                "chunked streams equal to cold ones is missing")
+        return rec
 
     return asyncio.run(run())
 
@@ -1468,7 +1776,8 @@ def phase_serve_disagg(serve: dict, device: str = "cuda", preset: str = SERVE_PR
             # The 5-token prompt has no full block, so its streams are the
             # cold prefill's; the longest prompt's pinned slot matches and
             # then hands A's index its full blocks, so the account counts
-            # blocks held by the index alone as well as free ones
+            # blocks held by the index alone as well as free ones, and its
+            # reused prefix + suffix prefill must give serve's cold stream
             await b.close()
             before = await _block_account(ma, sched_a)
             _build.reset_launches()
@@ -1531,7 +1840,7 @@ def phase_serve_disagg(serve: dict, device: str = "cuda", preset: str = SERVE_PR
         and rec["block_size_skew"]["status"] == 409
         and peer["status"] == [200, 200] and peer["tokens_equal_to_a"] and peer["tier"] == "peer"
         and fb["modes"] == ["unified-fallback"] * 3 and fb["streams_equal_to_serve"] == 2
-        and fb["long_equal_to_unified"]
+        and fb["long_equal_to_unified"] and fb["long_equal_to_serve"]
         and fb["blocks_after"]["reclaimable"] == fb["blocks_before"]["reclaimable"]
         == fb["blocks_after"]["pool"] and fb["blocks_after"]["referenced"] == 0
         and dram["ok"])
@@ -1626,6 +1935,110 @@ async def _dram_tier(preset: str, seed: int, device: str, add) -> dict:
     return rec
 
 
+def _sse(port: int, body: dict, read_events: int | None = None) -> dict:
+    """POST ``body`` to the stream route over a raw socket: the status, the
+    content type, the events, and for each event the time its bytes came
+    (the socket closes after ``read_events`` events when given)."""
+    import socket
+
+    sock = socket.create_connection(("127.0.0.1", port), timeout=600)
+    data, times = b"", []
+    try:
+        payload = json.dumps(body).encode()
+        sock.sendall((f"POST /api/v0.1/predictions/stream HTTP/1.1\r\nHost: smoke\r\n"
+                      f"Content-Length: {len(payload)}\r\nConnection: close\r\n\r\n").encode()
+                     + payload)
+        while True:
+            chunk = sock.recv(1 << 16)
+            if not chunk:
+                break
+            data += chunk
+            times += [time.perf_counter()] * chunk.count(b"\n\n")
+            if read_events is not None and data.count(b"\n\ndata: ") >= read_events:
+                break
+    finally:
+        sock.close()
+    head, _, rest = data.partition(b"\r\n\r\n")
+    events = [json.loads(e[len(b"data: "):]) for e in rest.split(b"\n\n")
+              if e.startswith(b"data: ")]
+    lines = head.decode("latin-1").split("\r\n")
+    ctype = next((ln.split(": ", 1)[1] for ln in lines if ln.lower().startswith("content-type")),
+                 None)
+    return {"status": int(lines[0].split(" ")[1]), "content_type": ctype, "events": events,
+            "times": times[-len(events):] if events else []}
+
+
+def phase_serve_stream(device: str = "cuda", preset: str = SERVE_PRESET, seed: int = 0) -> dict:
+    """SSE token streaming on the serve graph: a streamed reply equals the
+    unstreamed one, written one decode block at a time (the first token
+    from the prefill, then 16 a write); a client that leaves mid-stream
+    frees its slot once (the free block count comes back); ``/pause`` turns
+    ``/ready`` false and ``/unpause`` back.  Returns the launch counts."""
+    from seldon_core_tpu_torch.ops import _build
+
+    spec = _serve_spec(preset, seed)
+
+    async def run() -> dict:
+        app, _ = await _boot(spec, device)
+        port = app.port
+        try:
+            model = app.service.walker.component.model
+            body = {"tokens": VERIFY_PROMPT, "max_new_tokens": MAX_NEW}
+            _build.reset_launches()
+            sse = await asyncio.to_thread(_sse, port, body)
+            launches = dict(_build.LAUNCHES)
+            stats = dict(app.stream_stats)
+            code, plain = await asyncio.to_thread(_post, port, {"strData": json.dumps(body)})
+            tokens = [e["token"] for e in sse["events"] if "token" in e]
+            # events that came in one read of the socket: a decode block's
+            gaps = [b - a for a, b in zip(sse["times"], sse["times"][1:])]
+            free0 = model.free_block_count
+            emitted0 = model.tokens_emitted
+            long_new = 512
+            await asyncio.to_thread(_sse, port, {"tokens": VERIFY_PROMPT,
+                                                 "max_new_tokens": long_new}, 2)
+            deadline = time.perf_counter() + 60
+            while (app.stream_stats["disconnects"] < 1 or model.free_block_count != free0) \
+                    and time.perf_counter() < deadline:
+                await asyncio.sleep(0.01)
+            left = {"disconnects": app.stream_stats["disconnects"],
+                    "free_blocks_before": free0, "free_blocks_after": model.free_block_count,
+                    "free_blocks_unique": len(set(model._free_blocks)) == model.free_block_count,
+                    "tokens_emitted": model.tokens_emitted - emitted0, "max_new_tokens": long_new}
+            pause = [await asyncio.to_thread(_get, port, "/ready")]
+            for path in ("/pause", "/ready", "/unpause", "/ready"):
+                pause.append(await asyncio.to_thread(_get, port, path))
+            want = json.loads(plain["strData"])["tokens"]
+            rec = {"phase": "serve_stream", "preset": preset, "dtype": "bfloat16",
+                   "decode_block": SERVE_BLOCK, "max_new_tokens": MAX_NEW,
+                   "status": sse["status"], "content_type": sse["content_type"],
+                   "events": len(sse["events"]), "equal_to_unstreamed": tokens == want,
+                   "done_event": sse["events"][-1] == {"done": True, "tokens": tokens},
+                   "writes": stats["writes"],
+                   "writes_want": 1 + -(-(MAX_NEW - 1) // SERVE_BLOCK),
+                   "event_gaps_ms": [
+                       1e3 * g for g in gaps if g > 0],
+                   "disconnect": left, "ready_pause_ready_unpause_ready": pause,
+                   "launches": launches}
+            rec["ok"] = (code == 200 and rec["status"] == 200
+                         and rec["content_type"] == "text/event-stream"
+                         and rec["equal_to_unstreamed"] and rec["done_event"]
+                         and stats["events"] == MAX_NEW and rec["writes"] == rec["writes_want"]
+                         and left["disconnects"] == 1 and left["free_blocks_unique"]
+                         and left["free_blocks_after"] == free0
+                         and left["tokens_emitted"] < long_new // 2
+                         and pause == [200, 200, 503, 200, 200])
+            emit(rec)
+            if not rec["ok"]:
+                raise AssertionError("serve_stream: the streamed reply, its writes per block, "
+                                     "the disconnect or the pause toggle failed")
+            return launches
+        finally:
+            await app.close()
+
+    return asyncio.run(run())
+
+
 def _flash_times(fa, S: int) -> dict:
     """K1 at B=1, S, llama3-1b heads, bf16: one input set per layer so no
     launch finds its inputs in L2."""
@@ -1646,6 +2059,36 @@ def _flash_times(fa, S: int) -> dict:
         "plain_ms": time_ms(lambda q, k, v: fa._attention_blhd_plain(q, k, v, True), sets, 5),
         "library_ms": time_ms(
             lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True), bhsd),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+    }
+
+
+def _flash_suffix_times(fa, Sq: int, Sk: int) -> dict:
+    """K1's bottom-right causal variant, a suffix prefill's attention: Sq
+    suffix rows over Sk = prefix + Sq keys, llama3-1b heads, bf16; the
+    library call is SDPA with the lower-right causal mask."""
+    import torch
+    from torch.nn.attention.bias import causal_lower_right
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, KV, D, layers = 32, 8, 64, 16
+    sets = []
+    for i in range(layers):
+        q, k, v = _flash_inputs(Sk, H, KV, D, torch.bfloat16, seed=300 + i)
+        sets.append((q[:, -Sq:].contiguous(), k, v))
+    bhsd = [tuple(x.transpose(1, 2).contiguous() for x in s) for s in sets]
+    mask = causal_lower_right(Sq, Sk)
+    nbytes = 2 * (2 * Sq * H * D + 2 * Sk * KV * D)
+    flops = 4 * D * H * sum(Sk - Sq + i + 1 for i in range(Sq))
+    b_ms, b_by = bound(nbytes, flops)
+    return {
+        "shape": {"B": 1, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "D": D, "dtype": "bfloat16"},
+        "ms": time_ms(fa.flash_causal_attention_blhd, sets),
+        "eager_ms": eager_ms(fa.flash_causal_attention_blhd, sets),
+        "host_ms": host_ms(fa.flash_causal_attention_blhd, sets),
+        "plain_ms": time_ms(lambda q, k, v: fa._attention_blhd_plain(q, k, v, True), sets, 5),
+        "library_ms": time_ms(
+            lambda q, k, v: sdpa(q, k, v, attn_mask=mask, enable_gqa=True), bhsd),
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
     }
 
@@ -1714,8 +2157,13 @@ def kernel_times(fa, pa, bucket: int, pos: list[int]) -> dict:
     """Each kernel at the main path's shapes (``served``: the flash bucket
     and the served slots' positions) and a long one (``long``); the paged
     kernel also over int8 pages at both."""
+    try:
+        suffix = _flash_suffix_times(fa, 80, CACHED_PREFIX + 80)
+    except ValueError:  # a tree whose flash attention has no bottom-right causal variant
+        suffix = None
     return {
-        "flash_attention": {"served": _flash_times(fa, bucket), "long": _flash_times(fa, 2048)},
+        "flash_attention": {"served": _flash_times(fa, bucket), "long": _flash_times(fa, 2048),
+                            "suffix": suffix},
         "paged_decode_attention": {
             "served": _paged_times(pa, pos, window_entries(pos)),
             "long": _paged_times(pa, LONG_POS, 128),
@@ -1737,6 +2185,8 @@ def phase_kernel_times(serve: dict) -> dict:
     # K1 at the largest bucket the served prompts used; K2 for the served
     # slots at their mid-answer positions over the scheduler's window bucket
     out = kernel_times(fa, pa, serve["bucket"], serve["pos"])
+    if out["flash_attention"]["suffix"] is None:
+        raise AssertionError("flash attention refused its bottom-right causal variant")
     for t in out["paged_decode_attention"].values():
         t["splits"], t["per"] = pa.plan_splits(t["shape"]["WB"])
         t["grid_blocks"] = t["splits"] * t["shape"]["KV"] * t["chunks"] * SERVE_SLOTS
@@ -1763,13 +2213,15 @@ def main() -> int:
     phase_build()
     errs = phase_kernel_check()
     phase_reference()
+    phase_graphs()
     serve = phase_serve()
     cached = phase_serve_cached()
     spec = phase_serve_spec(serve)
     split = phase_serve_disagg(serve)
+    stream = phase_serve_stream()
     times = phase_kernel_times(serve)
     launches = {name: serve["launches"][name] + cached["launches"][name] + spec[name]
-                + split[name] for name in KERNELS}
+                + split[name] + stream[name] for name in KERNELS}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False,

@@ -37,13 +37,28 @@
 //     cores, because the tensor cores would round f32 inputs to TF32.
 //
 // Semantics kept from the TPU kernel, in both kernels:
-//   * causal mask is top-left aligned (row >= col), and key tiles wholly
-//     above the diagonal are skipped;
+//   * with Sk == Sq the causal mask is top-left aligned (row >= col), and
+//     key tiles wholly above the diagonal are skipped;
 //   * rows with no visible key (l == 0) write zeros;
 //   * softmax in f32.
 // Added on this card: any S (the ragged edge is masked here, so no tile
 // has to divide S) and grouped K/V heads (KV divides H, head h reads
 // kv head h / (H / KV)), so the model need not repeat K/V.
+//
+// The causal variant with Sk >= Sq (the suffix prefill over a reused
+// prefix or earlier chunks): the mask is bottom-right aligned, query row i
+// sees keys [0, Sk - Sq + i], i.e. the rows are the last Sq rows of an
+// Sk-row causal prefill.  Sk == Sq is the plain causal kernel.  A suffix
+// row gets the bits of the same row of a cold prefill over the same keys,
+// because (1) key tiles stay aligned from column 0 on both routes, so the
+// row's online softmax sees the same tiles, holding the same visible
+// columns, in the same order; (2) a tile in which the row sees nothing
+// (past its diagonal: a route processes more or fewer of those, by where
+// its query tile starts and by Sk) is an exact no-op: its row max is -inf,
+// so the rescale is skipped (alpha = 1, where exp2 of the rounding error
+// of m * scale need not be 1) and P = 0 adds exact zeros to l and to O;
+// and (3) each score and each P.V product is one row's dot product, which
+// no other row of the query tile changes.
 #include <cuda.h>  // CUtensorMap and its enums (types only: the driver entry is fetched at run time)
 
 #include <type_traits>
@@ -71,7 +86,7 @@ __global__ void __launch_bounds__(NT)
     flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o, int H, int groups,
                       int Sq, int Sk, Strides qst, Strides kst, Strides vst,
-                      Strides ost, float scale, int causal) {
+                      Strides ost, float scale, int causal, int qoff) {
   constexpr int LD = D + 1;   // padded rows: neighbouring rows hit other banks
   constexpr int LP = BK + 1;
   constexpr int HK = BK / 2;  // keys per thread (interleaved: 2*jj + half)
@@ -102,8 +117,9 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
   for (int dd = 0; dd < HD; ++dd) acc[dd] = 0.f;
   float m = NEG_INF, l = 0.f;
-  // causal: keys past the tile's last row are never visible (block-uniform)
-  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
+  // causal: keys past the tile's last row (qoff + q0 + BQ - 1 in key
+  // coordinates) are never visible (block-uniform)
+  const int k_end = causal ? min(Sk, qoff + q0 + BQ) : Sk;
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
     for (int i = t; i < BK * D; i += NT) {
@@ -127,7 +143,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int jj = 0; jj < HK; ++jj) {
       const int col = k0 + 2 * jj + half;
-      const bool ok = col < Sk && (!causal || col <= row);
+      const bool ok = col < Sk && (!causal || col <= qoff + row);
       s[jj] = ok ? s[jj] : NEG_INF;
       mt = fmaxf(mt, s[jj]);
     }
@@ -138,7 +154,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int jj = 0; jj < HK; ++jj) {
       const int col = k0 + 2 * jj + half;
-      const bool ok = col < Sk && (!causal || col <= row);
+      const bool ok = col < Sk && (!causal || col <= qoff + row);
       const float p = ok ? expf(s[jj] - m_new) : 0.f;
       sp[r * LP + 2 * jj + half] = p;
       ls += p;
@@ -167,7 +183,7 @@ __global__ void __launch_bounds__(NT)
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
                    int KV, int Sq, int Sk, Strides qst, Strides kst, Strides vst,
-                   Strides ost, float scale, int causal, cudaStream_t stream) {
+                   Strides ost, float scale, int causal, int qoff, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1));
   auto kern = flash_simt_kernel<float, D>;
   cudaError_t err = allow_smem(kern, smem);
@@ -175,7 +191,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   kern<<<grid, NT, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
                                    static_cast<const float*>(v), static_cast<float*>(o), H,
-                                   H / KV, Sq, Sk, qst, kst, vst, ost, scale, causal);
+                                   H / KV, Sq, Sk, qst, kst, vst, ost, scale, causal, qoff);
   return cudaGetLastError();
 }
 
@@ -345,7 +361,7 @@ __global__ void __launch_bounds__(NT, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, T* __restrict__ o, MapDims mq,
                     MapDims mk, MapDims mv, int H, int groups, int Sq, int Sk, int D, Strides ost,
-                    float scale_log2, int causal) {
+                    float scale_log2, int causal, int qoff) {
   constexpr int NA = DP / ATOM;              // swizzle atoms across a row
   constexpr int SN = BK / 2;                 // score registers per thread (m64 x BK fragment)
   constexpr uint32_t Q_BYTES = NA * BQ * 128;
@@ -362,7 +378,7 @@ __global__ void __launch_bounds__(NT, 1)
   // heaviest causal tiles (largest q0) are scheduled first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int k_tiles = (Sk + BK - 1) / BK;
-  const int n_tiles = causal ? min(k_tiles, (q0 + BQ + BK - 1) / BK) : k_tiles;
+  const int n_tiles = causal ? min(k_tiles, (qoff + q0 + BQ + BK - 1) / BK) : k_tiles;
 
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
@@ -455,9 +471,9 @@ __global__ void __launch_bounds__(NT, 1)
     // -inf over the hidden scores, so the exp pass needs no mask.  Both
     // write no accumulator once the next Q K^T is in flight.
     const int k0 = i * BK;
-    const bool edge = causal ? k0 + BK > q0 + 64 * wg : k0 + BK > Sk;
+    const bool edge = causal ? k0 + BK > qoff + q0 + 64 * wg : k0 + BK > Sk;
     auto row_max = [&](auto masked, int hr) {
-      const int row = rowA + 8 * hr;
+      const int row = qoff + rowA + 8 * hr;  // in key coordinates
       float mx = neg_inf();
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j)
@@ -477,7 +493,10 @@ __global__ void __launch_bounds__(NT, 1)
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m_r[hr], mx);
       mc[hr] = (m_new == neg_inf() ? 0.f : m_new) * scale_log2;  // nothing visible yet
-      const float alpha = ex2(fmaf(m_r[hr], scale_log2, -mc[hr]));
+      // a tile that shows this row nothing leaves l and O exactly as they
+      // are: exp2(m * c - m * c) is the product's rounding error once the
+      // compiler fuses it into one FMA, and need not be exactly 1
+      const float alpha = mx == neg_inf() ? 1.f : ex2(fmaf(m_r[hr], scale_log2, -mc[hr]));
       l_r[hr] *= alpha;  // this thread's columns; the quad sums at the end
       m_r[hr] = m_new;
 #pragma unroll
@@ -647,7 +666,7 @@ constexpr size_t smem_bytes() {
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
                    int Sq, int Sk, int D, Strides qst, Strides kst, Strides vst, Strides ost,
-                   float scale, int causal, cudaStream_t stream) {
+                   float scale, int causal, int qoff, cudaStream_t stream) {
   const CUtensorMapDataType dt = std::is_same<T, __half>::value
                                      ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -667,7 +686,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   kern<<<grid, NT, smem, stream>>>(mq, mk, mv, static_cast<T*>(o), dq, dk, dv, H, H / KV, Sq, Sk,
-                                   D, ost, scale * LOG2E, causal);
+                                   D, ost, scale * LOG2E, causal, qoff);
   return cudaGetLastError();
 }
 
@@ -676,16 +695,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 template <typename T>
 cudaError_t by_dim_tc(int D, const void* q, const void* k, const void* v, void* o, int B, int H,
                       int KV, int Sq, int Sk, Strides qst, Strides kst, Strides vst, Strides ost,
-                      float scale, int causal, cudaStream_t st) {
+                      float scale, int causal, int qoff, cudaStream_t st) {
   switch (D) {
     case 16:
     case 32:
     case 64:  // D < 64 rides in a 64-wide tile, zero-filled by the copy
       return tc::launch<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, D, qst, kst, vst, ost, scale, causal,
-                               st);
+                               qoff, st);
     case 128:
       return tc::launch<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, D, qst, kst, vst, ost, scale, causal,
-                                st);
+                                qoff, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -693,16 +712,20 @@ cudaError_t by_dim_tc(int D, const void* q, const void* k, const void* v, void* 
 
 cudaError_t by_dim_simt(int D, const void* q, const void* k, const void* v, void* o, int B, int H,
                         int KV, int Sq, int Sk, Strides qst, Strides kst, Strides vst, Strides ost,
-                        float scale, int causal, cudaStream_t st) {
+                        float scale, int causal, int qoff, cudaStream_t st) {
   switch (D) {
     case 16:
-      return simt::launch<16>(q, k, v, o, B, H, KV, Sq, Sk, qst, kst, vst, ost, scale, causal, st);
+      return simt::launch<16>(q, k, v, o, B, H, KV, Sq, Sk, qst, kst, vst, ost, scale, causal,
+                              qoff, st);
     case 32:
-      return simt::launch<32>(q, k, v, o, B, H, KV, Sq, Sk, qst, kst, vst, ost, scale, causal, st);
+      return simt::launch<32>(q, k, v, o, B, H, KV, Sq, Sk, qst, kst, vst, ost, scale, causal,
+                              qoff, st);
     case 64:
-      return simt::launch<64>(q, k, v, o, B, H, KV, Sq, Sk, qst, kst, vst, ost, scale, causal, st);
+      return simt::launch<64>(q, k, v, o, B, H, KV, Sq, Sk, qst, kst, vst, ost, scale, causal,
+                              qoff, st);
     case 128:
-      return simt::launch<128>(q, k, v, o, B, H, KV, Sq, Sk, qst, kst, vst, ost, scale, causal, st);
+      return simt::launch<128>(q, k, v, o, B, H, KV, Sq, Sk, qst, kst, vst, ost, scale, causal,
+                              qoff, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -711,7 +734,8 @@ cudaError_t by_dim_simt(int D, const void* q, const void* k, const void* v, void
 }  // namespace
 
 // q (B, H, Sq, D), k/v (B, KV, Sk, D), o like q, each addressed by its
-// (batch, head, row) element strides with D contiguous.  bf16/f16 take the
+// (batch, head, row) element strides with D contiguous; causal needs
+// Sk >= Sq (bottom-right aligned).  bf16/f16 take the
 // tensor-core kernel (pointers and non-unit strides 16-byte aligned), f32
 // the SIMT kernel.  Returns the launch's cudaError_t.
 extern "C" int sct_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -723,18 +747,21 @@ extern "C" int sct_flash_attention_fwd(const void* q, const void* k, const void*
                                        float scale, int causal, void* stream) {
   if (B * H == 0 || Sq == 0) return cudaSuccess;
   if (KV <= 0 || H % KV) return cudaErrorInvalidValue;
+  if (causal && Sk < Sq) return cudaErrorInvalidValue;
+  const int qoff = causal ? Sk - Sq : 0;  // bottom-right aligned causal mask
   const Strides qst{q_sb, q_sh, q_ss}, kst{k_sb, k_sh, k_ss}, vst{v_sb, v_sh, v_ss},
       ost{o_sb, o_sh, o_ss};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case F32:
-      return by_dim_simt(D, q, k, v, o, B, H, KV, Sq, Sk, qst, kst, vst, ost, scale, causal, st);
+      return by_dim_simt(D, q, k, v, o, B, H, KV, Sq, Sk, qst, kst, vst, ost, scale, causal, qoff,
+                         st);
     case F16:
       return by_dim_tc<__half>(D, q, k, v, o, B, H, KV, Sq, Sk, qst, kst, vst, ost, scale, causal,
-                               st);
+                               qoff, st);
     case BF16:
       return by_dim_tc<__nv_bfloat16>(D, q, k, v, o, B, H, KV, Sq, Sk, qst, kst, vst, ost, scale,
-                                      causal, st);
+                                      causal, qoff, st);
     default:
       return cudaErrorInvalidValue;
   }

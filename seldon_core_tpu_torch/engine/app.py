@@ -4,10 +4,23 @@
         [--role prefill|decode|unified] [--disagg-decode host:port,...]
 
 Serves ``POST /api/v0.1/predictions`` (a SeldonMessage JSON body),
-``GET /ping`` and ``GET /ready`` (true once the graph's units are built and
-warmed) with a minimal HTTP/1.1 handler on ``asyncio.start_server``:
-Content-Length bodies, keep-alive unless the client says ``close``.  The
-predictor comes from ``ENGINE_PREDICTOR`` as for the JAX engine.
+``GET /ping``, ``GET /ready`` (true once the graph's units are built and
+warmed, false while paused) and ``/pause`` and ``/unpause`` (GET or POST:
+the drain toggle a preStop hook sends) with a minimal HTTP/1.1 handler on
+``asyncio.start_server``: Content-Length bodies, keep-alive unless the
+client says ``close``.  The predictor comes from ``ENGINE_PREDICTOR`` as
+for the JAX engine.
+
+``POST /api/v0.1/predictions/stream`` streams a generative graph's tokens
+as server-sent events: the body is the generative strData contract
+(``{"tokens": [...], "max_new_tokens": N, "temperature": t, "eos_id":
+e}``, bare or wrapped in ``strData``) for ONE prompt; the reply is
+``text/event-stream`` of ``data: {"token": id}`` events, written one
+decode block at a time, closed by ``data: {"done": true, "tokens":
+[...]}`` (or ``data: {"error": ...}``) and the end of the connection.  A
+bad option is a 400 before any header goes out; so is a graph with no
+generative unit.  A client that leaves mid-stream cancels its request,
+whose slot the scheduler frees.
 
 The disaggregated routes of the JAX engine, for a graph with one
 generative unit:
@@ -169,6 +182,19 @@ def _json(status: int, obj: dict) -> tuple[int, bytes, str]:
     return status, json.dumps(obj).encode(), "application/json"
 
 
+def _event(obj: dict) -> bytes:
+    """One server-sent event carrying ``obj`` as JSON."""
+    return f"data: {json.dumps(obj)}\n\n".encode()
+
+
+class _EventStream:
+    """A route's ``text/event-stream`` reply: ``groups`` yields lists of
+    token ids as they are delivered."""
+
+    def __init__(self, groups):
+        self.groups = groups
+
+
 class EngineApp:
     """The engine's HTTP front over one :class:`PredictionService`.
     ``role`` and ``decode_upstreams`` default to ``SCT_ENGINE_ROLE`` and
@@ -178,6 +204,11 @@ class EngineApp:
                  decode_upstreams: list[str] | None = None):
         self.service = service
         self.ready = False
+        self.paused = False
+        # the SSE route's ledger: streams served, token events and the
+        # writes that carried them (one per delivered group), streams whose
+        # client left before the end
+        self.stream_stats = {"streams": 0, "events": 0, "writes": 0, "disconnects": 0}
         self.boot_error: str | None = None
         self._server: asyncio.base_events.Server | None = None
         self.role = disagg.resolve_role(role)
@@ -231,16 +262,74 @@ class EngineApp:
         if path == "/ping":
             return 200, b"pong", "text/plain"
         if path == "/ready":
+            if self.paused:
+                return 503, b"paused", "text/plain"
             if self.ready:
                 return 200, b"ready", "text/plain"
             if self.boot_error:
                 return 503, f"boot failed: {self.boot_error}".encode(), "text/plain"
             return 503, b"warming", "text/plain"
+        if path in ("/pause", "/unpause"):
+            self.paused = path == "/pause"
+            return 200, (b"paused" if self.paused else b"unpaused"), "text/plain"
         if path == "/api/v0.1/predictions":
             if method != "POST":
                 return _json(405, failure_status_dict(405, "POST a SeldonMessage"))
             return await self._predictions(body, headers)
+        if path == "/api/v0.1/predictions/stream":
+            if method != "POST":
+                return _json(405, failure_status_dict(405, "POST a generate body"))
+            return await self._predictions_stream(body, headers)
         return _json(404, failure_status_dict(404, f"no route {path}"))
+
+    async def _predictions_stream(self, body: bytes, headers: dict[str, str]):
+        """Validate a stream request (every failure is a JSON error reply,
+        before any header goes out) and return the :class:`_EventStream`
+        that serves it."""
+        if not self.ready:
+            return _json(503, failure_status_dict(503, "engine is not ready"))
+        unit = self._generative_unit()
+        if unit is None:
+            return _json(400, failure_status_dict(400, "the graph has no generative unit"))
+        try:
+            prompt, max_new, temperature, eos = self._parse_generate_body(body, unit)
+        except CodecError as e:
+            return _json(400, failure_status_dict(400, f"bad stream request: {e}"))
+        peer = headers.get("x-sct-prefix-peer")
+        if peer and self._peer_pull_enabled():
+            await self._maybe_pull_prefix(unit, prompt, peer, headers.get("x-sct-prefix-depth"))
+        return _EventStream(unit.stream_groups(prompt, max_new_tokens=max_new,
+                                               temperature=temperature, eos_id=eos))
+
+    async def _send_events(self, writer: asyncio.StreamWriter, stream: "_EventStream") -> None:
+        """Write an event stream: the headers, one write per delivered
+        group of tokens, the closing event.  The connection closes after
+        it (the body ends there: no length, no chunking)."""
+        writer.write(b"HTTP/1.1 200 OK\r\nContent-Type: text/event-stream\r\n"
+                     b"Cache-Control: no-cache\r\nX-Accel-Buffering: no\r\n"
+                     b"Connection: close\r\n\r\n")
+        self.stream_stats["streams"] += 1
+        out: list[int] = []
+        async with contextlib.aclosing(stream.groups) as groups:
+            try:
+                await writer.drain()
+                try:
+                    async for group in groups:
+                        out.extend(group)
+                        writer.write(b"".join(_event({"token": t}) for t in group))
+                        self.stream_stats["events"] += len(group)
+                        self.stream_stats["writes"] += 1
+                        await writer.drain()
+                    final = {"done": True, "tokens": out}
+                except ConnectionError:
+                    raise
+                except Exception as e:  # noqa: BLE001 - the headers are gone: it rides the stream
+                    log.warning("token stream failed: %s: %s", type(e).__name__, e)
+                    final = {"error": f"{type(e).__name__}: {e}"}
+                writer.write(_event(final))
+                await writer.drain()
+            except ConnectionError:
+                self.stream_stats["disconnects"] += 1
 
     async def _predictions(self, body: bytes, headers: dict[str, str]) -> tuple[int, bytes, str]:
         if not self.ready:
@@ -519,8 +608,11 @@ class EngineApp:
                 conn = headers.get("connection", "").lower()
                 keep = conn == "keep-alive" if version == "HTTP/1.0" else conn != "close"
                 try:
-                    status, payload, ctype, *extra = await self._route(
-                        method, path, body, headers)
+                    reply = await self._route(method, path, body, headers)
+                    if isinstance(reply, _EventStream):
+                        await self._send_events(writer, reply)
+                        break
+                    status, payload, ctype, *extra = reply
                 except Exception as e:  # noqa: BLE001 - the connection must get an answer
                     log.exception("request %s %s failed", method, path)
                     status, payload, ctype = _json(

@@ -18,7 +18,10 @@ The paged path of the JAX package's ``executor/generation.py``:
 * **decode** runs ``decode_block`` steps for every slot in one call, with
   tokens, the active mask, the remaining budgets and eos kept on the
   device, and ONE host fetch per block (``decode_blocks`` and
-  ``host_syncs`` count them);
+  ``host_syncs`` count them).  On the card a block is ONE replay of a CUDA
+  graph of its k steps, captured per ``(k, window)`` at warmup; the
+  scheduler overlaps the pipeline (``overlap``): block N+1 is dispatched
+  from block N's device carry before block N's tokens are fetched;
 * **speculation** (``spec_draft``): each step of a block is a verify pass
   that drafts ``spec_draft`` tokens per slot (``spec_method``: ``ngram``
   from a per-slot history ring, ``heads`` from Medusa-style heads over the
@@ -37,21 +40,24 @@ The paged path of the JAX package's ``executor/generation.py``:
   of it runs at sync points, never inside a decode block.
 
 ``GenerationScheduler`` is the asyncio front (``submit(prompt) ->
-generated ids``); ``GenerativeComponent`` adapts it to the graph-unit
-contract under the ``JAX_GENERATIVE`` implementation name.
+generated ids``, with an ``on_token`` hook per delivered token);
+``GenerativeComponent`` adapts it to the graph-unit contract under the
+``JAX_GENERATIVE`` implementation name and streams tokens
+(:meth:`GenerativeComponent.stream`).
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
+import contextlib
 import dataclasses
 import json
 import logging
 import os
 import threading
 import time
-from typing import Any
+from typing import Any, AsyncIterator, Callable
 
 import numpy as np
 import torch
@@ -65,6 +71,7 @@ from seldon_core_tpu_torch.graph.units import GraphUnitError, SeldonComponent
 from seldon_core_tpu_torch.models import llama
 from seldon_core_tpu_torch.models.registry import resolve_config
 from seldon_core_tpu_torch.models.weights import init_params
+from seldon_core_tpu_torch.ops import _build, paged_attention
 
 log = logging.getLogger(__name__)
 
@@ -114,6 +121,16 @@ class GenerativeModel:
     carries a head block (``{"w1", "head"}``) in place of the heads made
     from the model's ``lm_head``; ``draft_params`` carries the weights of a
     ``preset:`` draft model in place of seeded ones.
+
+    On ``cuda`` a decode block is one replay of a CUDA graph of its ``k``
+    steps (plain steps, or verify passes with the proposer), one graph per
+    ``(k, window)`` and the static configuration, captured at
+    :meth:`warmup` for every window bucket (``program_compiles`` counts
+    captures, ``program_hits`` replays of a cached graph).  Every graph
+    reads its inputs from the same static buffers and writes its tokens,
+    mask and final carry into the same static outputs, so a block may
+    continue from the previous block's carry under another window
+    (:meth:`step_k_continue`).  On the CPU the same body runs eagerly.
     """
 
     def __init__(
@@ -234,6 +251,31 @@ class GenerativeModel:
         # it, each block adds k): sizes the attention window bucket
         self._pos_ceiling = np.zeros(self.n_slots, np.int64)
         self._lock = threading.RLock()
+        # the decode blocks: one sampler, reseeded per block (a graph
+        # replays its draws from it), the static buffers every graph
+        # reads and writes, and the graph cache keyed as the JAX package
+        # keys its block programs
+        self._gen = torch.Generator(device=self.device)
+        self._block_buffers()
+        self._program_config = (self.spec_method, self.spec_draft, self.spec_ngram,
+                                self.spec_hist, self.top_k, self.kv_dtype,
+                                tuple(sorted(self._row_split)))
+        self._graphs: dict[tuple, dict] = {}
+        self._graph_pool = None
+        self._capture_stream: torch.cuda.Stream | None = None
+        self.program_compiles = 0  # graphs captured
+        self.program_hits = 0  # blocks that replayed a cached graph
+        self.overlapped = 0  # blocks dispatched from the previous block's carry
+        # the eager k-step loop on the card: a yardstick for "replay ==
+        # eager" (chip_smoke.py), never a serving path
+        self._eager_on_card = False
+        # the ops a prefill runs in fixed row tiles, so that suffix
+        # prefills and chunks write the K/V a cold prefill writes
+        self._prefill_split = (llama.prefill_variant_ops(cfg, self.prefill_buckets, self.dtype,
+                                                         self.device)
+                               if self.device.type == "cuda" else frozenset())
+        self._prefill_op = (llama.row_tiled_op(self._prefill_split, llama.PREFILL_ROW_TILE)
+                            if self._prefill_split else llama._plain)
         self.prefills = 0
         self.prefills_reused = 0  # admissions that skipped a reused prefix
         self.prefill_chunks = 0  # chunked-prefill chunk dispatches
@@ -981,7 +1023,7 @@ class GenerativeModel:
             res = llama.prefill_slot_paged(
                 self.params, self._h2d(payload["padded"]), payload["length"], payload["slot"],
                 self._h2d(payload["blocks"]), self._cache, self.cfg, seq_impl=self.seq_impl,
-                return_hidden=heads,
+                return_hidden=heads, op=self._prefill_op,
             )
             tok = self._sample_first(res[0], payload)
             self._prompt_landed(payload, tok, res[2] if heads else None)
@@ -997,7 +1039,7 @@ class GenerativeModel:
                 self.params, self._h2d(payload["padded"]), payload["prefix_len"],
                 payload["length"], payload["slot"], self._h2d(payload["blocks"]),
                 self._h2d(payload["suffix_blocks"]), self._cache, self.cfg,
-                prefix_window=payload["window"], return_hidden=heads,
+                prefix_window=payload["window"], return_hidden=heads, op=self._prefill_op,
             )
             tok = self._sample_first(res[0], payload)
             self._prompt_landed(payload, tok, res[2] if heads else None)
@@ -1223,6 +1265,157 @@ class GenerativeModel:
         out.append(self.cfg.max_seq)
         return out
 
+    def _block_buffers(self) -> None:
+        """The static buffers of the decode blocks, allocated once, outside
+        any graph capture: the inputs ``(4, S)`` int32 (tokens, active, eos,
+        remaining) and the temperatures; the final carry, laid out as the
+        inputs, so that a continued block's inputs are one device copy;
+        per ``k`` the ``(2, rows, S)`` tokens and mask and two host buffers
+        they are copied into (pinned on the card), one per block in
+        flight."""
+        S, dev = self.n_slots, self.device
+        self._gin = torch.zeros(4, S, dtype=torch.int32, device=dev)
+        self._gtemps = torch.zeros(S, dtype=torch.float32, device=dev)
+        self._gcarry = torch.zeros(4, S, dtype=torch.int32, device=dev)
+        self._gout: dict[int, torch.Tensor] = {}
+        self._hout: dict[int, list[torch.Tensor]] = {}
+        self._hnext = 0
+        self._carried = False  # _gcarry holds a block's carry
+
+    def _out_buffers(self, k: int) -> None:
+        if k not in self._gout:
+            shape = (2, k * self._tps, self.n_slots)
+            self._gout[k] = torch.zeros(shape, dtype=torch.int32, device=self.device)
+            pin = self.device.type == "cuda"
+            self._hout[k] = [torch.zeros(shape, dtype=torch.int32, pin_memory=pin)
+                             for _ in range(2)]
+
+    def _block_body(self, k: int, window: int) -> None:
+        """``k`` decode steps (or verify passes) for every slot, from the
+        static inputs to the static outputs: the body a graph captures and
+        the eager loop runs.  ``eos`` (-1 = none) and the remaining budgets
+        are enforced on the device, so a slot stops writing the pool the
+        step it finishes."""
+        tok, act, eos_t, rem = self._gin[0], self._gin[1].bool(), self._gin[2], self._gin[3]
+        temps, gen = self._gtemps, self._gen
+        toks_seq, act_seq = [], []
+        for _ in range(k):
+            if self.spec_draft:
+                out, emitted, tok, act, rem = self._verify_pass(
+                    tok, act, rem, temps, gen, eos_t, window)
+                toks_seq.append(out.T)
+                act_seq.append(emitted.T)
+                continue
+            logits, _ = llama.decode_slots_paged(
+                self.params, tok, self._cache, act, self.cfg, window=window,
+                kernel=self.decode_kernel,
+            )
+            new = llama.sample_tokens(logits, temps, gen, self.top_k)
+            new = torch.where(act, new, tok)
+            rem = torch.where(act, rem - 1, rem)
+            done = (new == eos_t) | (rem <= 0)
+            toks_seq.append(new[None])
+            act_seq.append(act[None])
+            tok, act = new, act & ~done
+        self._gout[k].copy_(torch.stack([torch.cat(toks_seq), torch.cat(act_seq).to(torch.int32)]))
+        self._gcarry.copy_(torch.stack([tok, act.to(torch.int32), eos_t, rem]))
+
+    def _counter_rows(self) -> int:
+        """Split counters the body's paged-attention launches use at most."""
+        rows = paged_attention.counter_rows(self.n_slots, self._tps, self.cfg.n_heads,
+                                            self.cfg.n_kv_heads)
+        if self._draft_cfg is not None:
+            rows = max(rows, paged_attention.counter_rows(
+                self.n_slots, 1, self._draft_cfg.n_heads, self._draft_cfg.n_kv_heads))
+        return rows
+
+    def _graph(self, k: int, window: int) -> dict | None:
+        """The CUDA graph of a ``k``-step block over ``window`` (captured
+        at first use: :meth:`warmup` captures every window bucket), or None
+        on the CPU and on the eager yardstick."""
+        if self.device.type != "cuda" or self._eager_on_card:
+            return None
+        key = (k, window) + self._program_config
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._graphs[key] = self._capture(k, window)
+            self.program_compiles += 1
+        else:
+            self.program_hits += 1
+        return entry
+
+    def _capture(self, k: int, window: int) -> dict:
+        """Capture the block body for ``(k, window)``.  The body runs once
+        eagerly first, on the capture stream with every slot inactive (it
+        writes the sink block only), so that kernels are loaded and library
+        workspaces and paged attention's split counters exist outside the
+        graph; the capture itself runs nothing.  Every graph shares one
+        memory pool: their intermediates die inside a replay and replays
+        never overlap.  The sampler is registered with every graph, so a
+        replay draws from its current seed and offset as an eager block
+        would.  Returns the graph, its kernel launches per replay, the
+        capture's seconds and the pool bytes it added."""
+        dev = self.device
+        self._out_buffers(k)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+        stream = self._capture_stream
+        saved = self._gcarry.clone()  # the warm-up run must not clobber a live carry
+        self._gin.zero_()  # every slot inactive
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            paged_attention.reserve_counters(dev, self._counter_rows())
+            self._block_body(k, window)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._gen)
+        torch.cuda.empty_cache()  # as the capture does first: the pool's bytes are the delta
+        reserved = torch.cuda.memory_reserved(dev)
+        snap = _build.snapshot_launches()
+        try:
+            with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self._block_body(k, window)
+        finally:
+            launches = _build.take_captured(snap)
+        if self._graph_pool is None:
+            self._graph_pool = graph.pool()
+        self._gcarry.copy_(saved)
+        torch.cuda.synchronize(dev)
+        return {"graph": graph, "launches": launches, "capture_s": time.perf_counter() - t0,
+                "pool_bytes": torch.cuda.memory_reserved(dev) - reserved}
+
+    def _launch_block(self, entry: dict | None, k: int, seed: int, act_np: np.ndarray,
+                      window: int) -> tuple:
+        """Run one block from the static inputs (a replay of ``entry``, else
+        the eager body), enqueue the copy of its tokens and mask into the
+        next host buffer and return the block's handle."""
+        cuda = self.device.type == "cuda"
+        t0 = time.perf_counter()
+        start = end = None
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        self._gen.manual_seed(int(seed))
+        if entry is None:
+            self._block_body(k, window)
+        else:
+            entry["graph"].replay()
+            _build.add_launches(entry["launches"])
+        host = self._hout[k][self._hnext]
+        self._hnext ^= 1
+        host.copy_(self._gout[k], non_blocking=cuda)
+        if cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+        self._carried = True
+        self._pos_ceiling[act_np] += k * self._tps
+        self.steps += k
+        return (host, start, end, time.perf_counter() - t0, act_np, k)
+
     def step_k(
         self,
         tokens: np.ndarray,
@@ -1238,55 +1431,87 @@ class GenerativeModel:
         the ``(k, S)`` was-active-at-step mask saying which are real.
         ``eos`` is per slot (-1 = none) and ``remaining`` the per-slot token
         budget; both are enforced on the device, so a slot stops writing
-        the pool the step it finishes.  One host fetch per call.
+        the pool the step it finishes.  One host fetch per call:
+        :meth:`step_k_dispatch`, then :meth:`step_k_fetch`.
 
         With speculation on each step is a verify pass (:meth:`_verify_pass`)
         and the results have ``k * (1 + spec_draft)`` rows, pass by pass,
         with the EMITTED mask in place of the was-active mask; the position
         ceiling assumes every row at dispatch and is tightened to what the
         fetched mask says landed."""
-        act_np = np.asarray(active, bool)
+        return self.step_k_fetch(self.step_k_dispatch(
+            tokens, active, temperature, seed, eos, remaining, k, window=window))
+
+    def step_k_dispatch(
+        self,
+        tokens: np.ndarray,
+        active: np.ndarray,
+        temperature: np.ndarray,
+        seed: int,
+        eos: np.ndarray,
+        remaining: np.ndarray,
+        k: int,
+        window: int | None = None,
+    ) -> tuple:
+        """Enqueue one ``k``-step block from host arrays WITHOUT fetching its
+        tokens: the inputs are copied into the static buffers, the block's
+        graph is replayed (the body runs eagerly on the CPU), the copy of
+        its outputs to a host buffer is enqueued behind it, and a handle
+        for :meth:`step_k_fetch` comes back."""
+        act_np = np.asarray(active, bool).copy()
         k = int(k)
-        tps = self._tps
-        window = window or self._window_for(act_np, k * tps)
+        window = window or self._window_for(act_np, k * self._tps)
         packed = np.stack([
             np.asarray(tokens, np.int32), act_np.astype(np.int32),
             np.asarray(eos, np.int32), np.asarray(remaining, np.int32),
         ])
         with self._lock, torch.no_grad():
-            t0 = time.perf_counter()
-            tok, act, eos_t, rem = self._h2d(packed).unbind(0)
-            act = act.bool()
-            temps = self._h2d(np.asarray(temperature, np.float32))
-            gen = self._generator(seed)
-            toks_seq, act_seq = [], []
-            for _ in range(k):
-                if self.spec_draft:
-                    out, emitted, tok, act, rem = self._verify_pass(
-                        tok, act, rem, temps, gen, eos_t, window)
-                    toks_seq.append(out.T)
-                    act_seq.append(emitted.T)
-                    continue
-                logits, _ = llama.decode_slots_paged(
-                    self.params, tok, self._cache, act, self.cfg, window=window,
-                    kernel=self.decode_kernel,
-                )
-                new = llama.sample_tokens(logits, temps, gen, self.top_k)
-                new = torch.where(act, new, tok)
-                rem = torch.where(act, rem - 1, rem)
-                done = (new == eos_t) | (rem <= 0)
-                toks_seq.append(new[None])
-                act_seq.append(act[None])
-                tok, act = new, act & ~done
-            # THE one host fetch of the block: tokens and mask together
-            out = torch.stack([torch.cat(toks_seq), torch.cat(act_seq).to(torch.int32)])
-            out = out.cpu().numpy()
+            self._out_buffers(k)
+            entry = self._graph(k, window)
+            # pageable host memory is staged at once: no wait on queued work
+            self._gin.copy_(torch.from_numpy(packed), non_blocking=True)
+            self._gtemps.copy_(torch.from_numpy(np.asarray(temperature, np.float32)),
+                               non_blocking=True)
+            return self._launch_block(entry, k, seed, act_np, window)
+
+    def step_k_continue(self, active: np.ndarray, seed: int, k: int,
+                        window: int | None = None) -> tuple:
+        """Enqueue the next ``k``-step block from the previous block's device
+        carry (tokens, active mask, eos and budgets: one device copy, no
+        host round trip).  The caller guarantees that no host-side state
+        changed since that block was dispatched (no admission, no reap, no
+        release of a pinned slot); a slot that finished inside it rides
+        along inactive.  Stream order puts the previous block's copy to the
+        host before this block's replay."""
+        act_np = np.asarray(active, bool).copy()
+        k = int(k)
+        window = window or self._window_for(act_np, k * self._tps)
+        with self._lock, torch.no_grad():
+            if not self._carried:
+                raise RuntimeError(f"generative model {self.name!r}: decode continue without "
+                                   "a carried block")
+            self._out_buffers(k)
+            entry = self._graph(k, window)
+            self._gin.copy_(self._gcarry)
+            handle = self._launch_block(entry, k, seed, act_np, window)
+            self.overlapped += 1
+            return handle
+
+    def step_k_fetch(self, handle: tuple) -> tuple[np.ndarray, np.ndarray]:
+        """Wait for a dispatched block and return its ``(rows, S)`` tokens
+        and mask (``rows = k`` plain, ``k * (1 + spec_draft)`` speculative):
+        THE one host sync of the block, counted whatever the pipeline did."""
+        host, start, end, seconds, act_np, k = handle
+        if end is not None:
+            end.synchronize()
+            seconds = start.elapsed_time(end) / 1e3  # the block on the card
+        out = host.numpy().copy()  # the buffer serves the block after next
+        tps = self._tps
+        with self._lock:
             self.host_syncs += 1
             self.decode_blocks += 1
-            self.steps += k
-            self._pos_ceiling[act_np] += k * tps
-            self.last_block_s = time.perf_counter() - t0
-            self.block_seconds += self.last_block_s
+            self.last_block_s = seconds
+            self.block_seconds += seconds
             self.tokens_emitted += int(out[1].sum())
             if self.spec_draft and act_np.any():
                 emitted = out[1].sum(axis=0).astype(np.int64)
@@ -1297,19 +1522,43 @@ class GenerativeModel:
                 self.spec_verify_passes += int(out[1].reshape(k, tps, -1).any(axis=1).sum())
         return out[0], out[1].astype(bool)
 
+    def program_snapshot(self) -> dict:
+        """The decode-block programs: captures, replays of a cached graph,
+        blocks continued from a carry, and each graph's capture seconds,
+        pool bytes and kernel launches per replay."""
+        with self._lock:
+            graphs = [{"k": key[0], "window": key[1], "capture_s": e["capture_s"],
+                       "pool_bytes": e["pool_bytes"], "launches": dict(e["launches"][0])}
+                      for key, e in sorted(self._graphs.items(), key=lambda kv: kv[0][:2])]
+            return {"program_compiles": self.program_compiles,
+                    "program_hits": self.program_hits, "overlapped": self.overlapped,
+                    "graphs": graphs}
+
     # ------------------------------------------------------ warmup/reset
 
     def warmup(self) -> int:
         """Run every prefill bucket, one suffix prefill when prefix reuse or
         chunking is on, and one decode block per window bucket once (the
         kernel build, the allocator and cuBLAS handles are then off the
-        request path).  With speculation on the blocks are verify passes
-        and, for ``draft``, each admission prefills the draft pool too.  A
-        no-op once traffic has touched the cache."""
+        request path; on the card each of those blocks captures its CUDA
+        graph, so no request pays for a capture).  With speculation on the
+        blocks are verify passes and, for ``draft``, each admission
+        prefills the draft pool too.  A no-op once traffic has touched the
+        cache."""
         with self._lock:
             if self.prefills or self.steps:
                 return 0
             n = 0
+            # the decode blocks first: a capture empties the allocator's
+            # cache, which the prefills then fill again before traffic
+            S = self.n_slots
+            for w in self._window_buckets():
+                self.step_k(
+                    np.zeros(S, np.int32), np.zeros(S, bool), np.zeros(S, np.float32), 0,
+                    np.full(S, -1, np.int32), np.zeros(S, np.int32), self.decode_block,
+                    window=w,
+                )
+                n += 1
             for b in self.prefill_buckets:
                 self.admit(0, np.ones(b, np.int32), 0.0, 0)
                 n += 1
@@ -1319,14 +1568,6 @@ class GenerativeModel:
                 self._exec_prefill_suffix(self._with_hist(
                     self._suffix_payload(np.ones(bs, np.int32), bs, 2 * bs, 0, row, 0.0, 0),
                     np.ones(2 * bs, np.int32)))
-                n += 1
-            S = self.n_slots
-            for w in self._window_buckets():
-                self.step_k(
-                    np.zeros(S, np.int32), np.zeros(S, bool), np.zeros(S, np.float32), 0,
-                    np.full(S, -1, np.int32), np.zeros(S, np.int32), self.decode_block,
-                    window=w,
-                )
                 n += 1
             self.reset()
             if self.prefix_index is not None:  # warmup's hits are not traffic
@@ -1354,6 +1595,7 @@ class GenerativeModel:
                 self.host_store.flush()
             self._peer_chains.clear()
             self._cache["pos"].zero_()
+            self._carried = False
 
 
 @dataclasses.dataclass(eq=False)  # identity eq: fields hold arrays/futures
@@ -1369,6 +1611,9 @@ class _Request:
     prefill_only: bool = False
     # a handoff's decode half: the first token and the blocks to import
     imported: dict | None = None
+    # fired per delivered token on the event loop; a hook that raises is
+    # logged and detached
+    on_token: Callable[[int], None] | None = None
 
 
 class GenerationScheduler:
@@ -1392,10 +1637,25 @@ class GenerationScheduler:
     returns it, and :meth:`submit_imported` admits another engine's
     prompt KV and decodes it.  Imports, releases of pinned slots and
     peer-pulled prefix installs (:meth:`install_prefix`) all happen at a
-    sync point, never while a decode block is in flight."""
+    sync point, never while a decode block is in flight.
 
-    def __init__(self, model: GenerativeModel, *, maxsize: int | None = None):
+    The pipeline overlaps (``overlap``, on by default when ``decode_block
+    > 1``; ``SCT_GEN_OVERLAP=0`` turns it off): while block N's tokens are
+    fetched, block N+1 is already dispatched from block N's device carry
+    (:meth:`GenerativeModel.step_k_continue`).  The chain breaks for a
+    named cause (``overlap_breaks``): ``carry-dirty`` (a host-side reap
+    left the carry stale), ``admission`` (a request waits), ``kv-starved``
+    (an admission waits for blocks), ``handoff-release`` (a pinned slot
+    goes back to the pool), ``chunked-prefill`` (a chunk is due) or
+    ``dispatch-error``.  Either way each block costs one host sync."""
+
+    def __init__(self, model: GenerativeModel, *, maxsize: int | None = None,
+                 overlap: bool | None = None):
         self.model = model
+        if overlap is None:
+            overlap = os.environ.get("SCT_GEN_OVERLAP", "1") != "0"
+        self.overlap = bool(overlap) and model.decode_block > 1
+        self.overlap_breaks: collections.Counter = collections.Counter()
         self._waiting: list[_Request] = []
         # admitted to a slot but not to the KV pool (OutOfKVBlocks): retried
         # ahead of the queue as completions free blocks
@@ -1467,6 +1727,12 @@ class GenerationScheduler:
                 self._overflow.remove(req)
             raise
 
+    def overlap_snapshot(self) -> dict:
+        """Whether the pipeline overlaps, the blocks continued from a
+        carry, and the breaks of the chain by cause."""
+        return {"overlap": self.overlap, "overlapped": self.model.overlapped,
+                "breaks": dict(self.overlap_breaks)}
+
     def _request(self, prompt, max_new_tokens, temperature, eos_id, **kw) -> _Request:
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         return _Request(prompt, int(max_new_tokens), float(temperature), eos_id, fut,
@@ -1479,13 +1745,18 @@ class GenerationScheduler:
         max_new_tokens: int = 32,
         temperature: float = 0.0,
         eos_id: int | None = None,
+        on_token: Callable[[int], None] | None = None,
     ) -> np.ndarray:
-        """Generate up to ``max_new_tokens`` ids for a 1-D prompt."""
+        """Generate up to ``max_new_tokens`` ids for a 1-D prompt.
+        ``on_token`` fires on the event loop for each token as it is
+        delivered (the first at admission, then one decode block's at a
+        time)."""
         prompt = self._validate_prompt(prompt)
         if max_new_tokens < 1:
             return np.zeros(0, np.int32)
         max_new_tokens = min(int(max_new_tokens), self.model.cfg.max_seq - int(prompt.size))
-        return await self._enqueue(self._request(prompt, max_new_tokens, temperature, eos_id))
+        return await self._enqueue(self._request(prompt, max_new_tokens, temperature, eos_id,
+                                                 on_token=on_token))
 
     async def submit_prefill(self, prompt: np.ndarray, *,
                              temperature: float = 0.0) -> tuple[int, int]:
@@ -1500,7 +1771,7 @@ class GenerationScheduler:
     async def submit_imported(
         self, prompt: np.ndarray, *, first_token: int, k, v, max_new_tokens: int = 32,
         temperature: float = 0.0, eos_id: int | None = None, k_scale=None, v_scale=None,
-        spec_state: dict | None = None,
+        spec_state: dict | None = None, on_token: Callable[[int], None] | None = None,
     ) -> np.ndarray:
         """A handoff's decode half: go on with a generation whose prompt KV
         (``k``/``v``, and an int8 pool's scales) and first sampled token
@@ -1514,6 +1785,7 @@ class GenerationScheduler:
             prompt, max_new_tokens, temperature, eos_id,
             imported={"first_token": int(first_token), "k": k, "v": v, "k_scale": k_scale,
                       "v_scale": v_scale, "spec": spec_state},
+            on_token=on_token,
         ))
 
     def release_external(self, slot: int) -> None:
@@ -1578,6 +1850,12 @@ class GenerationScheduler:
         if not req.out:
             self.ttft.append((int(req.prompt.size), time.perf_counter() - req.t0))
         req.out.append(tok)
+        if req.on_token is not None:
+            try:
+                req.on_token(tok)
+            except Exception:  # noqa: BLE001 - a broken listener must not stall the loop
+                log.exception("on_token hook failed; detaching it")
+                req.on_token = None
         if req.eos_id is not None and tok == req.eos_id:
             return True
         return len(req.out) >= req.max_new_tokens
@@ -1589,20 +1867,27 @@ class GenerationScheduler:
         active[slot] = False
         self.model.release_slot(slot)
 
-    def _reap(self, slots, active) -> None:
+    def _reap(self, slots, active) -> int:
         """Drop requests whose client vanished (cancelled future): from the
         queues before a prefill is spent, from slots mid-prefill or
-        mid-generation."""
+        mid-generation.  Returns the decoding slots reaped: the device
+        carry still thinks them active, so the next block must be
+        dispatched from host state.  Their blocks may go back to the pool
+        while a continued block is in flight: nothing reserves them before
+        the next sync point, which waits for that block."""
         for q in (self._waiting, self._overflow):
             q[:] = [r for r in q if not r.future.done()]
         for ent in [e for e in self._prefilling if e["req"].future.done()]:
             self._prefilling.remove(ent)
             self.model.release_slot(ent["slot"])
+        reaped = 0
         for i, req in enumerate(slots):
             if req is not None and req.future.done():
                 slots[i] = None
+                reaped += int(active[i])
                 active[i] = False
                 self.model.release_slot(i)
+        return reaped
 
     def _deliver(self, toks_seq, act_seq, slots, cur, active) -> None:
         """Fan one fetched block's ``(rows, S)`` tokens out to their requests:
@@ -1727,6 +2012,21 @@ class GenerationScheduler:
                 self._prefilling.remove(ent)
                 self._start(ent["req"], ent["slot"], toks[-1], slots, cur, temps, active)
 
+    def _break_cause(self, carry_dirty: bool) -> str | None:
+        """Why the next block may not continue from the device carry, or
+        None when it may."""
+        if carry_dirty:
+            return "carry-dirty"
+        if self._waiting:
+            return "admission"
+        if self._overflow:
+            return "kv-starved"
+        if self._external_release:
+            return "handoff-release"
+        if self._prefilling:
+            return "chunked-prefill"
+        return None
+
     async def _run(self) -> None:
         S = self.model.n_slots
         slots: list[_Request | None] = [None] * S
@@ -1734,83 +2034,47 @@ class GenerationScheduler:
         temps = np.zeros(S, np.float32)
         active = np.zeros(S, bool)
         k = self.model.decode_block
+        # the dispatched block whose tokens are not fetched yet, and whether
+        # the device carry still matches the host's bookkeeping
+        pending: tuple | None = None
+        carry_dirty = True
         try:
             while True:
                 if self._closed:
                     raise asyncio.CancelledError
-                self._reap(slots, active)
-                # sync point: no block is in flight, so pinned slots may go
-                # back to the pool and pulled chains may take blocks
-                self._drain_external_releases()
-                if self._prefix_installs:
-                    await self._drain_prefix_installs()
-                if (not active.any() and not self._waiting and not self._overflow
-                        and not self._prefilling and not self._external_release
-                        and not self._prefix_installs):
-                    # fully idle: park until a submit wakes us (no await
-                    # between the emptiness check and clear)
-                    self._wake.clear()
-                    await self._wake.wait()
+                if self._reap(slots, active):
+                    carry_dirty = True
+                if pending is None:
+                    pending = await self._sync_and_dispatch(slots, cur, temps, active, k)
+                    carry_dirty = False
                     continue
-                # sync point: nothing is in flight, so admissions may prefill
-                cap_free = S - int(active.sum()) - len(self._prefilling) - len(self._external)
-                batch = []
-                while self._overflow and len(batch) < cap_free:
-                    batch.append(self._overflow.pop(0))
-                while self._waiting and len(batch) < cap_free:
-                    batch.append(self._waiting.pop(0))
-                if batch or self._prefilling:
-                    await self._sync_point(batch, slots, cur, temps, active)
-                if not active.any():
-                    if self._prefilling:
-                        continue  # chunks still advancing: each turn does device work
-                    cap_free = S - len(self._prefilling) - len(self._external)
-                    if (self._external and (self._waiting or self._overflow)
-                            and (cap_free == 0 or not self._waiting)
-                            and not self._external_release and not self._prefix_installs):
-                        # nothing can be admitted: every free slot, or the
-                        # blocks the overflow needs, is pinned by a handoff
-                        # in flight.  Park until a release or a submit wakes
-                        # the loop (no await between the check and clear);
-                        # the timeout reaps parked clients within 50 ms.
-                        self._wake.clear()
+                # the overlap: block N+1 goes from block N's device carry
+                # before block N's tokens are fetched, unless host-side
+                # state must change first
+                nxt = None
+                if self.overlap and active.any():
+                    cause = self._break_cause(carry_dirty)
+                    if cause is None:
                         try:
-                            await asyncio.wait_for(self._wake.wait(), timeout=0.05)
-                        except asyncio.TimeoutError:
-                            pass
-                        continue
-                    if self._overflow:
-                        # nothing in flight can free blocks: these requests
-                        # exceed the pool outright
-                        err = GraphUnitError(
-                            "request KV reservation exceeds the configured pool "
-                            f"({self.model.kv_blocks - 1} blocks of "
-                            f"{self.model.kv_block_size})"
-                        )
-                        for req in self._overflow:
-                            if not req.future.done():
-                                req.future.set_exception(err)
-                        self._overflow.clear()
-                    continue
-                eos = np.array(
-                    [r.eos_id if r is not None and r.eos_id is not None else -1 for r in slots],
-                    np.int32,
-                )
-                remaining = np.array(
-                    [max(0, r.max_new_tokens - len(r.out)) if r is not None else 0
-                     for r in slots],
-                    np.int32,
-                )
+                            nxt = await asyncio.to_thread(
+                                self.model.step_k_continue, active.copy(), self._next_seed(), k)
+                        except Exception:  # noqa: BLE001 - the next block goes from host state
+                            log.exception("overlapped dispatch failed; dispatching from the host")
+                            cause, carry_dirty = "dispatch-error", True
+                    if cause is not None:
+                        self.overlap_breaks[cause] += 1
                 try:
-                    toks_seq, act_seq = await asyncio.to_thread(
-                        self.model.step_k, cur.copy(), active.copy(), temps.copy(),
-                        self._next_seed(), eos, remaining, k,
-                    )
+                    toks_seq, act_seq = await asyncio.to_thread(self.model.step_k_fetch, pending)
                 except Exception as exc:  # noqa: BLE001 - fails the in-flight requests
                     log.error("decode block failed; failing %d requests",
                               int(active.sum()), exc_info=exc)
+                    if nxt is not None:  # chained off the failed block: drain it
+                        with contextlib.suppress(Exception):
+                            await asyncio.to_thread(self.model.step_k_fetch, nxt)
+                    pending, carry_dirty = None, True
                     self._fail_inflight(slots, active, exc)
                     continue
+                pending = nxt
                 self._deliver(toks_seq, act_seq, slots, cur, active)
         except asyncio.CancelledError:
             err = RuntimeError("GenerationScheduler closed")
@@ -1834,6 +2098,81 @@ class GenerationScheduler:
             self._overflow.clear()
             raise
 
+    async def _sync_and_dispatch(self, slots, cur, temps, active, k: int) -> tuple | None:
+        """A sync point (no block in flight): pinned slots go back, pulled
+        chains are installed, queued requests are admitted and a chunk
+        advances; then a block is dispatched from host state.  Returns its
+        handle, or None when nothing decodes (parked or failed)."""
+        S = len(slots)
+        # no block is in flight, so pinned slots may go back to the pool and
+        # pulled chains may take blocks
+        self._drain_external_releases()
+        if self._prefix_installs:
+            await self._drain_prefix_installs()
+        if (not active.any() and not self._waiting and not self._overflow
+                and not self._prefilling and not self._external_release
+                and not self._prefix_installs):
+            # fully idle: park until a submit wakes us (no await between the
+            # emptiness check and clear)
+            self._wake.clear()
+            await self._wake.wait()
+            return None
+        cap_free = S - int(active.sum()) - len(self._prefilling) - len(self._external)
+        batch = []
+        while self._overflow and len(batch) < cap_free:
+            batch.append(self._overflow.pop(0))
+        while self._waiting and len(batch) < cap_free:
+            batch.append(self._waiting.pop(0))
+        if batch or self._prefilling:
+            await self._sync_point(batch, slots, cur, temps, active)
+        if not active.any():
+            if self._prefilling:
+                return None  # chunks still advancing: each turn does device work
+            cap_free = S - len(self._prefilling) - len(self._external)
+            if (self._external and (self._waiting or self._overflow)
+                    and (cap_free == 0 or not self._waiting)
+                    and not self._external_release and not self._prefix_installs):
+                # nothing can be admitted: every free slot, or the blocks the
+                # overflow needs, is pinned by a handoff in flight.  Park
+                # until a release or a submit wakes the loop (no await
+                # between the check and clear); the timeout reaps parked
+                # clients within 50 ms.
+                self._wake.clear()
+                try:
+                    await asyncio.wait_for(self._wake.wait(), timeout=0.05)
+                except asyncio.TimeoutError:
+                    pass
+                return None
+            if self._overflow:
+                # nothing in flight can free blocks: these requests exceed
+                # the pool outright
+                err = GraphUnitError(
+                    "request KV reservation exceeds the configured pool "
+                    f"({self.model.kv_blocks - 1} blocks of {self.model.kv_block_size})"
+                )
+                for req in self._overflow:
+                    if not req.future.done():
+                        req.future.set_exception(err)
+                self._overflow.clear()
+            return None
+        eos = np.array(
+            [r.eos_id if r is not None and r.eos_id is not None else -1 for r in slots], np.int32,
+        )
+        remaining = np.array(
+            [max(0, r.max_new_tokens - len(r.out)) if r is not None else 0 for r in slots],
+            np.int32,
+        )
+        try:
+            return await asyncio.to_thread(
+                self.model.step_k_dispatch, cur.copy(), active.copy(), temps.copy(),
+                self._next_seed(), eos, remaining, k,
+            )
+        except Exception as exc:  # noqa: BLE001 - fails the in-flight requests
+            log.error("decode dispatch failed; failing %d requests", int(active.sum()),
+                      exc_info=exc)
+            self._fail_inflight(slots, active, exc)
+            return None
+
 
 class GenerativeComponent(SeldonComponent):
     """Graph unit serving a generative decoder.
@@ -1855,9 +2194,10 @@ class GenerativeComponent(SeldonComponent):
         temperature: float = 0.0,
         eos_id: int | None = None,
         queue_max: int | None = None,
+        overlap: bool | None = None,
     ):
         self.model = model
-        self.scheduler = GenerationScheduler(model, maxsize=queue_max)
+        self.scheduler = GenerationScheduler(model, maxsize=queue_max, overlap=overlap)
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
         self.eos_id = eos_id
@@ -1881,6 +2221,8 @@ class GenerativeComponent(SeldonComponent):
             {"key": f"{n}_prefill_chunks", "type": "GAUGE", "value": m.prefill_chunks},
             {"key": f"{n}_spec_verify_passes", "type": "GAUGE", "value": m.spec_verify_passes},
             {"key": f"{n}_spec_emitted_tokens", "type": "GAUGE", "value": m.spec_emitted_tokens},
+            {"key": f"{n}_overlapped_blocks", "type": "GAUGE", "value": m.overlapped},
+            {"key": f"{n}_program_compiles", "type": "GAUGE", "value": m.program_compiles},
         ]
 
     async def _generate_rows(self, rows, max_new_tokens, temperature, eos_id):
@@ -1890,6 +2232,67 @@ class GenerativeComponent(SeldonComponent):
             )
             for row in rows
         )))
+
+    async def stream_groups(
+        self,
+        prompt,
+        *,
+        max_new_tokens: int | None = None,
+        temperature: float | None = None,
+        eos_id: int | None = None,
+    ) -> AsyncIterator[list[int]]:
+        """Yield the generated ids in the groups they are delivered in: the
+        first token at admission, then one decode block's at a time (the
+        tokens a block delivered are all queued before this coroutine runs
+        again).  Leaving the iteration early cancels the request, whose
+        slot the scheduler then frees."""
+        q: asyncio.Queue = asyncio.Queue()
+        end = object()
+        task = asyncio.create_task(self.scheduler.submit(
+            np.asarray(prompt, np.int32).ravel(),
+            max_new_tokens=self.max_new_tokens if max_new_tokens is None else max_new_tokens,
+            temperature=self.temperature if temperature is None else temperature,
+            eos_id=self.eos_id if eos_id is None else eos_id,
+            on_token=q.put_nowait,
+        ))
+        task.add_done_callback(lambda _t: q.put_nowait(end))
+        served = 0
+        try:
+            done = False
+            while not done:
+                group = [await q.get()]
+                while not q.empty():
+                    group.append(q.get_nowait())
+                if group[-1] is end:
+                    group.pop()
+                    done = True
+                served += len(group)
+                if group:
+                    yield [int(t) for t in group]
+            # surface a failed submit, and any token the hook did not carry
+            rest = task.result()[served:]
+            if rest.size:
+                yield [int(t) for t in rest]
+        finally:
+            if not task.done():
+                task.cancel()
+
+    async def stream(
+        self,
+        prompt,
+        *,
+        max_new_tokens: int | None = None,
+        temperature: float | None = None,
+        eos_id: int | None = None,
+    ) -> AsyncIterator[int]:
+        """Yield generated token ids as they decode: the first after the
+        prefill, the rest ``decode_block`` at a time per device fetch."""
+        groups = self.stream_groups(prompt, max_new_tokens=max_new_tokens,
+                                    temperature=temperature, eos_id=eos_id)
+        async with contextlib.aclosing(groups):
+            async for group in groups:
+                for tok in group:
+                    yield tok
 
     @staticmethod
     def _pad_rows(outs: list[np.ndarray]) -> np.ndarray:

@@ -18,10 +18,12 @@ step would double it) and return the same dict.
 
 Attention runs through the hand-written kernels on the card:
 ``ops.flash_causal_attention_blhd`` in the prefill (``seq_impl="flash"``)
-and ``ops.paged_decode_attention`` in every decode step (``kernel=True``),
-which dequantizes int8 pages itself.  The suffix prefill's attention, the
-int8 quantize-on-write and the prefix gather are plain torch ops, as they
-are XLA code (not Pallas) in the JAX package.
+and in the suffix prefill (its bottom-right aligned variant over the
+gathered prefix), and ``ops.paged_decode_attention`` in every decode step
+(``kernel=True``), which dequantizes int8 pages itself.  On the CPU the
+suffix prefill's attention is the einsum, mask and softmax of the JAX
+package's dense prefill.  The int8 quantize-on-write and the prefix gather
+are plain torch ops, as they are XLA code (not Pallas) in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ from seldon_core_tpu_torch.ops.paged_attention import paged_decode_attention_pla
 __all__ = [
     "Config", "Llama", "init_paged_cache", "paged_kv_slot_bytes", "prefill_slot_paged",
     "prefill_suffix_paged", "decode_slots_paged", "decode_slots_spec_paged", "sample_tokens",
-    "forward", "row_variant_ops", "init_medusa_heads", "apply_medusa_heads", "medusa_head_bytes", "truncate_params",
+    "forward", "row_variant_ops", "prefill_variant_ops", "row_tiled_op", "init_medusa_heads",
+    "apply_medusa_heads", "medusa_head_bytes", "truncate_params",
 ]
 
 
@@ -171,6 +174,27 @@ def _row_split_op(names: frozenset):
     return op
 
 
+def _row_tiled(fn, t, tile: int):
+    """``fn`` over ``t (B, R, ...)`` in calls of exactly ``tile`` rows along
+    dim 1, the last one zero-padded; the padding's rows are dropped."""
+    rows = t.shape[1]
+    n = -(-rows // tile)
+    if n * tile != rows:
+        t = torch.cat([t, t.new_zeros((t.shape[0], n * tile - rows) + tuple(t.shape[2:]))], 1)
+    return torch.cat([fn(t[:, i * tile:(i + 1) * tile]) for i in range(n)], 1)[:, :rows]
+
+
+def row_tiled_op(names: frozenset, tile: int):
+    """An op hook for the prefill bodies: the ops in ``names`` run in fixed
+    tiles of ``tile`` rows (:func:`_row_tiled`), the others in one call, so
+    that a cold prefill, a suffix prefill and a chunk give those ops the
+    same row count whatever their lengths."""
+    def op(name, fn, t):
+        return _row_tiled(fn, t, tile) if name in names else fn(t)
+
+    return op
+
+
 def _rmsnorm(x, w, eps, op=_plain):
     """RMS norm over the last dim; its one sum, the mean of squares, is the
     op ``norm``."""
@@ -241,19 +265,19 @@ def _layer_out(x, o, lp, cfg: Config, op=_plain):
     return x + _mlp_block(h, lp, op)
 
 
-def _layer(x, lp, cfg: Config, positions, attn_fn, kv_hook=None):
+def _layer(x, lp, cfg: Config, positions, attn_fn, kv_hook=None, op=_plain):
     """``kv_hook(k, v) -> (k_attn, v_attn, stored)`` lets an int8 pool
     attend the dequantized values it will hold (fake-quant: a reused
     prefix then reads the K/V the cold prefill attended)."""
-    q, k, v = _qkv(x, lp, cfg, positions)
+    q, k, v = _qkv(x, lp, cfg, positions, op)
     if kv_hook is None:
         ka, va, stored = k, v, (k, v)
     else:
         ka, va, stored = kv_hook(k, v)
-    return _layer_out(x, attn_fn(q, ka, va), lp, cfg), stored
+    return _layer_out(x, attn_fn(q, ka, va), lp, cfg, op), stored
 
 
-def _prefill_core(params: Llama, tokens, cfg: Config, attn_fn, kv_hook=None):
+def _prefill_core(params: Llama, tokens, cfg: Config, attn_fn, kv_hook=None, op=_plain):
     """Embed + the layer loop.  Returns ``(hidden (B, L, E), stored)``:
     ``(ks, vs)`` with ``(layers, B, L, kv, hd)`` each, or the kv_hook's
     ``(qk, sk, qv, sv)`` stacked over layers the same way."""
@@ -261,7 +285,7 @@ def _prefill_core(params: Llama, tokens, cfg: Config, attn_fn, kv_hook=None):
     positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
     stored = []
     for li in range(cfg.n_layers):
-        x, st = _layer(x, params.layer(li), cfg, positions, attn_fn, kv_hook)
+        x, st = _layer(x, params.layer(li), cfg, positions, attn_fn, kv_hook, op)
         stored.append(st)
     return x, tuple(torch.stack(parts) for parts in zip(*stored))
 
@@ -369,7 +393,7 @@ def _fake_quant_hook(scale_dtype):
 @torch.no_grad()
 def prefill_slot_paged(
     params: Llama, tokens, length: int, slot: int, blocks_row, cache: dict,
-    cfg: Config, *, seq_impl: str = "flash", return_hidden: bool = False,
+    cfg: Config, *, seq_impl: str = "flash", return_hidden: bool = False, op=_plain,
 ):
     """Prefill ONE request's prompt into the blocks reserved for ``slot``.
 
@@ -377,16 +401,17 @@ def prefill_slot_paged(
     the block size; ``blocks_row (max_blocks,)`` the slot's table row
     (reserved physical ids, zero-padded: pad rows land in the sink).
     Under an int8 pool the attention sees the dequantized K/V the pool
-    will hold.  Returns ``(last_logits (V,), cache)``, plus the post-
-    ``ln_f`` hidden ``(E,)`` at that position when ``return_hidden`` (the
-    Medusa heads' input); the cache is updated in place."""
+    will hold.  ``op`` runs the layer's named ops (:func:`row_tiled_op`).
+    Returns ``(last_logits (V,), cache)``, plus the post-``ln_f`` hidden
+    ``(E,)`` at that position when ``return_hidden`` (the Medusa heads'
+    input); the cache is updated in place."""
     bs = cache["k"].shape[2]
     lp = tokens.shape[1]
     if lp % bs:
         raise ValueError(f"prefill bucket {lp} is not a multiple of block size {bs}")
     quant = "k_scale" in cache
     hook = _fake_quant_hook(cache["k_scale"].dtype) if quant else None
-    x, stored = _prefill_core(params, tokens, cfg, _select_attn(seq_impl), hook)
+    x, stored = _prefill_core(params, tokens, cfg, _select_attn(seq_impl), hook, op)
     lb = lp // bs
     rows = (cfg.n_layers, lb, bs, cfg.n_kv_heads)
     blocks_row = torch.as_tensor(blocks_row, dtype=torch.int32, device=tokens.device)
@@ -407,7 +432,7 @@ def prefill_slot_paged(
 def prefill_suffix_paged(
     params: Llama, tokens, prefix_len: int, length: int, slot: int, blocks_row,
     suffix_blocks, cache: dict, cfg: Config, *, prefix_window: int,
-    return_hidden: bool = False,
+    return_hidden: bool = False, op=_plain,
 ):
     """Prefill only the SUFFIX of a prompt whose first ``prefix_len``
     tokens already have K/V in the slot's table blocks: a reused prefix
@@ -420,10 +445,15 @@ def prefill_suffix_paged(
     covers ``prefix_len``); ``suffix_blocks (Ls // bs,)`` the physical
     blocks the suffix K/V is written to (sink 0 past the reservation).
 
-    The suffix queries attend ``[prefix ++ suffix]`` with the einsum, mask
-    and softmax of the dense prefill: prefix column j is visible iff
-    ``j < prefix_len``, suffix columns are causal.  Returns
-    ``(last_logits (V,), cache)``; the cache is updated in place."""
+    The suffix queries attend ``[prefix ++ suffix]``: prefix column j is
+    visible iff ``j < prefix_len``, suffix columns are causal.  On a CUDA
+    tensor that is the flash kernel's bottom-right aligned variant over the
+    prefix's ``prefix_len`` rows (gathered from the pool, dequantized from
+    an int8 pool as the cold prefill's fake-quant attends them) followed by
+    the suffix's own K/V, so a row gets the cold prefill's bits; on the CPU
+    the einsum, mask and softmax of the dense prefill.  ``op`` runs the
+    layer's named ops (:func:`row_tiled_op`).  Returns ``(last_logits (V,),
+    cache)``; the cache is updated in place."""
     bs = cache["k"].shape[2]
     ls = tokens.shape[1]
     if ls % bs:
@@ -436,17 +466,23 @@ def prefill_suffix_paged(
     hook = _fake_quant_hook(cache["k_scale"].dtype) if quant else None
     blocks_row = torch.as_tensor(blocks_row, dtype=torch.int32, device=dev)
     suffix_blocks = torch.as_tensor(suffix_blocks, dtype=torch.int32, device=dev).long()
-    read_idx = blocks_row[:pb].long()
+    flash = dev.type == "cuda"
+    P = int(prefix_len)
+    # the flash route gathers exactly the prefix's blocks; the einsum route
+    # the window's, whose columns past prefix_len the mask hides
+    nread = P // bs if flash else pb
+    read_idx = blocks_row[:nread].long()
     x = params.tok_emb[tokens.long()]  # (1, Ls, E)
-    positions = (int(prefix_len) + torch.arange(ls, device=dev))[None, :]
-    cols = torch.arange(ls, device=dev)
-    prefix_valid = torch.arange(pb * bs, device=dev)[None, :] < int(prefix_len)
-    mask = torch.cat([prefix_valid.expand(ls, pb * bs), cols[:, None] >= cols[None, :]], dim=1)
-    scale = 1.0 / math.sqrt(hd)
+    positions = (P + torch.arange(ls, device=dev))[None, :]
+    if not flash:
+        cols = torch.arange(ls, device=dev)
+        prefix_valid = torch.arange(pb * bs, device=dev)[None, :] < P
+        mask = torch.cat([prefix_valid.expand(ls, pb * bs), cols[:, None] >= cols[None, :]], dim=1)
+        scale = 1.0 / math.sqrt(hd)
     ck, cv = cache["k"], cache["v"]
     for li in range(cfg.n_layers):
         lp = params.layer(li)
-        q, k, v = _qkv(x, lp, cfg, positions)
+        q, k, v = _qkv(x, lp, cfg, positions, op)
         if quant:
             k, v, (qk, sk, qv, sv) = hook(k, v)
             cks, cvs = cache["k_scale"][li], cache["v_scale"][li]
@@ -455,12 +491,16 @@ def prefill_suffix_paged(
         else:
             kp = ck[li][read_idx].to(k.dtype)
             vp = cv[li][read_idx].to(v.dtype)
-        kf = _repeat_heads(torch.cat([kp.reshape(1, pb * bs, kvh, hd), k], dim=1), H)
-        vf = _repeat_heads(torch.cat([vp.reshape(1, pb * bs, kvh, hd), v], dim=1), H)
-        s = torch.einsum("bqhd,bkhd->bhqk", q, kf) * scale
-        s = s.masked_fill(~mask, torch.finfo(s.dtype).min)
-        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vf)
-        x = _layer_out(x, o, lp, cfg)
+        kf = torch.cat([kp.reshape(1, nread * bs, kvh, hd), k], dim=1)
+        vf = torch.cat([vp.reshape(1, nread * bs, kvh, hd), v], dim=1)
+        if flash:
+            o = flash_causal_attention_blhd(q, kf, vf)
+        else:
+            kf, vf = _repeat_heads(kf, H), _repeat_heads(vf, H)
+            s = torch.einsum("bqhd,bkhd->bhqk", q, kf) * scale
+            s = s.masked_fill(~mask, torch.finfo(s.dtype).min)
+            o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vf)
+        x = _layer_out(x, o, lp, cfg, op)
         # written after this layer's gather: the window may reach into the
         # first suffix blocks, whose columns the mask hides
         if quant:
@@ -530,6 +570,15 @@ def decode_slots_spec_paged(
 ROW_OPS = ("norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "head")
 
 
+def _product_shapes(cfg: Config) -> dict:
+    """``(K, N)`` of each product among :data:`ROW_OPS`."""
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {"wq": (cfg.hidden, H * D), "wk": (cfg.hidden, KV * D), "wv": (cfg.hidden, KV * D),
+            "wo": (H * D, cfg.hidden), "w_gate": (cfg.hidden, cfg.ffn),
+            "w_up": (cfg.hidden, cfg.ffn), "w_down": (cfg.ffn, cfg.hidden),
+            "head": (cfg.hidden, cfg.vocab_size)}
+
+
 @torch.no_grad()
 def row_variant_ops(cfg: Config, n_rows: int, L: int, dtype=torch.float32, device="cpu",
                     seed: int = 0) -> frozenset:
@@ -547,13 +596,8 @@ def row_variant_ops(cfg: Config, n_rows: int, L: int, dtype=torch.float32, devic
         return frozenset()
     gen = torch.Generator(device=device).manual_seed(int(seed))
     rows = int(n_rows) * int(L)
-    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    shapes = {"wq": (cfg.hidden, H * D), "wk": (cfg.hidden, KV * D), "wv": (cfg.hidden, KV * D),
-              "wo": (H * D, cfg.hidden), "w_gate": (cfg.hidden, cfg.ffn),
-              "w_up": (cfg.hidden, cfg.ffn), "w_down": (cfg.ffn, cfg.hidden),
-              "head": (cfg.hidden, cfg.vocab_size)}
     out = set()
-    for name, (K, N) in shapes.items():
+    for name, (K, N) in _product_shapes(cfg).items():
         a = torch.randn(rows, 1, K // 2, generator=gen, device=device)
         w = torch.randn(K // 2, N, generator=gen, device=device)
         x = torch.cat([a, -a], dim=-1).to(dtype)
@@ -567,6 +611,50 @@ def row_variant_ops(cfg: Config, n_rows: int, L: int, dtype=torch.float32, devic
 
     if not torch.equal(sumsq(x)[: int(n_rows)], sumsq(x[: int(n_rows)].contiguous())):
         out.add("norm")
+    return frozenset(out)
+
+
+# rows a prefill runs each row-variant op in (row_tiled_op): one 256-token
+# chunk is one call
+PREFILL_ROW_TILE = 256
+
+
+@torch.no_grad()
+def prefill_variant_ops(cfg: Config, sizes, dtype=torch.float32, device="cpu",
+                        seed: int = 0) -> frozenset:
+    """The ops of a prefill layer (:data:`ROW_OPS` but the ``lm_head``, which
+    a prefill runs on one row) whose rows get other bits on ``device`` in
+    ``dtype`` at another row count: for each pair of consecutive ``sizes``
+    ``(n, m)``, the first and the last ``n`` rows of an ``m``-row call
+    against calls on those ``n`` rows alone, with the probe values of
+    :func:`row_variant_ops`.  A cold prefill, a suffix prefill and a chunk
+    run the ops found in fixed row tiles (:func:`row_tiled_op`), so that a
+    reused prefix or an earlier chunk holds the K/V a cold prefill
+    writes."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    shapes = {k: v for k, v in _product_shapes(cfg).items() if k != "head"}
+    sizes = sorted(int(n) for n in sizes)
+    pairs = list(zip(sizes, sizes[1:]))
+
+    def differs(fn, x, n, m):
+        big = fn(x)
+        return not (torch.equal(big[:, :n], fn(x[:, :n].contiguous()))
+                    and torch.equal(big[:, m - n:], fn(x[:, m - n:].contiguous())))
+
+    out = set()
+    for name, (K, N) in shapes.items():
+        w = torch.randn(K // 2, N, generator=gen, device=device)
+        w = torch.cat([w, w]).to(dtype)
+        for n, m in pairs:
+            a = torch.randn(1, m, K // 2, generator=gen, device=device)
+            if differs(lambda t: t @ w, torch.cat([a, -a], dim=-1).to(dtype), n, m):
+                out.add(name)
+                break
+    for n, m in pairs:
+        x = torch.randn(1, m, cfg.hidden, generator=gen, device=device).to(dtype)
+        if differs(lambda t: t.float().square().mean(dim=-1, keepdim=True), x, n, m):
+            out.add("norm")
+            break
     return frozenset(out)
 
 

@@ -27,11 +27,11 @@ PRESETS = {
 
 # parameters of the JAX package's generative unit that belong to later
 # slices of the port (trained Medusa heads from a checkpoint, LoRA, mesh,
-# checkpoints, the overlap pipeline, chip packing, LLM-graph hooks)
+# checkpoints, chip packing, LLM-graph hooks)
 LATER_SLICE_PARAMS = (
     "spec_heads_path", "lora_rank", "lora_slots",
     "lora_targets", "lora_adapters", "adapter", "mesh",
-    "checkpoint", "overlap", "pack_class", "pack_slo_ms", "conf_signal",
+    "checkpoint", "pack_class", "pack_slo_ms", "conf_signal",
     "embed",
 )
 
@@ -86,6 +86,7 @@ def build_generative_component(
     spec_method: str | None = None,
     spec_heads: int | None = None,
     spec_draft_model: str | None = None,
+    overlap: bool | None = None,
     device: str = "cuda",
     **overrides,
 ):
@@ -105,7 +106,10 @@ def build_generative_component(
     proposer ``spec_method`` (``ngram``, ``heads`` with ``spec_heads``
     heads made from the model's ``lm_head``, or ``draft`` with
     ``spec_draft_model``); ``spec_ngram``/``spec_hist`` size the n-gram
-    proposer."""
+    proposer.  ``overlap`` (default on when ``decode_block > 1``; env
+    ``SCT_GEN_OVERLAP=0`` turns it off) dispatches each decode block from
+    the previous block's device carry before that block's tokens are
+    fetched."""
     from seldon_core_tpu_torch.executor.generation import (
         GenerativeComponent,
         GenerativeModel,
@@ -170,4 +174,5 @@ def build_generative_component(
         temperature=temperature,
         eos_id=eos_id,
         queue_max=queue_max,
+        overlap=overlap,
     )

@@ -16,7 +16,10 @@ on anything but 0.  ``LAUNCHES`` counts kernel launches per wrapper (a
 launch made anywhere adds one), so a run can show that its path went
 through the kernels; ``PAGED_LAUNCHES_BY_L`` splits the paged kernel's
 count by its query positions per slot (1 in a decode step, ``1 +
-spec_draft`` in a speculative verify pass).
+spec_draft`` in a speculative verify pass).  A wrapper called while a CUDA
+graph is captured launches nothing: :func:`take_captured` moves what the
+capture counted into the graph's record, and each replay adds it back
+(:func:`add_launches`), so the counts stay real launches.
 """
 
 from __future__ import annotations
@@ -75,6 +78,33 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     PAGED_LAUNCHES_BY_L.clear()
+
+
+def snapshot_launches() -> tuple[dict, collections.Counter]:
+    """The launch counts now, for :func:`take_captured`."""
+    return dict(LAUNCHES), collections.Counter(PAGED_LAUNCHES_BY_L)
+
+
+def take_captured(snapshot: tuple) -> tuple[dict, collections.Counter]:
+    """The launches the wrappers counted since ``snapshot`` while a CUDA
+    graph was captured (the capture launched none of them): returned as
+    the graph's per-replay record and taken off the counts."""
+    before, by_l = snapshot
+    delta = {name: LAUNCHES[name] - before[name] for name in LAUNCHES}
+    delta_l = PAGED_LAUNCHES_BY_L - by_l
+    LAUNCHES.update(before)
+    PAGED_LAUNCHES_BY_L.clear()
+    PAGED_LAUNCHES_BY_L.update(by_l)
+    return delta, delta_l
+
+
+def add_launches(record: tuple) -> None:
+    """Count the launches of one replay of a graph (its :func:`take_captured`
+    record)."""
+    delta, delta_l = record
+    for name, n in delta.items():
+        LAUNCHES[name] += n
+    PAGED_LAUNCHES_BY_L.update(delta_l)
 
 
 def _cuda_tool(name: str) -> str | None:

@@ -26,6 +26,10 @@ masked in the kernel, so ``_fit_block`` has no counterpart) and K/V with
 fewer heads than Q (KV divides H; head ``h`` reads KV head
 ``h // (H // KV)``), so the model need not repeat K/V.  K/V already
 repeated to H heads still work, which is the JAX adapter's contract.
+Causal attention also takes more keys than queries, with the mask aligned
+bottom-right (the suffix prefill over a reused prefix or earlier chunks);
+a suffix row then gets the bits of the same row of a cold prefill (the
+kernel's header says why).
 
 Dispatch is by device: a tensor on the CPU takes the plain version, a CUDA
 tensor launches a kernel or raises.
@@ -95,10 +99,10 @@ def _check_shapes(q, k, v, causal: bool) -> None:
     KV = k.shape[1]
     if KV < 1 or H % KV:
         raise ValueError(f"q heads {H} must be a multiple of kv heads {KV}")
-    if causal and k.shape[2] != Sq:
+    if causal and k.shape[2] < Sq:
         raise ValueError(
-            f"causal flash attention needs equal q and k lengths, got {Sq} and "
-            f"{k.shape[2]}"
+            f"causal flash attention needs at least as many keys as queries, got {Sq} "
+            f"queries and {k.shape[2]} keys"
         )
 
 
@@ -145,10 +149,11 @@ def _launch(q, k, v, o, causal: bool) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
-    """``(B, H, S, D)`` attention over ``k/v (B, KV, S, D)`` (KV divides H).
+    """``(B, H, Sq, D)`` attention over ``k/v (B, KV, Sk, D)`` (KV divides H).
 
-    Causal attention masks ``col > row`` and needs equal q and k lengths;
-    rows with nothing visible are zeros."""
+    Causal attention needs ``Sk >= Sq`` and aligns its mask bottom-right:
+    query row ``i`` sees keys ``[0, Sk - Sq + i]`` (``Sk == Sq`` masks ``col
+    > row``); rows with nothing visible are zeros."""
     _check_shapes(q, k, v, causal)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
@@ -161,7 +166,10 @@ def flash_attention(q, k, v, *, causal: bool = True):
 
 def flash_causal_attention_blhd(q, k, v):
     """The model zoo's ``(B, L, H, D)`` causal attention contract
-    (``models/llama.py::_layer``); k/v may carry fewer heads than q."""
+    (``models/llama.py::_layer``); k/v may carry fewer heads than q, and
+    more rows (``Sk >= Sq``): the queries are then the last ``Sq`` rows of
+    an ``Sk``-row causal prefill, as in the suffix prefill over a reused
+    prefix (``models/llama.py::prefill_suffix_paged``)."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     _check_shapes(qt, kt, vt, True)
     if q.device.type == "cpu":

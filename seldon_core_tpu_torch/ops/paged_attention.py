@@ -61,19 +61,42 @@ def plan_splits(WB: int) -> tuple[int, int]:
 
 
 _counters: dict[tuple[int, int], torch.Tensor] = {}
+# outgrown counter buffers: a CUDA graph captured with one keeps its address
+_retired: list[torch.Tensor] = []
 
 
 def _counter_buffer(device: torch.device, n: int) -> torch.Tensor:
     """The split counters of ``device``'s current stream, all 0 between
     launches (the kernel's last block resets its own).  Launches on one
     stream run in order, so they may share counters; a launch on another
-    stream gets its own."""
+    stream gets its own.  A graph replays its launches on one stream, in
+    order, so the graphs captured on a stream share its counters too; they
+    must exist before the capture (:func:`reserve_counters`), since memory
+    allocated while a graph is captured belongs to that graph's pool."""
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     buf = _counters.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"paged attention needs {n} split counters on a stream that a CUDA graph "
+                "is capturing: reserve them before the capture (reserve_counters)"
+            )
+        if buf is not None:
+            _retired.append(buf)
         buf = torch.zeros(n, dtype=torch.int32, device=device)
         _counters[key] = buf
     return buf
+
+
+def counter_rows(S: int, L: int, H: int, KV: int) -> int:
+    """The split counters one launch over ``S`` slots of ``L`` queries uses."""
+    return S * KV * -(-L * (H // KV) // ROWS_PER_BLOCK)
+
+
+def reserve_counters(device: torch.device, n: int) -> None:
+    """Allocate ``n`` split counters for ``device``'s current stream now,
+    outside any graph capture."""
+    _counter_buffer(device, n)
 
 
 def paged_decode_attention_plain(
@@ -157,12 +180,11 @@ def _launch(q, k_pages, v_pages, table, pos, k_scale, v_scale):
         raise ValueError(f"paged attention kernel takes head_dim in {KERNEL_DIMS}, got {D}")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("paged attention kernel needs 16-byte aligned pages")
-    R = L * (H // KV)
     splits, per = plan_splits(WB)
     out = torch.empty_like(q)
     part = counters = None
     if splits > 1:
-        rows = S * KV * -(-R // ROWS_PER_BLOCK)
+        rows = counter_rows(S, L, H, KV)
         part = torch.empty(rows * splits * ROWS_PER_BLOCK * (D + 2), dtype=torch.float32,
                            device=q.device)
         counters = _counter_buffer(q.device, rows)

@@ -185,18 +185,24 @@ class _FetchCounter:
 
 
 def _record_events(model, monkeypatch, events: list):
-    """Log each decode block and each chunk dispatch of ``model``, in order."""
-    step_k, chunk = model.step_k, model.prefill_chunk_dispatch
+    """Log each decode block's dispatch (from host state or from the
+    previous block's carry) and each chunk dispatch of ``model``, in
+    order."""
+    chunk = model.prefill_chunk_dispatch
 
-    def logged_step(*a, **kw):
-        events.append("block")
-        return step_k(*a, **kw)
+    def logged(fn):
+        def dispatch(*a, **kw):
+            events.append("block")
+            return fn(*a, **kw)
+
+        return dispatch
 
     def logged_chunk(plan, i):
         events.append(("chunk", plan["slot"], i))
         return chunk(plan, i)
 
-    monkeypatch.setattr(model, "step_k", logged_step)
+    for name in ("step_k_dispatch", "step_k_continue"):
+        monkeypatch.setattr(model, name, logged(getattr(model, name)))
     monkeypatch.setattr(model, "prefill_chunk_dispatch", logged_chunk)
 
 
@@ -231,12 +237,14 @@ def test_paced_chunks_one_per_sync_point_and_no_extra_fetch(tiny, monkeypatch):
         return GenerativeModel(tcfg, tparams, n_slots=3, decode_block=4, seq_impl="dense",
                                prefill_chunk=chunk, device="cpu")
 
-    base = asyncio.run(_interleaved_flood(model(0)))
+    # 48 tokens: the stream stays live through every flood chunk, also
+    # when the overlap has run two blocks ahead before the floods arrive
+    base = asyncio.run(_interleaved_flood(model(0), max_new=48))
     m = model(16)
     events = []
     _record_events(m, monkeypatch, events)
     fetches = _FetchCounter(monkeypatch)
-    out, floods, sched = asyncio.run(_interleaved_flood(m))
+    out, floods, sched = asyncio.run(_interleaved_flood(m, max_new=48))
     assert (out, floods) == base[:2]  # pacing changes no token
     # 59-token floods in 16-token chunks: 4 chunks each, all paced
     assert m.prefill_chunks == 8 and sched.chunks_paced == 8

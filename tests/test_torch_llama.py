@@ -203,3 +203,29 @@ def test_seeded_init_is_reproducible():
     for (name, x), y in zip(_named(a).items(), _named(b).values()):
         assert torch.equal(x, y), name
     assert float(a.layers["ln_att"].min()) == 1.0
+
+
+def test_row_tiled_prefill_ops_run_fixed_tiles_and_match_the_jax_prefill(tiny):
+    """``row_tiled_op`` runs the named ops in calls of exactly ``tile`` rows
+    (the last zero-padded, its rows dropped) and the others in one call;
+    a prefill through it still matches the JAX prefill's logits."""
+    cfg, jparams, tcfg, tparams = tiny
+    rows = []
+
+    def fn(t):
+        rows.append(t.shape[1])
+        return t * 2.0
+
+    op = tl.row_tiled_op(frozenset({"w_down", "norm"}), 8)
+    t = torch.arange(1 * 21 * 3, dtype=torch.float32).reshape(1, 21, 3)
+    assert torch.equal(op("w_down", fn, t), t * 2.0) and rows == [8, 8, 8]
+    rows.clear()
+    assert torch.equal(op("wq", fn, t), t * 2.0) and rows == [21]
+    want = np.asarray(jl.forward(jparams, jnp.asarray(PROMPT[None]), cfg))[0, -1]
+    cache = tl.init_paged_cache(tcfg, 1, 9, 16)
+    padded = torch.zeros(1, 16, dtype=torch.int32)
+    padded[0, :PROMPT.size] = torch.from_numpy(PROMPT)
+    split = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "norm"})
+    got, _ = tl.prefill_slot_paged(tparams, padded, PROMPT.size, 0, np.arange(1, 5), cache, tcfg,
+                                   op=tl.row_tiled_op(split, 4))
+    np.testing.assert_allclose(got.numpy(), want, **LOGIT_TOL)

@@ -75,9 +75,35 @@ class TestFlashAttention:
         repeated = ops.flash_causal_attention_blhd(*_t(q, np.asarray(kf), np.asarray(vf)))
         np.testing.assert_allclose(repeated.numpy(), got.numpy(), **TOL)
 
+    @pytest.mark.parametrize("P,Ls,window", [(32, 16, 32), (48, 32, 64), (16, 80, 64),
+                                             (96, 16, 128)])
+    def test_bottom_right_variant_equals_the_suffix_prefills_einsum_route(self, P, Ls, window):
+        """Sk > Sq: the queries are the last Ls rows of a causal prefill over
+        P + Ls keys.  The suffix prefill's CPU route
+        (``models/llama.py::prefill_suffix_paged``) attends a window of
+        ``window >= P`` gathered prefix columns, those past P masked, then
+        the suffix causally; the variant takes exactly the P prefix rows."""
+        rng = np.random.default_rng(P * 1000 + Ls)
+        H, KV, D = 8, 2, 16
+        q = _normal(rng, 1, Ls, H, D)
+        kp, vp = _normal(rng, 1, window, KV, D), _normal(rng, 1, window, KV, D)  # past P: junk
+        ks, vs = _normal(rng, 1, Ls, KV, D), _normal(rng, 1, Ls, KV, D)
+        got = ops.flash_causal_attention_blhd(
+            *_t(q, np.concatenate([kp[:, :P], ks], 1), np.concatenate([vp[:, :P], vs], 1)))
+        qt, kf, vf = _t(q, np.concatenate([kp, ks], 1), np.concatenate([vp, vs], 1))
+        kf = kf.repeat_interleave(H // KV, dim=2)
+        vf = vf.repeat_interleave(H // KV, dim=2)
+        cols = torch.arange(Ls)
+        mask = torch.cat([(torch.arange(window)[None, :] < P).expand(Ls, window),
+                          cols[:, None] >= cols[None, :]], dim=1)
+        sc = torch.einsum("bqhd,bkhd->bhqk", qt, kf) / np.sqrt(D)
+        sc = sc.masked_fill(~mask, torch.finfo(sc.dtype).min)
+        want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, dim=-1), vf)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
     def test_rejects_what_neither_version_takes(self):
         q = torch.zeros(1, 2, 16, 8)
-        with pytest.raises(ValueError, match="equal q and k lengths"):
+        with pytest.raises(ValueError, match="at least as many keys as queries"):
             ops.flash_attention(q, torch.zeros(1, 2, 8, 8), torch.zeros(1, 2, 8, 8))
         with pytest.raises(ValueError, match="multiple of kv heads"):
             ops.flash_attention(torch.zeros(1, 3, 16, 8), q, q)

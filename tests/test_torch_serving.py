@@ -222,7 +222,7 @@ def test_codec_matches_the_jax_codec(msg):
 
 @pytest.mark.parametrize("name,value", [
     ("spec_heads_path", "/heads.npz"), ("lora_rank", 8), ("pack_class", "batch"), ("mesh", "auto"),
-    ("checkpoint", "/weights.npz"), ("overlap", True),
+    ("checkpoint", "/weights.npz"), ("conf_signal", True),
 ])
 def test_later_slice_parameters_raise_by_name(name, value):
     with pytest.raises(GraphUnitError, match=name):
