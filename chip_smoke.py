@@ -36,10 +36,13 @@ Phases, each printing one JSON line:
    with each proposer (``ngram``, ``heads`` made from the ``lm_head``,
    ``draft`` with ``truncate:1``): greedy streams on the card equal to
    speculation off on the card and to speculation on on the CPU, with a
-   non-empty acceptance ledger.
+   non-empty acceptance ledger; and the llama3-8b geometry (hidden 4096,
+   32 heads, 8 KV heads, head dim 128, vocab 128256) at 2 of its 32
+   layers, the card in bf16 against the CPU f32 port on the same weights:
+   first logits within ``REF_BF16_TOL``, greedy tokens reported.
 4. ``graphs``: a decode block replayed from its CUDA graph against the
    same block run eagerly on the card from the same state (llama3-1b
-   width, 4 layers, bf16, 8 slots, 16-step blocks): tokens, emitted mask
+   width, 2 layers, bf16, 8 slots, 16-step blocks): tokens, emitted mask
    and every pool byte bit-equal, and the same kernel launches counted,
    for a float pool (greedy, sampled, sampled with top-k), an int8 pool
    (greedy, sampled) and each proposer (greedy; ``ngram`` sampled too).
@@ -107,7 +110,32 @@ Phases, each printing one JSON line:
    that leaves mid-stream frees its slot once (the free block count comes
    back, none twice); ``/pause`` turns ``/ready`` to 503 and ``/unpause``
    back.
-10. ``kernel_times``: each kernel's time at the main path's shapes and at a
+10. ``serve_graph``: inference graphs on the card.  Engine G1:
+   ``guard`` (GUARDRAIL, PII scrub, a block rule) -> ``casc``
+   (CASCADE_ROUTER, ``ttft_ms`` 50) -> [``small``: llama3-1b with
+   ``conf_signal`` and ``embed``; ``large``: llama3-8b (32 layers, bf16,
+   seeded weights, ``max_seq`` cut from 8192 to 2048)].  With the
+   threshold at 0 no request escalates and every reply is byte-equal to
+   ``small.predict_raw`` of the same body, its tokens ``serve``'s
+   streams; at +inf every request escalates and every reply is
+   byte-equal to ``large.predict_raw`` (``meta.routing.casc`` 1); at +inf
+   with ``x-sct-deadline-ms: 10`` the reason is ``deadline-budget`` and
+   tier 0 serves; a decode block replayed from its graph, and the block
+   continued from its carry before the first is fetched, give the margins
+   of the eager loop bit for bit; one sync per decode block with the
+   signal on; ``/api/v0.1/embeddings`` over the prompts costs one fetch
+   for the wave, launches flash attention, and each vector is within
+   cosine 0.999 of the CPU f32 port at full depth; a prompt in two
+   buckets gives the same vector within 1e-3; an e-mail address in the
+   body is scrubbed and a block rule answers FAILURE.  Engine G2 (after
+   G1 is closed): ``ab`` (EPSILON_GREEDY, epsilon 0.2, seed 7) ->
+   [``g0``, ``g1``: llama3-1b, seeds 0 and 1], 32 requests each followed
+   by ``POST /api/v0.1/feedback`` (reward 1 on branch 1): the branches
+   equal a host-only ``EpsilonGreedy`` fed the same rewards, and each
+   reply equals its branch called directly.  It prints TTFT and wall p50
+   shipped cheap against escalated, the 8b's decode step ms and capture
+   seconds, the escalations and ``served_by_tier``.
+11. ``kernel_times``: each kernel's time at the main path's shapes and at a
    long one (flash at S=2048 and its variant at 80 rows over 592 keys,
    against SDPA with the lower-right causal mask; paged at 8 slots near
    position 2000; paged
@@ -120,7 +148,7 @@ Phases, each printing one JSON line:
    call.
 
 Then the card's name and power limit (nvidia-smi), one line listing the
-kernels (launches summed over the serve phases), and as the last line
+kernels (launches summed over the serve phases, ``serve_graph`` included), and as the last line
 ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero before that line.  Without CUDA, or without
 the repository beside this file, it exits non-zero and prints no result.
@@ -191,6 +219,16 @@ REPEAT_CYCLE, REPEAT_LEN = 8, 40
 # by more, so ties multiply with depth: at most this share of the int8
 # bytes may differ, each by exactly one step.
 INT8_TIE_SHARE = 0.01
+# bf16 on the card against f32 on the CPU, same (bf16-valued) weights: every
+# product and norm rounds its output to bf16 (2**-8 relative) where the CPU
+# keeps f32, so logits move by a few such roundings of their scale; the
+# limit is a share of max(1, the logits' largest magnitude)
+REF_BF16_TOL = 0.05
+# serve_graph: the cascade's tiers and the bandit graph's requests
+GRAPH_LARGE = "llama3-8b"
+GRAPH_LARGE_MAX_SEQ = 2048  # cut from 8192: the 1b's window and prefill buckets
+GRAPH_TTFT_MS = 50
+BANDIT_REQUESTS = 32
 
 
 def emit(obj: dict) -> None:
@@ -566,7 +604,8 @@ def _card_vs_cpu(cfg, params: dict, prompt, device: str, steps: int,
     padded[0, :n] = prompt
     row = np.zeros(cfg.max_seq // 16, np.int32)
     row[:10] = np.arange(1, 11)
-    caches = {d: llama.init_paged_cache(cfg, 2, 24, 16, device=d, kv_dtype=kv_dtype)
+    caches = {d: llama.init_paged_cache(cfg, 2, 24, 16, dtype=params[d].tok_emb.dtype,
+                                        device=d, kv_dtype=kv_dtype)
               for d in ("cpu", device)}
     logits = {}
     for d in ("cpu", device):
@@ -588,7 +627,10 @@ def _card_vs_cpu(cfg, params: dict, prompt, device: str, steps: int,
         feed = toks[device][-1]  # both devices see the same tokens
     err = max(float((a - b).abs().max()) for a, b in zip(logits["cpu"], logits[device]))
     scale = max(float(a.abs().max()) for a in logits["cpu"])
-    return {"err": err, "scale": scale, "greedy_equal": toks["cpu"] == toks[device],
+    first_err = float((logits["cpu"][0] - logits[device][0]).abs().max())
+    return {"err": err, "first_err": first_err, "scale": scale,
+            "first_scale": float(logits["cpu"][0].abs().max()),
+            "greedy_equal": toks["cpu"] == toks[device], "tokens": toks[device][:8],
             "caches": caches}
 
 
@@ -733,9 +775,55 @@ def phase_reference(device: str = "cuda") -> None:
     del bf16
     rec["spec"] = _spec_reference(cfg, cpu, dev, device)
     rec["ok"] = rec["ok"] and all(r["ok"] for r in rec["spec"])
+    del cpu, dev, params
+    rec["llama3_8b"] = _reference_8b(device)
+    rec["ok"] = rec["ok"] and rec["llama3_8b"]["ok"]
     emit(rec)
     if not rec["ok"]:
         raise AssertionError("the model on the card disagrees with its reference")
+
+
+def _f32_on_cpu(params):
+    """A copy of ``params`` (a ``Llama`` on any device, any float type) in
+    f32 on the CPU; the original is left as it is."""
+    import torch
+
+    from seldon_core_tpu_torch.models import llama
+
+    tensors = {k: getattr(params, k).detach().to("cpu", torch.float32)
+               for k in ("tok_emb", "ln_f", "head")}
+    tensors.update({f"layers/{k}": params.layers[k].detach().to("cpu", torch.float32)
+                    for k in llama.LAYER_KEYS})
+    return llama.Llama(params.cfg, tensors)
+
+
+def _reference_8b(device: str) -> dict:
+    """The llama3-8b geometry at 2 of its 32 layers (a depth cut): bf16
+    weights made on the card from a seed, run there in bf16 and on the
+    CPU in f32 (the same values), teacher-forced with the card's greedy
+    tokens for 8 steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models import llama
+    from seldon_core_tpu_torch.models.weights import init_params
+
+    cfg = dataclasses.replace(llama.Config.llama3_8b(), n_layers=2, max_seq=256)
+    card = init_params(cfg, torch.Generator(device=device).manual_seed(2), dtype=torch.bfloat16,
+                       device=device)
+    params = {"cpu": _f32_on_cpu(card), device: card}
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, 100).astype(np.int32)
+    res = _card_vs_cpu(cfg, params, prompt, device, 8)
+    tol = REF_BF16_TOL * max(1.0, res["first_scale"])
+    return {"config": "llama3-8b geometry, 2 of 32 layers, card bf16 vs CPU f32",
+            "hidden": cfg.hidden, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.head_dim, "vocab": cfg.vocab_size, "prefill_len": int(prompt.size),
+            "first_logit_err": res["first_err"], "first_logit_scale": res["first_scale"],
+            "tol": tol, "max_logit_err_8_steps": res["err"],
+            "greedy_equal_reported": res["greedy_equal"], "tokens": res["tokens"],
+            "ok": res["first_err"] <= tol}
 
 
 def _streams(model, prompts, max_new: int) -> list[list[int]]:
@@ -801,7 +889,7 @@ def _spec_reference(cfg, cpu, dev, device: str) -> list[dict]:
     return recs
 
 
-GRAPH_LAYERS = 4  # the graphs phase cuts llama3-1b's depth: replay vs eager is per layer
+GRAPH_LAYERS = 2  # the graphs phase cuts llama3-1b's depth: replay vs eager is per layer
 
 
 def _device_state(model) -> dict:
@@ -2039,6 +2127,462 @@ def phase_serve_stream(device: str = "cuda", preset: str = SERVE_PRESET, seed: i
     return asyncio.run(run())
 
 
+def _gen_node(name: str, preset: str, seed: int, **extra) -> dict:
+    """A ``JAX_GENERATIVE`` graph node as ``_serve_spec`` builds one (bf16,
+    seeded weights, 8 slots, 16-step blocks, 32 new tokens); ``extra``
+    adds graph parameters (name -> (value, type))."""
+    params = {"family": ("llama", "STRING"), "preset": (preset, "STRING"),
+              "dtype": ("bfloat16", "STRING"), "n_slots": (SERVE_SLOTS, "INT"),
+              "decode_block": (SERVE_BLOCK, "INT"), "max_new_tokens": (MAX_NEW, "INT"),
+              "rng": (seed, "INT"), **extra}
+    return {"name": name, "type": "MODEL", "implementation": "JAX_GENERATIVE",
+            "parameters": [{"name": k, "value": str(v), "type": t}
+                           for k, (v, t) in params.items()]}
+
+
+def _graph_spec(graph: dict):
+    from seldon_core_tpu_torch.graph.spec import PredictorSpec
+
+    return PredictorSpec.from_dict({"name": "smoke-graph", "graph": graph})
+
+
+def _body(prompt, **extra) -> dict:
+    return {"strData": json.dumps({"tokens": prompt, "max_new_tokens": MAX_NEW, **extra})}
+
+
+async def _direct(comp, bodies) -> list[str]:
+    """Each body through ``comp.predict_raw`` directly, concurrently: the
+    strData a tier answers when called alone."""
+    from seldon_core_tpu_torch.contract.payload import DataKind, Payload
+
+    outs = await asyncio.gather(*(comp.predict_raw(Payload(b["strData"], [], DataKind.STRING))
+                                  for b in bodies))
+    return [o.data for o in outs]
+
+
+async def _graph_wave(port: int, bodies, headers=None) -> tuple[list, list, list]:
+    """``bodies`` posted concurrently -> (replies, client send times, walls)."""
+    loop = asyncio.get_running_loop()
+    sent, walls = [0.0] * len(bodies), [0.0] * len(bodies)
+
+    def one(i):
+        sent[i] = time.perf_counter()
+        code, raw = _call(port, "/api/v0.1/predictions", bodies[i], headers)
+        walls[i] = time.perf_counter() - sent[i]
+        return code, json.loads(raw)
+
+    with concurrent.futures.ThreadPoolExecutor(len(bodies)) as clients:
+        replies = await asyncio.gather(*(loop.run_in_executor(clients, one, i)
+                                         for i in range(len(bodies))))
+    return replies, sent, walls
+
+
+def _ttfts(firsts: dict, prompts, sent) -> list[float]:
+    """Client send to the first token of each prompt logged in ``firsts``."""
+    out = []
+    for p, t0 in zip(prompts, sent):
+        times = firsts.get(tuple(p), [])
+        if times:
+            out.append(times.pop(0) - t0)
+    return out
+
+
+def _conf_overlap_vs_eager(model, prompts) -> dict:
+    """Two blocks from the same admitted state, the second continued from
+    the first's carry before the first is fetched (the overlap): once on
+    the eager loop, once replayed from the captured graphs.  Tokens, masks
+    and margins must be bit-equal.  The model is reset after."""
+    import numpy as np
+
+    S, k, tps = model.n_slots, model.decode_block, model._tps
+    try:
+        cur = np.zeros(S, np.int32)
+        for i, p in enumerate(prompts[:S]):
+            cur[i] = model.admit(i, np.asarray(p, np.int32), 0.0, 11 + i,
+                                 reserve_tokens=2 * k * tps + 1)
+        active = np.arange(S) < min(S, len(prompts))
+        args = (cur, active, np.zeros(S, np.float32), 1234, np.full(S, -1, np.int32),
+                np.full(S, 1000, np.int32), k)
+        before = {n: t.clone() for n, t in _device_state(model).items()}
+        ceiling = model._pos_ceiling.copy()
+        runs = {}
+        for name, eager in (("eager", True), ("replay", False)):
+            for n, t in _device_state(model).items():
+                t.copy_(before[n])
+            model._pos_ceiling[:] = ceiling
+            model._eager_on_card = eager
+            first = model.step_k_dispatch(*args)
+            second = model.step_k_continue(active, 4321, k)  # before the first is fetched
+            blocks = []
+            for h in (first, second):
+                toks, mask = model.step_k_fetch(h)
+                blocks.append((toks, mask, model.last_conf_seq.copy()))
+            runs[name] = blocks
+    finally:
+        model._eager_on_card = False
+        model.reset()
+    equal = [bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                  and np.array_equal(a[2].view(np.uint32), b[2].view(np.uint32)))
+             for a, b in zip(runs["eager"], runs["replay"])]
+    margins = np.concatenate([c[m] for _, m, c in runs["replay"]])
+    return {"blocks_bit_equal": equal,
+            "tokens_compared": int(sum(m.sum() for _, m, _ in runs["replay"])),
+            "margin_mean": float(margins.mean()), "margin_min": float(margins.min()),
+            "margin_max": float(margins.max()), "ok": all(equal)}
+
+
+def _conf_cost(model, prompts, pairs: int = 5) -> dict:
+    """The margin's cost on a replayed block: the same block from the same
+    admitted state, replayed with ``conf_signal`` on and off in turn (off
+    captures graphs of its own over output buffers of its own), CUDA events
+    around each replay; the first pair is a warm-up.  Tokens and masks must
+    be equal.  The model is reset after, with the signal back on."""
+    import numpy as np
+
+    S, k, tps = model.n_slots, model.decode_block, model._tps
+    bufs = {True: (model._gout, model._hout), False: ({}, {})}
+    config = model._program_config[:-1]
+
+    def signal(on: bool) -> None:
+        model.conf_signal = on
+        model._gout, model._hout = bufs[on]
+        model._program_config = config + (on,)
+
+    ms, outs = {True: [], False: []}, {True: [], False: []}
+    try:
+        cur = np.zeros(S, np.int32)
+        for i, p in enumerate(prompts[:S]):
+            cur[i] = model.admit(i, np.asarray(p, np.int32), 0.0, 11 + i,
+                                 reserve_tokens=k * tps + 1)
+        active = np.arange(S) < min(S, len(prompts))
+        args = (cur, active, np.zeros(S, np.float32), 1234, np.full(S, -1, np.int32),
+                np.full(S, 1000, np.int32), k)
+        before = {n: t.clone() for n, t in _device_state(model).items()}
+        ceiling = model._pos_ceiling.copy()
+        for i in range(pairs + 1):
+            for on in ((False, True) if i % 2 else (True, False)):
+                for n, t in _device_state(model).items():
+                    t.copy_(before[n])
+                model._pos_ceiling[:] = ceiling
+                signal(on)
+                toks, mask = model.step_k(*args)
+                outs[on].append((toks, mask))
+                if i:
+                    ms[on].append(1e3 * model.last_block_s)
+    finally:
+        signal(True)
+        model.reset()
+    equal = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                for a, b in zip(outs[True], outs[False]))
+    on_ms, off_ms = statistics.median(ms[True]), statistics.median(ms[False])
+    return {"k": k, "block_ms_on": ms[True], "block_ms_off": ms[False],
+            "step_ms_on": on_ms / k, "step_ms_off": off_ms / k,
+            "step_ms_added": (on_ms - off_ms) / k, "added_share": on_ms / off_ms - 1.0,
+            "tokens_equal": equal}
+
+
+def _embed_bucket_check(model, prompts) -> dict:
+    """One prompt in its bucket and in the next one up, on the card; and
+    what the CPU check needs: each prompt's vector on the card and the
+    card's bf16 weights as f32 on the CPU."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models import llama
+
+    p = next(p for p in prompts if len(p) == 100)  # bucket 128, and 256
+    padded = model._padded(np.asarray(p, np.int32))
+    wide = np.zeros((1, 2 * padded.shape[1]), np.int32)
+    wide[0, : len(p)] = p
+    with torch.no_grad():
+        vecs = [llama.embed_pooled(model.params, torch.from_numpy(x).to(model.device), len(p),
+                                   model.cfg, op=model._prefill_op).cpu().numpy()
+                for x in (padded, wide)]
+    rel = float(np.abs(vecs[0] - vecs[1]).max() / max(1e-30, float(np.abs(vecs[0]).max())))
+    card = np.stack([model.embed(np.asarray(p, np.int32)) for p in prompts])
+    return {"bucket_pair": [padded.shape[1], wide.shape[1]], "bucket_rel_diff": rel,
+            "bucket_bits_equal": bool(np.array_equal(vecs[0], vecs[1])),
+            "cpu_args": (_f32_on_cpu(model.params), prompts, card)}
+
+
+def _embed_vs_cpu(cpu, prompts, card) -> dict:
+    """Each prompt's card vector against the CPU f32 port at full depth
+    (unpadded: the causal rows ignore the padding)."""
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    cos, errs = [], []
+    with torch.no_grad():
+        for p, v in zip(prompts, card):
+            r = llama.embed_pooled(cpu, torch.tensor([p], dtype=torch.int32), len(p),
+                                   cpu.cfg).numpy()
+            cos.append(float(np.dot(r, v) / (np.linalg.norm(r) * np.linalg.norm(v))))
+            errs.append(float(np.abs(r - v).max()))
+    return {"cosine_min": min(cos), "cosine": cos, "max_abs_err": max(errs),
+            "seconds": time.perf_counter() - t0}
+
+
+def _logged_decide(casc, reasons: list) -> None:
+    """Log, on ``casc``'s instance, the reason of each cascade decision."""
+    decide = casc.decide
+
+    def logged(*a):
+        out = decide(*a)
+        reasons.append(out[1])
+        return out
+
+    casc.decide = logged
+
+
+async def _cascade_waves(app, prompts, want, bodies) -> dict:
+    """Engine G1's gated waves: threshold 0, +inf, +inf under a 10 ms
+    deadline, the guardrail, the embeddings and the margins' replay check;
+    launches of the served waves under ``launches``."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.contract.payload import DataKind, Payload
+    from seldon_core_tpu_torch.ops import _build
+
+    comps = dict(app.service.walker.iter_components())
+    guard, casc, small, large = (comps[n] for n in ("guard", "casc", "small", "large"))
+    sm, lm = small.model, large.model
+    reasons: list = []
+    _logged_decide(casc, reasons)
+    rec = {"warmup_s": dict(app.service.walker.warmup_seconds),
+           "large_model": {"preset": GRAPH_LARGE, "layers": lm.cfg.n_layers,
+                           "hidden": lm.cfg.hidden, "head_dim": lm.cfg.head_dim,
+                           "max_seq": lm.cfg.max_seq,
+                           "capture_s": [g["capture_s"] for g in lm.program_snapshot()["graphs"]],
+                           "prefill_split": sorted(lm._prefill_split)}}
+    # the engine's first wave, shipped cheap: its TTFT is printed apart (a
+    # capture empties the allocator's cache, and the 8b's captures came
+    # after the 1b's prefill buckets), and the timed waves come after it
+    firsts = {"small": _first_token_times(small.scheduler),
+              "large": _first_token_times(large.scheduler)}
+    casc.threshold = 0.0
+    _, sent, _ = await _graph_wave(app.port, bodies)
+    rec["first_wave_ttft_s_p50"] = statistics.median(_ttfts(firsts["small"], prompts, sent)
+                                                     or [0.0])
+    _build.reset_launches()  # the graph's served run starts here
+    casc.threshold = 0.0  # nothing escalates
+    s0 = (sm.decode_blocks, sm.host_syncs, sm.steps, sm.block_seconds)
+    cheap, sent0, wall0 = await _graph_wave(app.port, bodies)
+    s1 = (sm.decode_blocks, sm.host_syncs, sm.steps, sm.block_seconds)
+    cheap_ttft = _ttfts(firsts["small"], prompts, sent0)
+    casc.threshold = float("inf")  # everything escalates
+    e0 = (casc.escalations, lm.steps, lm.block_seconds, lm.decode_blocks, lm.host_syncs)
+    esc, sent1, wall1 = await _graph_wave(app.port, bodies)
+    e1 = (casc.escalations, lm.steps, lm.block_seconds, lm.decode_blocks, lm.host_syncs)
+    esc_ttft = _ttfts(firsts["large"], prompts, sent1)
+    n_before = len(reasons)  # +inf under 10 ms: the budget cannot fit the 8b's TTFT
+    late, _, _ = await _graph_wave(app.port, bodies[:2], {"x-sct-deadline-ms": "10"})
+    late_reasons = reasons[n_before:]
+    casc.threshold = 0.0  # the guardrail's requests ship from tier 0
+    scrubs = guard.actions.get("scrub", 0)  # an e-mail address in a string field
+    mail = _body(prompts[0], note="write to jane.doe@example.com")
+    code_mail, raw_mail = await asyncio.to_thread(_call, app.port, "/api/v0.1/predictions", mail)
+    code_block, raw_block = await asyncio.to_thread(
+        _call, app.port, "/api/v0.1/predictions", _body(prompts[0], note="a forbidden-topic"))
+    e2 = (sm.embeds, sm.embed_fetches, _build.LAUNCHES["flash_attention"], time.perf_counter())
+    code_e, raw_e = await asyncio.to_thread(_call, app.port, "/api/v0.1/embeddings",
+                                            {"tokens": prompts})
+    embed_ms = 1e3 * (time.perf_counter() - e2[3])
+    rec["launches"] = dict(_build.LAUNCHES)  # the served run ends here
+    # the tiers called directly, after the launches are read (greedy: the
+    # same bodies give the same replies whenever they are asked)
+    seen = guard.transform_input_raw(Payload(mail["strData"], [], DataKind.STRING))
+    direct = await _direct(small, bodies + [{"strData": seen.data}])
+    direct, scrubbed_direct = direct[:-1], direct[-1]
+    direct_large = await _direct(large, bodies)
+    rec["threshold_0"] = {
+        "status": [c for c, _ in cheap],
+        "routing": [b.get("meta", {}).get("routing") for _, b in cheap],
+        "byte_equal_to_small": sum(b.get("strData") == d for (_, b), d in zip(cheap, direct)),
+        "tokens_equal_to_serve": sum(json.loads(b["strData"])["tokens"] == w
+                                     for (_, b), w in zip(cheap, want) if "strData" in b),
+        "confidence": [json.loads(b["strData"]).get("confidence") for _, b in cheap
+                       if "strData" in b],
+        "decode_blocks": s1[0] - s0[0], "host_syncs": s1[1] - s0[1],
+        "small_decode_step_ms": 1e3 * (s1[3] - s0[3]) / max(1, s1[2] - s0[2]),
+        "ttft_s_p50": statistics.median(cheap_ttft or [0.0]),
+        "wall_s_p50": statistics.median(wall0)}
+    rec["threshold_inf"] = {
+        "status": [c for c, _ in esc],
+        "routing": [b.get("meta", {}).get("routing") for _, b in esc],
+        "byte_equal_to_large": sum(b.get("strData") == d for (_, b), d in zip(esc, direct_large)),
+        "escalations": e1[0] - e0[0],
+        "ttft_s_p50": statistics.median(esc_ttft or [0.0]),
+        "wall_s_p50": statistics.median(wall1),
+        "large_decode_step_ms": 1e3 * (e1[2] - e0[2]) / max(1, e1[1] - e0[1]),
+        "large_decode_blocks": e1[3] - e0[3], "large_host_syncs": e1[4] - e0[4],
+        "large_tokens": [json.loads(b["strData"])["tokens"][:8] for _, b in esc[:2]
+                         if "strData" in b]}
+    rec["deadline_10ms"] = {
+        "status": [c for c, _ in late], "reasons": late_reasons,
+        "routing": [b.get("meta", {}).get("routing") for _, b in late],
+        "byte_equal_to_small": sum(b.get("strData") == d for (_, b), d in zip(late, direct))}
+    rec["guardrail"] = {
+        "status": code_mail, "scrubbed_text": json.loads(seen.data)["note"],
+        "scrub_actions": guard.actions.get("scrub", 0) - scrubs,
+        "reply_equal_to_small_on_scrubbed": json.loads(raw_mail).get("strData")
+        == scrubbed_direct,
+        "block_status": code_block,
+        "block_reply": json.loads(raw_block).get("status", {}).get("status")}
+    emb = json.loads(raw_e).get("rawTensor", {})
+    rec["embeddings"] = {
+        "wall_ms": embed_ms, "prompt_tokens": sum(map(len, prompts)),
+        "status": code_e, "shape": emb.get("shape"), "dtype": emb.get("dtype"),
+        "embeds": sm.embeds - e2[0], "fetches": sm.embed_fetches - e2[1],
+        "flash_launches": rec["launches"]["flash_attention"] - e2[2]}
+    if emb.get("data"):
+        import base64
+
+        vecs = np.frombuffer(base64.b64decode(emb["data"]), np.float32).reshape(emb["shape"])
+        rec["embeddings"]["wave_equals_single"] = bool(np.array_equal(
+            vecs[0], sm.embed(np.asarray(prompts[0], np.int32))))
+    rec["embeddings"]["card_vs_cpu"] = await asyncio.to_thread(_embed_bucket_check, sm, prompts)
+    # the margins: a replayed block, and one continued from its carry before
+    # the first is fetched, against the eager loop
+    rec["conf_replay"] = await asyncio.to_thread(_conf_overlap_vs_eager, sm, prompts)
+    rec["conf_cost"] = await asyncio.to_thread(_conf_cost, sm, prompts)
+    rec["cascade"] = {"escalations": casc.escalations,
+                      "served_by_tier": {str(k): v for k, v in casc.served_by_tier.items()}}
+    return rec
+
+
+def _g1_gates(rec: dict, n: int) -> dict:
+    t0, ti, late, guard, emb = (rec[k] for k in ("threshold_0", "threshold_inf",
+                                                 "deadline_10ms", "guardrail", "embeddings"))
+    return {
+        "threshold_0": (t0["status"] == [200] * n and t0["routing"] == [{"casc": 0}] * n
+                        and t0["byte_equal_to_small"] == n and t0["tokens_equal_to_serve"] == n
+                        and t0["decode_blocks"] > 0 and t0["host_syncs"] == t0["decode_blocks"]),
+        "threshold_inf": (ti["status"] == [200] * n and ti["routing"] == [{"casc": 1}] * n
+                          and ti["byte_equal_to_large"] == n and ti["escalations"] == n
+                          and ti["large_host_syncs"] == ti["large_decode_blocks"] > 0),
+        "deadline": (late["reasons"] == ["deadline-budget"] * 2
+                     and late["routing"] == [{"casc": 0}] * 2
+                     and late["byte_equal_to_small"] == 2),
+        "guardrail": (guard["status"] == 200 and "@" not in guard["scrubbed_text"]
+                      and "[REDACTED]" in guard["scrubbed_text"] and guard["scrub_actions"] >= 1
+                      and guard["reply_equal_to_small_on_scrubbed"]
+                      and guard["block_reply"] == "FAILURE"),
+        "embeddings": (emb["status"] == 200 and emb["fetches"] == 1 and emb["embeds"] == n
+                       and emb["flash_launches"] > 0 and emb.get("wave_equals_single", False)
+                       and emb["card_vs_cpu"]["cosine_min"] >= 0.999
+                       and emb["card_vs_cpu"]["bucket_rel_diff"] <= 1e-3),
+        "conf_replay": rec["conf_replay"]["ok"],
+        "conf_on_off_tokens_equal": rec["conf_cost"]["tokens_equal"],
+    }
+
+
+async def _bandit_feedback(app) -> dict:
+    """Engine G2: each request (prompts of 8-47 tokens made from a seed),
+    then its feedback (reward 1 on branch 1); a host-only EpsilonGreedy of
+    the same seed fed the same rewards."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.graph.units import EpsilonGreedy
+    from seldon_core_tpu_torch.ops import _build
+
+    comps = dict(app.service.walker.iter_components())
+    rng, vocab = np.random.default_rng(7), comps["g0"].model.cfg.vocab_size
+    asks = [rng.integers(0, vocab, 8 + (i * 7) % 40).tolist() for i in range(BANDIT_REQUESTS)]
+    ref = EpsilonGreedy(n_branches=2, epsilon=0.2, seed=7)
+    branches, host, feedback, served = [], [], [], []
+    _build.reset_launches()  # the bandit's served run starts here
+    for p in asks:
+        body = _body(p)
+        code, raw = await asyncio.to_thread(_call, app.port, "/api/v0.1/predictions", body)
+        reply = json.loads(raw)
+        b = reply["meta"]["routing"]["ab"]
+        h = ref.route(None, [])
+        branches.append(b)
+        host.append(h)
+        served.append((b, body, code, reply.get("strData")))
+        ref.send_feedback(None, [], 1.0 if h == 1 else 0.0, routing=h)
+        fb = await asyncio.to_thread(_call, app.port, "/api/v0.1/feedback", {
+            "request": body, "response": reply, "reward": 1.0 if b == 1 else 0.0})
+        feedback.append(fb[0])
+    launches = dict(_build.LAUNCHES)  # the served run ends here
+    equal = 0  # each reply against its branch called directly, one at a time as served
+    for b, body, code, data in served:
+        equal += int(code == 200 and data == (await _direct(comps[f"g{b}"], [body]))[0])
+    return {"branches": branches, "host_only_branches": host,
+            "replies_equal_to_branch": equal, "feedback_status": sorted(set(feedback)),
+            "router_pulls": comps["ab"].pulls.tolist(),
+            "router_value": comps["ab"].value.tolist(), "launches": launches}
+
+
+def phase_serve_graph(serve: dict, device: str = "cuda") -> dict:
+    """Inference graphs on the card: engine G1 (guardrail -> cascade over
+    llama3-1b and llama3-8b) and, after it is closed, engine G2 (an
+    epsilon-greedy bandit over two llama3-1b under ``/feedback``).  Returns
+    the launch counts of their served runs."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    prompts, want = serve["prompts"], serve["outs"]
+    g1 = {"name": "guard", "type": "GUARDRAIL", "implementation": "GUARDRAIL",
+          "parameters": [{"name": "scrub_pii", "value": "true", "type": "BOOL"},
+                         {"name": "block", "value": "forbidden-topic", "type": "STRING"}],
+          "children": [{
+              "name": "casc", "type": "CASCADE_ROUTER", "implementation": "CASCADE_ROUTER",
+              "parameters": [{"name": "ttft_ms", "value": str(GRAPH_TTFT_MS), "type": "FLOAT"}],
+              "children": [
+                  _gen_node("small", SERVE_PRESET, 0, conf_signal=("true", "BOOL"),
+                            embed=("true", "BOOL")),
+                  _gen_node("large", GRAPH_LARGE, 0, max_seq=(GRAPH_LARGE_MAX_SEQ, "INT")),
+              ]}]}
+    g2 = {"name": "ab", "type": "ROUTER", "implementation": "EPSILON_GREEDY",
+          "parameters": [{"name": "n_branches", "value": "2", "type": "INT"},
+                         {"name": "epsilon", "value": "0.2", "type": "FLOAT"},
+                         {"name": "seed", "value": "7", "type": "INT"}],
+          "children": [_gen_node("g0", SERVE_PRESET, 0), _gen_node("g1", SERVE_PRESET, 1)]}
+
+    async def run(graph, drive, *args) -> dict:
+        app, boot_s = await _boot(_graph_spec(graph), device)
+        try:
+            return {"boot_and_warmup_s": boot_s, **await drive(app, *args)}
+        finally:
+            await app.close()
+
+    g1_rec = asyncio.run(run(g1, _cascade_waves, prompts, want,
+                             [_body(p) for p in prompts]))
+    gc.collect()
+    torch.cuda.empty_cache()  # the 8b's blocks go back before G2's captures
+    cpu_args = g1_rec["embeddings"]["card_vs_cpu"].pop("cpu_args")
+    # the embeddings' CPU reference runs on the host while G2 serves
+    with concurrent.futures.ThreadPoolExecutor(1) as host:
+        cpu_check = host.submit(_embed_vs_cpu, *cpu_args)
+        del cpu_args
+        g2_rec = asyncio.run(run(g2, _bandit_feedback))
+        g1_rec["embeddings"]["card_vs_cpu"].update(cpu_check.result())
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {name: g1_rec["launches"].get(name, 0) + g2_rec["launches"].get(name, 0)
+                for name in KERNELS}
+    gates = _g1_gates(g1_rec, len(prompts))
+    gates["bandit"] = (g2_rec["branches"] == g2_rec["host_only_branches"]
+                       and set(g2_rec["branches"]) == {0, 1}
+                       and g2_rec["replies_equal_to_branch"] == BANDIT_REQUESTS
+                       and g2_rec["feedback_status"] == [200])
+    rec = {"phase": "serve_graph", "dtype": "bfloat16", "small": SERVE_PRESET,
+           "large": GRAPH_LARGE, "requests": len(prompts),
+           "serve_decode_step_ms": serve.get("decode_step_ms"), **g1_rec, "bandit": g2_rec,
+           "launches_total": launches, "gates": gates,
+           "ok": all(gates.values()) and all(n > 0 for n in launches.values())}
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"serve_graph: gates {gates}, launches {launches}")
+    return launches
+
+
 def _flash_times(fa, S: int) -> dict:
     """K1 at B=1, S, llama3-1b heads, bf16: one input set per layer so no
     launch finds its inputs in L2."""
@@ -2210,18 +2754,29 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
-    phase_build()
-    errs = phase_kernel_check()
-    phase_reference()
-    phase_graphs()
-    serve = phase_serve()
-    cached = phase_serve_cached()
-    spec = phase_serve_spec(serve)
-    split = phase_serve_disagg(serve)
-    stream = phase_serve_stream()
-    times = phase_kernel_times(serve)
+    seconds: dict = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
+    timed("build", phase_build)
+    errs = timed("kernel_check", phase_kernel_check)
+    timed("reference", phase_reference)
+    timed("graphs", phase_graphs)
+    serve = timed("serve", phase_serve)
+    cached = timed("serve_cached", phase_serve_cached)
+    spec = timed("serve_spec", phase_serve_spec, serve)
+    split = timed("serve_disagg", phase_serve_disagg, serve)
+    stream = timed("serve_stream", phase_serve_stream)
+    graph = timed("serve_graph", phase_serve_graph, serve)
+    times = timed("kernel_times", phase_kernel_times, serve)
+    emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     launches = {name: serve["launches"][name] + cached["launches"][name] + spec[name]
-                + split[name] + stream[name] for name in KERNELS}
+                + split[name] + stream[name] + graph[name] for name in KERNELS}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False,

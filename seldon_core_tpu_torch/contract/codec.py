@@ -7,18 +7,29 @@ with it: ``data.tensor``, ``data.ndarray`` and ``strData``.
      "values": [...]}}}                       # or "ndarray": [[...]]
     {"strData": "..."}
 
+plus the JAX package's typed ``rawTensor`` on the way out (the
+``/embeddings`` reply) and the feedback message ``{"request": ...,
+"response": ..., "reward": r, "truth": ...}``.
+
 Decoding happens once per request at the process boundary; everything
 inside the graph walk is numpy.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 from typing import Any
 
 import numpy as np
 
-from seldon_core_tpu_torch.contract.payload import DataKind, Meta, Metric, Payload
+from seldon_core_tpu_torch.contract.payload import (
+    DataKind,
+    FeedbackPayload,
+    Meta,
+    Metric,
+    Payload,
+)
 
 
 class CodecError(ValueError):
@@ -123,8 +134,44 @@ def payload_to_dict(payload: Payload, include_meta: bool = True) -> dict[str, An
         }
     elif kind == DataKind.NDARRAY:
         out["data"] = {"names": payload.names, "ndarray": np.asarray(data).tolist()}
+    elif kind == DataKind.RAW:
+        arr = np.ascontiguousarray(data)
+        out["rawTensor"] = {
+            "shape": list(arr.shape),
+            "dtype": arr.dtype.name,
+            "data": base64.b64encode(arr.tobytes()).decode("ascii"),
+            "names": payload.names,
+        }
     else:
         raise CodecError(f"{kind.value} payloads are not served by this engine")
+    return out
+
+
+def feedback_from_dict(msg: dict[str, Any]) -> FeedbackPayload:
+    """Decode a feedback message; ``response.meta.routing`` is the routed
+    path the feedback walk replays."""
+    if not isinstance(msg, dict):
+        raise CodecError("Feedback must be a JSON object")
+    try:
+        reward = float(msg.get("reward", 0.0))
+    except (TypeError, ValueError) as e:
+        raise CodecError(f"bad feedback reward: {e}") from e
+    return FeedbackPayload(
+        request=payload_from_dict(msg["request"]) if "request" in msg else None,
+        response=payload_from_dict(msg["response"]) if "response" in msg else None,
+        reward=reward,
+        truth=payload_from_dict(msg["truth"]) if "truth" in msg else None,
+    )
+
+
+def feedback_to_dict(fb: FeedbackPayload) -> dict[str, Any]:
+    out: dict[str, Any] = {"reward": fb.reward}
+    if fb.request is not None:
+        out["request"] = payload_to_dict(fb.request)
+    if fb.response is not None:
+        out["response"] = payload_to_dict(fb.response)
+    if fb.truth is not None:
+        out["truth"] = payload_to_dict(fb.truth)
     return out
 
 

@@ -9,7 +9,20 @@ warmed, false while paused) and ``/pause`` and ``/unpause`` (GET or POST:
 the drain toggle a preStop hook sends) with a minimal HTTP/1.1 handler on
 ``asyncio.start_server``: Content-Length bodies, keep-alive unless the
 client says ``close``.  The predictor comes from ``ENGINE_PREDICTOR`` as
-for the JAX engine.
+for the JAX engine; its graph may hold routers, combiners, transformers,
+cascade routers and guardrails.  Every request seeds the request-scoped
+QoS context from ``x-sct-deadline-ms`` and ``x-sct-priority`` (an absent
+header resets it, so a keep-alive connection never inherits the previous
+request's deadline).
+
+``POST /api/v0.1/feedback`` (alias ``/api/v1.0/feedback``) takes a
+Feedback message (``{"request": ..., "response": ..., "reward": r,
+"truth": ...}``) and replays the routed path recorded in
+``response.meta.routing``: 400 for a bad body, 500 when a unit fails.
+``POST /api/v0.1/embeddings`` (``{"tokens": [...]}``, a flat list or a
+batch of lists, bare or in ``strData``) answers the mean-pooled final
+hidden states of the graph's first generative unit with ``embed`` on, as
+a float32 ``rawTensor`` ``(B, E)``; 400 when no unit has ``embed``.
 
 ``POST /api/v0.1/predictions/stream`` streams a generative graph's tokens
 as server-sent events: the body is the generative strData contract
@@ -60,13 +73,15 @@ import time
 
 import numpy as np
 
-from seldon_core_tpu_torch import disagg, resolve_device
+from seldon_core_tpu_torch import disagg, qos, resolve_device
 from seldon_core_tpu_torch.contract.codec import (
     CodecError,
     failure_status_dict,
+    feedback_from_dict,
     payload_from_json,
     payload_to_dict,
 )
+from seldon_core_tpu_torch.contract.payload import DataKind, Payload
 from seldon_core_tpu_torch.disagg.handoff import (
     HandoffError,
     apply_handoff,
@@ -77,7 +92,7 @@ from seldon_core_tpu_torch.disagg.handoff import (
     encode_prefix_chain,
 )
 from seldon_core_tpu_torch.engine.service import PredictionService, load_predictor_spec
-from seldon_core_tpu_torch.executor.generation import GenerativeComponent, QueueFull
+from seldon_core_tpu_torch.executor.generation import QueueFull
 from seldon_core_tpu_torch.graph.units import GraphUnitError
 
 log = logging.getLogger(__name__)
@@ -257,6 +272,7 @@ class EngineApp:
                      headers: dict[str, str]) -> tuple:
         """-> ``(status, body, content type)``, plus a dict of extra
         response headers where a route sets some."""
+        qos.seed_from_headers(headers.get(qos.DEADLINE_HEADER), headers.get(qos.PRIORITY_HEADER))
         if path.startswith("/disagg/") or path == "/stats/disagg":
             return await self._disagg_route(method, path, body, headers)
         if path == "/ping":
@@ -280,6 +296,14 @@ class EngineApp:
             if method != "POST":
                 return _json(405, failure_status_dict(405, "POST a generate body"))
             return await self._predictions_stream(body, headers)
+        if path in ("/api/v0.1/feedback", "/api/v1.0/feedback"):
+            if method != "POST":
+                return _json(405, failure_status_dict(405, "POST a Feedback message"))
+            return await self._feedback(body)
+        if path == "/api/v0.1/embeddings":
+            if method != "POST":
+                return _json(405, failure_status_dict(405, "POST a tokens body"))
+            return await self._embeddings(body)
         return _json(404, failure_status_dict(404, f"no route {path}"))
 
     async def _predictions_stream(self, body: bytes, headers: dict[str, str]):
@@ -288,9 +312,9 @@ class EngineApp:
         that serves it."""
         if not self.ready:
             return _json(503, failure_status_dict(503, "engine is not ready"))
-        unit = self._generative_unit()
+        unit, reason = self._single_generative_unit()
         if unit is None:
-            return _json(400, failure_status_dict(400, "the graph has no generative unit"))
+            return _json(400, failure_status_dict(400, reason))
         try:
             prompt, max_new, temperature, eos = self._parse_generate_body(body, unit)
         except CodecError as e:
@@ -348,14 +372,70 @@ class EngineApp:
         resp["status"] = {"code": 200, "status": "SUCCESS"}
         return _json(200, resp)
 
+    async def _feedback(self, body: bytes) -> tuple[int, bytes, str]:
+        """Replay a Feedback message's routed path with its reward."""
+        if not self.ready:
+            return _json(503, failure_status_dict(503, "engine is not ready"))
+        try:
+            fb = feedback_from_dict(json.loads(body))
+            await self.service.send_feedback(fb)
+        except (CodecError, KeyError, ValueError) as e:
+            return _json(400, failure_status_dict(400, str(e)))
+        except GraphUnitError as e:
+            return _json(500, failure_status_dict(500, str(e)))
+        return _json(200, {"status": {"code": 200, "status": "SUCCESS"}})
+
+    async def _embeddings(self, body: bytes) -> tuple[int, bytes, str]:
+        """Mean-pooled final hidden states from the graph's first generative
+        unit with ``embed`` on (its own weights), each row through its
+        scheduler; a ``(B, E)`` float32 ``rawTensor``."""
+        if not self.ready:
+            return _json(503, failure_status_dict(503, "engine is not ready"))
+        try:
+            obj = json.loads(body)
+            if isinstance(obj, dict) and "strData" in obj:
+                obj = json.loads(obj["strData"])
+            rows_in = obj.get("tokens") if isinstance(obj, dict) else None
+            if not isinstance(rows_in, (list, tuple)) or not rows_in:
+                raise CodecError("embeddings takes 'tokens': a flat list or a batch of lists")
+            if not isinstance(rows_in[0], (list, tuple)):
+                rows_in = [rows_in]
+            rows = [np.asarray(r, np.int32) for r in rows_in]
+        except (CodecError, TypeError, ValueError) as e:
+            return _json(400, failure_status_dict(400, str(e)))
+        unit = next((u for u in self._generative_units() if u.model.embed_enabled), None)
+        if unit is None:
+            return _json(400, failure_status_dict(
+                400, "no embedding-capable generative unit in this graph (set the "
+                     "generative unit's embed parameter, or SCT_EMBED=1)"))
+        try:  # an empty row, ids outside the vocab or a row of max_seq ids
+            rows = [unit.scheduler._validate_prompt(r) for r in rows]
+        except GraphUnitError as e:
+            return _json(400, failure_status_dict(400, str(e)))
+        try:
+            vecs = await unit.embed_rows(rows)
+        except QueueFull as e:
+            return _json(429, failure_status_dict(429, str(e)))
+        except GraphUnitError as e:
+            return _json(500, failure_status_dict(500, str(e)))
+        resp = payload_to_dict(Payload(vecs, [], DataKind.RAW))
+        resp["status"] = {"code": 200, "status": "SUCCESS"}
+        return _json(200, resp)
+
     # -------------------------------------------- disaggregated prefill/decode
 
-    def _generative_unit(self):
-        """The graph's generative component, or None (the port's walker
-        serves one MODEL node)."""
-        walker = self.service.walker
-        comp = getattr(walker, "component", None) if walker is not None else None
-        return comp if isinstance(comp, GenerativeComponent) else None
+    def _generative_units(self) -> list:
+        return self.service.generative_units() if self.service.walker is not None else []
+
+    def _single_generative_unit(self):
+        """``(unit, None)`` for a graph with exactly one generative unit, else
+        ``(None, reason)``: a token stream and a handoff serve one unit."""
+        units = self._generative_units()
+        if len(units) == 1:
+            return units[0], None
+        if not units:
+            return None, "the graph has no generative unit"
+        return None, f"ambiguous: the graph has {len(units)} generative units"
 
     async def _disagg_route(self, method: str, path: str, body: bytes,
                             headers: dict[str, str]) -> tuple:
@@ -376,9 +456,9 @@ class EngineApp:
                 409, "a prefill-role engine does not import KV handoffs"))
         if not self.ready:
             return _json(503, failure_status_dict(503, "engine is not ready"))
-        unit = self._generative_unit()
+        unit, reason = self._single_generative_unit()
         if unit is None:
-            return _json(400, failure_status_dict(400, "the graph has no generative unit"))
+            return _json(400, failure_status_dict(400, reason))
         return await routes[path](unit, body, headers)
 
     @staticmethod
@@ -533,7 +613,7 @@ class EngineApp:
         """The predictions path's peer pull: with ``x-sct-prefix-peer`` set
         and pulls on, a strData request's flat prompt pulls its chain."""
         peer = headers.get("x-sct-prefix-peer")
-        unit = self._generative_unit() if peer and self._peer_pull_enabled() else None
+        unit = self._single_generative_unit()[0] if peer and self._peer_pull_enabled() else None
         if unit is None or not isinstance(payload.data, str):
             return
         try:

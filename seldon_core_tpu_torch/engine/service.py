@@ -1,5 +1,6 @@
-"""Per-predictor prediction service: the graph walker plus request-scope
-logic (puid assignment).
+"""Per-predictor prediction service: the graph walker over the whole
+tree plus request-scope logic (puid assignment), the feedback walk and
+the graph's generative units.
 
 The predictor comes from ``ENGINE_PREDICTOR`` (base64 JSON, the same
 variable the JAX engine reads), else ``./deploymentdef.json``, else the
@@ -14,7 +15,7 @@ import os
 import uuid
 from typing import Any
 
-from seldon_core_tpu_torch.contract.payload import Payload
+from seldon_core_tpu_torch.contract.payload import FeedbackPayload, Payload
 from seldon_core_tpu_torch.graph.spec import PredictorSpec
 from seldon_core_tpu_torch.graph.walker import GraphWalker
 
@@ -47,15 +48,19 @@ def load_predictor_spec(environ: dict[str, str] | None = None) -> PredictorSpec:
 class PredictionService:
     """Owns one predictor's walker for the process lifetime.  Units are
     built on ``device`` by :meth:`start` (a blocking call: it loads the
-    model)."""
+    models); ``components`` (unit name -> component) mounts in-process
+    components in place of the built-in registry's."""
 
-    def __init__(self, predictor: PredictorSpec, *, device: str = "cuda"):
+    def __init__(self, predictor: PredictorSpec, *, device: str = "cuda",
+                 components: dict[str, Any] | None = None):
         self.predictor = predictor
         self.device = device
+        self._components = components or {}
         self.walker: GraphWalker | None = None
 
     def start(self) -> None:
-        self.walker = GraphWalker(self.predictor.graph, device=self.device)
+        self.walker = GraphWalker(self.predictor.graph, components=self._components,
+                                  device=self.device)
 
     def _walker(self) -> GraphWalker:
         if self.walker is None:
@@ -70,6 +75,21 @@ class PredictionService:
         if not payload.meta.puid:
             payload.meta.puid = uuid.uuid4().hex
         return await walker.predict(payload)
+
+    async def send_feedback(self, fb: FeedbackPayload) -> None:
+        """Replay the routed path of ``fb.response`` with its reward."""
+        await self._walker().send_feedback(fb)
+
+    def graph_deterministic(self) -> bool:
+        """Whether every unit of the graph declares determinism."""
+        return self.walker is not None and self.walker.deterministic()
+
+    def generative_units(self) -> list:
+        """Every generative component of the graph, in walk order."""
+        from seldon_core_tpu_torch.executor.generation import GenerativeComponent
+
+        return [comp for _, comp in self._walker().iter_components()
+                if isinstance(comp, GenerativeComponent)]
 
     async def close(self) -> None:
         if self.walker is not None:

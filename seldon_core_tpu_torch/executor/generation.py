@@ -37,7 +37,16 @@ The paged path of the JAX package's ``executor/generation.py``:
   eviction demotes its blocks into host DRAM (``cache/tiers.py``) and a
   later match promotes them back, and a peer's chain is exported
   (``export_prefix_kv``) and installed (``install_prefix_chain``).  All
-  of it runs at sync points, never inside a decode block.
+  of it runs at sync points, never inside a decode block;
+* **the cascade's confidence signal** (``conf_signal``): every decode step
+  and verify pass also computes the top-2 margin of the f32 logits that
+  sampling reads, inside the captured block, and the margins ride the
+  block's one fetch; the scheduler averages them per request over its
+  decode tokens (``info["confidence"]``);
+* **embeddings** (``embed``): a prompt's mean-pooled final hidden state
+  (``llama.embed_pooled``) with no KV written and no slot taken; the
+  scheduler serves the waiting prompts as one wave at a sync point, with
+  one host fetch for the wave.
 
 ``GenerationScheduler`` is the asyncio front (``submit(prompt) ->
 generated ids``, with an ``on_token`` hook per delivered token);
@@ -88,6 +97,14 @@ def _prefill_buckets(max_seq: int, smallest: int = 16) -> tuple[int, ...]:
     return tuple(sizes)
 
 
+def _conf_margin(logits: torch.Tensor) -> torch.Tensor:
+    """The top-2 margin of the f32 logits sampling reads, per row: equal to
+    the top-2 log-probability margin (softmax is shift-invariant), so a
+    threshold written in log-probability space applies directly."""
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
 class OutOfKVBlocks(Exception):
     """The paged KV pool cannot reserve the blocks this request needs right
     now; the scheduler holds the request until completions free blocks."""
@@ -120,7 +137,13 @@ class GenerativeModel:
     ``truncate:N``, ``truncate:auto`` or ``preset:NAME``).  ``medusa_heads``
     carries a head block (``{"w1", "head"}``) in place of the heads made
     from the model's ``lm_head``; ``draft_params`` carries the weights of a
-    ``preset:`` draft model in place of seeded ones.
+    ``preset:`` draft model in place of seeded ones.  ``conf_signal`` (env
+    ``SCT_CASCADE_CONF_SIGNAL=1``) computes the top-2 logit margin of each
+    step inside the decode blocks and stashes a fetched block's margins in
+    :attr:`last_conf_seq`; a graph with it and one without are two cache
+    entries.  ``embed`` (env ``SCT_EMBED=1``) warms the pooled-embedding
+    path at every prefill bucket (:meth:`embed_dispatch` serves whether or
+    not it is set).
 
     On ``cuda`` a decode block is one replay of a CUDA graph of its ``k``
     steps (plain steps, or verify passes with the proposer), one graph per
@@ -159,6 +182,8 @@ class GenerativeModel:
         spec_draft_model: str | None = None,
         medusa_heads: dict | None = None,
         draft_params: llama.Llama | None = None,
+        conf_signal: bool | None = None,
+        embed: bool | None = None,
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
@@ -204,6 +229,15 @@ class GenerativeModel:
             prefix_reuse = os.environ.get("SCT_CACHE_PREFIX", "0") == "1"
         self._spec_config(spec_draft, spec_ngram, spec_hist, spec_method, spec_heads,
                           spec_draft_model)
+        if conf_signal is None:
+            conf_signal = os.environ.get("SCT_CASCADE_CONF_SIGNAL", "0") == "1"
+        self.conf_signal = bool(conf_signal)
+        # the last fetched block's (rows, S) f32 margins, None without the
+        # signal; the scheduler reads it right after the fetch
+        self.last_conf_seq: np.ndarray | None = None
+        if embed is None:
+            embed = os.environ.get("SCT_EMBED", "0") == "1"
+        self.embed_enabled = bool(embed)
 
         self.kv_block_size = kv_block_size
         self.max_blocks_per_slot = cfg.max_seq // kv_block_size
@@ -259,7 +293,7 @@ class GenerativeModel:
         self._block_buffers()
         self._program_config = (self.spec_method, self.spec_draft, self.spec_ngram,
                                 self.spec_hist, self.top_k, self.kv_dtype,
-                                tuple(sorted(self._row_split)))
+                                tuple(sorted(self._row_split)), self.conf_signal)
         self._graphs: dict[tuple, dict] = {}
         self._graph_pool = None
         self._capture_stream: torch.cuda.Stream | None = None
@@ -290,6 +324,8 @@ class GenerativeModel:
         self.spec_emitted_tokens = 0
         self.spec_verify_passes = 0
         self.draft_prefills = 0
+        self.embeds = 0  # pooled-embedding forwards dispatched
+        self.embed_fetches = 0  # device->host fetches made by embed waves
         self._zero_tier_counters()
 
     def _zero_tier_counters(self) -> None:
@@ -519,8 +555,9 @@ class GenerativeModel:
         spec_draft`` positions per slot in one model call, accept the
         longest prefix where the drafts agree with the sampled tokens (cut
         after an eos), advance ``pos`` and the history ring by the tokens
-        emitted.  Returns ``(out (S, L), emitted (S, L), tok, act, rem)``,
-        all on the device."""
+        emitted.  Returns ``(out (S, L), emitted (S, L), tok, act, rem,
+        margin)``, all on the device; ``margin (S, L)`` is each position's
+        top-2 logit margin with ``conf_signal`` on, else None."""
         S, L = self.n_slots, self._tps
         cache = self._cache
         pos = cache["pos"]
@@ -538,6 +575,7 @@ class GenerativeModel:
         out = llama.sample_tokens(
             logits.reshape(S * L, logits.shape[-1]), temps.repeat_interleave(L), gen, self.top_k,
         ).reshape(S, L)
+        margin = _conf_margin(logits) if self.conf_signal else None
         agree = (drafts == out[:, :-1]).to(torch.int32)
         n_acc = torch.cumprod(agree, dim=1).sum(dim=1)
         base = qvalid & (offs <= n_acc[:, None])
@@ -563,7 +601,7 @@ class GenerativeModel:
             dpos = self._draft_cache["pos"]
             dpos.copy_(torch.where(act, new_pos, dpos))
         pos.copy_(new_pos)
-        return out, emitted, tok, act2, rem
+        return out, emitted, tok, act2, rem, margin
 
     def spec_snapshot(self) -> dict:
         """The speculation configuration and its acceptance ledger."""
@@ -1241,6 +1279,35 @@ class GenerativeModel:
             snap["tiers"] = tiers
         return snap
 
+    # -------------------------------------------------------- embeddings
+
+    def embed_dispatch(self, prompt: np.ndarray) -> torch.Tensor:
+        """Enqueue one prompt's pooled-embedding forward at its prefill
+        bucket (the prefill's row tiles included) and return the ``(E,)``
+        f32 vector on the device WITHOUT fetching it: the scheduler fetches
+        a wave of them at once."""
+        prompt = np.asarray(prompt, np.int32).ravel()
+        if prompt.size == 0:
+            raise GraphUnitError("empty prompt")
+        padded = self._h2d(self._padded(prompt))
+        with self._lock, torch.no_grad():
+            vec = llama.embed_pooled(self.params, padded, int(prompt.size), self.cfg,
+                                     seq_impl=self.seq_impl, op=self._prefill_op)
+            self.embeds += 1
+        return vec
+
+    def embed_fetch(self, vecs: list[torch.Tensor]) -> np.ndarray:
+        """ONE device->host fetch for a wave of :meth:`embed_dispatch`
+        vectors -> ``(n, E)`` float32."""
+        out = torch.stack(vecs).cpu().numpy()
+        with self._lock:
+            self.embed_fetches += 1
+        return out
+
+    def embed(self, prompt: np.ndarray) -> np.ndarray:
+        """One prompt's mean-pooled final hidden state, ``(E,)`` float32."""
+        return self.embed_fetch([self.embed_dispatch(prompt)])[0]
+
     # ------------------------------------------------------------ decode
 
     def _window_for(self, active: np.ndarray, extra: int) -> int:
@@ -1270,9 +1337,11 @@ class GenerativeModel:
         any graph capture: the inputs ``(4, S)`` int32 (tokens, active, eos,
         remaining) and the temperatures; the final carry, laid out as the
         inputs, so that a continued block's inputs are one device copy;
-        per ``k`` the ``(2, rows, S)`` tokens and mask and two host buffers
-        they are copied into (pinned on the card), one per block in
-        flight."""
+        per ``k`` the ``(2, rows, S)`` int32 tokens and mask (``(3, rows,
+        S)`` with ``conf_signal``: the f32 margins ride as a third plane of
+        their bits) and two host buffers they are copied into (pinned on
+        the card), one per block in flight, so a continued block never
+        overwrites the outputs of the block before it is fetched."""
         S, dev = self.n_slots, self.device
         self._gin = torch.zeros(4, S, dtype=torch.int32, device=dev)
         self._gtemps = torch.zeros(S, dtype=torch.float32, device=dev)
@@ -1284,7 +1353,7 @@ class GenerativeModel:
 
     def _out_buffers(self, k: int) -> None:
         if k not in self._gout:
-            shape = (2, k * self._tps, self.n_slots)
+            shape = (2 + int(self.conf_signal), k * self._tps, self.n_slots)
             self._gout[k] = torch.zeros(shape, dtype=torch.int32, device=self.device)
             pin = self.device.type == "cuda"
             self._hout[k] = [torch.zeros(shape, dtype=torch.int32, pin_memory=pin)
@@ -1298,26 +1367,33 @@ class GenerativeModel:
         step it finishes."""
         tok, act, eos_t, rem = self._gin[0], self._gin[1].bool(), self._gin[2], self._gin[3]
         temps, gen = self._gtemps, self._gen
-        toks_seq, act_seq = [], []
+        toks_seq, act_seq, conf_seq = [], [], []
         for _ in range(k):
             if self.spec_draft:
-                out, emitted, tok, act, rem = self._verify_pass(
+                out, emitted, tok, act, rem, margin = self._verify_pass(
                     tok, act, rem, temps, gen, eos_t, window)
                 toks_seq.append(out.T)
                 act_seq.append(emitted.T)
+                if margin is not None:
+                    conf_seq.append(margin.T)
                 continue
             logits, _ = llama.decode_slots_paged(
                 self.params, tok, self._cache, act, self.cfg, window=window,
                 kernel=self.decode_kernel,
             )
             new = llama.sample_tokens(logits, temps, gen, self.top_k)
+            if self.conf_signal:
+                conf_seq.append(_conf_margin(logits)[None])
             new = torch.where(act, new, tok)
             rem = torch.where(act, rem - 1, rem)
             done = (new == eos_t) | (rem <= 0)
             toks_seq.append(new[None])
             act_seq.append(act[None])
             tok, act = new, act & ~done
-        self._gout[k].copy_(torch.stack([torch.cat(toks_seq), torch.cat(act_seq).to(torch.int32)]))
+        planes = [torch.cat(toks_seq), torch.cat(act_seq).to(torch.int32)]
+        if conf_seq:
+            planes.append(torch.cat(conf_seq).contiguous().view(torch.int32))
+        self._gout[k].copy_(torch.stack(planes))
         self._gcarry.copy_(torch.stack([tok, act.to(torch.int32), eos_t, rem]))
 
     def _counter_rows(self) -> int:
@@ -1500,13 +1576,16 @@ class GenerativeModel:
     def step_k_fetch(self, handle: tuple) -> tuple[np.ndarray, np.ndarray]:
         """Wait for a dispatched block and return its ``(rows, S)`` tokens
         and mask (``rows = k`` plain, ``k * (1 + spec_draft)`` speculative):
-        THE one host sync of the block, counted whatever the pipeline did."""
+        THE one host sync of the block, counted whatever the pipeline did.
+        With ``conf_signal`` the block's margins came in the same copy and
+        are stashed in :attr:`last_conf_seq`."""
         host, start, end, seconds, act_np, k = handle
         if end is not None:
             end.synchronize()
             seconds = start.elapsed_time(end) / 1e3  # the block on the card
         out = host.numpy().copy()  # the buffer serves the block after next
         tps = self._tps
+        self.last_conf_seq = out[2].view(np.float32) if self.conf_signal else None
         with self._lock:
             self.host_syncs += 1
             self.decode_blocks += 1
@@ -1543,7 +1622,8 @@ class GenerativeModel:
         request path; on the card each of those blocks captures its CUDA
         graph, so no request pays for a capture).  With speculation on the
         blocks are verify passes and, for ``draft``, each admission
-        prefills the draft pool too.  A no-op once traffic has touched the
+        prefills the draft pool too; with ``embed`` each bucket also runs
+        one pooled-embedding forward.  A no-op once traffic has touched the
         cache."""
         with self._lock:
             if self.prefills or self.steps:
@@ -1562,6 +1642,10 @@ class GenerativeModel:
             for b in self.prefill_buckets:
                 self.admit(0, np.ones(b, np.int32), 0.0, 0)
                 n += 1
+            if self.embed_enabled:
+                self.embed_fetch([self.embed_dispatch(np.ones(b, np.int32))
+                                  for b in self.prefill_buckets])
+                n += len(self.prefill_buckets)
             if self.prefix_index is not None or self.prefill_chunk:
                 bs = self.kv_block_size
                 row = self.reserve_blocks(0, 2 * bs)
@@ -1579,6 +1663,7 @@ class GenerativeModel:
             self.prefills_reused = self.prefill_chunks = 0
             self.tokens_emitted, self.block_seconds = 0, 0.0
             self.spec_emitted_tokens = self.spec_verify_passes = self.draft_prefills = 0
+            self.embeds = self.embed_fetches = 0
             return n
 
     def reset(self) -> None:
@@ -1614,6 +1699,13 @@ class _Request:
     # fired per delivered token on the event loop; a hook that raises is
     # logged and detached
     on_token: Callable[[int], None] | None = None
+    # a pooled-embedding request: no slot, no KV; served in a wave at a
+    # sync point and resolved with its (E,) vector
+    embed_only: bool = False
+    # the cascade's confidence: the sum and count of the top-2 margins of
+    # the decode tokens delivered to this request
+    conf_sum: float = 0.0
+    conf_n: int = 0
 
 
 class GenerationScheduler:
@@ -1630,6 +1722,13 @@ class GenerationScheduler:
     its whole prefill.  An idle scheduler admits it at once.  Each sync
     point costs at most one host fetch for all the first tokens it
     produced; intermediate chunks' tokens are never fetched.
+
+    Pooled-embedding requests (:meth:`submit_embed`) ride the same bounded
+    intake but take no slot: the waiting ones are served as one wave at
+    the next sync point, with one host fetch for the wave.  With the
+    model's ``conf_signal`` on, each request's decode tokens carry their
+    top-2 logit margins (fetched with the block), summed per request
+    (``info["confidence"]`` of :meth:`submit`).
 
     The two halves of a handoff between engines enter here too:
     :meth:`submit_prefill` prefills into a slot that stays PINNED (out of
@@ -1746,17 +1845,59 @@ class GenerationScheduler:
         temperature: float = 0.0,
         eos_id: int | None = None,
         on_token: Callable[[int], None] | None = None,
+        info: dict | None = None,
     ) -> np.ndarray:
         """Generate up to ``max_new_tokens`` ids for a 1-D prompt.
         ``on_token`` fires on the event loop for each token as it is
         delivered (the first at admission, then one decode block's at a
-        time)."""
+        time).  ``info``, an out-parameter, gets ``confidence`` (the mean
+        top-2 logit margin over the delivered decode tokens; the prefill's
+        first token carries none) and ``conf_tokens`` on completion when
+        the model's ``conf_signal`` is on."""
         prompt = self._validate_prompt(prompt)
         if max_new_tokens < 1:
             return np.zeros(0, np.int32)
         max_new_tokens = min(int(max_new_tokens), self.model.cfg.max_seq - int(prompt.size))
-        return await self._enqueue(self._request(prompt, max_new_tokens, temperature, eos_id,
-                                                 on_token=on_token))
+        req = self._request(prompt, max_new_tokens, temperature, eos_id, on_token=on_token)
+        out = await self._enqueue(req)
+        if info is not None and req.conf_n:
+            info["confidence"] = req.conf_sum / req.conf_n
+            info["conf_tokens"] = req.conf_n
+        return out
+
+    async def submit_embed(self, prompt: np.ndarray) -> np.ndarray:
+        """A prompt's mean-pooled final hidden state, ``(E,)`` float32: the
+        request rides the bounded intake, takes no slot and no KV, and is
+        served with the other waiting ones at the next sync point."""
+        prompt = self._validate_prompt(prompt)
+        return await self._enqueue(self._request(prompt, 1, 0.0, None, embed_only=True))
+
+    async def _admit_embeds(self, reqs: list[_Request]) -> None:
+        """Serve one wave of embed requests: every forward is dispatched,
+        then ONE host fetch brings the wave's vectors back; a bad prompt
+        fails alone."""
+
+        def dispatch_and_fetch():
+            placed, errors = [], []
+            for req in reqs:
+                try:
+                    placed.append((req, self.model.embed_dispatch(req.prompt)))
+                except Exception as exc:  # noqa: BLE001 - routed to the future
+                    errors.append((req, exc))
+            try:
+                vecs = self.model.embed_fetch([v for _, v in placed]) if placed else []
+            except Exception as exc:  # noqa: BLE001 - fails the wave, not the loop
+                errors += [(req, exc) for req, _ in placed]
+                placed, vecs = [], []
+            return placed, errors, vecs
+
+        placed, errors, vecs = await asyncio.to_thread(dispatch_and_fetch)
+        for (req, _), vec in zip(placed, vecs):
+            if not req.future.done():
+                req.future.set_result(vec)
+        for req, exc in errors:
+            if not req.future.done():
+                req.future.set_exception(exc)
 
     async def submit_prefill(self, prompt: np.ndarray, *,
                              temperature: float = 0.0) -> tuple[int, int]:
@@ -1894,13 +2035,20 @@ class GenerationScheduler:
         ``rows`` is ``k``, or ``k * (1 + spec_draft)`` with speculation on,
         where ``act_seq`` marks the tokens each pass emitted.  A request that
         finishes mid-block (mid-pass too) frees its slot at once and gets
-        none of the slot's later rows."""
+        none of the slot's later rows.  Each delivered token's margin, from
+        the block's fetch, adds to its request's confidence."""
+        conf_seq = self.model.last_conf_seq
+        if conf_seq is not None and conf_seq.shape != toks_seq.shape:
+            conf_seq = None  # a stale stash: never misattribute
         for step_i in range(toks_seq.shape[0]):
             for i, req in enumerate(slots):
                 if req is None or not act_seq[step_i, i]:
                     continue
                 tok = int(toks_seq[step_i, i])
                 cur[i] = tok
+                if conf_seq is not None:
+                    req.conf_sum += float(conf_seq[step_i, i])
+                    req.conf_n += 1
                 if self._token_done(req, tok):
                     self._finish(req, i, slots, active)
 
@@ -2117,6 +2265,10 @@ class GenerationScheduler:
             self._wake.clear()
             await self._wake.wait()
             return None
+        embeds = [r for r in self._waiting if r.embed_only]
+        if embeds:
+            self._waiting[:] = [r for r in self._waiting if not r.embed_only]
+            await self._admit_embeds(embeds)
         cap_free = S - int(active.sum()) - len(self._prefilling) - len(self._external)
         batch = []
         while self._overflow and len(batch) < cap_free:
@@ -2183,8 +2335,15 @@ class GenerativeComponent(SeldonComponent):
       rows right-padded with ``-1`` where EOS ended a row early;
     * ``strData`` JSON ``{"tokens": [[...], ...] | [...], "max_new_tokens":
       N, "temperature": t, "eos_id": e}`` -> ``strData`` JSON ``{"tokens":
-      [[...], ...] | [...]}`` (a flat prompt gets a flat reply).
+      [[...], ...] | [...]}`` (a flat prompt gets a flat reply); with the
+      model's ``conf_signal`` on the reply also carries ``"confidence"``,
+      each row's mean top-2 logit margin (a list for a batch), which a
+      cascade router reads; the tokens are those of the signal off.
     """
+
+    # cumulative gauges that tolerate races: an annotation lock would
+    # serialize the requests continuous batching runs together
+    SAFE_ANNOTATIONS = True
 
     def __init__(
         self,
@@ -2225,13 +2384,26 @@ class GenerativeComponent(SeldonComponent):
             {"key": f"{n}_program_compiles", "type": "GAUGE", "value": m.program_compiles},
         ]
 
-    async def _generate_rows(self, rows, max_new_tokens, temperature, eos_id):
+    async def _generate_rows(self, rows, max_new_tokens, temperature, eos_id, infos=None):
+        """Submit ``rows`` together; ``infos`` (a list) gets one confidence
+        dict per row."""
+        if infos is not None:
+            infos.extend({} for _ in rows)
         return list(await asyncio.gather(*(
             self.scheduler.submit(
                 row, max_new_tokens=max_new_tokens, temperature=temperature, eos_id=eos_id,
+                info=infos[i] if infos is not None else None,
             )
-            for row in rows
+            for i, row in enumerate(rows)
         )))
+
+    async def embed_rows(self, rows: list[np.ndarray]) -> np.ndarray:
+        """Mean-pooled final hidden states of a batch of prompts, ``(B, E)``
+        float32, from this unit's own weights (the ``/embeddings`` route):
+        each row rides the scheduler's intake, and the run loop serves the
+        waiting ones as a wave with one host fetch."""
+        outs = await asyncio.gather(*(self.scheduler.submit_embed(row) for row in rows))
+        return np.stack([np.asarray(o, np.float32) for o in outs])
 
     async def stream_groups(
         self,
@@ -2337,7 +2509,11 @@ class GenerativeComponent(SeldonComponent):
             eos = int(eos) if eos is not None else None
         except (json.JSONDecodeError, TypeError, KeyError, ValueError) as e:
             raise GraphUnitError(f"bad generative request: {e}") from e
-        outs = await self._generate_rows(rows, max_new, temperature, eos)
+        infos: list[dict] | None = [] if self.model.conf_signal else None
+        outs = await self._generate_rows(rows, max_new, temperature, eos, infos)
         result = [o.tolist() for o in outs]
-        reply = {"tokens": result[0] if single else result}
+        reply: dict = {"tokens": result[0] if single else result}
+        if infos is not None:
+            confs = [i.get("confidence") for i in infos]
+            reply["confidence"] = confs[0] if single else confs
         return Payload(json.dumps(reply), [], DataKind.STRING, p.meta)

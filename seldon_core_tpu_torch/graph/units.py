@@ -1,14 +1,26 @@
 """Component contract and the built-in graph units the port serves.
 
-A *component* is the object behind a graph node, duck-typed as in
-the JAX package's ``graph/units.py``: ``predict(X, feature_names)`` (or
-``predict_raw(payload)``) for a MODEL, with optional ``tags()`` /
-``metrics()`` merged into the response meta.  Any method may be
-``async def``.
+A *component* is the object behind a graph node, duck-typed as in the JAX
+package's ``graph/units.py``:
 
-Built-ins: ``SIMPLE_MODEL`` (the stub model) and ``JAX_GENERATIVE``, whose
-name is kept so that a graph spec the JAX engine serves is served
-unchanged; here it builds the PyTorch generative component.
+    predict(X, feature_names) -> ndarray          MODEL
+    route(X, feature_names) -> int                ROUTER
+    aggregate(Xs, features_list) -> ndarray       COMBINER
+    transform_input(X, feature_names) -> ndarray  TRANSFORMER
+    transform_output(X, feature_names) -> ndarray OUTPUT_TRANSFORMER
+    send_feedback(X, feature_names, reward, truth, routing)  optional
+    class_names: list[str]                        optional
+
+with optional ``tags()`` / ``metrics()`` merged into the response meta.
+Any method may be ``async def``, and the ``*_raw`` variants take and
+return a :class:`Payload` for full control of meta and encoding.
+
+The host-only built-ins (routers, the combiner, the outlier scorer) are
+numpy, with the JAX units' ``default_rng(seed)``, so their decisions are
+those of the JAX package under the same seed.  ``JAX_GENERATIVE`` keeps
+its name, so that a graph spec the JAX engine serves is served unchanged;
+here it builds the PyTorch generative component.  ``CASCADE_ROUTER`` and
+``GUARDRAIL`` come from ``graphllm/``, imported when first built.
 """
 
 from __future__ import annotations
@@ -28,6 +40,9 @@ class GraphUnitError(Exception):
 class SeldonComponent:
     """Optional convenience base class; duck typing is what matters."""
 
+    def init_metadata(self) -> dict[str, Any]:
+        return {}
+
     def tags(self) -> dict[str, Any]:
         return {}
 
@@ -38,12 +53,158 @@ class SeldonComponent:
 class SimpleModel(SeldonComponent):
     """Stub model returning a constant 3-class score row per input row."""
 
+    INLINE_SYNC = True  # microseconds of python math; skip the executor hop
+    # DETERMINISTIC marks a component whose output is a pure function of
+    # its input.  Stateful (Mahalanobis), randomized (RandomABTest) and
+    # feedback-driven (bandit routers) components must not carry it.
+    DETERMINISTIC = True
+
     values = np.array([0.1, 0.9, 0.5])
     class_names = ["class0", "class1", "class2"]
 
     def predict(self, X: np.ndarray, names: list[str]) -> np.ndarray:
         rows = X.shape[0] if getattr(X, "ndim", 0) >= 2 else 1
         return np.tile(self.values, (rows, 1))
+
+
+class SimpleRouter(SeldonComponent):
+    """Always routes to child 0."""
+
+    INLINE_SYNC = True
+    DETERMINISTIC = True  # always child 0
+
+    def route(self, X: np.ndarray, names: list[str]) -> int:
+        return 0
+
+
+class RandomABTest(SeldonComponent):
+    """Routes to child 0 with probability ``ratioA``, else child 1; seeded
+    for reproducibility."""
+
+    INLINE_SYNC = True
+
+    def __init__(self, ratioA: float = 0.5, seed: int = 1337, **_: Any):
+        self.ratio_a = float(ratioA)
+        self._rng = np.random.default_rng(seed)
+
+    def route(self, X: np.ndarray, names: list[str]) -> int:
+        return 0 if self._rng.random() < self.ratio_a else 1
+
+
+class AverageCombiner(SeldonComponent):
+    """Element-wise mean of the children's outputs, whose shapes must agree.
+    Not inline: the copies scale with the children's payloads, which
+    belongs on the thread pool, not the event loop."""
+
+    DETERMINISTIC = True  # a pure element-wise mean
+
+    def aggregate(self, Xs: list[np.ndarray], features: list[list[str]]) -> np.ndarray:
+        if not Xs:
+            raise GraphUnitError("AverageCombiner needs at least one input")
+        arrs = [np.asarray(x, dtype=np.float64) for x in Xs]
+        shape = arrs[0].shape
+        for i, a in enumerate(arrs[1:], start=1):
+            if a.shape != shape:
+                raise GraphUnitError(
+                    f"AverageCombiner shape mismatch: input 0 {shape} vs input {i} {a.shape}"
+                )
+        return np.mean(np.stack(arrs), axis=0)
+
+
+class EpsilonGreedy(SeldonComponent):
+    """Multi-armed-bandit router: explore with probability ``epsilon``,
+    otherwise exploit the branch with the best mean reward; rewards arrive
+    through the feedback walk."""
+
+    INLINE_SYNC = True
+
+    def __init__(self, n_branches: int = 2, epsilon: float = 0.1, seed: int | None = 1337,
+                 **_: Any):
+        if n_branches < 1:
+            raise GraphUnitError("n_branches must be >= 1")
+        self.n_branches = int(n_branches)
+        self.epsilon = float(epsilon)
+        self._rng = np.random.default_rng(seed)
+        self.pulls = np.zeros(self.n_branches, dtype=np.int64)
+        self.value = np.zeros(self.n_branches, dtype=np.float64)
+
+    def route(self, X: np.ndarray, names: list[str]) -> int:
+        if self._rng.random() < self.epsilon:
+            return int(self._rng.integers(self.n_branches))
+        return int(np.argmax(self.value))
+
+    def send_feedback(self, X: np.ndarray, names: list[str], reward: float, truth: Any = None,
+                      routing: int | None = None) -> None:
+        if routing is None or not (0 <= routing < self.n_branches):
+            return
+        self.pulls[routing] += 1
+        # incremental mean of the observed rewards per branch
+        self.value[routing] += (reward - self.value[routing]) / self.pulls[routing]
+
+
+class ThompsonSampling(SeldonComponent):
+    """Beta-Bernoulli Thompson-sampling router: sample a win rate per
+    branch, route to the largest."""
+
+    INLINE_SYNC = True
+
+    def __init__(self, n_branches: int = 2, seed: int | None = 1337, **_: Any):
+        self.n_branches = int(n_branches)
+        self._rng = np.random.default_rng(seed)
+        self.alpha = np.ones(self.n_branches)
+        self.beta = np.ones(self.n_branches)
+
+    def route(self, X: np.ndarray, names: list[str]) -> int:
+        return int(np.argmax(self._rng.beta(self.alpha, self.beta)))
+
+    def send_feedback(self, X, names, reward, truth=None, routing=None) -> None:
+        if routing is None or not (0 <= routing < self.n_branches):
+            return
+        if reward > 0:
+            self.alpha[routing] += reward
+        else:
+            self.beta[routing] += 1.0
+
+
+class MahalanobisOutlier(SeldonComponent):
+    """Online Mahalanobis-distance outlier scorer: a running mean and
+    covariance over the request stream (Welford), each row scored by its
+    squared distance before it joins them; a TRANSFORMER that annotates
+    ``meta.tags.outlier_score``."""
+
+    def __init__(self, **_: Any):
+        self.count = 0
+        self._mean: np.ndarray | None = None
+        self._m2: np.ndarray | None = None  # sum of outer-product deviations
+        self._last_scores: np.ndarray | None = None
+
+    def score(self, X: np.ndarray) -> np.ndarray:
+        X = np.atleast_2d(np.asarray(X, dtype=np.float64))
+        d = X.shape[1]
+        if self._mean is None:
+            self._mean = np.zeros(d)
+            self._m2 = np.zeros((d, d))
+        scores = np.zeros(X.shape[0])
+        for i, row in enumerate(X):
+            if self.count >= 2:
+                cov = self._m2 / (self.count - 1) + 1e-6 * np.eye(d)  # ridge
+                delta = row - self._mean
+                scores[i] = float(delta @ np.linalg.solve(cov, delta))
+            self.count += 1
+            delta = row - self._mean
+            self._mean += delta / self.count
+            self._m2 += np.outer(delta, row - self._mean)
+        self._last_scores = scores
+        return scores
+
+    def transform_input(self, X: np.ndarray, names: list[str]) -> np.ndarray:
+        self.score(X)
+        return X
+
+    def tags(self) -> dict[str, Any]:
+        if self._last_scores is None:
+            return {}
+        return {"outlier_score": self._last_scores.tolist()}
 
 
 def _parse_dtype(raw: Any, impl_name: str):
@@ -82,9 +243,32 @@ def _torch_generative(parameters: dict[str, Any], device: str) -> Any:
         raise GraphUnitError(str(e)) from e
 
 
+def _graphllm(cls_name: str):
+    """A ``graphllm/`` unit, imported when first built."""
+    def build(parameters: dict[str, Any], device: str) -> Any:
+        from seldon_core_tpu_torch import graphllm
+
+        return getattr(graphllm, cls_name)(**parameters)
+
+    return build
+
+
+def _host(cls):
+    """A host-only unit: its graph parameters are its keyword arguments."""
+    return lambda parameters, device: cls(**parameters)
+
+
 _BUILTINS: dict[Implementation, Callable[..., Any]] = {
-    Implementation.SIMPLE_MODEL: lambda params, device: SimpleModel(),
+    Implementation.SIMPLE_MODEL: _host(SimpleModel),
+    Implementation.SIMPLE_ROUTER: _host(SimpleRouter),
+    Implementation.RANDOM_ABTEST: _host(RandomABTest),
+    Implementation.AVERAGE_COMBINER: _host(AverageCombiner),
+    Implementation.EPSILON_GREEDY: _host(EpsilonGreedy),
+    Implementation.THOMPSON_SAMPLING: _host(ThompsonSampling),
+    Implementation.MAHALANOBIS_OUTLIER: _host(MahalanobisOutlier),
     Implementation.JAX_GENERATIVE: _torch_generative,
+    Implementation.CASCADE_ROUTER: _graphllm("CascadeRouter"),
+    Implementation.GUARDRAIL: _graphllm("Guardrail"),
 }
 
 

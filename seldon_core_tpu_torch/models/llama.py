@@ -298,6 +298,23 @@ def forward(params: Llama, tokens, cfg: Config, *, seq_impl: str = "flash"):
     return x @ params.head
 
 
+@torch.no_grad()
+def embed_pooled(params: Llama, tokens, length: int, cfg: Config, *,
+                 seq_impl: str = "flash", op=_plain) -> torch.Tensor:
+    """Mean-pooled final hidden state of one prompt: the embeddings path.
+
+    ``tokens (1, Lpad)`` is right-padded to a bucket; ``length`` the true
+    prompt length.  A pure forward through the prefill core (flash
+    attention and the prefill's op hook, as a cold prefill runs them): no
+    KV is written and no slot is taken.  Returns the final-norm hidden
+    states averaged in f32 over the real rows only, ``(E,)``: the padding
+    rows are left out of the sum, so the vector does not depend on the
+    bucket the prompt landed in."""
+    x, _ = _prefill_core(params, tokens, cfg, _select_attn(seq_impl), op=op)
+    h = _rmsnorm(x[0, : int(length)], params.ln_f, cfg.norm_eps).float()
+    return h.sum(dim=0) / max(int(length), 1)
+
+
 # ---------------------------------------------------------------------------
 # paged KV cache (block pool + per-slot block tables)
 # ---------------------------------------------------------------------------

@@ -27,12 +27,11 @@ PRESETS = {
 
 # parameters of the JAX package's generative unit that belong to later
 # slices of the port (trained Medusa heads from a checkpoint, LoRA, mesh,
-# checkpoints, chip packing, LLM-graph hooks)
+# checkpoints, chip packing)
 LATER_SLICE_PARAMS = (
     "spec_heads_path", "lora_rank", "lora_slots",
     "lora_targets", "lora_adapters", "adapter", "mesh",
-    "checkpoint", "pack_class", "pack_slo_ms", "conf_signal",
-    "embed",
+    "checkpoint", "pack_class", "pack_slo_ms",
 )
 
 
@@ -87,6 +86,8 @@ def build_generative_component(
     spec_heads: int | None = None,
     spec_draft_model: str | None = None,
     overlap: bool | None = None,
+    conf_signal: bool | None = None,
+    embed: bool | None = None,
     device: str = "cuda",
     **overrides,
 ):
@@ -109,7 +110,11 @@ def build_generative_component(
     proposer.  ``overlap`` (default on when ``decode_block > 1``; env
     ``SCT_GEN_OVERLAP=0`` turns it off) dispatches each decode block from
     the previous block's device carry before that block's tokens are
-    fetched."""
+    fetched.  ``conf_signal`` (env ``SCT_CASCADE_CONF_SIGNAL=1``) computes
+    the top-2 logit margin inside the decode blocks and adds each row's
+    mean to a strData reply (``"confidence"``, read by a cascade router);
+    ``embed`` (env ``SCT_EMBED=1``) warms the pooled-embedding path the
+    ``/api/v0.1/embeddings`` route serves."""
     from seldon_core_tpu_torch.executor.generation import (
         GenerativeComponent,
         GenerativeModel,
@@ -166,6 +171,8 @@ def build_generative_component(
         spec_method=spec_method,
         spec_heads=spec_heads,
         spec_draft_model=spec_draft_model,
+        conf_signal=conf_signal,
+        embed=embed,
         device=dev,
     )
     return GenerativeComponent(

@@ -222,7 +222,7 @@ def test_codec_matches_the_jax_codec(msg):
 
 @pytest.mark.parametrize("name,value", [
     ("spec_heads_path", "/heads.npz"), ("lora_rank", 8), ("pack_class", "batch"), ("mesh", "auto"),
-    ("checkpoint", "/weights.npz"), ("conf_signal", True),
+    ("checkpoint", "/weights.npz"), ("lora_targets", "q,v"),
 ])
 def test_later_slice_parameters_raise_by_name(name, value):
     with pytest.raises(GraphUnitError, match=name):
@@ -253,7 +253,7 @@ def test_registry_rules():
     with pytest.raises(TypeError, match="maxseq"):
         registry.build_generative_component(preset="tiny", maxseq=3, device="cpu")
     with pytest.raises(GraphUnitError, match="no built-in"):
-        create_builtin(Implementation.RANDOM_ABTEST, {}, device="cpu")
+        create_builtin(Implementation.JAX_MODEL, {}, device="cpu")
 
 
 def test_cuda_entry_points_raise_without_cuda(tiny):
@@ -282,7 +282,9 @@ def test_port_never_imports_jax_or_the_jax_package():
     sources = sorted((ROOT / "seldon_core_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     # the port's own copies of modules the JAX package also has
     for module in ("cache/prefix.py", "cache/tiers.py", "models/llama.py",
-                   "executor/generation.py", "executor/multihost.py", "disagg/handoff.py"):
+                   "executor/generation.py", "executor/multihost.py", "disagg/handoff.py",
+                   "qos/context.py", "graphllm/cascade.py", "graphllm/guardrail.py",
+                   "graph/walker.py"):
         assert ROOT / "seldon_core_tpu_torch" / module in sources
     hits = [
         f"{p.relative_to(ROOT)}:{i}"
