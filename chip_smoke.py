@@ -135,12 +135,36 @@ Phases, each printing one JSON line:
    reply equals its branch called directly.  It prints TTFT and wall p50
    shipped cheap against escalated, the 8b's decode step ms and capture
    seconds, the escalations and ``served_by_tier``.
-11. ``kernel_times``: each kernel's time at the main path's shapes and at a
+11. ``serve_lora``: batched multi-LoRA on the serve graph with
+   ``lora_rank=16``, ``lora_slots=8``, ``lora_targets=qkvo+mlp`` and four
+   adapters.  Engine B adds ``kv_prefix_reuse``, ``prefill_chunk=256`` and
+   ``spec_draft=3``; engine A, in the ``prefill`` role with B as its decode
+   peer, answers serve's 8 prompts with adapters ``[none, alpha, beta,
+   none, gamma, delta, alpha, none]`` over HTTP, then one wave per
+   adapter.  It fails unless the ``none`` streams equal ``serve``'s bit
+   for bit, each adapter row equals its adapter's wave and differs from
+   the base stream, B's mixed wave equals A's, a 512-token prefix under
+   alpha, beta, alpha reuses 0, 0 and 512 tokens with the streams of A
+   (cold), A's handoffs of the adapter rows to B answer ``disagg`` with
+   A's streams, B refuses a frame naming an adapter it lacks by name
+   (409), every block costs one sync, no graph is captured after warmup
+   across a registration that fills A's pool and one more, made while a
+   wave decodes, that evicts the least recently used idle row, a block
+   replayed through the rewritten row equals the eager block (tokens,
+   mask, every pool byte), the new adapter's wave on A (through the
+   rewritten row) equals its wave on B (a row no adapter held, once B
+   registers it too) and differs from every other adapter's wave and the
+   base streams, and the ledger's ``adapter_pool`` is
+   ``lora_pool_bytes`` (180,355,072).  It prints the decode step with the
+   deltas on and off from one admitted state (CUDA events, five
+   alternating pairs), the delta ops the probes split, and the ledger.
+12. ``kernel_times``: each kernel's time at the main path's shapes and at a
    long one (flash at S=2048 and its variant at 80 rows over 592 keys,
    against SDPA with the lower-right causal mask; paged at 8 slots near
    position 2000; paged
    also over int8 pages with bf16 scales at both, and at 4 queries per
-   slot as a verify pass reads, beside the K/V bytes it reads) beside its plain
+   slot as a verify pass reads, beside the K/V bytes it reads; both at the
+   8b's head dim 128 at the served shapes) beside its plain
    version, one PyTorch library call where there is one, and the least
    time the card could take (its bound).  ``ms`` replays the launches
    from a CUDA graph; ``eager_ms`` launches them from Python one by one,
@@ -148,7 +172,8 @@ Phases, each printing one JSON line:
    call.
 
 Then the card's name and power limit (nvidia-smi), one line listing the
-kernels (launches summed over the serve phases, ``serve_graph`` included), and as the last line
+kernels (launches summed over the serve phases, ``serve_graph`` and
+``serve_lora`` included), and as the last line
 ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero before that line.  Without CUDA, or without
 the repository beside this file, it exits non-zero and prints no result.
@@ -904,21 +929,20 @@ def _device_state(model) -> dict:
     return state
 
 
-def _replay_vs_eager(model, prompts, temperature: float) -> dict:
-    """Admit ``prompts`` into ``model``'s slots, then run one block eagerly
-    (the eager yardstick) and, from the same state, one block replayed from
-    its CUDA graph: tokens, mask and every pool byte must be equal, and the
-    replay must count the launches the eager block made."""
+def _replay_vs_eager(model, prompts, temperature: float, adapters=None) -> dict:
+    """Admit ``prompts`` into ``model``'s slots (through ``adapters`` when
+    given), then run one block eagerly (the eager yardstick) and, from the
+    same state, one block replayed from its CUDA graph (captured first when
+    it is not yet): tokens, mask and every pool byte must be equal, the
+    replay must count the launches the eager block made, and no graph may
+    be captured between the two.  ``captures`` is the model's count after."""
     import numpy as np
     import torch
 
     from seldon_core_tpu_torch.ops import _build
 
     S, k = model.n_slots, model.decode_block
-    cur = np.zeros(S, np.int32)
-    for i, p in enumerate(prompts):
-        cur[i] = model.admit(i, np.asarray(p, np.int32), temperature, 11 + i,
-                             reserve_tokens=k * model._tps + 1)
+    cur = _admit_all(model, prompts, k * model._tps + 1, temperature, adapters)
     active = np.arange(S) < len(prompts)
     args = (cur, active, np.full(S, temperature, np.float32), 1234, np.full(S, -1, np.int32),
             np.full(S, 1000, np.int32), k)
@@ -950,7 +974,7 @@ def _replay_vs_eager(model, prompts, temperature: float) -> dict:
     differ = [n for n, t in _device_state(model).items() if not torch.equal(t, eager_state[n])]
     ok = (bool(np.array_equal(eager[0], replay[0])) and bool(np.array_equal(eager[1], replay[1]))
           and not differ and eager_launches == replay_launches
-          and model.program_compiles == compiles == 1)
+          and model.program_compiles == compiles)
     return {"tokens_equal": bool(np.array_equal(eager[0], replay[0])),
             "mask_equal": bool(np.array_equal(eager[1], replay[1])),
             "state_differs": differ, "tokens_emitted": int(eager[1].sum()),
@@ -996,6 +1020,7 @@ def phase_graphs(device: str = "cuda", preset: str = SERVE_PRESET) -> None:
                                 device=device, **kw)
         recs[name] = {"temperature": temperature, **kw,
                       **_replay_vs_eager(model, prompts, temperature)}
+        recs[name]["ok"] = recs[name]["ok"] and recs[name]["captures"] == 1
         recs[name]["program"] = {key: v for key, v in model.program_snapshot().items()
                                  if key != "graphs"}
         recs[name]["graph"] = model.program_snapshot()["graphs"][0]
@@ -1040,6 +1065,16 @@ def _get(port: int, path: str) -> int:
         return e.code
 
 
+def _fetched_steps(model, blocks_before: int) -> int:
+    """The steps (verify passes with speculation) of the decode blocks
+    fetched since the count was ``blocks_before``: the step time of a
+    wave is the fetched blocks' device seconds over these.  (The model's
+    ``steps`` counts a block at dispatch, and the overlap dispatches one
+    block more than a wave needs before its last fetch, whose seconds
+    land only when it is fetched.)"""
+    return (model.decode_blocks - blocks_before) * model.decode_block
+
+
 def phase_serve(device: str = "cuda", preset: str = SERVE_PRESET,
                 lengths=SERVE_LENGTHS, seed: int = 0) -> dict:
     """Boot the engine in-process and answer concurrent strData requests over
@@ -1075,7 +1110,7 @@ def phase_serve(device: str = "cuda", preset: str = SERVE_PRESET,
             syncs = model.host_syncs - model_before[1]
             overlapped = model.overlapped - model_before[2]
             step_ms = 1e3 * (model.block_seconds - model_before[4]) / max(
-                1, model.steps - model_before[3])
+                1, _fetched_steps(model, model_before[0]))
             breaks = dict(sched.overlap_breaks)
             served = model.program_snapshot()
             # the same wave with the overlap off, then on the eager loop
@@ -1085,7 +1120,7 @@ def phase_serve(device: str = "cuda", preset: str = SERVE_PRESET,
             for name, overlap, eager in (("overlap_off", False, False),
                                          ("eager", False, True), ("overlap_again", True, False)):
                 sched.overlap, model._eager_on_card = overlap, eager
-                before = (model.steps, model.block_seconds, len(sched.ttft))
+                before = (model.decode_blocks, model.block_seconds, len(sched.ttft))
                 yard, yard_s = await _serve_wave(port, prompts)
                 yard_ttft = sorted(t for _, t in list(sched.ttft)[before[2]:])
                 yardsticks[name] = {
@@ -1093,7 +1128,7 @@ def phase_serve(device: str = "cuda", preset: str = SERVE_PRESET,
                     "wave_s": yard_s, "wave_tokens_per_s": len(prompts) * MAX_NEW / yard_s,
                     "ttft_s_p50": yard_ttft[len(yard_ttft) // 2],
                     "decode_step_ms": 1e3 * (model.block_seconds - before[1])
-                    / max(1, model.steps - before[0])}
+                    / max(1, _fetched_steps(model, before[0]))}
             sched.overlap, model._eager_on_card = True, False
             tiles = _prefill_tile_cost(model)
             outs = []
@@ -1371,7 +1406,7 @@ def phase_serve_cached(device: str = "cuda", preset: str = SERVE_PRESET, seed: i
             model._exec_prefill_suffix = counted_suffix
             _build.reset_launches()  # this phase's run starts here
             before = {
-                "blocks": model.decode_blocks, "syncs": model.host_syncs, "steps": model.steps,
+                "blocks": model.decode_blocks, "syncs": model.host_syncs,
                 "block_s": model.block_seconds, "reused": model.prefills_reused,
                 "tokens_reused": model.prefix_snapshot()["tokens_reused"],
                 "paced": sched.chunks_paced, "chunks": model.prefill_chunks,
@@ -1392,7 +1427,7 @@ def phase_serve_cached(device: str = "cuda", preset: str = SERVE_PRESET, seed: i
             snap = model.prefix_snapshot()
             blocks = model.decode_blocks - before["blocks"]
             syncs = model.host_syncs - before["syncs"]
-            steps = model.steps - before["steps"]
+            steps = _fetched_steps(model, before["blocks"])
             ttft = list(sched.ttft)[before["ttft"]:]
             t_shared = sorted(t for n, t in ttft if n < min(LONG_LENGTHS))
             t_long = sorted(t for n, t in ttft if n >= min(LONG_LENGTHS))
@@ -1572,7 +1607,7 @@ def phase_serve_spec(serve: dict, device: str = "cuda", preset: str = SERVE_PRES
                 model.draft_prefill_dispatch = counted
                 _build.reset_launches()  # this method's run starts here
                 before = {"blocks": model.decode_blocks, "syncs": model.host_syncs,
-                          "steps": model.steps, "block_s": model.block_seconds,
+                          "block_s": model.block_seconds,
                           "emitted": model.spec_emitted_tokens,
                           "passes": model.spec_verify_passes, "ttft": len(sched.ttft),
                           "draft_prefills": model.draft_prefills}
@@ -1591,7 +1626,7 @@ def phase_serve_spec(serve: dict, device: str = "cuda", preset: str = SERVE_PRES
                 syncs = model.host_syncs - before["syncs"]
                 passes = model.spec_verify_passes - before["passes"]
                 emitted = model.spec_emitted_tokens - before["emitted"]
-                steps = model.steps - before["steps"]
+                steps = _fetched_steps(model, before["blocks"])
                 ttft = sorted(t for _, t in list(sched.ttft)[before["ttft"]:])
                 agree = [_divergence(model, p, off, on)
                          for p, off, on in zip(serve["prompts"], serve["outs"], outs)]
@@ -1718,7 +1753,7 @@ async def _disagg_wave(a, b, prompts) -> dict:
     _timed(mb, "attach_imported", attach)
     before = {"a": dict(a.disagg_stats), "b": dict(b.disagg_stats), "a_blocks": ma.decode_blocks,
               "b_prefills": mb.prefills, "b_blocks": mb.decode_blocks, "b_syncs": mb.host_syncs,
-              "b_steps": mb.steps, "b_block_s": mb.block_seconds}
+              "b_block_s": mb.block_seconds}
     _build.reset_launches()  # this wave's run starts here
     replies, wave_s, sent = await _wave(a.port, prompts)
     launches = dict(_build.LAUNCHES)
@@ -1760,7 +1795,7 @@ async def _disagg_wave(a, b, prompts) -> dict:
         "decode_engine_prefills": mb.prefills - before["b_prefills"],
         "decode_blocks": blocks, "host_syncs": syncs,
         "decode_step_ms": 1e3 * (mb.block_seconds - before["b_block_s"])
-        / max(1, mb.steps - before["b_steps"]),
+        / max(1, _fetched_steps(mb, before["b_blocks"])),
     }
 
 
@@ -2196,10 +2231,7 @@ def _conf_overlap_vs_eager(model, prompts) -> dict:
 
     S, k, tps = model.n_slots, model.decode_block, model._tps
     try:
-        cur = np.zeros(S, np.int32)
-        for i, p in enumerate(prompts[:S]):
-            cur[i] = model.admit(i, np.asarray(p, np.int32), 0.0, 11 + i,
-                                 reserve_tokens=2 * k * tps + 1)
+        cur = _admit_all(model, prompts, 2 * k * tps + 1)
         active = np.arange(S) < min(S, len(prompts))
         args = (cur, active, np.zeros(S, np.float32), 1234, np.full(S, -1, np.int32),
                 np.full(S, 1000, np.int32), k)
@@ -2231,6 +2263,69 @@ def _conf_overlap_vs_eager(model, prompts) -> dict:
             "margin_max": float(margins.max()), "ok": all(equal)}
 
 
+def _on_off_blocks(model, prompts, switch, *, adapters=None, pairs: int = 5,
+                   queued: bool = False, profile_blocks: int = 0) -> tuple[dict, dict, dict]:
+    """The same block from one admitted state (``prompts`` in slots 0..,
+    through ``adapters`` when given), run with ``switch(True)`` and
+    ``switch(False)`` in turn, ``pairs`` pairs after a warm-up pair that is
+    not timed; each run restores the state first.  Returns the block ms
+    (CUDA events around the replay) and the ``(tokens, mask)`` of each side.
+    ``queued`` enqueues a ~10 ms spin kernel before each block, so the block
+    is queued whole before its start event fires: its time is then the
+    device's alone, not the host's submission of the graph to an idle card.
+    ``profile_blocks`` then runs that many more blocks a side, each side
+    under a ``torch.profiler`` of its own, returned by side with those
+    blocks' ms.  The model is reset after, with ``switch(True)``."""
+    import numpy as np
+    import torch
+
+    S, k = model.n_slots, model.decode_block
+    ms, outs, profiles = {True: [], False: []}, {True: [], False: []}, {}
+    try:
+        cur = _admit_all(model, prompts, k * model._tps + 1, 0.0, adapters)
+        active = np.arange(S) < min(S, len(prompts))
+        args = (cur, active, np.zeros(S, np.float32), 1234, np.full(S, -1, np.int32),
+                np.full(S, 1000, np.int32), k)
+        before = {n: t.clone() for n, t in _device_state(model).items()}
+        ceiling = model._pos_ceiling.copy()
+
+        def block(on: bool):
+            for n, t in _device_state(model).items():
+                t.copy_(before[n])
+            model._pos_ceiling[:] = ceiling
+            switch(on)
+            if queued and model.device.type == "cuda":
+                torch.cuda._sleep(20_000_000)
+            return model.step_k(*args)
+
+        for i in range(pairs + 1):
+            for on in ((False, True) if i % 2 else (True, False)):
+                outs[on].append(block(on))
+                if i:
+                    ms[on].append(1e3 * model.last_block_s)
+        for on in ((True, False) if profile_blocks else ()):
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                blocks_ms = []
+                for _ in range(profile_blocks):
+                    block(on)
+                    blocks_ms.append(1e3 * model.last_block_s)
+                torch.cuda.synchronize()
+            profiles[on] = {"block_ms": blocks_ms, "profile": prof}
+    finally:
+        switch(True)
+        model.reset()
+    return ms, outs, profiles
+
+
+def _on_off_ms(ms: dict, k: int) -> dict:
+    on_ms, off_ms = statistics.median(ms[True]), statistics.median(ms[False])
+    return {"k": k, "block_ms_on": ms[True], "block_ms_off": ms[False],
+            "step_ms_on": on_ms / k, "step_ms_off": off_ms / k,
+            "step_ms_added": (on_ms - off_ms) / k, "added_share": on_ms / off_ms - 1.0}
+
+
 def _conf_cost(model, prompts, pairs: int = 5) -> dict:
     """The margin's cost on a replayed block: the same block from the same
     admitted state, replayed with ``conf_signal`` on and off in turn (off
@@ -2239,7 +2334,6 @@ def _conf_cost(model, prompts, pairs: int = 5) -> dict:
     be equal.  The model is reset after, with the signal back on."""
     import numpy as np
 
-    S, k, tps = model.n_slots, model.decode_block, model._tps
     bufs = {True: (model._gout, model._hout), False: ({}, {})}
     config = model._program_config[:-1]
 
@@ -2248,37 +2342,10 @@ def _conf_cost(model, prompts, pairs: int = 5) -> dict:
         model._gout, model._hout = bufs[on]
         model._program_config = config + (on,)
 
-    ms, outs = {True: [], False: []}, {True: [], False: []}
-    try:
-        cur = np.zeros(S, np.int32)
-        for i, p in enumerate(prompts[:S]):
-            cur[i] = model.admit(i, np.asarray(p, np.int32), 0.0, 11 + i,
-                                 reserve_tokens=k * tps + 1)
-        active = np.arange(S) < min(S, len(prompts))
-        args = (cur, active, np.zeros(S, np.float32), 1234, np.full(S, -1, np.int32),
-                np.full(S, 1000, np.int32), k)
-        before = {n: t.clone() for n, t in _device_state(model).items()}
-        ceiling = model._pos_ceiling.copy()
-        for i in range(pairs + 1):
-            for on in ((False, True) if i % 2 else (True, False)):
-                for n, t in _device_state(model).items():
-                    t.copy_(before[n])
-                model._pos_ceiling[:] = ceiling
-                signal(on)
-                toks, mask = model.step_k(*args)
-                outs[on].append((toks, mask))
-                if i:
-                    ms[on].append(1e3 * model.last_block_s)
-    finally:
-        signal(True)
-        model.reset()
+    ms, outs, _ = _on_off_blocks(model, prompts, signal, pairs=pairs)
     equal = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
                 for a, b in zip(outs[True], outs[False]))
-    on_ms, off_ms = statistics.median(ms[True]), statistics.median(ms[False])
-    return {"k": k, "block_ms_on": ms[True], "block_ms_off": ms[False],
-            "step_ms_on": on_ms / k, "step_ms_off": off_ms / k,
-            "step_ms_added": (on_ms - off_ms) / k, "added_share": on_ms / off_ms - 1.0,
-            "tokens_equal": equal}
+    return {**_on_off_ms(ms, model.decode_block), "tokens_equal": equal}
 
 
 def _embed_bucket_check(model, prompts) -> dict:
@@ -2368,14 +2435,16 @@ async def _cascade_waves(app, prompts, want, bodies) -> dict:
                                                      or [0.0])
     _build.reset_launches()  # the graph's served run starts here
     casc.threshold = 0.0  # nothing escalates
-    s0 = (sm.decode_blocks, sm.host_syncs, sm.steps, sm.block_seconds)
+    s0 = (sm.decode_blocks, sm.host_syncs, sm.block_seconds)
     cheap, sent0, wall0 = await _graph_wave(app.port, bodies)
-    s1 = (sm.decode_blocks, sm.host_syncs, sm.steps, sm.block_seconds)
+    s1 = (sm.decode_blocks, sm.host_syncs, sm.block_seconds)
+    small_step_ms = 1e3 * (s1[2] - s0[2]) / max(1, _fetched_steps(sm, s0[0]))
     cheap_ttft = _ttfts(firsts["small"], prompts, sent0)
     casc.threshold = float("inf")  # everything escalates
-    e0 = (casc.escalations, lm.steps, lm.block_seconds, lm.decode_blocks, lm.host_syncs)
+    e0 = (casc.escalations, lm.block_seconds, lm.decode_blocks, lm.host_syncs)
     esc, sent1, wall1 = await _graph_wave(app.port, bodies)
-    e1 = (casc.escalations, lm.steps, lm.block_seconds, lm.decode_blocks, lm.host_syncs)
+    e1 = (casc.escalations, lm.block_seconds, lm.decode_blocks, lm.host_syncs)
+    large_step_ms = 1e3 * (e1[1] - e0[1]) / max(1, _fetched_steps(lm, e0[2]))
     esc_ttft = _ttfts(firsts["large"], prompts, sent1)
     n_before = len(reasons)  # +inf under 10 ms: the budget cannot fit the 8b's TTFT
     late, _, _ = await _graph_wave(app.port, bodies[:2], {"x-sct-deadline-ms": "10"})
@@ -2391,6 +2460,8 @@ async def _cascade_waves(app, prompts, want, bodies) -> dict:
                                             {"tokens": prompts})
     embed_ms = 1e3 * (time.perf_counter() - e2[3])
     rec["launches"] = dict(_build.LAUNCHES)  # the served run ends here
+    # the 8b's launches are those at head dim 128
+    rec["launches_by_head_dim"] = dict(sorted(_build.LAUNCHES_BY_D.items()))
     # the tiers called directly, after the launches are read (greedy: the
     # same bodies give the same replies whenever they are asked)
     seen = guard.transform_input_raw(Payload(mail["strData"], [], DataKind.STRING))
@@ -2406,7 +2477,7 @@ async def _cascade_waves(app, prompts, want, bodies) -> dict:
         "confidence": [json.loads(b["strData"]).get("confidence") for _, b in cheap
                        if "strData" in b],
         "decode_blocks": s1[0] - s0[0], "host_syncs": s1[1] - s0[1],
-        "small_decode_step_ms": 1e3 * (s1[3] - s0[3]) / max(1, s1[2] - s0[2]),
+        "small_decode_step_ms": small_step_ms,
         "ttft_s_p50": statistics.median(cheap_ttft or [0.0]),
         "wall_s_p50": statistics.median(wall0)}
     rec["threshold_inf"] = {
@@ -2416,8 +2487,8 @@ async def _cascade_waves(app, prompts, want, bodies) -> dict:
         "escalations": e1[0] - e0[0],
         "ttft_s_p50": statistics.median(esc_ttft or [0.0]),
         "wall_s_p50": statistics.median(wall1),
-        "large_decode_step_ms": 1e3 * (e1[2] - e0[2]) / max(1, e1[1] - e0[1]),
-        "large_decode_blocks": e1[3] - e0[3], "large_host_syncs": e1[4] - e0[4],
+        "large_decode_step_ms": large_step_ms,
+        "large_decode_blocks": e1[2] - e0[2], "large_host_syncs": e1[3] - e0[3],
         "large_tokens": [json.loads(b["strData"])["tokens"][:8] for _, b in esc[:2]
                          if "strData" in b]}
     rec["deadline_10ms"] = {
@@ -2583,13 +2654,269 @@ def phase_serve_graph(serve: dict, device: str = "cuda") -> dict:
     return launches
 
 
-def _flash_times(fa, S: int) -> dict:
-    """K1 at B=1, S, llama3-1b heads, bf16: one input set per layer so no
-    launch finds its inputs in L2."""
+LORA_RANK = 16
+LORA_SLOTS = 8  # pool rows, row 0 the null adapter
+LORA_ADAPTERS = ("alpha", "beta", "gamma", "delta")
+LORA_MIX = [None, "alpha", "beta", None, "gamma", "delta", "alpha", None]  # serve's 8 prompts
+# llama.lora_pool_bytes(llama3-1b, 8 rows, rank 16, qkvo+mlp, bf16)
+LORA_POOL_BYTES = 180_355_072
+LORA_PREFIX = 512
+LORA_SHARED = (("alpha", 24), ("beta", 40), ("alpha", 17))  # (adapter, suffix tokens)
+
+
+def _lora_extra(**extra) -> dict:
+    """The serve graph's LoRA parameters (name -> (value, type))."""
+    return {"lora_rank": (LORA_RANK, "INT"), "lora_slots": (LORA_SLOTS, "INT"),
+            "lora_targets": ("qkvo+mlp", "STRING"),
+            "lora_adapters": (",".join(LORA_ADAPTERS), "STRING"), **extra}
+
+
+async def _adapter_wave(port: int, prompts, adapters, path: str = "/api/v0.1/predictions"
+                        ) -> tuple[list[list[int]], list[dict]]:
+    """``prompts`` concurrently, each naming its adapter (None: the base
+    model) -> (token lists, reply bodies); every reply must be 200."""
+    loop = asyncio.get_running_loop()
+
+    def one(i):
+        body = {"tokens": prompts[i], "max_new_tokens": MAX_NEW}
+        if adapters[i]:
+            body["adapter"] = adapters[i]
+        code, raw = _call(port, path, body if path == "/disagg/generate"
+                          else {"strData": json.dumps(body)})
+        return code, json.loads(raw)
+
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as clients:
+        replies = await asyncio.gather(*(loop.run_in_executor(clients, one, i)
+                                         for i in range(len(prompts))))
+    for code, obj in replies:
+        if code != 200:
+            raise AssertionError(f"serve_lora: a request failed ({code}): {obj}")
+    outs = [obj["tokens"] if "tokens" in obj else json.loads(obj["strData"])["tokens"]
+            for _, obj in replies]
+    return outs, [obj for _, obj in replies]
+
+
+def _admit_all(model, prompts, reserve: int, temperature: float = 0.0, adapters=None):
+    """Admit ``prompts`` into slots 0.. (through ``adapters`` when given);
+    the first tokens, ``(n_slots,)`` int32."""
+    import numpy as np
+
+    cur = np.zeros(model.n_slots, np.int32)
+    for i, p in enumerate(prompts[:model.n_slots]):
+        cur[i] = model.admit(i, np.asarray(p, np.int32), temperature, 11 + i,
+                             reserve_tokens=reserve, adapter=adapters[i] if adapters else None)
+    return cur
+
+
+def _lora_switch(model):
+    """``switch(on)`` for :func:`_on_off_blocks`: the LoRA deltas on, or
+    off (the pool unbound).  Off keys the model's graphs with a marker
+    added, so it captures and replays a graph of its own."""
+    lora, config = model._lora, model._program_config
+    off_config = config + ("lora off",)
+
+    def deltas(on: bool) -> None:
+        model._lora = lora if on else None
+        model._program_config = config if on else off_config
+
+    return deltas
+
+
+def _lora_cost(model, prompts, adapters, pairs: int = 5) -> dict:
+    """The adapters' cost on a replayed block: the same 16-step block from
+    one admitted state (``adapters`` bound), with the LoRA deltas on and off
+    in turn (off captures a graph of its own, keyed without the LoRA
+    geometry).  ``host_paced`` starts each block on an idle card, so its
+    time holds the host's submission of the graph (as ``_conf_cost``);
+    ``queued`` times the device alone (``_on_off_blocks``)."""
+    out = {"adapters": list(adapters)}
+    for variant in ("host_paced", "queued"):
+        ms, _, _ = _on_off_blocks(model, prompts, _lora_switch(model), adapters=adapters,
+                                  pairs=pairs, queued=variant == "queued")
+        out[variant] = _on_off_ms(ms, model.decode_block)
+    return out
+
+
+def phase_serve_lora(serve: dict, device: str = "cuda", preset: str = SERVE_PRESET,
+                     seed: int = 0) -> dict:
+    """Batched multi-LoRA on the serve graph (llama3-1b, bf16, 8 slots,
+    16-step blocks) with ``lora_rank=16``, ``lora_slots=8``,
+    ``lora_targets=qkvo+mlp`` and four adapters.  Engine B (all features:
+    ``kv_prefix_reuse``, ``prefill_chunk=256``, ``spec_draft=3`` ngram) boots
+    first; engine A (the LoRA parameters alone, ``prefill`` role with B as
+    its decode peer) answers serve's 8 prompts as one mixed-adapter wave
+    and one wave per adapter; B answers the mixed wave and a shared
+    512-token prefix under alpha, beta, alpha; A hands alpha and the other
+    adapters' prompts off to B; then, mid-traffic, A's pool is filled and
+    one more adapter evicts the least recently used idle row.  Gates: the
+    null rows equal serve's streams, each adapter row its solo wave's and
+    differs from the base stream, B's streams equal A's, beta reuses no
+    token and the second alpha the prefix, the handoffs equal A's unified
+    streams, a frame naming an adapter B lacks is refused by name, one
+    sync per block, no graph captured after warmup, a replayed block on the
+    rewritten row equals the eager one, the new adapter's wave on A equals
+    its wave on B (which registers it into a fresh row) and differs from
+    the others', and the ledger's ``adapter_pool`` is ``lora_pool_bytes``.  Returns the launch counts of the served run."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.disagg import handoff
+    from seldon_core_tpu_torch.models import llama
+    from seldon_core_tpu_torch.ops import _build
+
+    prompts, want = serve["prompts"], serve["outs"]
+    rng = np.random.default_rng(seed + 8)
+    vocab = max(max(p) for p in prompts) + 1  # within the served vocab
+    prefix = rng.integers(0, vocab, LORA_PREFIX).tolist()
+    shared = [(a, prefix + rng.integers(0, vocab, n).tolist()) for a, n in LORA_SHARED]
+    all_on = _lora_extra(kv_prefix_reuse=("true", "BOOL"), prefill_chunk=(CACHED_CHUNK, "INT"),
+                         spec_draft=(SPEC_DRAFT, "INT"))
+
+    async def run() -> dict:
+        b, b_s = await _boot(_serve_spec(preset, seed, **all_on), device)
+        a = None
+        try:
+            a, a_s = await _boot(_serve_spec(preset, seed, **_lora_extra()), device,
+                                 role="prefill", decode_upstreams=[f"127.0.0.1:{b.port}"])
+            ma, mb = (x.service.walker.component.model for x in (a, b))
+            rec = {"phase": "serve_lora", "preset": preset, "dtype": "bfloat16",
+                   "n_slots": SERVE_SLOTS, "decode_block": SERVE_BLOCK, "max_new_tokens": MAX_NEW,
+                   "lora_rank": LORA_RANK, "lora_slots": LORA_SLOTS, "lora_targets": "qkvo+mlp",
+                   "adapters": list(LORA_ADAPTERS), "mix": LORA_MIX,
+                   "boot_and_warmup_s": {"a": a_s, "b": b_s}}
+            warm = {"a": ma.program_compiles, "b": mb.program_compiles}
+            _build.reset_launches()  # the served run starts here
+            c0 = (ma.decode_blocks, ma.host_syncs, ma.block_seconds)
+            t0 = time.perf_counter()
+            mixed, _ = await _adapter_wave(a.port, prompts, LORA_MIX)
+            wave_s = time.perf_counter() - t0
+            c1 = (ma.decode_blocks, ma.host_syncs, ma.block_seconds)
+            step_ms = 1e3 * (c1[2] - c0[2]) / max(1, _fetched_steps(ma, c0[0]))
+            solo = {ad: (await _adapter_wave(a.port, prompts, [ad] * len(prompts)))[0]
+                    for ad in LORA_ADAPTERS}
+            cold = [(await _adapter_wave(a.port, [p], [ad]))[0][0] for ad, p in shared]
+            # B: every feature on, the mixed wave and the shared prefix
+            sb0 = (mb.decode_blocks, mb.host_syncs)
+            mixed_b, _ = await _adapter_wave(b.port, prompts, LORA_MIX)
+            reuse, warm_b = [], []
+            for ad, p in shared:
+                t_reused = mb.prefix_index.snapshot()["tokens_reused"]
+                warm_b.append((await _adapter_wave(b.port, [p], [ad]))[0][0])
+                reuse.append(mb.prefix_index.snapshot()["tokens_reused"] - t_reused)
+            sb1 = (mb.decode_blocks, mb.host_syncs)
+            # handoffs A -> B of every adapter row of the mix
+            rows = [i for i, ad in enumerate(LORA_MIX) if ad]
+            hand, hand_objs = await _adapter_wave(a.port, [prompts[i] for i in rows],
+                                                  [LORA_MIX[i] for i in rows], "/disagg/generate")
+            launches = dict(_build.LAUNCHES)  # the served run ends here
+            by_d = dict(sorted(_build.LAUNCHES_BY_D.items()))
+            # mid-traffic registration: fill A's pool, then, while a wave
+            # decodes through alpha, one more adapter evicts the LRU idle row
+            for name in ("e1", "e2", "e3"):
+                await asyncio.to_thread(ma.register_adapter, name)
+            evictions0 = ma.lora_pool.evictions
+            blocks0 = ma.decode_blocks
+            inflight = asyncio.create_task(_adapter_wave(a.port, prompts, ["alpha"] * len(prompts)))
+            deadline = time.perf_counter() + 60
+            while ma.decode_blocks == blocks0 and time.perf_counter() < deadline:
+                await asyncio.sleep(0.005)
+            registered_mid_block = ma.decode_blocks > blocks0 and not inflight.done()
+            row = await asyncio.to_thread(ma.register_adapter, "zeta")
+            during, _ = await inflight
+            snap = ma.adapters_snapshot()
+            evicted = sorted(set(LORA_ADAPTERS + ("e1", "e2", "e3")) - set(snap["adapters"]))
+            try:
+                zeta = await asyncio.to_thread(_replay_vs_eager, ma, prompts, 0.0, ["zeta"] * 8)
+            finally:
+                ma.reset()
+            # a frame naming an adapter B does not hold: refused by name
+            p0 = np.asarray(prompts[0], np.int32)
+            tok = await asyncio.to_thread(ma.admit, 0, p0, 0.0, 0, MAX_NEW, "zeta")
+            frame = await asyncio.to_thread(handoff.build_handoff_frame, ma, 0, p0, tok,
+                                            max_new_tokens=MAX_NEW)
+            ma.release_slot(0)
+            code_refused, body_refused = await asyncio.to_thread(_call, b.port, "/disagg/import",
+                                                                 frame)
+            code_unknown, _ = await asyncio.to_thread(_call, a.port, "/api/v0.1/predictions", {
+                "strData": json.dumps({"tokens": prompts[0], "adapter": evicted[0]
+                                       if evicted else "missing"})})
+            # the rewritten row's content: A's zeta wave (captured graphs
+            # over the row the evicted adapter left) against B's, where
+            # zeta takes a row no adapter held (the same crc32 seed)
+            await asyncio.to_thread(mb.register_adapter, "zeta")
+            zeta_a = (await _adapter_wave(a.port, prompts, ["zeta"] * len(prompts)))[0]
+            zeta_b = (await _adapter_wave(b.port, prompts, ["zeta"] * len(prompts)))[0]
+            compiles_after = {"a": ma.program_compiles, "b": mb.program_compiles}
+            # the deltas' cost from one admitted state, after the capture
+            # gate; the evicted adapter's rows go through zeta
+            cost = await asyncio.to_thread(_lora_cost, ma, prompts, [
+                ad if ad is None or ad in snap["adapters"] else "zeta" for ad in LORA_MIX])
+            ledger = ma.memory.snapshot()
+            own = ledger["owners"][ma._mem_key]
+            base_rows = [i for i, ad in enumerate(LORA_MIX) if not ad]
+            gates = {
+                "null_rows_equal_serve": all(mixed[i] == want[i] for i in base_rows),
+                "mixed_equals_solo": all(mixed[i] == solo[ad][i] for i in rows
+                                         for ad in [LORA_MIX[i]]),
+                "adapter_rows_differ_from_base": all(mixed[i] != want[i] for i in rows),
+                "all_features_equal_plain": mixed_b == mixed and warm_b == cold,
+                "prefix_reuse_per_adapter": reuse == [0, 0, LORA_PREFIX],
+                "handoff_equals_unified": (hand == [mixed[i] for i in rows]
+                                           and all(o["mode"] == "disagg" for o in hand_objs)),
+                "handoff_refused_by_name": (code_refused == 409 and b"zeta" in body_refused
+                                            and b"not resident" in body_refused),
+                "unknown_adapter_400": code_unknown == 400,
+                "one_sync_per_block": (c1[1] - c0[1] == c1[0] - c0[0] > 0
+                                       and sb1[1] - sb0[1] == sb1[0] - sb0[0] > 0),
+                "no_capture_after_warmup": compiles_after == warm,
+                "eviction_past_capacity": (ma.lora_pool.evictions == evictions0 + 1
+                                           and snap["resident"] == LORA_SLOTS - 1
+                                           and len(evicted) == 1 and registered_mid_block),
+                "wave_during_registration_unchanged": during == solo["alpha"],
+                "replay_equals_eager_on_new_row": zeta["ok"],
+                "new_row_written": (zeta_a == zeta_b and zeta_a != want
+                                    and all(zeta_a != solo[ad] for ad in LORA_ADAPTERS)),
+                "ledger_adapter_pool": own["adapter_pool"] == ma.lora_bytes == LORA_POOL_BYTES,
+            }
+            rec.update({
+                "wave_s": wave_s, "decode_step_ms_mixed_wave": step_ms,
+                "decode_blocks": c1[0] - c0[0], "host_syncs": c1[1] - c0[1],
+                "prefix_tokens_reused": reuse, "evicted": evicted, "zeta_row": row,
+                "registered_mid_block": registered_mid_block, "replay_vs_eager": zeta,
+                "step_cost": cost, "refusal": body_refused[:200].decode("utf-8", "replace"),
+                "row_split_b": sorted(mb._row_split),
+                "prefill_split_a": sorted(ma._prefill_split),
+                "delta_ops_split": {
+                    "verify_L4": sorted(o for o in mb._row_split if o.endswith(".lora")),
+                    "prefill": sorted(o for o in ma._prefill_split if o.endswith(".lora"))},
+                "ledger": {"budget_bytes": ledger["budget_bytes"],
+                           "reserved_bytes": ledger["reserved_bytes"],
+                           "owners": len(ledger["owners"]), "a": own,
+                           "lora_pool_bytes": llama.lora_pool_bytes(
+                               ma.cfg, LORA_SLOTS, LORA_RANK, ma.lora_targets, ma.dtype)},
+                "adapters_a": snap, "launches": launches, "launches_by_head_dim": by_d,
+                "gates": gates,
+            })
+            rec["ok"] = all(gates.values()) and all(n > 0 for n in launches.values())
+            emit(rec)
+            if not rec["ok"]:
+                raise AssertionError(f"serve_lora: gates {gates}, launches {launches}")
+            return launches
+        finally:
+            if a is not None:
+                await a.close()
+            await b.close()
+
+    return asyncio.run(run())
+
+
+def _flash_times(fa, S: int, D: int = 64) -> dict:
+    """K1 at B=1, S, llama3-1b heads (32 and 8 KV; ``D`` 128 is the 8b's
+    geometry), bf16: one input set per layer so no launch finds its inputs
+    in L2."""
     import torch
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    H, KV, D, layers = 32, 8, 64, 16
+    H, KV, layers = 32, 8, 16
     sets = [_flash_inputs(S, H, KV, D, torch.bfloat16, seed=100 + i) for i in range(layers)]
     bhsd = [tuple(x.transpose(1, 2).contiguous() for x in s) for s in sets]
     nbytes = 2 * (2 * S * H * D + 2 * S * KV * D)
@@ -2637,14 +2964,16 @@ def _flash_suffix_times(fa, Sq: int, Sk: int) -> dict:
     }
 
 
-def _paged_times(pa, pos: list[int], WB: int, quant: bool = False, L: int = 1) -> dict:
+def _paged_times(pa, pos: list[int], WB: int, quant: bool = False, L: int = 1,
+                 D: int = 64) -> dict:
     """K2: one decode step's read (``L`` = 1) or one verify pass's (``L``
     queries per slot) for SERVE_SLOTS slots at ``pos`` over a ``WB``-entry
     window, bf16 queries over bf16 pages or (``quant``) over int8 pages
-    with bf16 scales, one pool per layer as in the model."""
+    with bf16 scales, one pool per layer as in the model; ``D`` 128 is the
+    8b's head dim."""
     import torch
 
-    H, KV, D, BS, layers = 32, 8, 64, 16, 16
+    H, KV, BS, layers = 32, 8, 16, 16
     NB = 1 + SERVE_SLOTS * WB
     sets = []
     for i in range(layers):
@@ -2707,7 +3036,7 @@ def kernel_times(fa, pa, bucket: int, pos: list[int]) -> dict:
         suffix = None
     return {
         "flash_attention": {"served": _flash_times(fa, bucket), "long": _flash_times(fa, 2048),
-                            "suffix": suffix},
+                            "suffix": suffix, "served_D128": _flash_times(fa, bucket, D=128)},
         "paged_decode_attention": {
             "served": _paged_times(pa, pos, window_entries(pos)),
             "long": _paged_times(pa, LONG_POS, 128),
@@ -2716,6 +3045,7 @@ def kernel_times(fa, pa, bucket: int, pos: list[int]) -> dict:
             "served_L4": _paged_times(pa, pos, window_entries(pos, 1 + SPEC_DRAFT),
                                       L=1 + SPEC_DRAFT),
             "long_L4": _paged_times(pa, LONG_POS, 128, L=1 + SPEC_DRAFT),
+            "served_D128": _paged_times(pa, pos, window_entries(pos), D=128),
         },
     }
 
@@ -2773,10 +3103,11 @@ def main() -> int:
     split = timed("serve_disagg", phase_serve_disagg, serve)
     stream = timed("serve_stream", phase_serve_stream)
     graph = timed("serve_graph", phase_serve_graph, serve)
+    lora = timed("serve_lora", phase_serve_lora, serve)
     times = timed("kernel_times", phase_kernel_times, serve)
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     launches = {name: serve["launches"][name] + cached["launches"][name] + spec[name]
-                + split[name] + stream[name] + graph[name] for name in KERNELS}
+                + split[name] + stream[name] + graph[name] + lora[name] for name in KERNELS}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False,

@@ -52,8 +52,8 @@ def adapter_salt(adapter: "str | None") -> bytes:
     LoRA on the attention projections changes K/V, so a prefix block
     produced under adapter A must never serve adapter B, or the base
     model.  Folding the adapter NAME into every chain key partitions the
-    index per adapter; no adapter (the base model, the only one the port
-    serves so far) keeps the unsalted keys, ``b""``."""
+    index per adapter; no adapter (the base model) keeps the unsalted
+    keys, ``b""``."""
     return (str(adapter).encode("utf-8") + b"\x00") if adapter else b""
 
 

@@ -19,9 +19,12 @@ tracing and QoS envelope (``traceparent``, ``origin_span``,
 ``deadline_ms``, ``priority``): written when a caller passes them and
 kept when read, but the port has no tracing or QoS plane yet, so its own
 frames leave them out and an import ignores them; v4 the optional
-``adapter``: the port serves no LoRA adapter yet, so a frame that names
-one is refused by name (:func:`check_pool`); v5 the optional speculation
-envelope (``spec_method``, the Medusa ``spec_hlast``).
+``adapter``, the LoRA adapter the KV was made through: the port's frames
+write it, and a decode pool imports it only when that adapter is resident
+there (:func:`check_pool` refuses it by name otherwise); v5 the optional
+speculation envelope (``spec_method``, the Medusa ``spec_hlast``).  A
+prefix-chain frame carries its chain's adapter the same way: the chain's
+keys are salted with it on both engines.
 
 Decoded blocks come back as torch CPU tensors in their own dtype.
 """
@@ -248,20 +251,24 @@ def build_handoff_frame(model, slot: int, prompt: np.ndarray, first_token: int, 
                         eos_id: int | None = None) -> bytes:
     """Export ``slot``'s prompt KV from ``model`` (one device-to-host
     fetch) and frame the handoff, with the speculation envelope when the
-    model speculates.  No v3 or v4 field is written."""
+    model speculates and the v4 ``adapter`` bound to the slot, which its
+    KV was made through.  No v3 field is written."""
     out = model.export_slot_kv(slot, int(np.asarray(prompt).size))
     k_scale, v_scale = (out[2], out[3]) if len(out) == 4 else (None, None)
     return encode_handoff(
         prompt, first_token, out[0], out[1], block_size=model.kv_block_size,
         max_new_tokens=max_new_tokens, temperature=temperature, eos_id=eos_id,
         k_scale=k_scale, v_scale=v_scale, spec_state=model.export_spec_state(slot),
+        adapter=model.slot_adapter(slot),
     )
 
 
 def check_pool(model, payload: dict[str, Any], what: str = "handoff") -> None:
     """Raise :class:`HandoffError` unless ``payload`` (a decoded handoff or
     prefix frame) fits ``model``'s pool: the same block size and KV layout,
-    and no adapter (the port serves none yet)."""
+    and, when it names an adapter, that adapter resident in this pool (the
+    KV was made through it: decoding it through another, or none, would be
+    silently wrong, so the sender falls back to unified)."""
     if int(payload["block_size"]) != model.kv_block_size:
         raise HandoffError(
             f"{what} block size {payload['block_size']} != pool block size "
@@ -273,11 +280,14 @@ def check_pool(model, payload: dict[str, Any], what: str = "handoff") -> None:
             f"{what} kv layout {'int8' if quant else 'float'} != pool layout "
             f"{model.kv_dtype or 'float'}; pools must share kv_cache_dtype"
         )
-    if payload.get("adapter"):
-        raise HandoffError(
-            f"{what} names adapter {payload['adapter']!r}, and this engine serves no LoRA "
-            "adapter yet"
-        )
+    adapter = payload.get("adapter")
+    if adapter:
+        pool = getattr(model, "lora_pool", None)
+        if pool is None or adapter not in pool:
+            raise HandoffError(
+                f"{what} names adapter {adapter!r} but it is not resident on this decode "
+                "pool; register it (or route elsewhere)"
+            )
 
 
 async def apply_handoff(component, payload: dict[str, Any]) -> np.ndarray:
@@ -298,4 +308,5 @@ async def apply_handoff(component, payload: dict[str, Any]) -> np.ndarray:
         k_scale=payload.get("k_scale"),
         v_scale=payload.get("v_scale"),
         spec_state=payload.get("spec_state"),
+        adapter=payload.get("adapter") or None,
     )

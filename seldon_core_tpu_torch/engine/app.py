@@ -35,6 +35,12 @@ bad option is a 400 before any header goes out; so is a graph with no
 generative unit.  A client that leaves mid-stream cancels its request,
 whose slot the scheduler frees.
 
+A generative body's ``"adapter"`` (on the predictions, stream and
+``/disagg/generate`` routes and the prefix pull) names the LoRA adapter
+the prompt decodes through, in place of the unit's default; ``null`` is
+the base model.  An adapter that is not resident, or any adapter on a
+unit built without LoRA, is a 400 before any header.
+
 The disaggregated routes of the JAX engine, for a graph with one
 generative unit:
 
@@ -49,10 +55,10 @@ generative unit:
   chain is first pulled from that peer and installed.
 * ``POST /disagg/import`` (a handoff frame): import and decode; a prefill
   engine answers 409, a malformed frame 400, a pool of another block size
-  or KV layout 409.
-* ``POST /disagg/prefix/pull`` (``{"tokens": [...], "max_blocks": N}``):
-  the longest prefix chain this engine holds, as a prefix-chain frame, or
-  404.
+  or KV layout, or a frame naming an adapter not resident here, 409.
+* ``POST /disagg/prefix/pull`` (``{"tokens": [...], "max_blocks": N,
+  "adapter": name}``): the longest prefix chain this engine holds under
+  that adapter, as a prefix-chain frame, or 404.
 * ``GET /stats/disagg``: the role, the peers and the handoff and pull
   ledgers.
 
@@ -74,6 +80,7 @@ import time
 import numpy as np
 
 from seldon_core_tpu_torch import disagg, qos, resolve_device
+from seldon_core_tpu_torch.cache.prefix import adapter_salt
 from seldon_core_tpu_torch.contract.codec import (
     CodecError,
     failure_status_dict,
@@ -92,7 +99,7 @@ from seldon_core_tpu_torch.disagg.handoff import (
     encode_prefix_chain,
 )
 from seldon_core_tpu_torch.engine.service import PredictionService, load_predictor_spec
-from seldon_core_tpu_torch.executor.generation import QueueFull
+from seldon_core_tpu_torch.executor.generation import AdapterUnavailable, QueueFull
 from seldon_core_tpu_torch.graph.units import GraphUnitError
 
 log = logging.getLogger(__name__)
@@ -316,14 +323,17 @@ class EngineApp:
         if unit is None:
             return _json(400, failure_status_dict(400, reason))
         try:
-            prompt, max_new, temperature, eos = self._parse_generate_body(body, unit)
-        except CodecError as e:
+            prompt, max_new, temperature, eos, adapter = self._parse_generate_body(body, unit)
+            unit.model.check_adapter(adapter)
+        except (CodecError, GraphUnitError) as e:
             return _json(400, failure_status_dict(400, f"bad stream request: {e}"))
         peer = headers.get("x-sct-prefix-peer")
         if peer and self._peer_pull_enabled():
-            await self._maybe_pull_prefix(unit, prompt, peer, headers.get("x-sct-prefix-depth"))
+            await self._maybe_pull_prefix(unit, prompt, peer, headers.get("x-sct-prefix-depth"),
+                                          adapter)
         return _EventStream(unit.stream_groups(prompt, max_new_tokens=max_new,
-                                               temperature=temperature, eos_id=eos))
+                                               temperature=temperature, eos_id=eos,
+                                               adapter=adapter))
 
     async def _send_events(self, writer: asyncio.StreamWriter, stream: "_EventStream") -> None:
         """Write an event stream: the headers, one write per delivered
@@ -362,7 +372,7 @@ class EngineApp:
             payload = payload_from_json(body)
             await self._pull_prefix_from_header(payload, headers)
             out = await self.service.predict(payload)
-        except CodecError as e:
+        except (CodecError, AdapterUnavailable) as e:
             return _json(400, failure_status_dict(400, str(e)))
         except QueueFull as e:
             return _json(429, failure_status_dict(429, str(e)))
@@ -464,7 +474,8 @@ class EngineApp:
     @staticmethod
     def _parse_generate_body(body: bytes, unit) -> tuple:
         """The generative strData contract -> ``(prompt, max_new,
-        temperature, eos)``; raises :class:`CodecError`."""
+        temperature, eos, adapter)`` (the body's ``"adapter"``, else the
+        unit's default); raises :class:`CodecError`."""
         try:
             obj = json.loads(body)
             if isinstance(obj, dict) and "strData" in obj:
@@ -479,7 +490,7 @@ class EngineApp:
             temperature = float(temperature) if temperature is not None else unit.temperature
             eos = obj.get("eos_id", unit.eos_id)
             return (np.asarray(prompt, np.int32), max_new, temperature,
-                    int(eos) if eos is not None else None)
+                    int(eos) if eos is not None else None, unit.resolve_adapter(obj))
         except CodecError:
             raise
         except (ValueError, TypeError, AttributeError) as e:
@@ -489,19 +500,22 @@ class EngineApp:
         """Prefill here and hand the KV to a decode peer (a prefill engine
         with peers and more than one token to make), else generate here."""
         try:
-            prompt, max_new, temperature, eos = self._parse_generate_body(body, unit)
-        except CodecError as e:
+            prompt, max_new, temperature, eos, adapter = self._parse_generate_body(body, unit)
+            unit.model.check_adapter(adapter)
+        except (CodecError, GraphUnitError) as e:
             return _json(400, failure_status_dict(400, str(e)))
         peer = headers.get("x-sct-prefix-peer")
         if peer and self._peer_pull_enabled():
-            await self._maybe_pull_prefix(unit, prompt, peer, headers.get("x-sct-prefix-depth"))
+            await self._maybe_pull_prefix(unit, prompt, peer, headers.get("x-sct-prefix-depth"),
+                                          adapter)
         try:
             if self.role == disagg.ROLE_PREFILL and self.decode_upstreams and max_new > 1:
                 tokens, mode = await self._prefill_and_handoff(unit, prompt, max_new,
-                                                               temperature, eos)
+                                                               temperature, eos, adapter)
             else:
                 out = await unit.scheduler.submit(prompt, max_new_tokens=max_new,
-                                                  temperature=temperature, eos_id=eos)
+                                                  temperature=temperature, eos_id=eos,
+                                                  adapter=adapter)
                 tokens, mode = [int(t) for t in out], disagg.ROLE_UNIFIED
         except QueueFull as e:
             return _json(429, failure_status_dict(429, str(e)))
@@ -510,12 +524,13 @@ class EngineApp:
         return _json(200, {"tokens": tokens, "mode": mode})
 
     async def _prefill_and_handoff(self, unit, prompt, max_new: int, temperature: float,
-                                   eos: int | None) -> tuple[list[int], str]:
-        """Prefill into a pinned slot, export and POST the handoff, relay the
-        peer's tokens.  The slot is released whatever happens, and any
-        failure decodes locally instead."""
+                                   eos: int | None, adapter: str | None = None
+                                   ) -> tuple[list[int], str]:
+        """Prefill (through ``adapter``) into a pinned slot, export and POST
+        the handoff, relay the peer's tokens.  The slot is released whatever
+        happens, and any failure decodes locally instead."""
         sched = unit.scheduler
-        slot, tok1 = await sched.submit_prefill(prompt, temperature=temperature)
+        slot, tok1 = await sched.submit_prefill(prompt, temperature=temperature, adapter=adapter)
         try:
             t0 = time.perf_counter()
             frame = await asyncio.to_thread(
@@ -535,7 +550,7 @@ class EngineApp:
             sched.release_external(slot)
         self.disagg_stats["local_fallbacks"] += 1
         out = await sched.submit(prompt, max_new_tokens=max_new, temperature=temperature,
-                                 eos_id=eos)
+                                 eos_id=eos, adapter=adapter)
         return [int(t) for t in out], "unified-fallback"
 
     async def _send_handoff(self, frame: bytes) -> list[int]:
@@ -591,17 +606,20 @@ class EngineApp:
                     and all(isinstance(t, int) and not isinstance(t, bool) for t in toks)):
                 raise ValueError("a prefix pull takes a flat 'tokens' list")
             max_blocks = int(req.get("max_blocks", 64))
+            adapter = req.get("adapter")
+            adapter = str(adapter) if adapter else None
         except (ValueError, TypeError, AttributeError) as e:
             return _json(400, failure_status_dict(400, str(e)))
         tokens = np.asarray(toks, np.int32)
-        exported = await asyncio.to_thread(unit.model.export_prefix_kv, tokens, max_blocks)
+        exported = await asyncio.to_thread(unit.model.export_prefix_kv, tokens, max_blocks,
+                                           adapter)
         if exported is None:
             self.prefix_pull_stats["serve_misses"] += 1
             return _json(404, failure_status_dict(404, "no prefix chain for these tokens"))
         depth, k, v, k_scale, v_scale = exported
         frame = await asyncio.to_thread(encode_prefix_chain, tokens, k, v,
                                         block_size=unit.model.kv_block_size,
-                                        k_scale=k_scale, v_scale=v_scale)
+                                        k_scale=k_scale, v_scale=v_scale, adapter=adapter)
         self.prefix_pull_stats["serves_ok"] += 1
         return 200, frame, "application/octet-stream", {"x-sct-prefix-depth": str(int(depth))}
 
@@ -617,19 +635,23 @@ class EngineApp:
         if unit is None or not isinstance(payload.data, str):
             return
         try:
-            toks = json.loads(payload.data).get("tokens")
+            obj = json.loads(payload.data)
+            toks = obj.get("tokens")
         except (ValueError, AttributeError):
             return
         if (isinstance(toks, list) and toks
                 and all(isinstance(t, int) and not isinstance(t, bool) for t in toks)):
             await self._maybe_pull_prefix(unit, np.asarray(toks, np.int32), peer,
-                                          headers.get("x-sct-prefix-depth"))
+                                          headers.get("x-sct-prefix-depth"),
+                                          unit.resolve_adapter(obj))
 
-    async def _maybe_pull_prefix(self, unit, tokens, peer: str, depth_hint=None) -> bool:
-        """Pull ``tokens``' prefix chain from ``peer`` and install it at the
-        next sync point, unless the local tiers already hold as deep a
-        chain.  Any failure only counts in the ledger: the request then
-        prefills as it would have (the chain enters the pool only through
+    async def _maybe_pull_prefix(self, unit, tokens, peer: str, depth_hint=None,
+                                 adapter: str | None = None) -> bool:
+        """Pull ``tokens``' prefix chain made through ``adapter`` from
+        ``peer`` and install it at the next sync point, unless the local
+        tiers already hold as deep a chain under that adapter's salt.  Any
+        failure only counts in the ledger: the request then prefills as it
+        would have (the chain enters the pool only through
         ``install_prefix_chain``, all or nothing)."""
         model = unit.model
         if model.prefix_index is None:
@@ -642,13 +664,17 @@ class EngineApp:
             hint = int(depth_hint) if depth_hint else 0
         except (TypeError, ValueError):
             hint = 0
-        have = model.prefix_index.peek_depth(tokens, cap)
+        salt = adapter_salt(adapter)
+        have = model.prefix_index.peek_depth(tokens, cap, salt)
         if model.host_store is not None and have < cap:
-            have = max(have, model.host_store.peek_depth(tokens, have + 1, cap))
+            have = max(have, model.host_store.peek_depth(tokens, have + 1, cap, salt))
         if have >= cap or (hint and have >= hint):
             return False  # nothing a pull could add
         try:
-            req = json.dumps({"tokens": [int(t) for t in tokens], "max_blocks": int(cap)})
+            pull: dict = {"tokens": [int(t) for t in tokens], "max_blocks": int(cap)}
+            if adapter:
+                pull["adapter"] = adapter
+            req = json.dumps(pull)
             status, _, frame = await http_post(peer, "/disagg/prefix/pull", req.encode(),
                                                "application/json", self._handoff_timeout_s)
             if status == 404:  # the peer no longer holds it: a miss
@@ -660,7 +686,7 @@ class EngineApp:
             check_pool(model, payload, "prefix chain")
             absorbed = await unit.scheduler.install_prefix(
                 payload["tokens"], payload["k"], payload["v"],
-                k_scale=payload.get("k_scale"), v_scale=payload.get("v_scale"))
+                k_scale=payload.get("k_scale"), v_scale=payload.get("v_scale"), adapter=adapter)
             self.prefix_pull_stats["pulls_ok"] += 1
             self.prefix_pull_stats["pull_bytes"] += len(frame)
             self.prefix_pull_stats["pull_blocks"] += int(absorbed)

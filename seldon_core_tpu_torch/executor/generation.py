@@ -46,7 +46,18 @@ The paged path of the JAX package's ``executor/generation.py``:
 * **embeddings** (``embed``): a prompt's mean-pooled final hidden state
   (``llama.embed_pooled``) with no KV written and no slot taken; the
   scheduler serves the waiting prompts as one wave at a sync point, with
-  one host fetch for the wave.
+  one host fetch for the wave;
+* **batched multi-LoRA** (``lora_rank``, ``lora_slots``, ``lora_targets``,
+  ``lora_adapters``): one stacked adapter pool on the device, each slot
+  bound to a named adapter's row (``executor/lora.py``) for its request's
+  lifetime; the per-slot ids are a static buffer of the decode blocks and
+  each prefill, chunk, decode step and verify pass gathers its rows' deltas
+  inside the same call.  Registering an adapter writes its row in place
+  between blocks, so no graph is captured again.  Prefix chains are salted
+  per adapter;
+* **the memory ledger** (``executor/memory.py``): every model reserves its
+  byte classes (weights, KV pool and scales, adapter pool, speculation
+  state) on its card's ledger at build.
 
 ``GenerationScheduler`` is the asyncio front (``submit(prompt) ->
 generated ids``, with an ``on_token`` hook per delivered token);
@@ -66,6 +77,8 @@ import logging
 import os
 import threading
 import time
+import weakref
+import zlib
 from typing import Any, AsyncIterator, Callable
 
 import numpy as np
@@ -75,6 +88,13 @@ from seldon_core_tpu_torch import resolve_device
 from seldon_core_tpu_torch.cache.prefix import PrefixIndex
 from seldon_core_tpu_torch.cache.tiers import HostPrefixStore
 from seldon_core_tpu_torch.contract.payload import DataKind, Payload
+from seldon_core_tpu_torch.cache.prefix import adapter_salt
+from seldon_core_tpu_torch.executor.lora import AdapterPool, UnknownAdapter
+from seldon_core_tpu_torch.executor.memory import (
+    MemoryManager,
+    device_memory,
+    hbm_budget_bytes,
+)
 from seldon_core_tpu_torch.executor.speculative import propose_heads, propose_ngram, seed_history
 from seldon_core_tpu_torch.graph.units import GraphUnitError, SeldonComponent
 from seldon_core_tpu_torch.models import llama
@@ -114,6 +134,11 @@ class QueueFull(Exception):
     """The scheduler's bounded intake is full (the engine answers 429)."""
 
 
+class AdapterUnavailable(GraphUnitError):
+    """A request names a LoRA adapter its unit cannot serve: not resident,
+    or the unit was built without multi-LoRA (the engine answers 400)."""
+
+
 class GenerativeModel:
     """Slot-cache generation engine for the llama family on one device.
 
@@ -143,7 +168,13 @@ class GenerativeModel:
     :attr:`last_conf_seq`; a graph with it and one without are two cache
     entries.  ``embed`` (env ``SCT_EMBED=1``) warms the pooled-embedding
     path at every prefill bucket (:meth:`embed_dispatch` serves whether or
-    not it is set).
+    not it is set).  ``lora_rank`` (env ``SCT_LORA_RANK``; 0 is off),
+    ``lora_slots`` (``SCT_LORA_SLOTS``, default 8 pool rows, row 0 the null
+    adapter), ``lora_targets`` (``SCT_LORA_TARGETS``: ``qkvo`` or
+    ``qkvo+mlp``) and ``lora_adapters`` (``SCT_LORA_ADAPTERS``: ``name`` or
+    ``name:seed``, comma-separated, registered at build) turn on batched
+    multi-LoRA; ``memory`` is the ledger the model reserves its bytes on
+    (default: the process's ledger of its device).
 
     On ``cuda`` a decode block is one replay of a CUDA graph of its ``k``
     steps (plain steps, or verify passes with the proposer), one graph per
@@ -184,6 +215,11 @@ class GenerativeModel:
         draft_params: llama.Llama | None = None,
         conf_signal: bool | None = None,
         embed: bool | None = None,
+        lora_rank: int | None = None,
+        lora_slots: int | None = None,
+        lora_targets: str | None = None,
+        lora_adapters: Any = None,
+        memory: MemoryManager | None = None,
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
@@ -205,6 +241,7 @@ class GenerativeModel:
             )
         self.cfg = cfg
         self.name = name
+        self._mem_key = f"{name}:{id(self):x}"  # this model's rows in the ledgers
         self.n_slots = int(n_slots)
         self.seq_impl = seq_impl
         self.decode_kernel = bool(decode_kernel)
@@ -229,6 +266,7 @@ class GenerativeModel:
             prefix_reuse = os.environ.get("SCT_CACHE_PREFIX", "0") == "1"
         self._spec_config(spec_draft, spec_ngram, spec_hist, spec_method, spec_heads,
                           spec_draft_model)
+        self._lora_config(lora_rank, lora_slots, lora_targets)
         if conf_signal is None:
             conf_signal = os.environ.get("SCT_CASCADE_CONF_SIGNAL", "0") == "1"
         self.conf_signal = bool(conf_signal)
@@ -281,6 +319,7 @@ class GenerativeModel:
             b for b in _prefill_buckets(cfg.max_seq) if b >= kv_block_size
         ) or (cfg.max_seq,)
         self._spec_state(medusa_heads, draft_params)
+        self._lora_state()
         # host-side ceiling of every slot's device position (admission sets
         # it, each block adds k): sizes the attention window bucket
         self._pos_ceiling = np.zeros(self.n_slots, np.int64)
@@ -291,9 +330,12 @@ class GenerativeModel:
         # keys its block programs
         self._gen = torch.Generator(device=self.device)
         self._block_buffers()
+        # the LoRA geometry sits just before the signal: a graph with
+        # adapters and one without are two cache entries
         self._program_config = (self.spec_method, self.spec_draft, self.spec_ngram,
                                 self.spec_hist, self.top_k, self.kv_dtype,
-                                tuple(sorted(self._row_split)), self.conf_signal)
+                                tuple(sorted(self._row_split)), self.lora_rank,
+                                self.lora_slots, self.lora_targets, self.conf_signal)
         self._graphs: dict[tuple, dict] = {}
         self._graph_pool = None
         self._capture_stream: torch.cuda.Stream | None = None
@@ -306,7 +348,7 @@ class GenerativeModel:
         # the ops a prefill runs in fixed row tiles, so that suffix
         # prefills and chunks write the K/V a cold prefill writes
         self._prefill_split = (llama.prefill_variant_ops(cfg, self.prefill_buckets, self.dtype,
-                                                         self.device)
+                                                         self.device, lora=self._lora_geom)
                                if self.device.type == "cuda" else frozenset())
         self._prefill_op = (llama.row_tiled_op(self._prefill_split, llama.PREFILL_ROW_TILE)
                             if self._prefill_split else llama._plain)
@@ -327,6 +369,8 @@ class GenerativeModel:
         self.embeds = 0  # pooled-embedding forwards dispatched
         self.embed_fetches = 0  # device->host fetches made by embed waves
         self._zero_tier_counters()
+        self._reserve_memory(memory)
+        self._register_declared(lora_adapters)
 
     def _zero_tier_counters(self) -> None:
         self.imports = 0  # handoffs imported into this pool
@@ -438,7 +482,8 @@ class GenerativeModel:
             return
         # the ops whose rows this device rounds otherwise at S * (1 + d)
         # rows than at S: the verify pass runs them per query position
-        self._row_split = llama.row_variant_ops(cfg, S, self._tps, self.dtype, dev)
+        self._row_split = llama.row_variant_ops(cfg, S, self._tps, self.dtype, dev,
+                                                lora=self._lora_geom)
         self._hist = torch.zeros(S, self.spec_hist, dtype=torch.int32, device=dev)
         if self.spec_method == "heads":
             if medusa_heads is None:
@@ -570,6 +615,7 @@ class GenerativeModel:
         res = llama.decode_slots_spec_paged(
             self.params, qtoks, cache, act, qvalid, self.cfg, window=window,
             kernel=self.decode_kernel, return_hidden=heads, row_split=self._row_split,
+            lora=self._lora, adapter_ids=self._gaid,
         )
         logits = res[0]
         out = llama.sample_tokens(
@@ -623,7 +669,206 @@ class GenerativeModel:
             "draft_weight_bytes": self.draft_weight_bytes,
             "draft_kv_bytes": self.draft_kv_bytes,
             "row_split": sorted(self._row_split),
+            "lora_rank": self.lora_rank or None,
+            "adapters": self.adapters_snapshot(),
+            "pool": self.pool_snapshot(),
         }
+
+
+    # ------------------------------------------------- multi-LoRA adapters
+
+    def _lora_config(self, lora_rank, lora_slots, lora_targets) -> None:
+        """The LoRA geometry and its env fallbacks: ``(lora_rank,
+        lora_slots, lora_targets)`` is static (a graph key); which named
+        adapter holds which row is host bookkeeping."""
+        if lora_rank is None:
+            lora_rank = int(os.environ.get("SCT_LORA_RANK", "0") or 0)
+        if lora_slots is None:
+            lora_slots = int(os.environ.get("SCT_LORA_SLOTS", "8") or 8)
+        if lora_targets is None:
+            lora_targets = os.environ.get("SCT_LORA_TARGETS", "qkvo")
+        self.lora_rank = max(0, int(lora_rank))
+        self.lora_slots = max(2, int(lora_slots)) if self.lora_rank else 0
+        self.lora_targets: tuple = ()
+        if self.lora_rank:
+            lt = str(lora_targets or "qkvo").lower()
+            if lt in ("qkvo+mlp", "all", "mlp"):
+                self.lora_targets = llama.LORA_ATTN_TARGETS + llama.LORA_MLP_TARGETS
+            elif lt in ("qkvo", ""):
+                self.lora_targets = llama.LORA_ATTN_TARGETS
+            else:
+                raise GraphUnitError(
+                    f"lora_targets must be 'qkvo' or 'qkvo+mlp', got {lora_targets!r}")
+        # what the row-variance probes take: each delta is an op of its own
+        self._lora_geom = (self.lora_rank, self.lora_targets) if self.lora_rank else None
+
+    def _lora_state(self) -> None:
+        """The stacked pool, allocated once in the model's dtype (row 0 the
+        null adapter), the host registry over it, the per-slot adapter rows
+        and salts, and the decode blocks' static adapter-id buffer."""
+        S = self.n_slots
+        self.lora_pool: AdapterPool | None = None
+        self._lora: dict | None = None
+        self.lora_bytes = 0
+        self._slot_aidx = np.zeros(S, np.int64)
+        self._slot_salt: dict[int, bytes] = {}
+        # read by every decode block; changed only at sync points
+        self._gaid = torch.zeros(S, dtype=torch.long, device=self.device)
+        if not self.lora_rank:
+            return
+        self._lora = llama.init_lora_params(self.cfg, self.lora_slots, self.lora_rank,
+                                            self.lora_targets, dtype=self.dtype,
+                                            device=self.device)
+        self.lora_bytes = sum(f[k].nbytes for f in self._lora.values() for k in ("a", "b"))
+        self.lora_pool = AdapterPool(self.lora_slots, self.lora_rank, writer=self._lora_write)
+
+    def _register_declared(self, lora_adapters) -> None:
+        """Register the graph-declared adapters (``name`` or ``name:seed``,
+        comma-separated or a list; env ``SCT_LORA_ADAPTERS``)."""
+        if self.lora_pool is None:
+            return
+        if lora_adapters is None:
+            lora_adapters = os.environ.get("SCT_LORA_ADAPTERS") or None
+        if not lora_adapters:
+            return
+        names = (str(lora_adapters).split(",") if isinstance(lora_adapters, str)
+                 else list(lora_adapters))
+        for ent in names:
+            ent = str(ent).strip()
+            if ent:
+                nm, _, sd = ent.partition(":")
+                self.register_adapter(nm.strip(), seed=int(sd) if sd.strip() else None)
+
+    def register_adapter(self, name: str, *, seed: int | None = None, factors: Any = None,
+                         scale: float = 0.05) -> int:
+        """Install adapter ``name`` into the stacked pool and return its row.
+        ``factors`` is one adapter's ``{target: {"a": (L, in.., r), "b": (L,
+        r, out..)}}`` (tensors or arrays, ``llama.lora_adapter_factors``'s
+        layout); without it synthetic factors are drawn from ``seed``
+        (default: the crc32 of the name, so every replica makes the same
+        stand-in).  A new name takes a free row or evicts the least recently
+        used idle one; :class:`~seldon_core_tpu_torch.executor.lora.AdapterPoolFull`
+        when every row is bound to a slot."""
+        if self.lora_pool is None:
+            raise GraphUnitError(f"generative model {self.name!r} was built without "
+                                 "multi-LoRA serving (set lora_rank / SCT_LORA_RANK)")
+        if factors is None:
+            if seed is None:
+                seed = zlib.crc32(str(name).encode())
+            gen = torch.Generator(device=self.device).manual_seed(int(seed) & 0x7FFFFFFF)
+            factors = llama.lora_adapter_factors(gen, self.cfg, self.lora_rank, self.lora_targets,
+                                                 scale=scale, dtype=self.dtype,
+                                                 device=self.device)
+        with self._lock:  # the model lock before the pool's, as admissions take them
+            return self.lora_pool.register(name, factors)
+
+    def _lora_write(self, idx: int, factors: Any) -> None:
+        """The pool's device writer: copy one adapter's factors INTO row
+        ``idx`` of every target, in place.  The captured decode blocks hold
+        the pool's storage, so a rebind would leave them reading the old
+        rows; the copies run under the model lock on the stream the blocks
+        run on, so they land between two blocks, never inside one, and no
+        graph is captured again."""
+        with self._lock, torch.no_grad():
+            for t, fac in self._lora.items():
+                for key in ("a", "b"):
+                    src = torch.as_tensor(factors[t][key])
+                    if tuple(src.shape) != tuple(fac[key].shape[:1] + fac[key].shape[2:]):
+                        raise GraphUnitError(
+                            f"adapter factors {t}.{key} have shape {tuple(src.shape)}, the pool "
+                            f"row {tuple(fac[key].shape[:1] + fac[key].shape[2:])}")
+                    fac[key][:, int(idx)].copy_(src.to(device=self.device, dtype=fac[key].dtype))
+
+    def check_adapter(self, adapter: str | None) -> None:
+        """Raise :class:`AdapterUnavailable` unless ``adapter`` (None: the
+        base model) can be served here: resident in the pool."""
+        if not adapter:
+            return
+        if self.lora_pool is None:
+            raise AdapterUnavailable(f"request names adapter {adapter!r} but model {self.name!r} "
+                                 "was built without multi-LoRA serving")
+        if adapter not in self.lora_pool:
+            raise AdapterUnavailable(f"adapter {adapter!r} is not resident (have "
+                                 f"{sorted(self.lora_pool.snapshot()['adapters'])})")
+
+    def _acquire_adapter(self, adapter: str | None) -> int:
+        """The pool row ``adapter`` binds a slot to (refcount taken; 0 for
+        the base model), or :class:`AdapterUnavailable` ("not resident", or
+        "without multi-LoRA")."""
+        if not adapter:
+            return 0
+        self.check_adapter(adapter)
+        try:
+            return self.lora_pool.acquire(adapter)
+        except UnknownAdapter as e:  # evicted since the check
+            raise AdapterUnavailable(str(e)) from None
+
+    def note_adapter_tokens(self, adapter: str | None, n: int) -> None:
+        """The per-adapter served-token ledger (the scheduler's delivery
+        loop), by NAME: a request that finished inside the delivered block
+        has already released its slot."""
+        if self.lora_pool is not None and adapter:
+            self.lora_pool.note_tokens_name(adapter, n)
+
+    def slot_adapter(self, slot: int) -> str | None:
+        """The resident adapter bound to ``slot`` (None: the base model)."""
+        if self.lora_pool is None:
+            return None
+        return self.lora_pool.name_of(int(self._slot_aidx[int(slot)]))
+
+    def adapters_snapshot(self) -> dict | None:
+        """The adapter pool's ledger (None with LoRA off): capacity,
+        resident, evictions, loads and per adapter its row, bound slots,
+        tokens served and loads, plus the pool's bytes."""
+        if self.lora_pool is None:
+            return None
+        snap = self.lora_pool.snapshot()
+        snap["bytes"] = self.lora_bytes
+        return snap
+
+    # ------------------------------------------------------- memory ledger
+
+    def _reserve_memory(self, memory: MemoryManager | None) -> None:
+        """Reserve this model's device byte classes on ``memory`` (default:
+        the process's ledger of the device) for its lifetime; a model that
+        is dropped without :meth:`release_memory` releases them when it is
+        collected."""
+        self.memory = memory if memory is not None else device_memory(self.device)
+        self.param_bytes = sum(p.nbytes for p in self.params.parameters())
+        self.memory.reserve(self._mem_key, self._byte_classes())
+        weakref.finalize(self, self.memory.release, self._mem_key)
+
+    def _byte_classes(self) -> dict[str, int]:
+        c = self._cache
+        return {
+            "weights": self.param_bytes,
+            "kv_pool": c["k"].nbytes + c["v"].nbytes,
+            "kv_scales": (c["k_scale"].nbytes + c["v_scale"].nbytes) if "k_scale" in c else 0,
+            "adapter_pool": self.lora_bytes,
+            "spec_heads": self.spec_heads_bytes,
+            "draft_weights": self.draft_weight_bytes,
+            "draft_kv": self.draft_kv_bytes,
+        }
+
+    def release_memory(self) -> None:
+        """Drop this model's rows from the device ledger."""
+        self.memory.release(self._mem_key)
+
+    def pool_snapshot(self) -> dict:
+        """The pool's blocks and byte classes beside the card's ledger."""
+        with self._lock:
+            return {
+                "blocks": {"total": self.kv_blocks - 1, "free": len(self._free_blocks),
+                           "prefix_index": (len(self.prefix_index)
+                                            if self.prefix_index is not None else 0),
+                           "slots": sum(len(b) for b in self._slot_blocks.values()),
+                           "block_size": self.kv_block_size},
+                "bytes": {**self._byte_classes(),
+                          "prefix_dram": (self.host_store.bytes
+                                          if self.host_store is not None else 0),
+                          "per_slot": self.kv_bytes_per_slot()},
+                "hbm": self.memory.snapshot(),
+            }
 
     # ------------------------------------------------------------ helpers
 
@@ -652,6 +897,7 @@ class GenerativeModel:
 
     def reserve_for_prompt(
         self, slot: int, prompt: np.ndarray | None, total_tokens: int,
+        adapter: str | None = None,
     ) -> tuple[np.ndarray, int]:
         """Prompt-aware reservation: with prefix reuse on, the longest chain
         of the prompt's full blocks already in the index is REFERENCED
@@ -661,12 +907,21 @@ class GenerativeModel:
         :class:`OutOfKVBlocks` is raised).  Demoted levels that extend the
         match are promoted into the leading owned blocks with one indexed
         copy.  Returns ``(table row, prefix_len)``: the caller skips
-        ``prefix_len`` tokens of prefill."""
+        ``prefix_len`` tokens of prefill.
+
+        ``adapter`` binds the slot to a resident LoRA adapter's row for the
+        request's lifetime (refcounted, released with the slot) and salts
+        the prefix keys: an adapter changes K/V, so its chains never serve
+        another adapter or the base model.  An adapter that is not resident,
+        or any adapter on a model without LoRA, raises
+        :class:`AdapterUnavailable`."""
         slot = int(slot)
         total = min(int(total_tokens), self.cfg.max_seq)
         need = -(-total // self.kv_block_size)
+        salt = adapter_salt(adapter)
         with self._lock:  # the event loop releases while admissions run in a thread
             self.release_slot(slot)  # a stale reservation on this slot is dead
+            aidx = self._acquire_adapter(adapter)
             matched: list[int] = []
             promoted: list[tuple] = []
             if self.prefix_index is not None and prompt is not None:
@@ -674,17 +929,20 @@ class GenerativeModel:
                 # one real token to produce the first sampled logits
                 max_reuse = min((int(prompt.size) - 1) // self.kv_block_size, need)
                 if max_reuse > 0:
-                    matched = self.prefix_index.match(prompt, max_reuse)
+                    matched = self.prefix_index.match(prompt, max_reuse, salt=salt)
                 if self.host_store is not None and max_reuse > len(matched):
                     # demoted levels extending the match come out of the
                     # free pool like owned blocks: the need is the same
-                    promoted = self.host_store.match(prompt, len(matched) + 1, max_reuse)
+                    promoted = self.host_store.match(prompt, len(matched) + 1, max_reuse,
+                                                     salt=salt)
             own_need = need - len(matched)
             if len(self._free_blocks) < own_need:
                 self._demote_and_free(own_need - len(self._free_blocks))
             if len(self._free_blocks) < own_need:
                 if matched:
-                    self.prefix_index.release(prompt, len(matched))
+                    self.prefix_index.release(prompt, len(matched), salt=salt)
+                if aidx:
+                    self.lora_pool.release_ref(aidx)
                 raise OutOfKVBlocks(f"need {own_need} KV blocks, {len(self._free_blocks)} free")
             got = self._free_blocks[-own_need:] if own_need else []
             if own_need:
@@ -700,6 +958,9 @@ class GenerativeModel:
                     log.warning("generative model %r: DRAM prefix promotion failed; "
                                 "prefilling instead", self.name, exc_info=True)
             self._slot_blocks[slot] = got
+            self._slot_aidx[slot] = aidx
+            if salt:
+                self._slot_salt[slot] = salt
             row = np.zeros(self.max_blocks_per_slot, np.int32)
             row[: len(matched)] = matched
             row[len(matched):need] = got
@@ -707,7 +968,7 @@ class GenerativeModel:
             if self.prefix_index is not None and prompt is not None:
                 self._slot_prompt[slot] = np.asarray(prompt, np.int32).copy()
                 self._slot_matched[slot] = len(matched)
-                self._credit_peer_tier(prompt, len(matched))
+                self._credit_peer_tier(prompt, len(matched), salt)
         return row, (len(matched) + n_promoted) * self.kv_block_size
 
     def release_slot(self, slot: int) -> None:
@@ -716,17 +977,23 @@ class GenerativeModel:
         prompt's FULL owned blocks are absorbed into the index (zero-ref,
         evictable) instead of freed, so the next prompt sharing the prefix
         finds them; a prompt whose prefill never completed (cancelled or
-        failed) gives none."""
+        failed) gives none.  The slot's adapter ref goes back and its id
+        becomes the null adapter's."""
         slot = int(slot)
         with self._lock:  # the event loop releases while admissions run in a thread
             matched = self._slot_matched.pop(slot, 0)
             prompt = self._slot_prompt.pop(slot, None)
             blocks = self._slot_blocks.pop(slot, None)
+            salt = self._slot_salt.pop(slot, b"")
+            aidx = int(self._slot_aidx[slot])
+            if aidx:
+                self._slot_aidx[slot] = 0
+                self.lora_pool.release_ref(aidx)
             filled = slot in self._slot_filled
             self._slot_filled.discard(slot)
             self._slot_row.pop(slot, None)
             if matched and prompt is not None:
-                self.prefix_index.release(prompt, matched)
+                self.prefix_index.release(prompt, matched, salt=salt)
             if not blocks:
                 return
             if prompt is not None and filled:
@@ -735,7 +1002,8 @@ class GenerativeModel:
                 full = int(prompt.size) // self.kv_block_size
                 insertable = blocks[: max(0, full - matched)]
                 if insertable:
-                    rejected = self.prefix_index.insert(prompt, insertable, matched)
+                    # under the slot's adapter salt: adapter chains never cross
+                    rejected = self.prefix_index.insert(prompt, insertable, matched, salt=salt)
                     absorbed = set(insertable) - set(rejected)
                     blocks = [b for b in blocks if b not in absorbed]
             self._free_blocks.extend(blocks)
@@ -850,7 +1118,7 @@ class GenerativeModel:
     def attach_imported(
         self, slot: int, prompt: np.ndarray, k, v, *, reserve_tokens: int = 0,
         k_scale=None, v_scale=None, first_token: int | None = None,
-        spec_state: dict | None = None,
+        spec_state: dict | None = None, adapter: str | None = None,
     ) -> None:
         """Install another engine's exported prompt KV into ``slot``: reserve
         blocks (longest-prefix reuse applies: blocks this pool already
@@ -862,7 +1130,8 @@ class GenerativeModel:
         had prefilled here.  An int8 pool takes the int8 blocks and scales
         verbatim.  A shape, layout or block-size skew raises
         :class:`GraphUnitError`, a full pool :class:`OutOfKVBlocks`; a
-        failed import releases every block it took."""
+        failed import releases every block it took.  ``adapter`` binds the
+        slot to that resident adapter (the KV was made through it)."""
         prompt = np.asarray(prompt, np.int32).ravel()
         L = int(prompt.size)
         if L < 1:
@@ -872,7 +1141,8 @@ class GenerativeModel:
         k, v, k_scale, v_scale = self._check_blocks("imported", k, v, k_scale, v_scale, nb)
         slot = int(slot)
         with self._lock, torch.no_grad():
-            row, prefix_len = self.reserve_for_prompt(slot, prompt, L + max(0, int(reserve_tokens)))
+            row, prefix_len = self.reserve_for_prompt(slot, prompt, L + max(0, int(reserve_tokens)),
+                                                      adapter=adapter)
             skip = prefix_len // bs
             try:
                 if skip < nb:
@@ -931,12 +1201,12 @@ class GenerativeModel:
                             "evicted blocks", self.name, len(victims), exc_info=True)
         self._free_blocks.extend(b for _k, _d, b in victims)
 
-    def _credit_peer_tier(self, prompt: np.ndarray, n_matched: int) -> None:
+    def _credit_peer_tier(self, prompt: np.ndarray, n_matched: int, salt: bytes = b"") -> None:
         """Count a peer hit when a matched level came from a peer pull no
         admission has used yet (the credit is used up: later matches of
         those levels are plain index hits)."""
         if n_matched and self._peer_chains:
-            keys = {HostPrefixStore.level_key(prompt, lvl, self.kv_block_size, b"")
+            keys = {HostPrefixStore.level_key(prompt, lvl, self.kv_block_size, salt)
                     for lvl in range(1, n_matched + 1)}
             if keys & self._peer_chains:
                 self._peer_chains -= keys
@@ -950,30 +1220,33 @@ class GenerativeModel:
         self._put_blocks(blocks, {name: torch.stack([e[col[name]] for e in entries], 1)
                                   for name in names})
 
-    def export_prefix_kv(self, tokens: np.ndarray, max_blocks: int = 64) -> tuple | None:
+    def export_prefix_kv(self, tokens: np.ndarray, max_blocks: int = 64,
+                         adapter: str | None = None) -> tuple | None:
         """Serve a peer's prefix pull: the longest chain this pool holds for
-        ``tokens`` (index levels, then the DRAM levels that extend them) as
-        ``(depth, k, v, k_scale, v_scale)`` on the host, KV ``(layers, depth,
-        block_size, kv_heads, head_dim)``; None on no match.  The index
+        ``tokens`` under ``adapter``'s salt (index levels, then the DRAM
+        levels that extend them) as ``(depth, k, v, k_scale, v_scale)`` on
+        the host, KV ``(layers, depth, block_size, kv_heads, head_dim)``;
+        None on no match, a wrong adapter's probe included.  The index
         levels are ref-pinned while they are fetched, so an admission's
         eviction cannot free or demote them mid-export."""
         if self.prefix_index is None:
             return None
+        salt = adapter_salt(adapter)
         tokens = np.asarray(tokens, np.int32).ravel()
         cap = min(int(max_blocks), int(tokens.size) // self.kv_block_size,
                   self.max_blocks_per_slot)
         if cap < 1:
             return None
         blocks: dict | None = None
-        pinned = self.prefix_index.acquire(tokens, cap)
+        pinned = self.prefix_index.acquire(tokens, cap, salt=salt)
         depth = len(pinned)
         if pinned:
             try:
                 blocks = self._fetch_blocks([b for _k, _d, b in pinned])
             finally:
-                self.prefix_index.release(tokens, depth)
+                self.prefix_index.release(tokens, depth, salt=salt)
         if self.host_store is not None and depth < cap:
-            ext = self.host_store.match(tokens, depth + 1, cap)
+            ext = self.host_store.match(tokens, depth + 1, cap, salt=salt)
             if ext:
                 col = {"k": 2, "v": 3, "k_scale": 4, "v_scale": 5}
                 more = {name: torch.stack([e[col[name]] for e in ext], 1)
@@ -986,15 +1259,21 @@ class GenerativeModel:
         self.peer_serves += 1
         return depth, blocks["k"], blocks["v"], blocks.get("k_scale"), blocks.get("v_scale")
 
-    def install_prefix_chain(self, tokens: np.ndarray, k, v, k_scale=None, v_scale=None) -> int:
+    def install_prefix_chain(self, tokens: np.ndarray, k, v, k_scale=None, v_scale=None,
+                             adapter: str | None = None) -> int:
         """Install a peer-pulled chain into the pool and the index (the
-        scheduler calls it at a sync point).  Only levels deeper than what
-        is resident are installed, as zero-ref index entries, evictable
-        like an absorbed prompt.  Returns the levels installed (0 when all
-        were resident or the pool has no block to spare); a failure frees
-        every block it took."""
+        scheduler calls it at a sync point), under ``adapter``'s salt (the
+        KV was made through that adapter, which must be resident here).
+        Only levels deeper than what is resident are installed, as zero-ref
+        index entries, evictable like an absorbed prompt.  Returns the
+        levels installed (0 when all were resident or the pool has no block
+        to spare); a failure frees every block it took."""
         if self.prefix_index is None:
             raise GraphUnitError(f"model {self.name!r} has no prefix index to install into")
+        if adapter and (self.lora_pool is None or adapter not in self.lora_pool):
+            raise GraphUnitError(f"pulled chain names adapter {adapter!r} but it is not "
+                                 "resident on this engine")
+        salt = adapter_salt(adapter)
         tokens = np.asarray(tokens, np.int32).ravel()
         bs = self.kv_block_size
         depth = int(k.shape[1]) if getattr(k, "ndim", 0) == 5 else 0
@@ -1004,7 +1283,7 @@ class GenerativeModel:
         if int(tokens.size) < depth * bs:
             raise GraphUnitError("pulled chain tokens do not cover its blocks")
         with self._lock, torch.no_grad():
-            have = self.prefix_index.peek_depth(tokens, depth)
+            have = self.prefix_index.peek_depth(tokens, depth, salt)
             if have >= depth:
                 return 0
             n_new = depth - have
@@ -1017,13 +1296,13 @@ class GenerativeModel:
             try:
                 parts = {"k": k, "v": v, "k_scale": k_scale, "v_scale": v_scale}
                 self._put_blocks(got, {key: parts[key][:, have:] for key in self._pool_keys()})
-                rejected = self.prefix_index.insert(tokens, got, have)
+                rejected = self.prefix_index.insert(tokens, got, have, salt=salt)
             except BaseException:
                 self._free_blocks.extend(got)
                 raise
             self._free_blocks.extend(rejected)
             for lvl in range(have + 1, depth + 1):
-                self._peer_chains.add(HostPrefixStore.level_key(tokens, lvl, bs, b""))
+                self._peer_chains.add(HostPrefixStore.level_key(tokens, lvl, bs, salt))
             absorbed = n_new - len(rejected)
             self.peer_installs += absorbed
             return absorbed
@@ -1061,7 +1340,8 @@ class GenerativeModel:
             res = llama.prefill_slot_paged(
                 self.params, self._h2d(payload["padded"]), payload["length"], payload["slot"],
                 self._h2d(payload["blocks"]), self._cache, self.cfg, seq_impl=self.seq_impl,
-                return_hidden=heads, op=self._prefill_op,
+                return_hidden=heads, op=self._prefill_op, lora=self._lora,
+                adapter_id=payload.get("aid", 0),
             )
             tok = self._sample_first(res[0], payload)
             self._prompt_landed(payload, tok, res[2] if heads else None)
@@ -1078,6 +1358,7 @@ class GenerativeModel:
                 payload["length"], payload["slot"], self._h2d(payload["blocks"]),
                 self._h2d(payload["suffix_blocks"]), self._cache, self.cfg,
                 prefix_window=payload["window"], return_hidden=heads, op=self._prefill_op,
+                lora=self._lora, adapter_id=payload.get("aid", 0),
             )
             tok = self._sample_first(res[0], payload)
             self._prompt_landed(payload, tok, res[2] if heads else None)
@@ -1111,12 +1392,12 @@ class GenerativeModel:
             "padded": padded, "prefix_len": int(prefix_len), "length": int(length),
             "slot": int(slot), "blocks": row, "suffix_blocks": suffix_blocks,
             "window": self._prefix_window(prefix_len), "temperature": float(temperature),
-            "seed": int(seed),
+            "seed": int(seed), "aid": int(self._slot_aidx[int(slot)]),
         }
 
     def admit_dispatch(
         self, slot: int, prompt: np.ndarray, temperature: float, seed: int,
-        reserve_tokens: int = 0,
+        reserve_tokens: int = 0, adapter: str | None = None,
     ) -> torch.Tensor:
         """Prefill ``prompt`` (1-D ids) into ``slot`` WITHOUT fetching the
         sampled token (a 0-d device tensor is returned), so several
@@ -1125,13 +1406,16 @@ class GenerativeModel:
         runs its chunks back to back (the scheduler paces them instead,
         through :meth:`admit_chunk_plan`, while streams decode).  With
         ``spec_method='draft'`` the draft model's pool is prefilled with the
-        whole prompt first."""
+        whole prompt first (the draft model serves no adapter).  ``adapter``
+        binds the slot (:meth:`reserve_for_prompt`): its prefill, chunks and
+        decode steps gather that adapter's row."""
         prompt = np.asarray(prompt, np.int32).ravel()
         L = int(prompt.size)
         if L < 1:
             raise GraphUnitError("empty prompt")
         if self.prefill_chunk and L > self.prefill_chunk:
-            plan = self.admit_chunk_plan(slot, prompt, temperature, seed, reserve_tokens)
+            plan = self.admit_chunk_plan(slot, prompt, temperature, seed, reserve_tokens,
+                                         adapter=adapter)
             tok = None
             for i in range(len(plan["payloads"])):
                 tok = self.prefill_chunk_dispatch(plan, i)
@@ -1139,7 +1423,7 @@ class GenerativeModel:
         self.fit_bucket(L)  # a prompt too long raises before any block is reserved
         with self._lock:
             row, prefix_len = self.reserve_for_prompt(
-                slot, prompt, L + max(0, int(reserve_tokens))
+                slot, prompt, L + max(0, int(reserve_tokens)), adapter=adapter
             )
             self._pos_ceiling[int(slot)] = L  # prefill wrote rows [0, L)
             self.draft_prefill_dispatch(slot, prompt)
@@ -1149,11 +1433,12 @@ class GenerativeModel:
             return self._exec_prefill(self._with_hist({
                 "padded": self._padded(prompt), "length": L, "slot": int(slot),
                 "blocks": row, "temperature": float(temperature), "seed": int(seed),
+                "aid": int(self._slot_aidx[int(slot)]),
             }, prompt))
 
     def admit_chunk_plan(
         self, slot: int, prompt: np.ndarray, temperature: float, seed: int,
-        reserve_tokens: int = 0,
+        reserve_tokens: int = 0, adapter: str | None = None,
     ) -> dict:
         """Reserve ``slot``'s blocks and lay the admission out as prefill
         chunks of ``prefill_chunk`` tokens, after the reused prefix if one
@@ -1168,7 +1453,7 @@ class GenerativeModel:
             raise GraphUnitError("empty prompt")
         with self._lock:
             row, prefix_len = self.reserve_for_prompt(
-                slot, prompt, L + max(0, int(reserve_tokens))
+                slot, prompt, L + max(0, int(reserve_tokens)), adapter=adapter
             )
             self._pos_ceiling[int(slot)] = L
         C = self.prefill_chunk or L
@@ -1181,7 +1466,7 @@ class GenerativeModel:
                 payloads.append(("prefill", self._with_hist({
                     "padded": self._padded(prompt[:e]), "length": e, "slot": int(slot),
                     "blocks": row, "temperature": float(temperature), "seed": int(seed),
-                    "chunk": meta,
+                    "chunk": meta, "aid": int(self._slot_aidx[int(slot)]),
                 }, prompt[:e])))
             else:
                 payload = self._suffix_payload(prompt[s:e], s, e, slot, row, temperature, seed)
@@ -1209,10 +1494,10 @@ class GenerativeModel:
         return [int(t) for t in torch.stack(toks).cpu().tolist()]
 
     def admit(self, slot: int, prompt: np.ndarray, temperature: float, seed: int,
-              reserve_tokens: int = 0) -> int:
+              reserve_tokens: int = 0, adapter: str | None = None) -> int:
         """Prefill ``prompt`` into ``slot``; returns the first sampled token."""
         return self.fetch_tokens(
-            [self.admit_dispatch(slot, prompt, temperature, seed, reserve_tokens)]
+            [self.admit_dispatch(slot, prompt, temperature, seed, reserve_tokens, adapter)]
         )[0]
 
     # ------------------------------------------------------ pool accounting
@@ -1236,12 +1521,9 @@ class GenerativeModel:
         card's memory (``torch.cuda.get_device_properties``); a CPU model
         needs one of the two."""
         if hbm_bytes is None:
-            if os.environ.get("SCT_HBM_GB"):
-                hbm_bytes = int(float(os.environ["SCT_HBM_GB"]) * (1 << 30))
-            elif self.device.type == "cuda":
-                hbm_bytes = torch.cuda.get_device_properties(self.device).total_memory
-            else:
+            if self.device.type != "cuda" and not os.environ.get("SCT_HBM_GB"):
                 raise ValueError("kv_slots_per_chip on the CPU needs hbm_bytes or SCT_HBM_GB")
+            hbm_bytes = hbm_budget_bytes(self.device)
         param_bytes = sum(p.nbytes for p in self.params.parameters())
         return max(0, int((hbm_bytes - param_bytes) // self.kv_bytes_per_slot()))
 
@@ -1379,7 +1661,7 @@ class GenerativeModel:
                 continue
             logits, _ = llama.decode_slots_paged(
                 self.params, tok, self._cache, act, self.cfg, window=window,
-                kernel=self.decode_kernel,
+                kernel=self.decode_kernel, lora=self._lora, adapter_ids=self._gaid,
             )
             new = llama.sample_tokens(logits, temps, gen, self.top_k)
             if self.conf_signal:
@@ -1548,16 +1830,18 @@ class GenerativeModel:
             self._gin.copy_(torch.from_numpy(packed), non_blocking=True)
             self._gtemps.copy_(torch.from_numpy(np.asarray(temperature, np.float32)),
                                non_blocking=True)
+            if self._lora is not None:  # bindings change only at sync points
+                self._gaid.copy_(torch.from_numpy(self._slot_aidx), non_blocking=True)
             return self._launch_block(entry, k, seed, act_np, window)
 
     def step_k_continue(self, active: np.ndarray, seed: int, k: int,
                         window: int | None = None) -> tuple:
         """Enqueue the next ``k``-step block from the previous block's device
         carry (tokens, active mask, eos and budgets: one device copy, no
-        host round trip).  The caller guarantees that no host-side state
-        changed since that block was dispatched (no admission, no reap, no
-        release of a pinned slot); a slot that finished inside it rides
-        along inactive.  Stream order puts the previous block's copy to the
+        host round trip; the adapter ids stay as dispatched).  The caller
+        guarantees that no host-side state changed since that block was
+        dispatched (no admission, no reap, no release of a pinned slot); a
+        slot that finished inside it rides along inactive.  Stream order puts the previous block's copy to the
         host before this block's replay."""
         act_np = np.asarray(active, bool).copy()
         k = int(k)
@@ -1706,6 +1990,9 @@ class _Request:
     # the decode tokens delivered to this request
     conf_sum: float = 0.0
     conf_n: int = 0
+    # the named LoRA adapter the request decodes through (None: the base
+    # model, the pool's null row)
+    adapter: str | None = None
 
 
 class GenerationScheduler:
@@ -1722,6 +2009,10 @@ class GenerationScheduler:
     its whole prefill.  An idle scheduler admits it at once.  Each sync
     point costs at most one host fetch for all the first tokens it
     produced; intermediate chunks' tokens are never fetched.
+
+    A request may name a LoRA adapter (``adapter=``): its slot is bound to
+    the adapter's pool row at admission and released with it, and the
+    tokens its decode blocks deliver tick the adapter's ledger.
 
     Pooled-embedding requests (:meth:`submit_embed`) ride the same bounded
     intake but take no slot: the waiting ones are served as one wave at
@@ -1846,8 +2137,10 @@ class GenerationScheduler:
         eos_id: int | None = None,
         on_token: Callable[[int], None] | None = None,
         info: dict | None = None,
+        adapter: str | None = None,
     ) -> np.ndarray:
-        """Generate up to ``max_new_tokens`` ids for a 1-D prompt.
+        """Generate up to ``max_new_tokens`` ids for a 1-D prompt, through
+        the resident LoRA ``adapter`` when one is named.
         ``on_token`` fires on the event loop for each token as it is
         delivered (the first at admission, then one decode block's at a
         time).  ``info``, an out-parameter, gets ``confidence`` (the mean
@@ -1858,7 +2151,8 @@ class GenerationScheduler:
         if max_new_tokens < 1:
             return np.zeros(0, np.int32)
         max_new_tokens = min(int(max_new_tokens), self.model.cfg.max_seq - int(prompt.size))
-        req = self._request(prompt, max_new_tokens, temperature, eos_id, on_token=on_token)
+        req = self._request(prompt, max_new_tokens, temperature, eos_id, on_token=on_token,
+                            adapter=adapter or None)
         out = await self._enqueue(req)
         if info is not None and req.conf_n:
             info["confidence"] = req.conf_sum / req.conf_n
@@ -1899,26 +2193,29 @@ class GenerationScheduler:
             if not req.future.done():
                 req.future.set_exception(exc)
 
-    async def submit_prefill(self, prompt: np.ndarray, *,
-                             temperature: float = 0.0) -> tuple[int, int]:
-        """A handoff's prefill half: prefill ``prompt`` into a free slot and
-        return ``(slot, first_token)`` without decoding.  The slot stays
-        PINNED until :meth:`release_external` returns it, so its blocks can
-        be exported at leisure and a failed handoff leaks nothing."""
+    async def submit_prefill(self, prompt: np.ndarray, *, temperature: float = 0.0,
+                             adapter: str | None = None) -> tuple[int, int]:
+        """A handoff's prefill half: prefill ``prompt`` (through ``adapter``)
+        into a free slot and return ``(slot, first_token)`` without
+        decoding.  The slot stays PINNED until :meth:`release_external`
+        returns it, so its blocks can be exported at leisure and a failed
+        handoff leaks nothing."""
         prompt = self._validate_prompt(prompt)
         return await self._enqueue(self._request(prompt, 1, temperature, None,
-                                                 prefill_only=True))
+                                                 prefill_only=True, adapter=adapter or None))
 
     async def submit_imported(
         self, prompt: np.ndarray, *, first_token: int, k, v, max_new_tokens: int = 32,
         temperature: float = 0.0, eos_id: int | None = None, k_scale=None, v_scale=None,
         spec_state: dict | None = None, on_token: Callable[[int], None] | None = None,
+        adapter: str | None = None,
     ) -> np.ndarray:
         """A handoff's decode half: go on with a generation whose prompt KV
         (``k``/``v``, and an int8 pool's scales) and first sampled token
-        another engine made.  The blocks are imported at the next sync
-        point; the result, the first token included, is what a unified
-        engine returns for the same request."""
+        another engine made, through ``adapter`` when the KV was made
+        through one.  The blocks are imported at the next sync point; the
+        result, the first token included, is what a unified engine returns
+        for the same request."""
         prompt = self._validate_prompt(prompt)
         max_new_tokens = min(max(1, int(max_new_tokens)),
                              self.model.cfg.max_seq - int(prompt.size))
@@ -1926,7 +2223,7 @@ class GenerationScheduler:
             prompt, max_new_tokens, temperature, eos_id,
             imported={"first_token": int(first_token), "k": k, "v": v, "k_scale": k_scale,
                       "v_scale": v_scale, "spec": spec_state},
-            on_token=on_token,
+            on_token=on_token, adapter=adapter or None,
         ))
 
     def release_external(self, slot: int) -> None:
@@ -1943,14 +2240,15 @@ class GenerationScheduler:
             self.model.release_slot(slot)
 
     async def install_prefix(self, tokens: np.ndarray, k, v, *, k_scale=None,
-                             v_scale=None) -> int:
-        """Install a peer-pulled prefix chain into the pool and the index at
-        the next sync point; resolves to the chain levels installed."""
+                             v_scale=None, adapter: str | None = None) -> int:
+        """Install a peer-pulled prefix chain (made through ``adapter``) into
+        the pool and the index at the next sync point; resolves to the
+        chain levels installed."""
         if self._closed:
             raise RuntimeError("GenerationScheduler is closed")
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         self._prefix_installs.append(({"tokens": tokens, "k": k, "v": v, "k_scale": k_scale,
-                                       "v_scale": v_scale}, fut))
+                                       "v_scale": v_scale, "adapter": adapter}, fut))
         self._ensure_run_task()
         self._wake.set()
         return await fut
@@ -1961,7 +2259,7 @@ class GenerationScheduler:
             try:
                 n = await asyncio.to_thread(
                     self.model.install_prefix_chain, payload["tokens"], payload["k"],
-                    payload["v"], payload["k_scale"], payload["v_scale"],
+                    payload["v"], payload["k_scale"], payload["v_scale"], payload["adapter"],
                 )
             except Exception as e:  # noqa: BLE001 - routed to the caller
                 if not fut.done():
@@ -2036,10 +2334,13 @@ class GenerationScheduler:
         where ``act_seq`` marks the tokens each pass emitted.  A request that
         finishes mid-block (mid-pass too) frees its slot at once and gets
         none of the slot's later rows.  Each delivered token's margin, from
-        the block's fetch, adds to its request's confidence."""
+        the block's fetch, adds to its request's confidence, and the tokens
+        delivered to a request that names an adapter tick that adapter's
+        ledger."""
         conf_seq = self.model.last_conf_seq
         if conf_seq is not None and conf_seq.shape != toks_seq.shape:
             conf_seq = None  # a stale stash: never misattribute
+        delivered: collections.Counter = collections.Counter()
         for step_i in range(toks_seq.shape[0]):
             for i, req in enumerate(slots):
                 if req is None or not act_seq[step_i, i]:
@@ -2049,8 +2350,12 @@ class GenerationScheduler:
                 if conf_seq is not None:
                     req.conf_sum += float(conf_seq[step_i, i])
                     req.conf_n += 1
+                if req.adapter:
+                    delivered[req.adapter] += 1
                 if self._token_done(req, tok):
                     self._finish(req, i, slots, active)
+        for adapter, n in delivered.items():
+            self.model.note_adapter_tokens(adapter, n)
 
     def _fail_inflight(self, slots, active, exc: BaseException) -> None:
         prefilling = {e["slot"] for e in self._prefilling}  # not in the decode batch
@@ -2093,7 +2398,7 @@ class GenerationScheduler:
                             slot, req.prompt, imp["k"], imp["v"],
                             reserve_tokens=req.max_new_tokens, k_scale=imp["k_scale"],
                             v_scale=imp["v_scale"], first_token=imp["first_token"],
-                            spec_state=imp["spec"],
+                            spec_state=imp["spec"], adapter=req.adapter,
                         )
                         placed.append((req, slot, imp["first_token"]))
                         continue
@@ -2101,13 +2406,13 @@ class GenerationScheduler:
                         # reserve only: the chunks go one per sync point
                         plan = self.model.admit_chunk_plan(
                             slot, req.prompt, req.temperature, self._next_seed(),
-                            reserve_tokens=req.max_new_tokens,
+                            reserve_tokens=req.max_new_tokens, adapter=req.adapter,
                         )
                         chunked.append({"req": req, "slot": slot, "plan": plan, "i": 0})
                         continue
                     tok = self.model.admit_dispatch(
                         slot, req.prompt, req.temperature, self._next_seed(),
-                        reserve_tokens=req.max_new_tokens,
+                        reserve_tokens=req.max_new_tokens, adapter=req.adapter,
                     )
                     placed.append((req, slot, tok))
                 except OutOfKVBlocks:
@@ -2338,7 +2643,10 @@ class GenerativeComponent(SeldonComponent):
       [[...], ...] | [...]}`` (a flat prompt gets a flat reply); with the
       model's ``conf_signal`` on the reply also carries ``"confidence"``,
       each row's mean top-2 logit margin (a list for a batch), which a
-      cascade router reads; the tokens are those of the signal off.
+      cascade router reads; the tokens are those of the signal off.  A
+      strData ``"adapter"`` names the LoRA adapter the rows decode through,
+      overriding the unit's default ``adapter``; ``"adapter": null`` is the
+      base model.
     """
 
     # cumulative gauges that tolerate races: an annotation lock would
@@ -2354,12 +2662,15 @@ class GenerativeComponent(SeldonComponent):
         eos_id: int | None = None,
         queue_max: int | None = None,
         overlap: bool | None = None,
+        adapter: str | None = None,
     ):
         self.model = model
         self.scheduler = GenerationScheduler(model, maxsize=queue_max, overlap=overlap)
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
         self.eos_id = eos_id
+        # the deployment's default LoRA adapter (None: the base model)
+        self.adapter = adapter or None
         # greedy decode is a pure function of the prompt
         self.DETERMINISTIC = self.temperature == 0.0
 
@@ -2368,6 +2679,7 @@ class GenerativeComponent(SeldonComponent):
 
     async def close(self) -> None:
         await self.scheduler.close()
+        self.model.release_memory()
 
     def metrics(self) -> list[dict[str, Any]]:
         m, n = self.model, self.model.name
@@ -2384,7 +2696,14 @@ class GenerativeComponent(SeldonComponent):
             {"key": f"{n}_program_compiles", "type": "GAUGE", "value": m.program_compiles},
         ]
 
-    async def _generate_rows(self, rows, max_new_tokens, temperature, eos_id, infos=None):
+    def resolve_adapter(self, body: dict) -> str | None:
+        """The adapter a request body selects: its ``"adapter"`` when the key
+        is there (null: the base model), else the unit's default."""
+        adapter = body.get("adapter", self.adapter) if isinstance(body, dict) else self.adapter
+        return str(adapter) if adapter else None
+
+    async def _generate_rows(self, rows, max_new_tokens, temperature, eos_id, infos=None,
+                             adapter: str | None = None):
         """Submit ``rows`` together; ``infos`` (a list) gets one confidence
         dict per row."""
         if infos is not None:
@@ -2392,7 +2711,7 @@ class GenerativeComponent(SeldonComponent):
         return list(await asyncio.gather(*(
             self.scheduler.submit(
                 row, max_new_tokens=max_new_tokens, temperature=temperature, eos_id=eos_id,
-                info=infos[i] if infos is not None else None,
+                info=infos[i] if infos is not None else None, adapter=adapter,
             )
             for i, row in enumerate(rows)
         )))
@@ -2412,12 +2731,14 @@ class GenerativeComponent(SeldonComponent):
         max_new_tokens: int | None = None,
         temperature: float | None = None,
         eos_id: int | None = None,
+        adapter: str | None = None,
     ) -> AsyncIterator[list[int]]:
         """Yield the generated ids in the groups they are delivered in: the
         first token at admission, then one decode block's at a time (the
         tokens a block delivered are all queued before this coroutine runs
         again).  Leaving the iteration early cancels the request, whose
-        slot the scheduler then frees."""
+        slot the scheduler then frees.  ``adapter`` as the scheduler's
+        (the caller resolves the unit's default)."""
         q: asyncio.Queue = asyncio.Queue()
         end = object()
         task = asyncio.create_task(self.scheduler.submit(
@@ -2425,7 +2746,7 @@ class GenerativeComponent(SeldonComponent):
             max_new_tokens=self.max_new_tokens if max_new_tokens is None else max_new_tokens,
             temperature=self.temperature if temperature is None else temperature,
             eos_id=self.eos_id if eos_id is None else eos_id,
-            on_token=q.put_nowait,
+            on_token=q.put_nowait, adapter=adapter,
         ))
         task.add_done_callback(lambda _t: q.put_nowait(end))
         served = 0
@@ -2456,11 +2777,12 @@ class GenerativeComponent(SeldonComponent):
         max_new_tokens: int | None = None,
         temperature: float | None = None,
         eos_id: int | None = None,
+        adapter: str | None = None,
     ) -> AsyncIterator[int]:
         """Yield generated token ids as they decode: the first after the
         prefill, the rest ``decode_block`` at a time per device fetch."""
         groups = self.stream_groups(prompt, max_new_tokens=max_new_tokens,
-                                    temperature=temperature, eos_id=eos_id)
+                                    temperature=temperature, eos_id=eos_id, adapter=adapter)
         async with contextlib.aclosing(groups):
             async for group in groups:
                 for tok in group:
@@ -2487,7 +2809,7 @@ class GenerativeComponent(SeldonComponent):
             keep = row != PAD_ID
             rows.append(row[: int(keep.cumsum().argmax()) + 1] if keep.any() else row)
         outs = await self._generate_rows(
-            rows, self.max_new_tokens, self.temperature, self.eos_id
+            rows, self.max_new_tokens, self.temperature, self.eos_id, adapter=self.adapter
         )
         return self._pad_rows(outs)
 
@@ -2507,10 +2829,11 @@ class GenerativeComponent(SeldonComponent):
             temperature = float(body.get("temperature", self.temperature))
             eos = body.get("eos_id", self.eos_id)
             eos = int(eos) if eos is not None else None
+            adapter = self.resolve_adapter(body)
         except (json.JSONDecodeError, TypeError, KeyError, ValueError) as e:
             raise GraphUnitError(f"bad generative request: {e}") from e
         infos: list[dict] | None = [] if self.model.conf_signal else None
-        outs = await self._generate_rows(rows, max_new, temperature, eos, infos)
+        outs = await self._generate_rows(rows, max_new, temperature, eos, infos, adapter)
         result = [o.tolist() for o in outs]
         reply: dict = {"tokens": result[0] if single else result}
         if infos is not None:

@@ -24,6 +24,14 @@ gathered prefix), and ``ops.paged_decode_attention`` in every decode step
 suffix prefill's attention is the einsum, mask and softmax of the JAX
 package's dense prefill.  The int8 quantize-on-write and the prefix gather
 are plain torch ops, as they are XLA code (not Pallas) in the JAX package.
+
+Batched multi-LoRA: one stacked adapter pool ``{target: {"a": (layers,
+adapters, in.., r), "b": (layers, adapters, r, out..)}}`` and per-row
+adapter ids ``aid`` ride the prefill, suffix prefill and decode bodies;
+each target's delta ``(x @ a[aid]) @ b[aid]`` (:func:`_lora_delta`, an
+index gather and two batched products, as the JAX package's two einsums)
+is added to its base projection.  Row 0 of the pool is the null adapter
+(all zeros), whose delta is exactly zero.
 """
 
 from __future__ import annotations
@@ -43,7 +51,8 @@ __all__ = [
     "Config", "Llama", "init_paged_cache", "paged_kv_slot_bytes", "prefill_slot_paged",
     "prefill_suffix_paged", "decode_slots_paged", "decode_slots_spec_paged", "sample_tokens",
     "forward", "row_variant_ops", "prefill_variant_ops", "row_tiled_op", "init_medusa_heads",
-    "apply_medusa_heads", "medusa_head_bytes", "truncate_params",
+    "apply_medusa_heads", "medusa_head_bytes", "truncate_params", "LORA_ATTN_TARGETS",
+    "LORA_MLP_TARGETS", "init_lora_params", "lora_adapter_factors", "lora_pool_bytes",
 ]
 
 
@@ -145,6 +154,119 @@ class Llama(nn.Module):
         return forward(self, tokens, self.cfg, seq_impl=seq_impl)
 
 
+
+# ---------------------------------------------------------------------------
+# batched multi-LoRA adapters
+# ---------------------------------------------------------------------------
+#
+# ONE stacked adapter pool, ``(n_layers, n_adapters, ...)`` per low-rank
+# factor, and a per-row adapter id gathered inside the same prefill and
+# decode bodies that serve the base model: a mixed-adapter batch is one
+# decode block.  Row 0 is the null adapter (all-zero factors): its delta is
+# exactly zero, so a null-adapter row gets the bits of a LoRA-off build.
+
+LORA_ATTN_TARGETS = ("wq", "wk", "wv", "wo")
+LORA_MLP_TARGETS = ("w_gate", "w_up", "w_down")
+
+
+def _lora_shapes(cfg: Config, rank: int) -> dict:
+    """Per-target ``(a, b)`` factor shapes without the leading ``(n_layers,
+    n_adapters)`` axes: ``delta = (x @ a) @ b`` has the base projection's
+    contraction and output."""
+    e, h, kv, d, f = cfg.hidden, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.ffn
+    return {
+        "wq": ((e, rank), (rank, h, d)),
+        "wk": ((e, rank), (rank, kv, d)),
+        "wv": ((e, rank), (rank, kv, d)),
+        "wo": ((h, d, rank), (rank, e)),
+        "w_gate": ((e, rank), (rank, f)),
+        "w_up": ((e, rank), (rank, f)),
+        "w_down": ((f, rank), (rank, e)),
+    }
+
+
+def init_lora_params(cfg: Config, n_adapters: int, rank: int,
+                     targets: tuple = LORA_ATTN_TARGETS, dtype=torch.float32,
+                     device="cpu") -> dict:
+    """The zero stacked adapter pool ``{target: {"a": (L, A, in.., r), "b":
+    (L, A, r, out..)}}``; row 0 stays all-zero (the null adapter)."""
+    shapes = _lora_shapes(cfg, int(rank))
+    lead = (cfg.n_layers, int(n_adapters))
+    return {t: {"a": torch.zeros(lead + shapes[t][0], dtype=dtype, device=device),
+                "b": torch.zeros(lead + shapes[t][1], dtype=dtype, device=device)}
+            for t in targets}
+
+
+@torch.no_grad()
+def lora_adapter_factors(generator: torch.Generator, cfg: Config, rank: int,
+                         targets: tuple = LORA_ATTN_TARGETS, scale: float = 0.05,
+                         dtype=torch.float32, device="cpu") -> dict:
+    """ONE adapter's synthetic factors ``{target: {"a": (L, in.., r), "b":
+    (L, r, out..)}}`` drawn from ``generator``: ``a`` is normal / sqrt(fan
+    in), ``b`` normal * ``scale`` (non-zero, unlike a training init, so
+    distinct adapters give distinct generations).  The JAX package draws the
+    same distribution from its own generator, so the numbers differ."""
+    shapes = _lora_shapes(cfg, int(rank))
+    out = {}
+    for t in targets:
+        sa, sb = shapes[t]
+        a = torch.randn((cfg.n_layers,) + sa, generator=generator, device=device)
+        b = torch.randn((cfg.n_layers,) + sb, generator=generator, device=device)
+        out[t] = {"a": (a / math.sqrt(math.prod(sa[:-1]))).to(dtype),
+                  "b": (b * scale).to(dtype)}
+    return out
+
+
+def lora_pool_bytes(cfg: Config, n_adapters: int, rank: int,
+                    targets: tuple = LORA_ATTN_TARGETS, dtype="float32") -> int:
+    """Device bytes the stacked adapter pool costs (the ``adapter_pool``
+    class of the memory ledger)."""
+    shapes = _lora_shapes(cfg, int(rank))
+    per = sum(math.prod(shapes[t][0]) + math.prod(shapes[t][1]) for t in targets)
+    return per * cfg.n_layers * int(n_adapters) * _itemsize(dtype)
+
+
+def _lora_layer(lora: dict | None, li: int) -> dict | None:
+    """Layer ``li``'s slice of the stacked pool (views)."""
+    if lora is None:
+        return None
+    return {t: {"a": f["a"][li], "b": f["b"][li]} for t, f in lora.items()}
+
+
+def _lora_delta(h, la, aid):
+    """Per-row low-rank delta: ``h (B, L, in..)`` through adapter ``aid[b]``'s
+    factors, gathered from one layer's slice ``la = {"a": (A, in.., r), "b":
+    (A, r, out..)}``: an index gather per factor and two batched products."""
+    a = la["a"][aid]  # (B, in.., r)
+    b = la["b"][aid]  # (B, r, out..)
+    if a.ndim == 4:  # the output projection's input (B, L, H, D)
+        xa = torch.bmm(h.flatten(-2), a.flatten(1, 2))
+    else:
+        xa = torch.bmm(h, a)
+    if b.ndim == 4:  # a head-shaped output (B, r, H|KV, D)
+        return torch.bmm(xa, b.flatten(2)).unflatten(-1, b.shape[2:])
+    return torch.bmm(xa, b)
+
+
+def _with_lora(op, name, base, t, ll, aid):
+    """``base`` plus target ``name``'s delta of ``t`` when the layer's pool
+    slice ``ll`` holds that target; the delta is the op ``name + ".lora"``."""
+    if ll is None or name not in ll:
+        return base
+    return base + op(name + ".lora", lambda u: _lora_delta(u, ll[name], aid), t)
+
+
+def _aid(lora, ids, n: int, device):
+    """The per-row adapter ids as a long ``(n,)`` tensor on ``device`` (None
+    without a pool; no ids means the null adapter everywhere).  A Python
+    int becomes a fill on the device, never a copy from the host."""
+    if lora is None:
+        return None
+    if ids is None or isinstance(ids, int):
+        return torch.full((n,), int(ids or 0), dtype=torch.long, device=device)
+    return torch.as_tensor(ids, device=device).reshape(n).long()
+
+
 # ---------------------------------------------------------------------------
 # building blocks
 # ---------------------------------------------------------------------------
@@ -220,11 +342,12 @@ def _proj_heads(h, w):
     return (h @ w.reshape(E, H * D)).unflatten(-1, (H, D))
 
 
-def _mlp_block(h, lp, op=_plain):
-    """SwiGLU MLP."""
-    act = (torch.nn.functional.silu(op("w_gate", lambda t: t @ lp["w_gate"], h))
-           * op("w_up", lambda t: t @ lp["w_up"], h))
-    return op("w_down", lambda t: t @ lp["w_down"], act)
+def _mlp_block(h, lp, op=_plain, ll=None, aid=None):
+    """SwiGLU MLP, with the per-row LoRA deltas of the pool slice ``ll``."""
+    gate = _with_lora(op, "w_gate", op("w_gate", lambda t: t @ lp["w_gate"], h), h, ll, aid)
+    up = _with_lora(op, "w_up", op("w_up", lambda t: t @ lp["w_up"], h), h, ll, aid)
+    act = torch.nn.functional.silu(gate) * up
+    return _with_lora(op, "w_down", op("w_down", lambda t: t @ lp["w_down"], act), act, ll, aid)
 
 
 def _out_proj(o, wo):
@@ -248,44 +371,50 @@ def _select_attn(seq_impl: str):
     raise ValueError(f"seq_impl must be 'flash' or 'dense', got {seq_impl!r}")
 
 
-def _qkv(x, lp, cfg: Config, positions, op=_plain):
+def _qkv(x, lp, cfg: Config, positions, op=_plain, ll=None, aid=None):
     """The attention input of one layer: post-RoPE ``q``, ``k`` and ``v``.
-    ``op(name, fn, t)`` runs each named op (:data:`ROW_OPS`) of the layer."""
+    ``op(name, fn, t)`` runs each named op (:data:`ROW_OPS`) of the layer;
+    ``ll``/``aid`` are the layer's adapter-pool slice and the per-row
+    adapter ids (None: the base model)."""
     h = _rmsnorm(x, lp["ln_att"], cfg.norm_eps, op)
-    q = op("wq", lambda t: _proj_heads(t, lp["wq"]), h)
-    k = op("wk", lambda t: _proj_heads(t, lp["wk"]), h)
-    v = op("wv", lambda t: _proj_heads(t, lp["wv"]), h)
+    q = _with_lora(op, "wq", op("wq", lambda t: _proj_heads(t, lp["wq"]), h), h, ll, aid)
+    k = _with_lora(op, "wk", op("wk", lambda t: _proj_heads(t, lp["wk"]), h), h, ll, aid)
+    v = _with_lora(op, "wv", op("wv", lambda t: _proj_heads(t, lp["wv"]), h), h, ll, aid)
     return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v
 
 
-def _layer_out(x, o, lp, cfg: Config, op=_plain):
+def _layer_out(x, o, lp, cfg: Config, op=_plain, ll=None, aid=None):
     """Output projection, residual and MLP of one layer."""
-    x = x + op("wo", lambda t: _out_proj(t, lp["wo"]), o)
+    x = x + _with_lora(op, "wo", op("wo", lambda t: _out_proj(t, lp["wo"]), o), o, ll, aid)
     h = _rmsnorm(x, lp["ln_mlp"], cfg.norm_eps, op)
-    return x + _mlp_block(h, lp, op)
+    return x + _mlp_block(h, lp, op, ll, aid)
 
 
-def _layer(x, lp, cfg: Config, positions, attn_fn, kv_hook=None, op=_plain):
+def _layer(x, lp, cfg: Config, positions, attn_fn, kv_hook=None, op=_plain, ll=None,
+           aid=None):
     """``kv_hook(k, v) -> (k_attn, v_attn, stored)`` lets an int8 pool
     attend the dequantized values it will hold (fake-quant: a reused
     prefix then reads the K/V the cold prefill attended)."""
-    q, k, v = _qkv(x, lp, cfg, positions, op)
+    q, k, v = _qkv(x, lp, cfg, positions, op, ll, aid)
     if kv_hook is None:
         ka, va, stored = k, v, (k, v)
     else:
         ka, va, stored = kv_hook(k, v)
-    return _layer_out(x, attn_fn(q, ka, va), lp, cfg, op), stored
+    return _layer_out(x, attn_fn(q, ka, va), lp, cfg, op, ll, aid), stored
 
 
-def _prefill_core(params: Llama, tokens, cfg: Config, attn_fn, kv_hook=None, op=_plain):
+def _prefill_core(params: Llama, tokens, cfg: Config, attn_fn, kv_hook=None, op=_plain,
+                  lora=None, aid=None):
     """Embed + the layer loop.  Returns ``(hidden (B, L, E), stored)``:
     ``(ks, vs)`` with ``(layers, B, L, kv, hd)`` each, or the kv_hook's
-    ``(qk, sk, qv, sv)`` stacked over layers the same way."""
+    ``(qk, sk, qv, sv)`` stacked over layers the same way.  ``lora``/``aid``:
+    the stacked adapter pool and the per-row adapter ids."""
     x = params.tok_emb[tokens.long()]
     positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
     stored = []
     for li in range(cfg.n_layers):
-        x, st = _layer(x, params.layer(li), cfg, positions, attn_fn, kv_hook, op)
+        x, st = _layer(x, params.layer(li), cfg, positions, attn_fn, kv_hook, op,
+                       _lora_layer(lora, li), aid)
         stored.append(st)
     return x, tuple(torch.stack(parts) for parts in zip(*stored))
 
@@ -411,6 +540,7 @@ def _fake_quant_hook(scale_dtype):
 def prefill_slot_paged(
     params: Llama, tokens, length: int, slot: int, blocks_row, cache: dict,
     cfg: Config, *, seq_impl: str = "flash", return_hidden: bool = False, op=_plain,
+    lora: dict | None = None, adapter_id=None,
 ):
     """Prefill ONE request's prompt into the blocks reserved for ``slot``.
 
@@ -419,6 +549,9 @@ def prefill_slot_paged(
     (reserved physical ids, zero-padded: pad rows land in the sink).
     Under an int8 pool the attention sees the dequantized K/V the pool
     will hold.  ``op`` runs the layer's named ops (:func:`row_tiled_op`).
+    ``lora``/``adapter_id`` (an int or a ``(1,)`` tensor) select the
+    request's adapter from the stacked pool; row 0, or no pool, is the base
+    model.
     Returns ``(last_logits (V,), cache)``, plus the post-``ln_f`` hidden
     ``(E,)`` at that position when ``return_hidden`` (the Medusa heads'
     input); the cache is updated in place."""
@@ -428,7 +561,8 @@ def prefill_slot_paged(
         raise ValueError(f"prefill bucket {lp} is not a multiple of block size {bs}")
     quant = "k_scale" in cache
     hook = _fake_quant_hook(cache["k_scale"].dtype) if quant else None
-    x, stored = _prefill_core(params, tokens, cfg, _select_attn(seq_impl), hook, op)
+    x, stored = _prefill_core(params, tokens, cfg, _select_attn(seq_impl), hook, op,
+                              lora, _aid(lora, adapter_id, 1, tokens.device))
     lb = lp // bs
     rows = (cfg.n_layers, lb, bs, cfg.n_kv_heads)
     blocks_row = torch.as_tensor(blocks_row, dtype=torch.int32, device=tokens.device)
@@ -449,7 +583,7 @@ def prefill_slot_paged(
 def prefill_suffix_paged(
     params: Llama, tokens, prefix_len: int, length: int, slot: int, blocks_row,
     suffix_blocks, cache: dict, cfg: Config, *, prefix_window: int,
-    return_hidden: bool = False, op=_plain,
+    return_hidden: bool = False, op=_plain, lora: dict | None = None, adapter_id=None,
 ):
     """Prefill only the SUFFIX of a prompt whose first ``prefix_len``
     tokens already have K/V in the slot's table blocks: a reused prefix
@@ -469,8 +603,9 @@ def prefill_suffix_paged(
     an int8 pool as the cold prefill's fake-quant attends them) followed by
     the suffix's own K/V, so a row gets the cold prefill's bits; on the CPU
     the einsum, mask and softmax of the dense prefill.  ``op`` runs the
-    layer's named ops (:func:`row_tiled_op`).  Returns ``(last_logits (V,),
-    cache)``; the cache is updated in place."""
+    layer's named ops (:func:`row_tiled_op`); ``lora``/``adapter_id`` as in
+    :func:`prefill_slot_paged`.  Returns ``(last_logits (V,), cache)``; the
+    cache is updated in place."""
     bs = cache["k"].shape[2]
     ls = tokens.shape[1]
     if ls % bs:
@@ -489,6 +624,7 @@ def prefill_suffix_paged(
     # the window's, whose columns past prefix_len the mask hides
     nread = P // bs if flash else pb
     read_idx = blocks_row[:nread].long()
+    aid = _aid(lora, adapter_id, 1, dev)
     x = params.tok_emb[tokens.long()]  # (1, Ls, E)
     positions = (P + torch.arange(ls, device=dev))[None, :]
     if not flash:
@@ -498,8 +634,8 @@ def prefill_suffix_paged(
         scale = 1.0 / math.sqrt(hd)
     ck, cv = cache["k"], cache["v"]
     for li in range(cfg.n_layers):
-        lp = params.layer(li)
-        q, k, v = _qkv(x, lp, cfg, positions, op)
+        lp, ll = params.layer(li), _lora_layer(lora, li)
+        q, k, v = _qkv(x, lp, cfg, positions, op, ll, aid)
         if quant:
             k, v, (qk, sk, qv, sv) = hook(k, v)
             cks, cvs = cache["k_scale"][li], cache["v_scale"][li]
@@ -517,7 +653,7 @@ def prefill_suffix_paged(
             s = torch.einsum("bqhd,bkhd->bhqk", q, kf) * scale
             s = s.masked_fill(~mask, torch.finfo(s.dtype).min)
             o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vf)
-        x = _layer_out(x, o, lp, cfg, op)
+        x = _layer_out(x, o, lp, cfg, op, ll, aid)
         # written after this layer's gather: the window may reach into the
         # first suffix blocks, whose columns the mask hides
         if quant:
@@ -539,16 +675,19 @@ def prefill_suffix_paged(
 @torch.no_grad()
 def decode_slots_paged(
     params: Llama, tokens, cache: dict, active, cfg: Config, *,
-    window: int | None = None, kernel: bool = True,
+    window: int | None = None, kernel: bool = True, lora: dict | None = None,
+    adapter_ids=None,
 ):
     """One decode step for every slot against the paged cache:
     ``tokens (S,)`` -> ``(logits (S, V), cache)``; only ``active`` slots
     advance their position.  Attention reads the first ``window //
     block_size`` table entries per slot; ``kernel`` routes the read through
-    the paged decode-attention kernel (the plain gather path otherwise)."""
+    the paged decode-attention kernel (the plain gather path otherwise).
+    ``lora``/``adapter_ids (S,)`` gather each slot's adapter delta inside the
+    same step: a mixed-adapter batch is one call."""
     logits, cache = _decode_paged_multi(
         params, tokens[:, None], cache, active, active[:, None], cfg,
-        window=window, kernel=kernel,
+        window=window, kernel=kernel, lora=lora, adapter_ids=adapter_ids,
     )
     cache["pos"].add_(active.to(torch.int32))
     return logits[:, 0], cache
@@ -558,7 +697,7 @@ def decode_slots_paged(
 def decode_slots_spec_paged(
     params: Llama, qtokens, cache: dict, active, qvalid, cfg: Config, *,
     window: int | None = None, kernel: bool = True, return_hidden: bool = False,
-    row_split: frozenset = frozenset(),
+    row_split: frozenset = frozenset(), lora: dict | None = None, adapter_ids=None,
 ):
     """Speculative verify pass: score ``L = 1 + draft`` query positions per
     slot in ONE model call.
@@ -572,18 +711,19 @@ def decode_slots_spec_paged(
     accepts, and rejected rows above it are overwritten by the next pass
     before anything reads them.  ``row_split`` names the ops run once per
     query position (:func:`row_variant_ops`), so that row ``j``'s bits are
-    those of a plain step at ``pos + j``.  Returns ``(logits (S, L, V),
-    cache)``, plus the post-``ln_f`` hidden ``(S, L, E)`` when
-    ``return_hidden``."""
+    those of a plain step at ``pos + j`` (a LoRA delta is an op of its own,
+    ``wq.lora`` and so on).  ``lora``/``adapter_ids`` as in
+    :func:`decode_slots_paged`.  Returns ``(logits (S, L, V), cache)``, plus
+    the post-``ln_f`` hidden ``(S, L, E)`` when ``return_hidden``."""
     return _decode_paged_multi(
         params, qtokens, cache, active, qvalid, cfg, window=window, kernel=kernel,
-        return_hidden=return_hidden, row_split=row_split,
+        return_hidden=return_hidden, row_split=row_split, lora=lora, adapter_ids=adapter_ids,
     )
 
 
 # the ops of the decode body whose rows a library may reduce in an order
 # that follows the row count: the RMS norms' mean of squares and the
-# products, by weight
+# products, by weight (each LoRA delta is one more op, ``wq.lora`` ...)
 ROW_OPS = ("norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "head")
 
 
@@ -596,9 +736,29 @@ def _product_shapes(cfg: Config) -> dict:
             "head": (cfg.hidden, cfg.vocab_size)}
 
 
+def _lora_product_shapes(cfg: Config, lora: tuple | None) -> dict:
+    """``(K, N)`` of the two batched products of each LoRA delta op
+    (``wq.lora`` ...) for ``lora = (rank, targets)``; empty without."""
+    if not lora:
+        return {}
+    rank, targets = int(lora[0]), tuple(lora[1])
+    shapes = _lora_shapes(cfg, rank)
+    return {f"{t}.lora": ((math.prod(shapes[t][0][:-1]), rank),
+                          (rank, math.prod(shapes[t][1][1:]))) for t in targets}
+
+
+def _cancelling(gen, batch: int, rows: int, K: int, N: int, dtype, device):
+    """Probe operands of a batched product whose exact result is 0: ``[a,
+    -a]`` rows against ``[w; w]``, so that only the rounding of the partial
+    sums, which follows the summation order, is left."""
+    a = torch.randn(batch, rows, K // 2, generator=gen, device=device)
+    w = torch.randn(batch, K // 2, N, generator=gen, device=device)
+    return torch.cat([a, -a], dim=-1).to(dtype), torch.cat([w, w], dim=1).to(dtype)
+
+
 @torch.no_grad()
 def row_variant_ops(cfg: Config, n_rows: int, L: int, dtype=torch.float32, device="cpu",
-                    seed: int = 0) -> frozenset:
+                    seed: int = 0, lora: tuple | None = None) -> frozenset:
     """The :data:`ROW_OPS` whose rows get other bits on ``device`` in
     ``dtype`` when the op sees ``n_rows * L`` rows instead of ``n_rows``.
     A library picks its algorithm, and with it the order of a row's sums,
@@ -608,7 +768,9 @@ def row_variant_ops(cfg: Config, n_rows: int, L: int, dtype=torch.float32, devic
     other summation order changes; for the norm it compares the f32 mean of
     squares, the one sum in :func:`_rmsnorm`.  A verify pass runs the ops
     found once per query position (``row_split``), so that its rows equal
-    the plain step's bit for bit."""
+    the plain step's bit for bit.  With ``lora = (rank, targets)`` each
+    delta op's two batched products (``n_rows`` batches of ``L`` rows
+    against batches of one row) are probed too."""
     if L <= 1:
         return frozenset()
     gen = torch.Generator(device=device).manual_seed(int(seed))
@@ -628,6 +790,12 @@ def row_variant_ops(cfg: Config, n_rows: int, L: int, dtype=torch.float32, devic
 
     if not torch.equal(sumsq(x)[: int(n_rows)], sumsq(x[: int(n_rows)].contiguous())):
         out.add("norm")
+    lgen = torch.Generator(device=device).manual_seed(int(seed) + 1)
+    for name, prods in _lora_product_shapes(cfg, lora).items():
+        for K, N in prods:
+            x, w = _cancelling(lgen, int(n_rows), int(L), K, N, dtype, device)
+            if not torch.equal(torch.bmm(x, w)[:, :1], torch.bmm(x[:, :1].contiguous(), w)):
+                out.add(name)
     return frozenset(out)
 
 
@@ -638,7 +806,7 @@ PREFILL_ROW_TILE = 256
 
 @torch.no_grad()
 def prefill_variant_ops(cfg: Config, sizes, dtype=torch.float32, device="cpu",
-                        seed: int = 0) -> frozenset:
+                        seed: int = 0, lora: tuple | None = None) -> frozenset:
     """The ops of a prefill layer (:data:`ROW_OPS` but the ``lm_head``, which
     a prefill runs on one row) whose rows get other bits on ``device`` in
     ``dtype`` at another row count: for each pair of consecutive ``sizes``
@@ -647,7 +815,8 @@ def prefill_variant_ops(cfg: Config, sizes, dtype=torch.float32, device="cpu",
     :func:`row_variant_ops`.  A cold prefill, a suffix prefill and a chunk
     run the ops found in fixed row tiles (:func:`row_tiled_op`), so that a
     reused prefix or an earlier chunk holds the K/V a cold prefill
-    writes."""
+    writes.  With ``lora = (rank, targets)`` each delta op's two batched
+    products are probed too (one batch of ``m`` rows against ``n``)."""
     gen = torch.Generator(device=device).manual_seed(int(seed))
     shapes = {k: v for k, v in _product_shapes(cfg).items() if k != "head"}
     sizes = sorted(int(n) for n in sizes)
@@ -672,12 +841,20 @@ def prefill_variant_ops(cfg: Config, sizes, dtype=torch.float32, device="cpu",
         if differs(lambda t: t.float().square().mean(dim=-1, keepdim=True), x, n, m):
             out.add("norm")
             break
+    lgen = torch.Generator(device=device).manual_seed(int(seed) + 1)
+    for name, prods in _lora_product_shapes(cfg, lora).items():
+        for (K, N), (n, m) in ((kn, nm) for kn in prods for nm in pairs):
+            x, w = _cancelling(lgen, 1, m, K, N, dtype, device)
+            if differs(lambda t: torch.bmm(t, w), x, n, m):
+                out.add(name)
+                break
     return frozenset(out)
 
 
 def _decode_paged_multi(params: Llama, qtokens, cache, active, qvalid, cfg: Config, *,
                         window, kernel: bool = True, return_hidden: bool = False,
-                        row_split: frozenset = frozenset()):
+                        row_split: frozenset = frozenset(), lora: dict | None = None,
+                        adapter_ids=None):
     """Shared L-query decode body (``L = 1`` is the decode step, ``L > 1``
     the speculative verify).  This step's K/V rows are written into the
     pool first (quantized per row under an int8 pool; rows whose ``qvalid``
@@ -706,9 +883,10 @@ def _decode_paged_multi(params: Llama, qtokens, cache, active, qvalid, cfg: Conf
     attend = paged_decode_attention if kernel else paged_decode_attention_plain
     ck, cv = cache["k"], cache["v"]
     op = _row_split_op(row_split) if row_split else _plain
+    aid = _aid(lora, adapter_ids, S, pos.device)
     for li in range(cfg.n_layers):
-        lp = params.layer(li)
-        q, k, v = _qkv(x, lp, cfg, positions, op)
+        lp, ll = params.layer(li), _lora_layer(lora, li)
+        q, k, v = _qkv(x, lp, cfg, positions, op, ll, aid)
         ckl, cvl = ck[li], cv[li]
         scales = {}
         if quant:
@@ -723,7 +901,7 @@ def _decode_paged_multi(params: Llama, qtokens, cache, active, qvalid, cfg: Conf
             ckl[write_blk, write_off] = k.to(ckl.dtype)
             cvl[write_blk, write_off] = v.to(cvl.dtype)
         o = attend(q.contiguous(), ckl, cvl, read_idx, pos, **scales)
-        x = _layer_out(x, o, lp, cfg, op)
+        x = _layer_out(x, o, lp, cfg, op, ll, aid)
     x = _rmsnorm(x, params.ln_f, cfg.norm_eps, op)
     logits = op("head", lambda t: t @ params.head, x)
     if return_hidden:

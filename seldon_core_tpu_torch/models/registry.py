@@ -26,13 +26,9 @@ PRESETS = {
 }
 
 # parameters of the JAX package's generative unit that belong to later
-# slices of the port (trained Medusa heads from a checkpoint, LoRA, mesh,
+# slices of the port (trained Medusa heads from a checkpoint, mesh,
 # checkpoints, chip packing)
-LATER_SLICE_PARAMS = (
-    "spec_heads_path", "lora_rank", "lora_slots",
-    "lora_targets", "lora_adapters", "adapter", "mesh",
-    "checkpoint", "pack_class", "pack_slo_ms",
-)
+LATER_SLICE_PARAMS = ("spec_heads_path", "mesh", "checkpoint", "pack_class", "pack_slo_ms")
 
 
 def _is_off(value: Any) -> bool:
@@ -88,6 +84,11 @@ def build_generative_component(
     overlap: bool | None = None,
     conf_signal: bool | None = None,
     embed: bool | None = None,
+    lora_rank: int | None = None,
+    lora_slots: int | None = None,
+    lora_targets: str | None = None,
+    lora_adapters: Any = None,
+    adapter: str | None = None,
     device: str = "cuda",
     **overrides,
 ):
@@ -114,7 +115,13 @@ def build_generative_component(
     the top-2 logit margin inside the decode blocks and adds each row's
     mean to a strData reply (``"confidence"``, read by a cascade router);
     ``embed`` (env ``SCT_EMBED=1``) warms the pooled-embedding path the
-    ``/api/v0.1/embeddings`` route serves."""
+    ``/api/v0.1/embeddings`` route serves.  ``lora_rank``/``lora_slots``/
+    ``lora_targets``/``lora_adapters`` (env ``SCT_LORA_RANK``,
+    ``SCT_LORA_SLOTS``, ``SCT_LORA_TARGETS``, ``SCT_LORA_ADAPTERS``) turn on
+    batched multi-LoRA serving: one stacked adapter pool gathered per slot
+    inside every prefill, decode block and verify pass; ``adapter`` is the
+    deployment's default adapter, which a request's ``"adapter"``
+    overrides."""
     from seldon_core_tpu_torch.executor.generation import (
         GenerativeComponent,
         GenerativeModel,
@@ -173,6 +180,10 @@ def build_generative_component(
         spec_draft_model=spec_draft_model,
         conf_signal=conf_signal,
         embed=embed,
+        lora_rank=lora_rank,
+        lora_slots=lora_slots,
+        lora_targets=lora_targets,
+        lora_adapters=lora_adapters,
         device=dev,
     )
     return GenerativeComponent(
@@ -182,4 +193,5 @@ def build_generative_component(
         eos_id=eos_id,
         queue_max=queue_max,
         overlap=overlap,
+        adapter=adapter,
     )

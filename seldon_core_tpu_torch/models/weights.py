@@ -10,7 +10,9 @@ same numbers.  ``init_params`` makes full-width weights from a
 initial distribution (normal / sqrt(hidden), norms at one); the numbers
 differ from JAX's, since the generators do.  ``medusa_heads_from_jax``
 carries the JAX package's Medusa head block (``{"w1", "head"}``) the same
-way, for a model that drafts with those heads.
+way, for a model that drafts with those heads, and ``lora_from_jax`` the
+JAX package's stacked LoRA adapter pool or one adapter's factors
+(``{target: {"a", "b"}}``), so both frameworks serve the same adapters.
 """
 
 from __future__ import annotations
@@ -57,6 +59,19 @@ def medusa_heads_from_jax(heads: dict, dtype=None, device="cpu") -> dict:
     if set(heads) != {"w1", "head"}:
         raise ValueError(f"Medusa heads need keys ['head', 'w1'], got {sorted(heads)}")
     return {key: _tensor(heads[key], dtype, device) for key in ("w1", "head")}
+
+
+def lora_from_jax(tree: dict, dtype=None, device="cpu") -> dict:
+    """The JAX ``init_lora_params`` pool (``{target: {"a": (L, A, in.., r),
+    "b": (L, A, r, out..)}}``) or one adapter's ``lora_adapter_factors``
+    (``(L, in.., r)`` / ``(L, r, out..)``) -> the same dict of tensors on
+    ``device``."""
+    out = {}
+    for target, fac in tree.items():
+        if set(fac) != {"a", "b"}:
+            raise ValueError(f"LoRA target {target!r} needs keys ['a', 'b'], got {sorted(fac)}")
+        out[target] = {key: _tensor(fac[key], dtype, device) for key in ("a", "b")}
+    return out
 
 
 @torch.no_grad()

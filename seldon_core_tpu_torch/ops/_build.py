@@ -16,7 +16,8 @@ on anything but 0.  ``LAUNCHES`` counts kernel launches per wrapper (a
 launch made anywhere adds one), so a run can show that its path went
 through the kernels; ``PAGED_LAUNCHES_BY_L`` splits the paged kernel's
 count by its query positions per slot (1 in a decode step, ``1 +
-spec_draft`` in a speculative verify pass).  A wrapper called while a CUDA
+spec_draft`` in a speculative verify pass), and ``LAUNCHES_BY_D`` splits
+both kernels' counts by head dim (``"name@D"``).  A wrapper called while a CUDA
 graph is captured launches nothing: :func:`take_captured` moves what the
 capture counted into the graph's record, and each replay adds it back
 (:func:`add_launches`), so the counts stay real launches.
@@ -57,6 +58,7 @@ DTYPE_CODES = {
 
 LAUNCHES = {"flash_attention": 0, "paged_decode_attention": 0}
 PAGED_LAUNCHES_BY_L: collections.Counter = collections.Counter()
+LAUNCHES_BY_D: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,33 +80,38 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     PAGED_LAUNCHES_BY_L.clear()
+    LAUNCHES_BY_D.clear()
 
 
 def snapshot_launches() -> tuple[dict, collections.Counter]:
     """The launch counts now, for :func:`take_captured`."""
-    return dict(LAUNCHES), collections.Counter(PAGED_LAUNCHES_BY_L)
+    return (dict(LAUNCHES), collections.Counter(PAGED_LAUNCHES_BY_L),
+            collections.Counter(LAUNCHES_BY_D))
 
 
 def take_captured(snapshot: tuple) -> tuple[dict, collections.Counter]:
     """The launches the wrappers counted since ``snapshot`` while a CUDA
     graph was captured (the capture launched none of them): returned as
     the graph's per-replay record and taken off the counts."""
-    before, by_l = snapshot
+    before, by_l, by_d = snapshot
     delta = {name: LAUNCHES[name] - before[name] for name in LAUNCHES}
     delta_l = PAGED_LAUNCHES_BY_L - by_l
+    delta_d = LAUNCHES_BY_D - by_d
     LAUNCHES.update(before)
-    PAGED_LAUNCHES_BY_L.clear()
-    PAGED_LAUNCHES_BY_L.update(by_l)
-    return delta, delta_l
+    for counter, kept in ((PAGED_LAUNCHES_BY_L, by_l), (LAUNCHES_BY_D, by_d)):
+        counter.clear()
+        counter.update(kept)
+    return delta, delta_l, delta_d
 
 
 def add_launches(record: tuple) -> None:
     """Count the launches of one replay of a graph (its :func:`take_captured`
     record)."""
-    delta, delta_l = record
+    delta, delta_l, delta_d = record
     for name, n in delta.items():
         LAUNCHES[name] += n
     PAGED_LAUNCHES_BY_L.update(delta_l)
+    LAUNCHES_BY_D.update(delta_d)
 
 
 def _cuda_tool(name: str) -> str | None:

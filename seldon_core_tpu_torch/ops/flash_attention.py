@@ -146,6 +146,7 @@ def _launch(q, k, v, o, causal: bool) -> None:
         )
     _build.check(code, "flash_attention")
     _build.LAUNCHES["flash_attention"] += 1
+    _build.LAUNCHES_BY_D[f"flash_attention@{D}"] += 1
 
 
 def flash_attention(q, k, v, *, causal: bool = True):

@@ -203,6 +203,7 @@ def _launch(q, k_pages, v_pages, table, pos, k_scale, v_scale):
         )
     _build.check(code, "paged_decode_attention")
     _build.LAUNCHES["paged_decode_attention"] += 1
+    _build.LAUNCHES_BY_D[f"paged_decode_attention@{D}"] += 1
     _build.PAGED_LAUNCHES_BY_L[L] += 1
     return out
 

@@ -174,7 +174,7 @@ def test_handoff_codec_refusals_and_optional_fields():
     got = th.decode_handoff(frame)
     assert got["priority"] == "batch" and got["adapter"] == "alpha"
     pool = type("Pool", (), {"kv_block_size": 16, "kv_dtype": None})()
-    with pytest.raises(th.HandoffError, match="adapter 'alpha'"):  # no LoRA served yet
+    with pytest.raises(th.HandoffError, match="adapter 'alpha'"):  # a pool without LoRA
         th.check_pool(pool, got)
     with pytest.raises(ValueError):
         th.decode_handoff(frame[:-3])

@@ -274,3 +274,25 @@ class TestSplitKV:
         got = self._merge(parts, S, L, H, D)
         want = paged_ops.paged_decode_attention_plain(qt, kt, vt, tt, pt, **kw)
         np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+def test_a_captured_graph_record_keeps_every_launch_split():
+    """A capture's record moves what the wrappers counted (by kernel, by
+    query positions and by head dim) off the counts, and each replay adds
+    it back: the counts stay the kernels' real launches."""
+    from seldon_core_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    _build.LAUNCHES["paged_decode_attention"] += 3
+    snap = _build.snapshot_launches()
+    _build.LAUNCHES["paged_decode_attention"] += 2  # counted while "capturing"
+    _build.PAGED_LAUNCHES_BY_L[4] += 2
+    _build.LAUNCHES_BY_D["paged_decode_attention@128"] += 2
+    record = _build.take_captured(snap)
+    assert _build.LAUNCHES["paged_decode_attention"] == 3 and not _build.LAUNCHES_BY_D
+    for _ in range(2):
+        _build.add_launches(record)
+    assert _build.LAUNCHES["paged_decode_attention"] == 7
+    assert _build.PAGED_LAUNCHES_BY_L[4] == 4
+    assert _build.LAUNCHES_BY_D["paged_decode_attention@128"] == 4
+    _build.reset_launches()

@@ -221,13 +221,27 @@ def test_codec_matches_the_jax_codec(msg):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("spec_heads_path", "/heads.npz"), ("lora_rank", 8), ("pack_class", "batch"), ("mesh", "auto"),
-    ("checkpoint", "/weights.npz"), ("lora_targets", "q,v"),
+    ("spec_heads_path", "/heads.npz"), ("pack_class", "batch"), ("mesh", "auto"),
+    ("checkpoint", "/weights.npz"), ("pack_slo_ms", 50),
 ])
 def test_later_slice_parameters_raise_by_name(name, value):
+    assert set(registry.LATER_SLICE_PARAMS) == {
+        "spec_heads_path", "mesh", "checkpoint", "pack_class", "pack_slo_ms"}
     with pytest.raises(GraphUnitError, match=name):
         create_builtin(Implementation.JAX_GENERATIVE, {"preset": "tiny", name: value},
                        device="cpu")
+
+
+@pytest.mark.parametrize("name,value,feature_on", [
+    ("lora_rank", 8, lambda c: c.model.lora_rank == 8 and c.model.lora_pool is not None),
+    ("lora_targets", "qkvo+mlp", lambda c: "w_down" in c.model._lora),
+    ("lora_adapters", "a,b:3", lambda c: len(c.model.lora_pool) == 2),
+    ("adapter", "a", lambda c: c.adapter == "a"),
+])
+def test_lora_parameters_are_served(name, value, feature_on):
+    params = {"preset": "tiny", "lora_rank": 2, "lora_adapters": "a", name: value}
+    comp = create_builtin(Implementation.JAX_GENERATIVE, params, device="cpu")
+    assert feature_on(comp)
 
 
 @pytest.mark.parametrize("name,value,feature_on", [
@@ -283,6 +297,7 @@ def test_port_never_imports_jax_or_the_jax_package():
     # the port's own copies of modules the JAX package also has
     for module in ("cache/prefix.py", "cache/tiers.py", "models/llama.py",
                    "executor/generation.py", "executor/multihost.py", "disagg/handoff.py",
+                   "executor/lora.py", "executor/memory.py",
                    "qos/context.py", "graphllm/cascade.py", "graphllm/guardrail.py",
                    "graph/walker.py"):
         assert ROOT / "seldon_core_tpu_torch" / module in sources
