@@ -158,7 +158,33 @@ Phases, each printing one JSON line:
    ``lora_pool_bytes`` (180,355,072).  It prints the decode step with the
    deltas on and off from one admitted state (CUDA events, five
    alternating pairs), the delta ops the probes split, and the ledger.
-12. ``kernel_times``: each kernel's time at the main path's shapes and at a
+12. ``serve_zoo``: the predict path, ``JAX_MODEL`` units at full width
+   (ResNet-50 224x224x3 with 1000 classes, BERT-base at 128 tokens, the
+   deep_mnist CNN and the MLP at ``default``), bf16 unless stated.  Z0:
+   each family on seeded weights whose biases, norm scales and BatchNorm
+   statistics are drawn from the seed, the card in float32 (TF32 off)
+   against the CPU in float32 on 4 rows (BERT: rows padded after 100 and
+   17 tokens and one of only padding), within ``ZOO_F32_TOL`` of the
+   log-probabilities' scale; ResNet's uint8 ingest against the pixels
+   normalized on the host; then the card in bf16 against the same (the
+   largest difference and the argmax agreement printed).  Z1: the largest
+   bucket replayed from its CUDA graph against the eager forward of the
+   same input, bit-equal, and no capture after warmup; it prints device
+   ms a step replayed, eager ms, host ms a dispatch, rows/s, FLOPs a row
+   (from the operations' shapes) and the share of 989 TFLOP/s.  Z2: the
+   in-process engine serves the JAX bench's graphs: ResNet-50
+   (``input_dtype=uint8``, ``buckets=16,32``, 24 concurrent 16-image
+   uint8 ``rawTensor`` requests), BERT-base (``buckets=64,256``,
+   ``input_shape=128``, 16 concurrent 64-row int32 requests), an
+   ``EPSILON_GREEDY`` A/B over two ResNet-50 (32 requests, each followed
+   by ``/feedback``: the branches equal a host-only bandit's, both
+   taken) and ``MAHALANOBIS_OUTLIER`` before an ``AVERAGE_COMBINER`` over
+   two BERT-base.  Every reply is 200, sums to 1 a row, equals its unit
+   (or the units' mean) called alone within ``ZOO_BF16_TOL``, carries the
+   routing or the outlier tags; one host sync a device step and no
+   capture after warmup.  It prints predictions/s, request p50/p99, rows
+   a step and a request's host wire costs; neither kernel launches.
+13. ``kernel_times``: each kernel's time at the main path's shapes and at a
    long one (flash at S=2048 and its variant at 80 rows over 592 keys,
    against SDPA with the lower-right causal mask; paged at 8 slots near
    position 2000; paged
@@ -172,8 +198,8 @@ Phases, each printing one JSON line:
    call.
 
 Then the card's name and power limit (nvidia-smi), one line listing the
-kernels (launches summed over the serve phases, ``serve_graph`` and
-``serve_lora`` included), and as the last line
+kernels (launches summed over the serve phases, ``serve_graph``,
+``serve_lora`` and ``serve_zoo`` included), and as the last line
 ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero before that line.  Without CUDA, or without
 the repository beside this file, it exits non-zero and prints no result.
@@ -2909,6 +2935,474 @@ def phase_serve_lora(serve: dict, device: str = "cuda", preset: str = SERVE_PRES
     return asyncio.run(run())
 
 
+# serve_zoo: the predict path (JAX_MODEL units) at full width, bf16 served
+ZOO_PRESETS = {"resnet": "resnet50", "bert": "base", "cnn": "default", "mlp": "default"}
+ZOO_BUCKETS = {"resnet": (16, 32), "bert": (64, 256), "cnn": (64, 256), "mlp": (64, 256)}
+ZOO_REF_ROWS = 4
+BERT_TOKENS = 128
+# float32 on the card (TF32 off) against float32 on the CPU, same weights:
+# log-probabilities within this share of max(1, the largest |log p|), over
+# the classes whose CPU probability exceeds ZOO_TINY_P (smaller ones are
+# rounded to 0 on either side).  The card's cuDNN and cuBLAS sum in other
+# orders (cuDNN may pick Winograd for a 3x3), ~1e-6 a layer; a wrong pad,
+# layout or statistic moves the logits by O(1).
+ZOO_F32_TOL = 1e-3
+ZOO_TINY_P = 1e-30
+# bf16 replies against the same rows called alone: a served step may pad
+# them into another bucket, and the card rounds each op's output to bf16
+# (2**-8 relative) in other places at other row counts (the CPU tests'
+# bf16 limit)
+ZOO_BF16_TOL = 0.05
+# each reply row's probabilities sum to 1 within this (bf16 outputs: each
+# probability rounded once, 2**-9 of the sum at most)
+ZOO_SUM_TOL = 1e-2
+ZOO_RESNET_REQUESTS = 24  # 16-row uint8 rawTensor requests, as bench.py sends
+ZOO_BERT_REQUESTS = 16  # 64-row x 128-token int32 rawTensor requests
+ZOO_BANDIT_REQUESTS = 32  # seed 7 explores branch 1 at the 21st, then exploits it
+
+
+def _zoo_rows(family: str, cfg, rows: int, rng):
+    """Seeded rows of a family's wire format: uint8 pixels (ResNet), token
+    ids with rows 1-3 padded after 100, after 17 and from the start (BERT),
+    pixels in [0, 1) (CNN, MLP)."""
+    import numpy as np
+
+    if family == "resnet":
+        return rng.integers(0, 256, (rows, cfg.image_size, cfg.image_size, cfg.channels),
+                            dtype=np.uint8)
+    if family == "bert":
+        ids = rng.integers(1, cfg.vocab_size, (rows, BERT_TOKENS), dtype=np.int32)
+        if rows >= 4:
+            ids[1, 100:] = ids[2, 17:] = ids[3, :] = cfg.pad_id
+        return ids
+    width = cfg.in_features if family == "mlp" else cfg.image_size ** 2 * cfg.channels
+    return rng.random((rows, width), dtype=np.float32)
+
+
+def _perturb(module, gen) -> None:
+    """Draw every bias, norm scale and BatchNorm statistic (variance >= 0.5)
+    from ``gen``: flax's initial values (zero biases, unit statistics,
+    ``bn3`` at scale 0) would hide a wrong bias, statistic or residual."""
+    import torch
+
+    from seldon_core_tpu_torch.models import zoo
+
+    def draw(t, mean, std):
+        t.copy_(torch.randn(t.shape, generator=gen, device=t.device) * std + mean)
+
+    with torch.no_grad():
+        for mod in module.modules():
+            if isinstance(mod, zoo.BatchNorm):
+                draw(mod.scale, 1.0, 0.2)
+                draw(mod.bias, 0.0, 0.1)
+                draw(mod.mean, 0.0, 0.1)
+                mod.var.copy_(torch.rand(mod.var.shape, generator=gen, device=mod.var.device)
+                              + 0.5)
+            elif isinstance(mod, torch.nn.LayerNorm):
+                draw(mod.weight, 1.0, 0.2)
+                draw(mod.bias, 0.0, 0.1)
+            elif isinstance(mod, (torch.nn.Linear, torch.nn.Conv2d)) and mod.bias is not None:
+                draw(mod.bias, 0.0, 0.1)
+
+
+def _log_err(got, want) -> tuple[float, float]:
+    """(largest |log got - log want| over the classes with want > ZOO_TINY_P,
+    max(1, their largest |log want|))."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    mask = want > ZOO_TINY_P
+    err = np.abs(np.log(np.maximum(got[mask], 1e-300)) - np.log(want[mask]))
+    return float(err.max()), float(max(1.0, np.abs(np.log(want[mask])).max()))
+
+
+def _flops_per_row(module, x) -> float:
+    """FLOPs of one row, counted from the shapes of the operations a
+    one-row forward runs (``torch.utils.flop_counter``: 2 x the
+    multiply-adds of every convolution and matrix product, BERT's
+    attention products over every key included: the plain math masks, it
+    does not skip)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        module(x[:1])
+    return float(counter.get_total_flops())
+
+
+def _zoo_times(model, x, iters: int = 20) -> dict:
+    """At ``x``'s bucket (its rows fill it): device ms a step replayed from
+    its graph (CUDA events around ``iters`` replays), eager ms a forward
+    (CUDA events around ``iters`` eager forwards, their host launches
+    included), host ms a dispatch (pinned copy, uploads, replay and
+    download enqueued)."""
+    import numpy as np
+    import torch
+
+    entry = model._graphs[(x.shape[0], tuple(x.shape[1:]), np.dtype(x.dtype).str)]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    entry["graph"].replay()
+    _sync()
+    start.record()
+    for _ in range(iters):
+        entry["graph"].replay()
+    end.record()
+    end.synchronize()
+    replay_ms = start.elapsed_time(end) / iters
+    xt = torch.from_numpy(x).cuda()
+    model._forward(xt)
+    _sync()
+    start.record()
+    for _ in range(iters):
+        model._forward(xt)
+    end.record()
+    end.synchronize()
+    eager = start.elapsed_time(end) / iters
+    host, pending = 0.0, []
+    for _ in range(iters):  # four steps in flight, fewer than the staging slots
+        t0 = time.perf_counter()
+        pending.append(model.dispatch(x))
+        host += time.perf_counter() - t0
+        if len(pending) > 4:
+            model.fetch(*pending.pop(0))
+    for h in pending:
+        model.fetch(*h)
+    host = host * 1e3 / iters
+    return {"bucket": x.shape[0], "device_ms": replay_ms, "eager_ms": eager,
+            "host_dispatch_ms": host, "rows_per_s": x.shape[0] / replay_ms * 1e3}
+
+
+def _zoo_family(family: str, seed: int, device: str = "cuda") -> dict:
+    """Z0 and Z1 for one family at full width, on seeded and perturbed
+    weights: the card in float32 (TF32 off) against the CPU in float32 on
+    ZOO_REF_ROWS rows; the card in bf16 (the served model, its buckets
+    captured at warmup) against the same; for ResNet the uint8 ingest
+    against the pixels normalized on the host; the largest bucket replayed
+    against the eager forward from the same input (bit-equal) and timed."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.executor.compiled import BucketSpec, CompiledModel
+    from seldon_core_tpu_torch.models import registry, resnet
+
+    preset = ZOO_PRESETS[family]
+    fam = registry.get_family(family)
+    cfg = registry.resolve_family_config(family, preset)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    module = fam.init_params(cfg, gen, device=device)
+    _perturb(module, gen)
+    rng = np.random.default_rng(seed)
+    x = _zoo_rows(family, cfg, ZOO_REF_ROWS, rng)
+    rec: dict = {"preset": preset, "buckets": list(ZOO_BUCKETS[family])}
+    # the served model first: warmup captures its buckets in the wire dtype
+    served = CompiledModel(copy.deepcopy(module), buckets=BucketSpec(ZOO_BUCKETS[family]),
+                           dtype=torch.bfloat16, name=f"{family}:{preset}", device=device)
+    t0 = time.perf_counter()
+    rec["warmup_buckets"] = served.warmup(x.shape[1:], x.dtype)
+    rec["warmup_s"] = time.perf_counter() - t0
+    rec["capture_s"] = [g["capture_s"] for g in served.program_snapshot()["graphs"]]
+    cpu = copy.deepcopy(module).cpu()
+    with torch.no_grad():
+        want = cpu(torch.from_numpy(x)).float().numpy()
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        f32 = CompiledModel(copy.deepcopy(module), buckets=BucketSpec((ZOO_REF_ROWS,)),
+                            name=f"{family}:f32", device=device)
+        got = f32(x)
+        err, scale = _log_err(got, want)
+        rec["f32"] = {"max_log_err": err, "log_scale": scale, "limit": ZOO_F32_TOL * scale,
+                      "max_abs_err": float(np.abs(got - want).max()),
+                      "finite": bool(np.isfinite(got).all()), "shape": list(got.shape)}
+        if family == "resnet":
+            norm = ((x.astype(np.float32) / 255.0 - np.float32(resnet.IMAGENET_MEAN))
+                    / np.float32(resnet.IMAGENET_STD)).astype(np.float32)
+            ingest, _ = _log_err(got, f32(norm))
+            rec["uint8_ingest_vs_normalized"] = {"max_log_err": ingest,
+                                                 "limit": ZOO_F32_TOL * scale}
+        del f32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    got16 = served(x)
+    err16, _ = _log_err(got16, want)
+    rec["bf16_vs_cpu_f32"] = {"max_log_err": err16,
+                              "max_abs_err": float(np.abs(got16 - want).max()),
+                              "argmax_agree": float((got16.argmax(-1) == want.argmax(-1)).mean())}
+    # Z1: the largest bucket replayed against the eager forward, same input
+    big = _zoo_rows(family, cfg, served.buckets.max, rng)
+    replayed = served(big)
+    big_t = torch.from_numpy(big).to(device)
+    eager = served._forward(big_t).cpu().numpy()
+    rec["replay_bit_equal_eager"] = bool(np.array_equal(replayed, eager))
+    rec["flops_per_row"] = _flops_per_row(served.module, big_t)
+    if device == "cuda":
+        rec["times"] = _zoo_times(served, big)
+        rec["times"]["peak_share"] = (rec["flops_per_row"] * served.buckets.max
+                                      / (rec["times"]["device_ms"] * 1e-3) / BF16_FLOPS)
+    rec["captures_after_warmup"] = served.program_compiles - rec["warmup_buckets"]
+    rec["gates"] = {
+        "f32": rec["f32"]["finite"] and err <= ZOO_F32_TOL * scale,
+        "replay_bit_equal_eager": rec["replay_bit_equal_eager"],
+        "no_capture_after_warmup": rec["captures_after_warmup"] == 0,
+    }
+    if family == "resnet":
+        rec["gates"]["uint8_ingest"] = ingest <= ZOO_F32_TOL * scale
+    del served, cpu, module
+    return rec
+
+
+def _zoo_unit(name: str, family: str, rng: int, **extra) -> dict:
+    """A ``JAX_MODEL`` node as bench.py's graphs declare it (bf16, seeded
+    weights); ``extra`` adds graph parameters (name -> (value, type))."""
+    params = {"family": (family, "STRING"), "preset": (ZOO_PRESETS[family], "STRING"),
+              "dtype": ("bfloat16", "STRING"), "rng": (rng, "INT"), **extra}
+    return {"name": name, "type": "MODEL", "implementation": "JAX_MODEL",
+            "parameters": [{"name": k, "value": str(v), "type": t}
+                           for k, (v, t) in params.items()]}
+
+
+def _raw_body(arr) -> dict:
+    import base64
+
+    return {"rawTensor": {"shape": list(arr.shape), "dtype": arr.dtype.name,
+                          "data": base64.b64encode(arr.tobytes()).decode()}}
+
+
+def _raw_reply(reply: dict):
+    import base64
+
+    import numpy as np
+
+    rt = reply["rawTensor"]
+    return np.frombuffer(base64.b64decode(rt["data"]), rt["dtype"]).reshape(rt["shape"])
+
+
+def _zoo_host_costs(body: dict, reply: dict, iters: int = 5) -> dict:
+    """Host ms of one request's wire work, outside the engine (the served
+    wave runs its clients in this process, so they share its interpreter):
+    the client's JSON encode, the engine's decode to a Payload, the reply's
+    encode."""
+    from seldon_core_tpu_torch.contract.codec import payload_from_json, payload_to_dict
+
+    def ms(fn):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = fn()
+        return (time.perf_counter() - t0) * 1e3 / iters, out
+
+    encode, raw = ms(lambda: json.dumps(body).encode())
+    decode, payload = ms(lambda: payload_from_json(raw))
+    answer, _ = ms(lambda: json.dumps(payload_to_dict(payload.with_array(_raw_reply(reply)))))
+    return {"request_bytes": len(raw), "client_encode": encode, "engine_decode": decode,
+            "reply_encode": answer}
+
+
+def _zoo_counts(comps: dict) -> dict:
+    return {n: (c.queue.steps, c.queue.rows, c.model.host_syncs, c.model.program_compiles)
+            for n, c in comps.items() if hasattr(c, "queue")}
+
+
+def _zoo_served(name: str, replies, walls, wave_s: float, before: dict, after: dict,
+                rows: int) -> dict:
+    """One served graph's record: predictions/s, request p50/p99, rows a
+    step, steps, syncs and captures over the wave."""
+    import numpy as np
+
+    steps = sum(after[n][0] - before[n][0] for n in after)
+    step_rows = sum(after[n][1] - before[n][1] for n in after)
+    syncs = sum(after[n][2] - before[n][2] for n in after)
+    captures = sum(after[n][3] - before[n][3] for n in after)
+    return {"graph": name, "requests": len(replies), "rows": rows,
+            "status": sorted({c for c, _ in replies}),
+            "predictions_per_s": rows / wave_s, "wave_s": wave_s,
+            "request_p50_ms": float(np.percentile(walls, 50) * 1e3),
+            "request_p99_ms": float(np.percentile(walls, 99) * 1e3),
+            "steps": steps, "mean_rows_per_step": step_rows / max(1, steps),
+            "host_syncs": syncs, "captures": captures}
+
+
+def _zoo_close(got, want) -> bool:
+    import numpy as np
+
+    got = np.asarray(got, np.float64)
+    err, _ = _log_err(got, want)
+    return err <= ZOO_BF16_TOL and bool(np.all(np.abs(got.sum(-1) - 1.0) <= ZOO_SUM_TOL))
+
+
+async def _zoo_waves(device: str) -> list[dict]:
+    """Z2: the JAX bench's own graphs through the in-process engine."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    resnet_cfg = _zoo_cfg("resnet")
+    bert_cfg = _zoo_cfg("bert")
+    images = [_zoo_rows("resnet", resnet_cfg, 16, rng) for _ in range(4)]
+    tokens = [_zoo_rows("bert", bert_cfg, 64, rng) for _ in range(4)]
+    out = []
+
+    async def served(name, graph, drive):
+        app, boot_s = await _boot(_graph_spec(graph), device)
+        try:
+            rec = await drive(app)
+            rec["boot_and_warmup_s"] = boot_s
+            rec["warmup_report"] = dict(app.warmup_report)
+            out.append(rec)
+        finally:
+            await app.close()
+
+    async def wave(app, bodies, arrays, direct, name):
+        comps = dict(app.service.walker.iter_components())
+        before = _zoo_counts(comps)
+        t0 = time.perf_counter()
+        replies, _, walls = await _graph_wave(app.port, bodies)
+        wave_s = time.perf_counter() - t0
+        rec = _zoo_served(name, replies, walls, wave_s, before, _zoo_counts(comps),
+                          sum(len(arrays[i % len(arrays)]) for i in range(len(bodies))))
+        want = [await asyncio.to_thread(direct, comps, a) for a in arrays]
+        rec["equal_to_solo"] = sum(
+            code == 200 and _zoo_close(_raw_reply(r), want[i % len(arrays)])
+            for i, (code, r) in enumerate(replies))
+        return rec, replies
+
+    resnet_unit = dict(input_dtype=("uint8", "STRING"), buckets=("16,32", "STRING"),
+                       max_batch=(32, "INT"), max_delay_ms=(3.0, "FLOAT"))
+    bert_unit = dict(buckets=("64,256", "STRING"), max_batch=(256, "INT"),
+                     max_delay_ms=(5.0, "FLOAT"), input_shape=(BERT_TOKENS, "STRING"))
+
+    async def resnet_wave(app):
+        bodies = [_raw_body(images[i % 4]) for i in range(ZOO_RESNET_REQUESTS)]
+        rec, replies = await wave(app, bodies, images, lambda c, a: c["resnet"].model(a),
+                                  "resnet50")
+        rec["host_ms_a_request"] = _zoo_host_costs(bodies[0], replies[0][1])
+        return rec
+
+    async def bert_wave(app):
+        bodies = [_raw_body(tokens[i % 4]) for i in range(ZOO_BERT_REQUESTS)]
+        rec, _ = await wave(app, bodies, tokens, lambda c, a: c["bert"].model(a), "bert-base")
+        return rec
+
+    async def bandit(app):
+        from seldon_core_tpu_torch.graph.units import EpsilonGreedy
+
+        comps = dict(app.service.walker.iter_components())
+        before = _zoo_counts(comps)
+        ref = EpsilonGreedy(n_branches=2, epsilon=0.2, seed=7)
+        branches, host, feedback, walls, served_rows = [], [], [], [], []
+        t0 = time.perf_counter()
+        for i in range(ZOO_BANDIT_REQUESTS):
+            body = _raw_body(images[i % 4])
+            t1 = time.perf_counter()
+            code, raw = await asyncio.to_thread(_call, app.port, "/api/v0.1/predictions", body)
+            walls.append(time.perf_counter() - t1)
+            reply = json.loads(raw)
+            b = reply.get("meta", {}).get("routing", {}).get("ab")
+            h = ref.route(None, [])
+            ref.send_feedback(None, [], 1.0 if h == 1 else 0.0, routing=h)
+            branches.append(b)
+            host.append(h)
+            served_rows.append((code, b, i % 4, reply))
+            fb = await asyncio.to_thread(_call, app.port, "/api/v0.1/feedback", {
+                "request": body, "response": reply, "reward": 1.0 if b == 1 else 0.0})
+            feedback.append(fb[0])
+        wave_s = time.perf_counter() - t0
+        rec = _zoo_served("epsilon_greedy_resnet50", [(c, r) for c, _, _, r in served_rows],
+                          walls, wave_s, before, _zoo_counts(comps), 16 * ZOO_BANDIT_REQUESTS)
+        want = {(b, i): await asyncio.to_thread(comps[f"r{b}"].model, images[i])
+                for b in (0, 1) for i in range(4)}
+        rec.update({
+            "branches": branches, "host_only_branches": host,
+            "feedback_status": sorted(set(feedback)),
+            "router_pulls": comps["ab"].pulls.tolist(),
+            "equal_to_solo": sum(code == 200 and b in (0, 1) and _zoo_close(_raw_reply(r),
+                                                                            want[(b, i)])
+                                 for code, b, i, r in served_rows)})
+        return rec
+
+    async def ensemble(app):
+        bodies = [_raw_body(tokens[i % 4]) for i in range(8)]
+        rec, replies = await wave(
+            app, bodies, tokens,
+            lambda c, a: (c["b0"].model(a).astype(np.float64) + c["b1"].model(a)) / 2,
+            "outlier_ensemble_bert-base")
+        rec["outlier_tags"] = sum(
+            len(r.get("meta", {}).get("tags", {}).get("outlier_score", [])) == 64
+            for _, r in replies)
+        return rec
+
+    await served("resnet50", _zoo_unit("resnet", "resnet", 0, **resnet_unit), resnet_wave)
+    await served("bert-base", _zoo_unit("bert", "bert", 0, **bert_unit), bert_wave)
+    bandit_graph = {
+        "name": "ab", "type": "ROUTER", "implementation": "EPSILON_GREEDY",
+        "parameters": [{"name": "n_branches", "value": "2", "type": "INT"},
+                       {"name": "epsilon", "value": "0.2", "type": "FLOAT"},
+                       {"name": "seed", "value": "7", "type": "INT"}],
+        "children": [_zoo_unit("r0", "resnet", 0, **resnet_unit),
+                     _zoo_unit("r1", "resnet", 1, **resnet_unit)]}
+    await served("bandit", bandit_graph, bandit)
+    ensemble_graph = {
+        "name": "outlier", "type": "TRANSFORMER", "implementation": "MAHALANOBIS_OUTLIER",
+        "children": [{"name": "ens", "type": "COMBINER", "implementation": "AVERAGE_COMBINER",
+                      "children": [_zoo_unit("b0", "bert", 0, **bert_unit),
+                                   _zoo_unit("b1", "bert", 1, **bert_unit)]}]}
+    await served("ensemble", ensemble_graph, ensemble)
+    return out
+
+
+def _zoo_cfg(family: str):
+    from seldon_core_tpu_torch.models import registry
+
+    return registry.resolve_family_config(family, ZOO_PRESETS[family])
+
+
+def phase_serve_zoo(device: str = "cuda") -> dict:
+    """The predict path on the card: Z0 and Z1 per family (``_zoo_family``),
+    then Z2, four served graphs (``_zoo_waves``).  Gates: Z0's float32 and
+    uint8 checks, Z1's bit-equal replay and no capture after warmup; in Z2
+    every reply 200, each row summing to 1, equal to its unit (or the mean
+    of the two) called alone, ``meta.routing`` and the outlier tags there,
+    the feedback walk reaching the router, one host sync a device step and
+    no capture after warmup.  Returns the kernels' launches (the zoo runs
+    neither)."""
+    import gc
+
+    import torch
+
+    from seldon_core_tpu_torch.ops import _build
+
+    _build.reset_launches()  # the zoo's run starts here
+    families = {}
+    for i, family in enumerate(("resnet", "bert", "cnn", "mlp")):
+        families[family] = _zoo_family(family, seed=i, device=device)
+        emit({"phase": "serve_zoo", "family": family, **families[family]})
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    graphs = asyncio.run(_zoo_waves(device))
+    bandit = next(g for g in graphs if g["graph"].startswith("epsilon"))
+    launches = dict(_build.LAUNCHES)
+    gates = {f"{family}_{k}": v for family, r in families.items() for k, v in r["gates"].items()}
+    for g in graphs:
+        name = g["graph"]
+        gates[f"{name}_status"] = g["status"] == [200]
+        gates[f"{name}_equal_to_solo"] = g["equal_to_solo"] == g["requests"]
+        gates[f"{name}_one_sync_a_step"] = g["host_syncs"] == g["steps"] > 0
+        gates[f"{name}_no_capture"] = g["captures"] == 0
+    gates["bandit_routing"] = (bandit["branches"] == bandit["host_only_branches"]
+                               and set(bandit["branches"]) == {0, 1})
+    gates["bandit_feedback"] = (bandit["feedback_status"] == [200]
+                                and sum(bandit["router_pulls"]) == ZOO_BANDIT_REQUESTS)
+    ensemble = next(g for g in graphs if g["graph"].startswith("outlier"))
+    gates["outlier_tags"] = ensemble["outlier_tags"] == ensemble["requests"]
+    rec = {"phase": "serve_zoo", "dtype": "bfloat16", "served": graphs,
+           "zoo_launches": launches, "gates": gates, "ok": all(gates.values())}
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"serve_zoo: gates {[k for k, v in gates.items() if not v]}")
+    return launches
+
+
 def _flash_times(fa, S: int, D: int = 64) -> dict:
     """K1 at B=1, S, llama3-1b heads (32 and 8 KV; ``D`` 128 is the 8b's
     geometry), bf16: one input set per layer so no launch finds its inputs
@@ -3104,10 +3598,12 @@ def main() -> int:
     stream = timed("serve_stream", phase_serve_stream)
     graph = timed("serve_graph", phase_serve_graph, serve)
     lora = timed("serve_lora", phase_serve_lora, serve)
+    zoo = timed("serve_zoo", phase_serve_zoo)
     times = timed("kernel_times", phase_kernel_times, serve)
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     launches = {name: serve["launches"][name] + cached["launches"][name] + spec[name]
-                + split[name] + stream[name] + graph[name] + lora[name] for name in KERNELS}
+                + split[name] + stream[name] + graph[name] + lora[name] + zoo[name]
+                for name in KERNELS}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False,

@@ -1,15 +1,19 @@
 """Wire codec: SeldonMessage JSON <-> :class:`Payload`.
 
 The JSON half of the JAX package's ``contract/codec.py``, wire-compatible
-with it: ``data.tensor``, ``data.ndarray`` and ``strData``.
+with it: ``data.tensor``, ``data.ndarray``, ``binData`` and ``strData``.
 
     {"meta": {...}, "data": {"names": [...], "tensor": {"shape": [...],
      "values": [...]}}}                       # or "ndarray": [[...]]
-    {"strData": "..."}
+    {"binData": "<base64>"} / {"strData": "..."}
 
-plus the JAX package's typed ``rawTensor`` on the way out (the
-``/embeddings`` reply) and the feedback message ``{"request": ...,
-"response": ..., "reward": r, "truth": ...}``.
+plus the JAX package's typed ``rawTensor`` (``{"shape": [...], "dtype":
+"uint8", "data": "<base64>", "names": [...]}``: raw little-endian bytes,
+4x smaller than bf16 for uint8 images) both ways, and the feedback
+message ``{"request": ..., "response": ..., "reward": r, "truth": ...}``.
+A ``bfloat16`` rawTensor (its uint16 bit patterns) decodes to float32,
+which holds every bfloat16 value exactly: numpy has no bfloat16 without
+``ml_dtypes``, which the port does not use.
 
 Decoding happens once per request at the process boundary; everything
 inside the graph walk is numpy.
@@ -18,6 +22,7 @@ inside the graph walk is numpy.
 from __future__ import annotations
 
 import base64
+import binascii
 import json
 from typing import Any
 
@@ -34,6 +39,14 @@ from seldon_core_tpu_torch.contract.payload import (
 
 class CodecError(ValueError):
     """Malformed wire message."""
+
+
+# dtypes allowed on the rawTensor path (the JAX package's list)
+_RAW_DTYPES = {
+    "float32", "float16", "bfloat16", "float64",
+    "int8", "uint8", "int16", "uint16", "int32", "uint32",
+    "int64", "uint64", "bool",
+}
 
 
 _METRIC_TYPES = {"COUNTER", "GAUGE", "TIMER"}
@@ -108,11 +121,32 @@ def payload_from_dict(msg: dict[str, Any]) -> Payload:
         if "ndarray" in data:
             return Payload(_ndarray_to_array(data["ndarray"]), names, DataKind.NDARRAY, meta)
         raise CodecError("data must contain 'tensor' or 'ndarray'")
+    if "rawTensor" in msg:
+        rt = msg["rawTensor"]
+        try:
+            dtype = rt.get("dtype", "float32")
+            if dtype not in _RAW_DTYPES:
+                raise CodecError(f"unsupported rawTensor dtype {dtype!r}")
+            data = rt.get("data")
+            if data is None:
+                raise CodecError("rawTensor missing 'data'")
+            buf = base64.b64decode(data, validate=True) if isinstance(data, str) else bytes(data)
+            arr = _raw_to_array(buf, dtype, [int(s) for s in rt.get("shape", [])])
+            names = list(rt.get("names", []))
+        except CodecError:
+            raise
+        except (AttributeError, TypeError, ValueError, binascii.Error) as e:
+            raise CodecError(f"bad rawTensor: {e}") from e
+        return Payload(arr, names, DataKind.RAW, meta)
+    if "binData" in msg:
+        raw = msg["binData"]
+        try:
+            data_b = base64.b64decode(raw, validate=True) if isinstance(raw, str) else bytes(raw)
+        except (binascii.Error, TypeError, ValueError) as e:
+            raise CodecError(f"bad binData: {e}") from e
+        return Payload(data_b, [], DataKind.BINARY, meta)
     if "strData" in msg:
         return Payload(str(msg["strData"]), [], DataKind.STRING, meta)
-    for other in ("rawTensor", "binData"):
-        if other in msg:
-            raise CodecError(f"{other} payloads are not served by this engine")
     return Payload(None, [], DataKind.EMPTY, meta)
 
 
@@ -124,7 +158,9 @@ def payload_to_dict(payload: Payload, include_meta: bool = True) -> dict[str, An
     kind, data = payload.kind, payload.data
     if kind == DataKind.EMPTY or data is None:
         return out
-    if kind == DataKind.STRING:
+    if kind == DataKind.BINARY:
+        out["binData"] = base64.b64encode(data).decode("ascii")
+    elif kind == DataKind.STRING:
         out["strData"] = data
     elif kind == DataKind.TENSOR:
         arr = np.asarray(data, dtype=np.float64)
@@ -181,6 +217,19 @@ def payload_from_json(raw: str | bytes) -> Payload:
     except (json.JSONDecodeError, UnicodeDecodeError) as e:
         raise CodecError(f"invalid JSON: {e}") from e
     return payload_from_dict(msg)
+
+
+def _raw_to_array(buf: bytes, dtype: str, shape: list[int]) -> np.ndarray:
+    """A writable copy of the wire bytes (``np.frombuffer`` is read-only);
+    bfloat16 bit patterns widened to float32."""
+    if dtype == "bfloat16":
+        bits = np.frombuffer(buf, dtype="<u2").astype(np.uint32) << 16
+        arr = bits.view(np.float32)
+    else:
+        arr = np.frombuffer(buf, dtype=np.dtype(dtype)).copy()
+    if shape:
+        arr = arr.reshape(shape)
+    return arr
 
 
 def _ndarray_to_array(nd: Any) -> np.ndarray:

@@ -10,10 +10,13 @@ the drain toggle a preStop hook sends) with a minimal HTTP/1.1 handler on
 ``asyncio.start_server``: Content-Length bodies, keep-alive unless the
 client says ``close``.  The predictor comes from ``ENGINE_PREDICTOR`` as
 for the JAX engine; its graph may hold routers, combiners, transformers,
-cascade routers and guardrails.  Every request seeds the request-scoped
-QoS context from ``x-sct-deadline-ms`` and ``x-sct-priority`` (an absent
-header resets it, so a keep-alive connection never inherits the previous
-request's deadline).
+cascade routers and guardrails, ``JAX_MODEL`` zoo units (their batching
+queues answer 429 when full and 504 for a request whose deadline passed
+before its device step) and ``JAX_GENERATIVE`` units.  A ``rawTensor``
+request is answered with a ``rawTensor``.  Every request seeds the
+request-scoped QoS context from ``x-sct-deadline-ms`` and
+``x-sct-priority`` (an absent header resets it, so a keep-alive connection
+never inherits the previous request's deadline).
 
 ``POST /api/v0.1/feedback`` (alias ``/api/v1.0/feedback``) takes a
 Feedback message (``{"request": ..., "response": ..., "reward": r,
@@ -99,7 +102,8 @@ from seldon_core_tpu_torch.disagg.handoff import (
     encode_prefix_chain,
 )
 from seldon_core_tpu_torch.engine.service import PredictionService, load_predictor_spec
-from seldon_core_tpu_torch.executor.generation import AdapterUnavailable, QueueFull
+from seldon_core_tpu_torch.executor.generation import AdapterUnavailable
+from seldon_core_tpu_torch.qos.admission import DeadlineExceeded, QueueFull
 from seldon_core_tpu_torch.graph.units import GraphUnitError
 
 log = logging.getLogger(__name__)
@@ -111,6 +115,7 @@ _REASONS = {
     200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
     409: "Conflict", 413: "Payload Too Large", 429: "Too Many Requests",
     500: "Internal Server Error", 501: "Not Implemented", 503: "Service Unavailable",
+    504: "Gateway Timeout",
 }
 
 
@@ -232,6 +237,9 @@ class EngineApp:
         # client left before the end
         self.stream_stats = {"streams": 0, "events": 0, "writes": 0, "disconnects": 0}
         self.boot_error: str | None = None
+        # unit name -> warm-up runs: a JAX_MODEL unit's captured buckets, a
+        # generative unit's warm-up runs
+        self.warmup_report: dict[str, int] = {}
         self._server: asyncio.base_events.Server | None = None
         self.role = disagg.resolve_role(role)
         self.decode_upstreams = (list(decode_upstreams) if decode_upstreams is not None
@@ -263,7 +271,9 @@ class EngineApp:
         blocks), then warm them; ``/ready`` turns true after."""
         try:
             await asyncio.to_thread(self.service.start)
-            await self.service.warmup()
+            self.warmup_report = await self.service.warmup()
+            log.info("warmup: %s (seconds %s)", self.warmup_report,
+                     self.service.walker.warmup_seconds)
         except Exception as e:
             self.boot_error = f"{type(e).__name__}: {e}"
             raise
@@ -376,6 +386,8 @@ class EngineApp:
             return _json(400, failure_status_dict(400, str(e)))
         except QueueFull as e:
             return _json(429, failure_status_dict(429, str(e)))
+        except DeadlineExceeded as e:
+            return _json(504, failure_status_dict(504, str(e)))
         except GraphUnitError as e:
             return _json(500, failure_status_dict(500, str(e)))
         resp = payload_to_dict(out)

@@ -1,0 +1,258 @@
+"""Continuous micro-batching queue with a pipelined device stream: the port
+of the JAX package's ``executor/batcher.py``.
+
+Concurrent requests coalesce into one batch a device step, so the card
+runs full tiles.  Two latencies matter:
+
+* collection: how long a request waits for batch-mates (``max_delay_ms``,
+  one window a step, drained with ``get_nowait``; a full batch dispatches
+  at once);
+* the device round trip: the queue hands each step to a pool thread that
+  dispatches it and fetches its result, with up to ``pipeline_depth``
+  steps in flight (``SCT_BATCH_PIPELINE``, default 8), so the round trip
+  overlaps the next steps' dispatch.
+
+Rows of one request stay together; items are keyed by row shape and
+dtype, and a minority key is held for the next step, not starved.  A
+runner may be a plain callable ``batch -> rows`` (run one step at a time)
+or expose ``dispatch(batch) -> handle`` / ``fetch(*handle) -> rows``
+(:class:`~seldon_core_tpu_torch.executor.compiled.CompiledModel` does); a
+group larger than the runner's largest bucket takes the plain call, which
+chunks.  ``maxsize`` (``SCT_BATCH_QUEUE_MAX``, default 2048; 0 = no bound)
+bounds the waiting requests: beyond it ``submit`` raises ``QueueFull``.  A
+request whose deadline (``qos.get_deadline()``, seeded at ingress) has
+passed before its step gets ``DeadlineExceeded``, and a cancelled request
+is skipped: no device step is spent on either.
+
+Left out here: the obs spans and stage timings, metering and the MFU
+gauge (ROADMAP A20).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import collections
+import concurrent.futures
+import os
+import time
+from typing import Callable
+
+import numpy as np
+
+from seldon_core_tpu_torch.qos.admission import DeadlineExceeded, QueueFull
+from seldon_core_tpu_torch.qos.context import get_deadline
+
+
+class BatchQueue:
+    def __init__(
+        self,
+        runner: Callable[[np.ndarray], np.ndarray],
+        *,
+        max_batch: int = 64,
+        max_delay_ms: float = 2.0,
+        pipeline_depth: int | None = None,
+        name: str = "model",
+        maxsize: int | None = None,
+    ):
+        self.runner = runner
+        if pipeline_depth is None:
+            pipeline_depth = int(os.environ.get("SCT_BATCH_PIPELINE", "8"))
+        self.max_batch = int(max_batch)
+        self.max_delay = max_delay_ms / 1000.0
+        self.name = name
+        self.maxsize = (int(maxsize) if maxsize is not None
+                        else int(os.environ.get("SCT_BATCH_QUEUE_MAX", "2048")))
+        self._dispatch = getattr(runner, "dispatch", None)
+        self._fetch = getattr(runner, "fetch", None)
+        # only dispatch/fetch runners (CompiledModel) are thread-safe; a plain
+        # callable keeps one runner thread and so a pipeline of 1
+        self._pipelined = self._dispatch is not None and self._fetch is not None
+        depth = max(1, pipeline_depth) if self._pipelined else 1
+        self._queue: asyncio.Queue = asyncio.Queue()
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=depth, thread_name_prefix=f"batcher-{name}")
+        self._sem = asyncio.Semaphore(depth)
+        self._inflight: set[asyncio.Task] = set()
+        self._task: asyncio.Task | None = None
+        self._closed = False
+        self.steps = 0  # device steps run
+        self.rows = 0  # rows those steps carried
+        self.deadline_drops = 0  # requests failed with DeadlineExceeded
+
+    # ------------------------------------------------------------- lifecycle
+    def _ensure_running(self) -> None:
+        if self._task is None or self._task.done():
+            self._task = asyncio.get_running_loop().create_task(self._run())
+
+    async def close(self) -> None:
+        """Stop the loop and fail every pending and in-flight request (a hung
+        awaiter is worse than an errored one during a drain)."""
+        self._closed = True
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+        for t in list(self._inflight):
+            t.cancel()
+        await asyncio.gather(*self._inflight, return_exceptions=True)
+        err = RuntimeError(f"BatchQueue {self.name!r} closed")
+        while not self._queue.empty():
+            _, fut, _, _ = self._queue.get_nowait()
+            if not fut.done():
+                fut.set_exception(err)
+        self._pool.shutdown(wait=False)
+
+    # ------------------------------------------------------------- interface
+    async def submit(self, x: np.ndarray) -> np.ndarray:
+        """Submit one request's rows (they stay together); returns its rows
+        (a 1-D input's row squeezed)."""
+        if self._closed:
+            raise RuntimeError("BatchQueue is closed")
+        self._ensure_running()
+        x = np.asarray(x)
+        if self.maxsize and self._queue.qsize() >= self.maxsize:
+            raise QueueFull(f"batch queue {self.name!r} is full "
+                            f"({self._queue.qsize()} waiting, cap {self.maxsize})")
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        # the deadline rides the item: the step loop runs in its own context
+        await self._queue.put((x, fut, time.perf_counter(), get_deadline()))
+        return await fut
+
+    # ------------------------------------------------------------- internals
+    @staticmethod
+    def _key(x: np.ndarray) -> tuple:
+        return (x.shape[1:] if x.ndim > 1 else x.shape, x.dtype.str)
+
+    @staticmethod
+    def _rows(x: np.ndarray) -> int:
+        return x.shape[0] if x.ndim > 1 else 1
+
+    def _viable(self, item) -> bool:
+        """Skip a request whose client is gone (a cancelled future) and fail
+        one whose deadline has passed: no step for work nobody can use."""
+        _x, fut, t_enq, deadline = item
+        if fut.done():
+            return False
+        if deadline is not None and time.monotonic() >= deadline:
+            fut.set_exception(DeadlineExceeded(
+                f"deadline expired after {time.perf_counter() - t_enq:.3f}s waiting in "
+                f"batch queue {self.name!r}"))
+            self.deadline_drops += 1
+            return False
+        return True
+
+    async def _run(self) -> None:
+        loop = asyncio.get_running_loop()
+        pending: collections.deque = collections.deque()  # misfits, served first
+        group: list = []
+        try:
+            while True:
+                first = pending.popleft() if pending else await self._queue.get()
+                if not self._viable(first):
+                    continue
+                group = [first]
+                key = self._key(first[0])
+                rows = self._rows(first[0])
+                # absorb compatible held-over items before waiting on the queue
+                for item in list(pending):
+                    if rows >= self.max_batch:
+                        break
+                    if self._key(item[0]) == key:
+                        pending.remove(item)
+                        if not self._viable(item):
+                            continue
+                        group.append(item)
+                        rows += self._rows(item[0])
+
+                def drain(total: int) -> int:
+                    # what is already queued, without a timer per item
+                    while total < self.max_batch:
+                        try:
+                            item = self._queue.get_nowait()
+                        except asyncio.QueueEmpty:
+                            break
+                        if self._key(item[0]) != key:
+                            pending.append(item)  # the next group's seed
+                            continue
+                        if not self._viable(item):
+                            continue
+                        group.append(item)
+                        total += self._rows(item[0])
+                    return total
+
+                rows = drain(rows)
+                # the collection window, cut short by a full batch
+                deadline = loop.time() + self.max_delay
+                while rows < self.max_batch:
+                    remaining = deadline - loop.time()
+                    if remaining <= 0:
+                        break
+                    try:
+                        item = await asyncio.wait_for(self._queue.get(), remaining)
+                    except asyncio.TimeoutError:
+                        break
+                    if self._key(item[0]) != key:
+                        pending.append(item)
+                        continue
+                    if not self._viable(item):
+                        continue
+                    group.append(item)
+                    rows += self._rows(item[0])
+                    rows = drain(rows)
+
+                await self._sem.acquire()  # bound the in-flight pipeline
+                task = loop.create_task(self._step(loop, group))
+                self._inflight.add(task)
+                task.add_done_callback(self._inflight.discard)
+                group = []
+        except asyncio.CancelledError:
+            err = RuntimeError(f"BatchQueue {self.name!r} closed")
+            for _, fut, _, _ in list(group) + list(pending):
+                if not fut.done():
+                    fut.set_exception(err)
+            raise
+
+    async def _step(self, loop, group) -> None:
+        # a last sweep at the device boundary: the window may have outlived
+        # a deadline
+        group = [item for item in group if self._viable(item)]
+        if not group:
+            self._sem.release()
+            return
+        xs = [np.atleast_2d(x) for x, _, _, _ in group]
+        batch = np.concatenate(xs, axis=0) if len(xs) > 1 else xs[0]
+        try:
+            try:
+                cap = getattr(getattr(self.runner, "buckets", None), "max", None)
+                if self._pipelined and (cap is None or batch.shape[0] <= cap):
+                    def run_step(b=batch):
+                        return self._fetch(*self._dispatch(b))
+
+                    out = await loop.run_in_executor(self._pool, run_step)
+                else:
+                    # an oversized group: the plain call chunks it
+                    out = await loop.run_in_executor(self._pool, self.runner, batch)
+            except asyncio.CancelledError:
+                err: BaseException = RuntimeError(f"BatchQueue {self.name!r} closed")
+                for _, fut, _, _ in group:
+                    if not fut.done():
+                        fut.set_exception(err)
+                raise
+            except Exception as exc:  # noqa: BLE001 - every waiter gets the step's error
+                for _, fut, _, _ in group:
+                    if not fut.done():
+                        fut.set_exception(exc)
+                return
+            self.steps += 1
+            self.rows += batch.shape[0]
+            out = np.asarray(out)
+            offset = 0
+            for (x, fut, _, _), rows in zip(group, (x.shape[0] for x in xs)):
+                if not fut.done():
+                    res = out[offset:offset + rows]
+                    fut.set_result(res if x.ndim > 1 else res[0])
+                offset += rows
+        finally:
+            self._sem.release()

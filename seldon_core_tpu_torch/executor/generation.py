@@ -101,6 +101,7 @@ from seldon_core_tpu_torch.models import llama
 from seldon_core_tpu_torch.models.registry import resolve_config
 from seldon_core_tpu_torch.models.weights import init_params
 from seldon_core_tpu_torch.ops import _build, paged_attention
+from seldon_core_tpu_torch.qos.admission import QueueFull
 
 log = logging.getLogger(__name__)
 
@@ -128,10 +129,6 @@ def _conf_margin(logits: torch.Tensor) -> torch.Tensor:
 class OutOfKVBlocks(Exception):
     """The paged KV pool cannot reserve the blocks this request needs right
     now; the scheduler holds the request until completions free blocks."""
-
-
-class QueueFull(Exception):
-    """The scheduler's bounded intake is full (the engine answers 429)."""
 
 
 class AdapterUnavailable(GraphUnitError):

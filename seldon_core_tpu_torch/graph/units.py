@@ -17,9 +17,10 @@ return a :class:`Payload` for full control of meta and encoding.
 
 The host-only built-ins (routers, the combiner, the outlier scorer) are
 numpy, with the JAX units' ``default_rng(seed)``, so their decisions are
-those of the JAX package under the same seed.  ``JAX_GENERATIVE`` keeps
-its name, so that a graph spec the JAX engine serves is served unchanged;
-here it builds the PyTorch generative component.  ``CASCADE_ROUTER`` and
+those of the JAX package under the same seed.  ``JAX_MODEL`` and
+``JAX_GENERATIVE`` keep their names, so that a graph spec the JAX engine
+serves is served unchanged; here they build the PyTorch zoo and
+generative components.  ``CASCADE_ROUTER`` and
 ``GUARDRAIL`` come from ``graphllm/``, imported when first built.
 """
 
@@ -243,6 +244,70 @@ def _torch_generative(parameters: dict[str, Any], device: str) -> Any:
         raise GraphUnitError(str(e)) from e
 
 
+# parameters of the JAX package's JAX_MODEL unit that belong to later
+# slices of the port: checkpoints (ROADMAP A14) and the mesh (A15)
+MODEL_LATER_PARAMS = ("mesh", "checkpoint")
+
+
+def _torch_model(parameters: dict[str, Any], device: str) -> Any:
+    """JAX_MODEL: a zoo family (``mlp``, ``cnn``, ``resnet``, ``bert``) on
+    the device behind the batching queue.
+
+    Graph parameters as the JAX package reads them: ``family`` (required),
+    ``preset``, ``dtype``, ``max_batch``, ``max_delay_ms``, ``max_queue``,
+    ``buckets`` (a comma-separated batch ladder, e.g. ``"16,32"``),
+    ``input_dtype`` (warm the buckets for that wire dtype, e.g. ``"uint8"``
+    images normalized on the device), ``class_names`` (a list, or a
+    comma-separated string), ``batching``, ``rng`` (the weight seed), plus
+    config overrides (e.g. ``n_classes``).  ``mesh``, ``checkpoint`` and a
+    ``sharding`` other than ``default`` raise by name.  One parameter the
+    JAX unit lacks: ``input_shape`` (a comma-separated row shape, e.g.
+    ``"128"`` for BERT rows of 128 tokens) warms the buckets for that row
+    shape; without it they are warmed for the family's example row (BERT:
+    16 tokens), and a request of another row shape captures its graph at
+    first use, as the JAX unit compiles it."""
+    from seldon_core_tpu_torch.executor.compiled import BucketSpec
+    from seldon_core_tpu_torch.models import registry
+
+    params = dict(parameters)
+    try:
+        family = params.pop("family")
+    except KeyError:
+        raise GraphUnitError("JAX_MODEL requires a 'family' parameter") from None
+    for name in MODEL_LATER_PARAMS:
+        if params.pop(name, None) is not None:
+            raise GraphUnitError(f"JAX_MODEL parameter {name!r} is not served by the "
+                                 "PyTorch port yet")
+    sharding = str(params.pop("sharding", "default")).strip()
+    if sharding != "default":
+        raise GraphUnitError(f"JAX_MODEL sharding={sharding!r} is not served by the "
+                             "PyTorch port yet (only 'default')")
+    dtype = _parse_dtype(params.pop("dtype", None), "JAX_MODEL")
+    if "buckets" in params:
+        params["buckets"] = BucketSpec(tuple(sorted(_positive_ints(params["buckets"],
+                                                                   "buckets"))))
+    if "input_shape" in params:
+        params["input_shape"] = _positive_ints(params["input_shape"], "input_shape")
+    if isinstance(params.get("class_names"), str):
+        params["class_names"] = [c.strip() for c in params["class_names"].split(",")]
+    try:
+        return registry.build_component(family, dtype=dtype, device=device, **params)
+    except (KeyError, TypeError, ValueError) as e:
+        raise GraphUnitError(str(e)) from e
+
+
+def _positive_ints(raw: Any, name: str) -> tuple[int, ...]:
+    """A comma-separated list of positive ints (``"16,32"``)."""
+    try:
+        out = tuple(int(s) for s in str(raw).split(","))
+        if any(s < 1 for s in out):
+            raise ValueError(raw)
+    except ValueError:
+        raise GraphUnitError(
+            f"{name} must be comma-separated positive ints, got {raw!r}") from None
+    return out
+
+
 def _graphllm(cls_name: str):
     """A ``graphllm/`` unit, imported when first built."""
     def build(parameters: dict[str, Any], device: str) -> Any:
@@ -266,6 +331,7 @@ _BUILTINS: dict[Implementation, Callable[..., Any]] = {
     Implementation.EPSILON_GREEDY: _host(EpsilonGreedy),
     Implementation.THOMPSON_SAMPLING: _host(ThompsonSampling),
     Implementation.MAHALANOBIS_OUTLIER: _host(MahalanobisOutlier),
+    Implementation.JAX_MODEL: _torch_model,
     Implementation.JAX_GENERATIVE: _torch_generative,
     Implementation.CASCADE_ROUTER: _graphllm("CascadeRouter"),
     Implementation.GUARDRAIL: _graphllm("Guardrail"),

@@ -1,23 +1,164 @@
-"""Model-family registry for the generative graph unit (JAX_GENERATIVE).
+"""Model-family registry: the zoo's predict units (JAX_MODEL) and the
+generative unit (JAX_GENERATIVE).
 
-The counterpart of the JAX package's ``models/registry.py::
-build_generative_component`` for the llama family and its presets.  Graph
-parameters of features the port does not serve yet raise
-:class:`GraphUnitError` naming themselves whenever they are set to
-anything but their off value; none is ever ignored.
+The counterpart of the JAX package's ``models/registry.py``:
+``build_component`` builds a :class:`ModelComponent` over a
+:class:`CompiledModel` of one zoo family (``mlp``, ``cnn``, ``resnet``,
+``bert``) and preset, and ``build_generative_component`` the llama
+family's generative unit.  Graph parameters of features the port does not
+serve yet raise :class:`GraphUnitError` naming themselves whenever they
+are set to anything but their off value; none is ever ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from seldon_core_tpu_torch import resolve_device
 from seldon_core_tpu_torch.graph.units import GraphUnitError
-from seldon_core_tpu_torch.models import llama
-from seldon_core_tpu_torch.models.weights import init_params, params_from_jax
+from seldon_core_tpu_torch.models import bert, cnn, llama, mlp, resnet
+from seldon_core_tpu_torch.models.weights import init_params, params_from_jax, zoo_from_flax
+
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """One zoo family: its config, module class, seeded init, presets and
+    the warm-up input a batch of its rows looks like."""
+
+    config_cls: type
+    module: type
+    init_params: Callable  # (cfg, generator, dtype, device) -> module
+    presets: dict[str, Callable[[], Any]]
+    example_input: Callable[[Any, int], np.ndarray]  # (cfg, batch) -> array
+
+
+def _f32(shape):
+    return np.zeros(shape, np.float32)
+
+
+FAMILIES: dict[str, Family] = {
+    "mlp": Family(
+        mlp.Config, mlp.MLP, mlp.init_params,
+        presets={"default": mlp.Config,
+                 "tiny": lambda: mlp.Config(in_features=16, hidden=32, n_classes=3)},
+        example_input=lambda c, b: _f32((b, c.in_features)),
+    ),
+    "cnn": Family(
+        cnn.Config, cnn.CNN, cnn.init_params,
+        presets={"default": cnn.Config, "tiny": lambda: cnn.Config(image_size=8, hidden=32)},
+        example_input=lambda c, b: _f32((b, c.image_size * c.image_size * c.channels)),
+    ),
+    "resnet": Family(
+        resnet.Config, resnet.ResNet, resnet.init_params,
+        presets={"resnet50": resnet.Config,
+                 "tiny": lambda: resnet.Config(stage_sizes=(1, 1), width=8, n_classes=10,
+                                               image_size=32)},
+        example_input=lambda c, b: _f32((b, c.image_size, c.image_size, c.channels)),
+    ),
+    "bert": Family(
+        bert.Config, bert.Bert, bert.init_params,
+        presets={"base": bert.Config,
+                 "tiny": lambda: bert.Config(vocab_size=128, hidden=32, n_layers=2, n_heads=2,
+                                             ffn=64, max_len=64)},
+        example_input=lambda c, b: np.ones((b, 16), np.int32),
+    ),
+}
+
+
+def get_family(name: str) -> Family:
+    try:
+        return FAMILIES[name]
+    except KeyError:
+        raise KeyError(f"unknown model family {name!r}; have {sorted(FAMILIES)}") from None
+
+
+def resolve_family_config(family: str, preset: str | None = None, **overrides) -> Any:
+    """A zoo family's config: the preset (default: the config's defaults)
+    with ``overrides`` of its fields; an unknown field raises TypeError."""
+    fam = get_family(family)
+    if preset is None:
+        cfg = fam.config_cls()
+    else:
+        try:
+            cfg = fam.presets[preset]()
+        except KeyError:
+            raise KeyError(f"unknown {family} preset {preset!r}; have "
+                           f"{sorted(fam.presets)}") from None
+    if overrides:
+        fields = {f.name for f in dataclasses.fields(fam.config_cls)}
+        unknown = sorted(set(overrides) - fields)
+        if unknown:
+            raise TypeError(f"unknown JAX_MODEL parameters {unknown} for family {family!r} "
+                            f"(config fields: {sorted(fields)})")
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg
+
+
+def example_input(family: str, cfg: Any, batch: int = 1) -> np.ndarray:
+    return get_family(family).example_input(cfg, batch)
+
+
+def build_compiled(family: str, *, preset: str | None = None, cfg: Any = None, rng: int = 0,
+                   dtype: torch.dtype | None = None, buckets=None, params: Any = None,
+                   device: str = "cuda", **overrides):
+    """A :class:`CompiledModel` of ``family`` on ``device``.  ``params`` is
+    the family's port module or the JAX package's flax variables tree (as
+    numpy); without it the weights are made from the seed ``rng``."""
+    from seldon_core_tpu_torch.executor.compiled import BucketSpec, CompiledModel
+
+    fam = get_family(family)
+    dev = resolve_device(device)
+    if cfg is None:
+        cfg = resolve_family_config(family, preset, **overrides)
+    elif overrides:
+        # an explicit cfg leaves nothing for overrides to apply to
+        raise TypeError(f"unknown JAX_MODEL parameters {sorted(overrides)} for family "
+                        f"{family!r} (config fields: "
+                        f"{sorted(f.name for f in dataclasses.fields(fam.config_cls))})")
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(int(rng))
+        module = fam.init_params(cfg, gen, dtype=None, device=dev)
+    elif isinstance(params, fam.module):
+        module = params
+    else:
+        module = zoo_from_flax(family, params, cfg, device=dev)
+    return CompiledModel(module, buckets=buckets or BucketSpec(), dtype=dtype,
+                         name=f"{family}:{preset or 'default'}", device=dev)
+
+
+def build_component(family: str, *, preset: str | None = None, cfg: Any = None,
+                    class_names: list[str] | None = None, batching: bool = True,
+                    max_batch: int = 64, max_delay_ms: float = 2.0,
+                    max_queue: int | None = None, input_dtype: str | None = None,
+                    input_shape: tuple[int, ...] | None = None, **kwargs):
+    """A JAX_MODEL graph unit: a :class:`ModelComponent` over
+    :func:`build_compiled` (``kwargs``: its options and the family's config
+    overrides).  ``input_dtype`` (e.g. ``"uint8"`` images, normalized on
+    the device) warms the buckets for that wire dtype, and ``input_shape``
+    for that row shape (e.g. ``(128,)``: BERT rows of 128 tokens; the
+    family's example row otherwise, 16 tokens for BERT)."""
+    from seldon_core_tpu_torch.executor.component import ModelComponent
+
+    if cfg is None:
+        # resolved here so that the warm-up example comes from the same config
+        fields = {f.name for f in dataclasses.fields(get_family(family).config_cls)}
+        overrides = {k: kwargs.pop(k) for k in list(kwargs) if k in fields}
+        cfg = resolve_family_config(family, preset, **overrides)
+    # leftovers must be build_compiled options: anything else raises there
+    model = build_compiled(family, preset=preset, cfg=cfg, **kwargs)
+    warmup = example_input(family, cfg, 1)
+    if input_shape is not None:
+        warmup = np.ones((1,) + tuple(input_shape), warmup.dtype)
+    if input_dtype is not None:
+        warmup = warmup.astype(np.dtype(input_dtype))
+    return ModelComponent(model, class_names=class_names, batching=batching,
+                          max_batch=max_batch, max_delay_ms=max_delay_ms,
+                          max_queue=max_queue, warmup_example=warmup)
+
 
 PRESETS = {
     "llama3-8b": llama.Config.llama3_8b,

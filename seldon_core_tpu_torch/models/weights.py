@@ -13,15 +13,22 @@ carries the JAX package's Medusa head block (``{"w1", "head"}``) the same
 way, for a model that drafts with those heads, and ``lora_from_jax`` the
 JAX package's stacked LoRA adapter pool or one adapter's factors
 (``{target: {"a", "b"}}``), so both frameworks serve the same adapters.
+
+``zoo_from_flax`` carries a zoo family's flax variables (``{"params":
+..., "batch_stats": ...}``) onto the port's module of that family, whose
+attribute paths are flax's module paths.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Any, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
+from seldon_core_tpu_torch.models import zoo
 from seldon_core_tpu_torch.models.llama import LAYER_KEYS, Config, Llama, param_shapes
 
 
@@ -88,3 +95,89 @@ def init_params(cfg: Config, generator: torch.Generator, dtype=torch.float32,
             w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
             tensors[key] = w.mul_(s).to(dtype)
     return Llama(cfg, tensors)
+
+
+def _flat_tree(tree: Mapping, prefix: str = "") -> dict:
+    """A nested flax variables mapping -> ``{"params/a/b/kernel": leaf}``."""
+    out = {}
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out.update(_flat_tree(value, path + "/"))
+        else:
+            out[path] = value
+    return out
+
+
+def _zoo_sources(module: nn.Module) -> dict:
+    """Port state key -> (flax variable path, layout change) for every
+    weight of a zoo module: flax's ``Dense``/``DenseGeneral`` kernels are
+    ``(in.., out..)`` where ``Linear.weight`` is ``(out, in)``, ``Conv``
+    kernels HWIO where torch's are OIHW, ``Embed`` tables and norms carry
+    over as they are, and BatchNorm's statistics live in ``batch_stats``."""
+    def linear(w, shape):
+        return w.reshape(shape[1], shape[0]).T
+
+    def hwio(w, shape):
+        return w.transpose(3, 2, 0, 1)
+
+    def same(w, shape):
+        return w.reshape(shape)
+
+    leaves = {
+        nn.Linear: {"weight": ("params", "kernel", linear), "bias": ("params", "bias", same)},
+        nn.Conv2d: {"weight": ("params", "kernel", hwio), "bias": ("params", "bias", same)},
+        nn.Embedding: {"weight": ("params", "embedding", same)},
+        nn.LayerNorm: {"weight": ("params", "scale", same), "bias": ("params", "bias", same)},
+        zoo.BatchNorm: {"scale": ("params", "scale", same), "bias": ("params", "bias", same),
+                        "mean": ("batch_stats", "mean", same),
+                        "var": ("batch_stats", "var", same)},
+    }
+    sources = {}
+    for path, mod in module.named_modules():
+        for name, (collection, leaf, layout) in leaves.get(type(mod), {}).items():
+            if getattr(mod, name, None) is not None:
+                flax_path = "/".join([collection, *path.split("."), leaf])
+                sources[f"{path}.{name}"] = (flax_path, layout)
+    return sources
+
+
+@torch.no_grad()
+def zoo_from_flax(family: str, variables: Mapping[str, Any], cfg, *, dtype=None,
+                  device="cpu") -> nn.Module:
+    """The JAX package's ``init_params`` variables of a zoo family (numpy
+    leaves, or anything ``np.asarray`` accepts) -> the port's module of that
+    family on ``device``, key by key.  ``dtype`` None keeps each array's
+    float type (bf16 arrays, which numpy cannot hold natively, arrive as
+    float32).  A key the module needs and the tree lacks, or one the tree
+    holds and the module has no place for, raises ``KeyError`` naming it."""
+    from seldon_core_tpu_torch.models.registry import get_family
+
+    with torch.device(device):
+        module = get_family(family).module(cfg)
+    flat = _flat_tree(variables)
+    state = dict(module.named_parameters())
+    state.update(module.named_buffers())
+    for key, (flax_path, layout) in _zoo_sources(module).items():
+        if flax_path not in flat:
+            raise KeyError(f"{family} flax variables lack {flax_path!r} (the port's {key})")
+        shape = tuple(state[key].shape)
+        arr = np.asarray(flat.pop(flax_path))
+        try:
+            arr = layout(arr, shape)
+            if arr.shape != shape:
+                raise ValueError(f"{arr.shape} after the layout change")
+        except ValueError as e:
+            raise ValueError(f"{family} flax variable {flax_path!r} of shape {arr.shape} "
+                             f"does not fit the port's {key} {shape}: {e}") from None
+        t = _tensor(arr, dtype, device)
+        owner, _, name = key.rpartition(".")
+        sub = module.get_submodule(owner)
+        if name in sub._parameters:
+            sub._parameters[name] = nn.Parameter(t, requires_grad=False)
+        else:
+            sub._buffers[name] = t
+    if flat:
+        raise KeyError(f"{family} flax variables hold {sorted(flat)}, which the port's "
+                       f"{family} has no place for")
+    return module.eval().requires_grad_(False)

@@ -1,5 +1,8 @@
 """Request-scoped QoS context: the deadline and priority a request carries
-through the graph (``qos/context.py``)."""
+through the graph (``qos/context.py``), and the shed decisions a request
+can meet before its device step (``qos/admission.py``)."""
+
+from seldon_core_tpu_torch.qos.admission import DeadlineExceeded, QueueFull  # noqa: F401
 
 from seldon_core_tpu_torch.qos.context import (  # noqa: F401
     DEADLINE_HEADER,

@@ -217,7 +217,7 @@ def test_codec_matches_the_jax_codec(msg):
     assert t.kind.value == j.kind.value and t.names == j.names
     assert payload_to_dict(t) == jax_payload_to_dict(j)
     with pytest.raises(CodecError):
-        payload_from_dict({"binData": "AA=="})
+        payload_from_dict({"binData": "not base64!"})
 
 
 @pytest.mark.parametrize("name,value", [
@@ -266,8 +266,10 @@ def test_registry_rules():
         registry.build_generative_component(preset="tiny", seq_impl="ring", device="cpu")
     with pytest.raises(TypeError, match="maxseq"):
         registry.build_generative_component(preset="tiny", maxseq=3, device="cpu")
-    with pytest.raises(GraphUnitError, match="no built-in"):
+    with pytest.raises(GraphUnitError, match="family"):
         create_builtin(Implementation.JAX_MODEL, {}, device="cpu")
+    with pytest.raises(GraphUnitError, match="no built-in"):
+        create_builtin(Implementation.UNKNOWN_IMPLEMENTATION, {}, device="cpu")
 
 
 def test_cuda_entry_points_raise_without_cuda(tiny):
@@ -299,7 +301,9 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "executor/generation.py", "executor/multihost.py", "disagg/handoff.py",
                    "executor/lora.py", "executor/memory.py",
                    "qos/context.py", "graphllm/cascade.py", "graphllm/guardrail.py",
-                   "graph/walker.py"):
+                   "graph/walker.py", "models/mlp.py", "models/cnn.py", "models/resnet.py",
+                   "models/bert.py", "executor/compiled.py", "executor/batcher.py",
+                   "executor/component.py", "qos/admission.py"):
         assert ROOT / "seldon_core_tpu_torch" / module in sources
     hits = [
         f"{p.relative_to(ROOT)}:{i}"
