@@ -119,9 +119,10 @@ Phases, each printing one JSON line:
    ``small.predict_raw`` of the same body, its tokens ``serve``'s
    streams; at +inf every request escalates and every reply is
    byte-equal to ``large.predict_raw`` (``meta.routing.casc`` 1); at +inf
-   with ``x-sct-deadline-ms: 10`` the reason is ``deadline-budget`` and
-   tier 0 serves; a decode block replayed from its graph, and the block
-   continued from its carry before the first is fetched, give the margins
+   under ``x-sct-deadline-ms: 30000`` with the next tier's ``ttft_ms`` set
+   to 60 s the reason is ``deadline-budget`` and tier 0 serves; a decode
+   block replayed from its graph, and the block continued from its carry
+   before the first is fetched, give the margins
    of the eager loop bit for bit; one sync per decode block with the
    signal on; ``/api/v0.1/embeddings`` over the prompts costs one fetch
    for the wave, launches flash attention, and each vector is within
@@ -184,7 +185,48 @@ Phases, each printing one JSON line:
    routing or the outlier tags; one host sync a device step and no
    capture after warmup.  It prints predictions/s, request p50/p99, rows
    a step and a request's host wire costs; neither kernel launches.
-13. ``kernel_times``: each kernel's time at the main path's shapes and at a
+13. ``serve_cache``: the response tiers on the serve graph with ``embed``
+   on, ``SCT_CACHE=1`` and ``SCT_SEMCACHE=1``.  C1: serve's 8 prompts
+   sent concurrently give serve's (cache-off) streams; the same bodies
+   again, keys reordered and spaced otherwise, are all ``x-sct-cache:
+   hit``, byte-equal, and spend no prefill, decode block or embed.  C2:
+   16 identical concurrent bodies on a cold key are one admission into a
+   slot, 16 byte-equal replies and 15 collapsed followers.  C3: with the
+   exact tier flushed, a C1 body is a ``semantic`` hit (similarity >=
+   0.95); an unrelated prompt hits exactly when its ``/embeddings``
+   cosine to a cached prompt is >= 0.95; the C1 prompt with 48 new tokens
+   misses and gets its 48 (ROADMAP C7).  C4: ``RANDOM_ABTEST`` over two
+   zoo MLP units: the engine tier is not bound, repeated rows hit the
+   node tier and spend no step.  C5: a unit at temperature 0.8 binds
+   neither tier.  It prints hit and miss p50, the K1 launches and ms of
+   an embed.
+14. ``serve_qos``: admission on the serve graph with ``kv_prefix_reuse``
+   and ``prefill_chunk=256``, each part under its own controller from
+   ``SCT_QOS_*`` knobs.  Q1: 32 concurrent requests of 64 tokens under
+   ``MAX_INFLIGHT=8``, ``MAX_QUEUE=8``: 200 or 429, every 429 with
+   ``Retry-After`` >= 1, admitted + shed = 32, every 200's stream equal
+   to its prompt served alone.  Q2: with all slots busy, 8 ``batch`` then
+   8 interactive requests: the batch ones above ``max_queue x (1 -
+   interactive_reserve)`` get 429 while interactive ones are admitted,
+   and interactive requests take slots before the batch ones queued
+   beside them.  Q3: ``x-sct-deadline-ms: 1`` behind full slots is a 504
+   with no prefill spent; a deadline passing mid-decode is a 504 reaped
+   at the next sync point while the wave's other streams equal their
+   solo streams, one host sync a block; a 1900-token prompt whose
+   deadline passes between its 256-token chunks is a 504 whose blocks
+   are back and none of whose blocks entered the prefix index.  Q4: 8
+   admitted and 24 shed inside a 2 s window start a brownout: an
+   interactive request for 64 tokens gets 16 (the first 16 of its
+   unclamped stream), a batch request 429 ``brownout``, and after the
+   3 s cooldown 64 again.  Q5: with both EWMAs holding samples, a budget
+   under ``predicted_completion_ms`` is a 429 ``predicted-slo-miss`` with
+   no prefill spent.  The usage meter over the phase: every request
+   counted once (completed, shed, reaped), the decode tokens equal the
+   delivered ones less each started request's first (its prefill's)
+   plus the wasted, and the device seconds equal the blocks' within 1%.
+   It prints an admission's host us, the EWMAs and the 429 and 504
+   counts.
+15. ``kernel_times``: each kernel's time at the main path's shapes and at a
    long one (flash at S=2048 and its variant at 80 rows over 592 keys,
    against SDPA with the lower-right causal mask; paged at 8 slots near
    position 2000; paged
@@ -199,7 +241,8 @@ Phases, each printing one JSON line:
 
 Then the card's name and power limit (nvidia-smi), one line listing the
 kernels (launches summed over the serve phases, ``serve_graph``,
-``serve_lora`` and ``serve_zoo`` included), and as the last line
+``serve_lora``, ``serve_zoo``, ``serve_cache`` and ``serve_qos``
+included), and as the last line
 ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero before that line.  Without CUDA, or without
 the repository beside this file, it exits non-zero and prints no result.
@@ -216,6 +259,7 @@ import statistics
 import subprocess
 import sys
 import time
+import unittest.mock
 import urllib.error
 import urllib.request
 
@@ -1070,17 +1114,38 @@ def _post(port: int, body: dict, timeout: float = 600.0) -> tuple[int, dict]:
         return resp.status, json.loads(resp.read())
 
 
-def _call(port: int, path: str, body, headers: dict | None = None,
-          timeout: float = 600.0) -> tuple[int, bytes]:
-    """POST ``body`` (a dict as JSON, or bytes) to ``path`` -> (status, body)."""
+def _req(port: int, body, headers: dict | None = None,
+         path: str = "/api/v0.1/predictions", timeout: float = 600.0) -> dict:
+    """POST ``body`` (bytes, or a dict as JSON) -> its status, headers
+    (lower case), raw body, send time and wall seconds (encoding included)."""
+    sent = time.perf_counter()
     data = body if isinstance(body, bytes) else json.dumps(body).encode()
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
                                  headers=headers or {}, method="POST")
     try:
         with urllib.request.urlopen(req, timeout=timeout) as resp:
-            return resp.status, resp.read()
+            status, hdrs, raw = resp.status, resp.headers, resp.read()
     except urllib.error.HTTPError as e:
-        return e.code, e.read()
+        status, hdrs, raw = e.code, e.headers, e.read()
+    return {"status": status, "headers": {k.lower(): v for k, v in hdrs.items()},
+            "raw": raw, "sent": sent, "s": time.perf_counter() - sent}
+
+
+def _call(port: int, path: str, body, headers: dict | None = None,
+          timeout: float = 600.0) -> tuple[int, bytes]:
+    """POST ``body`` (a dict as JSON, or bytes) to ``path`` -> (status, body)."""
+    r = _req(port, body, headers, path, timeout)
+    return r["status"], r["raw"]
+
+
+async def _requests(port: int, bodies, headers=None) -> list[dict]:
+    """``bodies`` posted concurrently (``headers``: one dict a body, or None)
+    -> :func:`_req`'s replies."""
+    loop = asyncio.get_running_loop()
+    headers = headers or [None] * len(bodies)
+    with concurrent.futures.ThreadPoolExecutor(len(bodies)) as clients:
+        return list(await asyncio.gather(*(loop.run_in_executor(clients, _req, port, b, h)
+                                           for b, h in zip(bodies, headers))))
 
 
 def _get(port: int, path: str) -> int:
@@ -2222,20 +2287,11 @@ async def _direct(comp, bodies) -> list[str]:
 
 
 async def _graph_wave(port: int, bodies, headers=None) -> tuple[list, list, list]:
-    """``bodies`` posted concurrently -> (replies, client send times, walls)."""
-    loop = asyncio.get_running_loop()
-    sent, walls = [0.0] * len(bodies), [0.0] * len(bodies)
-
-    def one(i):
-        sent[i] = time.perf_counter()
-        code, raw = _call(port, "/api/v0.1/predictions", bodies[i], headers)
-        walls[i] = time.perf_counter() - sent[i]
-        return code, json.loads(raw)
-
-    with concurrent.futures.ThreadPoolExecutor(len(bodies)) as clients:
-        replies = await asyncio.gather(*(loop.run_in_executor(clients, one, i)
-                                         for i in range(len(bodies))))
-    return replies, sent, walls
+    """``bodies`` posted concurrently, each with ``headers`` -> ((status,
+    reply) pairs, client send times, walls)."""
+    replies = await _requests(port, bodies, [headers] * len(bodies))
+    return ([(r["status"], json.loads(r["raw"])) for r in replies],
+            [r["sent"] for r in replies], [r["s"] for r in replies])
 
 
 def _ttfts(firsts: dict, prompts, sent) -> list[float]:
@@ -2431,8 +2487,8 @@ def _logged_decide(casc, reasons: list) -> None:
 
 
 async def _cascade_waves(app, prompts, want, bodies) -> dict:
-    """Engine G1's gated waves: threshold 0, +inf, +inf under a 10 ms
-    deadline, the guardrail, the embeddings and the margins' replay check;
+    """Engine G1's gated waves: threshold 0, +inf, +inf under a deadline
+    the next tier's TTFT cannot fit, the guardrail, the embeddings and the margins' replay check;
     launches of the served waves under ``launches``."""
     import numpy as np
 
@@ -2472,8 +2528,12 @@ async def _cascade_waves(app, prompts, want, bodies) -> dict:
     e1 = (casc.escalations, lm.block_seconds, lm.decode_blocks, lm.host_syncs)
     large_step_ms = 1e3 * (e1[1] - e0[1]) / max(1, _fetched_steps(lm, e0[2]))
     esc_ttft = _ttfts(firsts["large"], prompts, sent1)
-    n_before = len(reasons)  # +inf under 10 ms: the budget cannot fit the 8b's TTFT
-    late, _, _ = await _graph_wave(app.port, bodies[:2], {"x-sct-deadline-ms": "10"})
+    n_before = len(reasons)  # +inf under a budget that cannot fit the 8b's TTFT
+    # a deadline tier 0 can meet (the schedulers reap a request whose
+    # deadline passes, as the JAX ones do) under a next-tier TTFT above it
+    ttft_ms, casc.ttft_ms = casc.ttft_ms, 60000.0
+    late, _, _ = await _graph_wave(app.port, bodies[:2], {"x-sct-deadline-ms": "30000"})
+    casc.ttft_ms = ttft_ms
     late_reasons = reasons[n_before:]
     casc.threshold = 0.0  # the guardrail's requests ship from tier 0
     scrubs = guard.actions.get("scrub", 0)  # an e-mail address in a string field
@@ -2517,7 +2577,7 @@ async def _cascade_waves(app, prompts, want, bodies) -> dict:
         "large_decode_blocks": e1[2] - e0[2], "large_host_syncs": e1[3] - e0[3],
         "large_tokens": [json.loads(b["strData"])["tokens"][:8] for _, b in esc[:2]
                          if "strData" in b]}
-    rec["deadline_10ms"] = {
+    rec["deadline_budget"] = {
         "status": [c for c, _ in late], "reasons": late_reasons,
         "routing": [b.get("meta", {}).get("routing") for _, b in late],
         "byte_equal_to_small": sum(b.get("strData") == d for (_, b), d in zip(late, direct))}
@@ -2552,7 +2612,7 @@ async def _cascade_waves(app, prompts, want, bodies) -> dict:
 
 def _g1_gates(rec: dict, n: int) -> dict:
     t0, ti, late, guard, emb = (rec[k] for k in ("threshold_0", "threshold_inf",
-                                                 "deadline_10ms", "guardrail", "embeddings"))
+                                                 "deadline_budget", "guardrail", "embeddings"))
     return {
         "threshold_0": (t0["status"] == [200] * n and t0["routing"] == [{"casc": 0}] * n
                         and t0["byte_equal_to_small"] == n and t0["tokens_equal_to_serve"] == n
@@ -3403,6 +3463,486 @@ def phase_serve_zoo(device: str = "cuda") -> dict:
     return launches
 
 
+# -- the request planes: response tiers and QoS ----------------------------------
+
+SEM_SIM = 0.95  # the semantic tier's threshold (SCT_SEMCACHE_SIM's default)
+CACHE_META = {"tags": {"smoke": "cache"}}  # every serve_cache body carries it
+HERD = 16  # identical concurrent requests on a cold cache
+QOS_NEW = 64  # new tokens a serve_qos request asks for
+QOS_CAP = 8  # SCT_QOS_MAX_INFLIGHT and SCT_QOS_MAX_QUEUE in Q1 and Q2
+QOS_WAVE = 32  # Q1's concurrent requests
+BROWNOUT_FLOOD = 24  # Q4: sheds beside the 8 admitted, 32 decisions in the window
+
+
+def _tokens_of(reply: dict) -> list[int]:
+    return json.loads(json.loads(reply["raw"])["strData"])["tokens"]
+
+
+def _p50_ms(seconds) -> float | None:
+    return 1e3 * statistics.median(seconds) if seconds else None
+
+
+def _cache_body(prompt, max_new: int = MAX_NEW, spaced: bool = False) -> bytes:
+    """A serve_cache request: compact, or with its keys in the other order
+    and spaced otherwise (the same content address)."""
+    body = {"meta": CACHE_META,
+            "strData": json.dumps({"tokens": prompt, "max_new_tokens": max_new})}
+    if spaced:
+        return json.dumps(dict(reversed(list(body.items()))), indent=3).encode()
+    return json.dumps(body, separators=(",", ":")).encode()
+
+
+async def _until(cond, timeout_s: float = 60.0, what: str = "a condition") -> None:
+    deadline = time.perf_counter() + timeout_s
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        await asyncio.sleep(0.005)
+
+
+async def _quiet(model, settle_s: float = 0.3) -> None:
+    """Wait until no decode block is fetched for ``settle_s``: the overlap
+    dispatches one block past a wave's last token, fetched after the
+    replies went out."""
+    while True:
+        n = model.decode_blocks
+        await asyncio.sleep(settle_s)
+        if model.decode_blocks == n:
+            return
+
+
+def _cosines(port: int, prompts) -> list[list[float]]:
+    """The pairwise cosines of the prompts' ``/api/v0.1/embeddings`` vectors."""
+    import numpy as np
+
+    reply = json.loads(_req(port, {"tokens": prompts}, path="/api/v0.1/embeddings")["raw"])
+    v = _raw_reply(reply).astype(np.float64)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return (v @ v.T).tolist()
+
+
+def phase_serve_cache(serve: dict, device: str = "cuda", preset: str = SERVE_PRESET) -> dict:
+    """The response tiers at llama3-1b width (``SCT_CACHE=1``,
+    ``SCT_SEMCACHE=1``, ``embed`` on, the serve graph's seed): C1 the exact
+    tier, C2 request collapsing, C3 the semantic tier, C4 the walker's node
+    tier under a random router, C5 a sampled unit.  Returns the launch
+    counts of the 1b engine's waves."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.ops import _build
+
+    prompts, want = serve["prompts"], serve["outs"]  # 8 distinct; a cache-off engine's streams
+    rng = np.random.default_rng(10)
+    planes = {"SCT_CACHE": "1", "SCT_SEMCACHE": "1"}
+
+    async def llama() -> tuple[dict, dict]:
+        app, boot_s = await _boot(_serve_spec(preset, 0, embed=("true", "BOOL")), device)
+        port = app.port
+        try:
+            model = app.service.walker.component.model
+            vocab = model.cfg.vocab_size
+            counters = lambda: {"prefills": model.prefills, "steps": model.steps,  # noqa: E731
+                                "decode_blocks": model.decode_blocks, "embeds": model.embeds}
+            _build.reset_launches()
+            # C1: the exact tier
+            first = await _requests(port, [_cache_body(p) for p in prompts])
+            await _quiet(model)
+            before = counters()
+            second = await _requests(port, [_cache_body(p, spaced=True) for p in prompts])
+            # the same hits one at a time: no client thread waits on another
+            serial = [await asyncio.to_thread(_req, port, _cache_body(p)) for p in prompts]
+            after = counters()
+            c1 = {"prompt_lens": [len(p) for p in prompts],
+                  "first_status": [r["status"] for r in first],
+                  "first_equal_to_cache_off": sum(
+                      r["status"] == 200 and _tokens_of(r) == w for r, w in zip(first, want)),
+                  "second_hits": sum(r["headers"].get("x-sct-cache") == "hit" for r in second),
+                  "second_byte_equal": sum(a["raw"] == b["raw"] for a, b in zip(first, second)),
+                  "counters_before": before, "counters_after": after,
+                  "miss_p50_ms": _p50_ms([r["s"] for r in first]),
+                  "hit_p50_ms": _p50_ms([r["s"] for r in second]),
+                  "hit_serial_p50_ms": _p50_ms([r["s"] for r in serial])}
+            c1["ok"] = (c1["first_equal_to_cache_off"] == len(prompts)
+                        and c1["second_hits"] == c1["second_byte_equal"] == len(prompts)
+                        and all(r["headers"].get("x-sct-cache") == "hit" for r in serial)
+                        and before == after)
+            # C2: a herd on a cold key (its own options: no semantic match)
+            herd_prompt = rng.integers(0, vocab, 100).tolist()
+            coll0, p0 = app.service.collapse.snapshot(), model.prefills
+            herd = await _requests(port, [_cache_body(herd_prompt, max_new=24)] * HERD)
+            coll1 = app.service.collapse.snapshot()
+            c2 = {"status": sorted({r["status"] for r in herd}),
+                  "distinct_replies": len({r["raw"] for r in herd}),
+                  "prefills": model.prefills - p0,
+                  "leaders": coll1["leaders"] - coll0["leaders"],
+                  "followers": coll1["collapsed"] - coll0["collapsed"]}
+            c2["ok"] = (c2["status"] == [200] and c2["distinct_replies"] == 1
+                        and c2["prefills"] == c2["leaders"] == 1 and c2["followers"] == HERD - 1)
+            # C3: the semantic tier, the exact tier flushed
+            app.service.response_cache.flush()
+            k1 = _build.LAUNCHES["flash_attention"]
+            resend = await asyncio.to_thread(_req, port, _cache_body(prompts[3]))
+            embed_k1 = _build.LAUNCHES["flash_attention"] - k1
+            sem = app.service.semantic_cache.snapshot()
+            unrelated = rng.integers(0, vocab, 64).tolist()
+            t0 = time.perf_counter()
+            cos = await asyncio.to_thread(_cosines, port, [unrelated] + list(prompts))
+            embed_ms = 1e3 * (time.perf_counter() - t0) / (1 + len(prompts))
+            best = max(cos[0][1:])
+            other = await asyncio.to_thread(_req, port, _cache_body(unrelated))
+            longer = await asyncio.to_thread(_req, port, _cache_body(prompts[3], max_new=48))
+            launches = dict(_build.LAUNCHES)
+            c3 = {"resend": resend["headers"].get("x-sct-cache"),
+                  "resend_byte_equal": resend["raw"] == first[3]["raw"],
+                  "last_sim": sem["last_similarity"],
+                  "unrelated_best_cos": best,
+                  "unrelated": other["headers"].get("x-sct-cache"),
+                  "longer": longer["headers"].get("x-sct-cache"),
+                  "longer_tokens": len(_tokens_of(longer)) if longer["status"] == 200 else None,
+                  "longer_extends_the_stream": (longer["status"] == 200
+                                                and _tokens_of(longer)[:MAX_NEW] == want[3]),
+                  "k1_launches_per_embed": embed_k1, "embed_ms_per_prompt": embed_ms,
+                  "semantic": app.service.semantic_cache.snapshot()}
+            ambiguous = abs(best - SEM_SIM) < 1e-3  # the card's bf16 rows may land either side
+            c3["ok"] = (c3["resend"] == "semantic" and c3["resend_byte_equal"]
+                        and (c3["last_sim"] or 0) >= SEM_SIM
+                        and (ambiguous or (c3["unrelated"] == "semantic") == (best >= SEM_SIM))
+                        and other["status"] == 200 and c3["longer"] is None
+                        and c3["longer_tokens"] == 48 and c3["longer_extends_the_stream"]
+                        and (embed_k1 > 0 or device != "cuda"))
+            return {"boot_and_warmup_s": boot_s, "C1": c1, "C2": c2, "C3": c3,
+                    "stats_cache": app.service.cache_snapshot()}, launches
+        finally:
+            await app.close()
+
+    async def node_tier() -> dict:
+        graph = {"name": "ab", "type": "ROUTER", "implementation": "RANDOM_ABTEST",
+                 "parameters": [{"name": "ratioA", "value": "0.5", "type": "FLOAT"}],
+                 "children": [_zoo_unit(n, "mlp", i, buckets=(",".join(
+                     map(str, ZOO_BUCKETS["mlp"])), "STRING")) for i, n in enumerate("ab")]}
+        app, _ = await _boot(_graph_spec(graph), device)
+        try:
+            comps = dict(app.service.walker.iter_components())
+            row = _zoo_rows("mlp", _zoo_cfg("mlp"), 1, rng)
+            steps0 = {n: comps[n].queue.steps for n in "ab"}
+            replies = [await asyncio.to_thread(_req, app.port, _raw_body(row)) for _ in range(12)]
+            bodies = [json.loads(r["raw"]) for r in replies]
+            paths = [b["meta"]["requestPath"] for b in bodies]
+            served = [next(n for n in "ab" if n in p) for p in paths]
+            cached = [p[n] == "cache" for p, n in zip(paths, served)]
+            steps = {n: comps[n].queue.steps - steps0[n] for n in "ab"}
+            rec = {"engine_tier_bound": app._resp_cache is not None,
+                   "graph_deterministic": app.service.graph_deterministic(),
+                   "served": served, "node_hits": sum(cached),
+                   "first_of_each_computed": [not cached[served.index(n)] for n in set(served)],
+                   "unit_steps": steps, "node": app.service.node_cache.snapshot(),
+                   "replies_equal_per_unit": all(
+                       b["rawTensor"] == bodies[served.index(n)]["rawTensor"]
+                       for b, n in zip(bodies, served))}
+            rec["ok"] = (not rec["engine_tier_bound"] and not rec["graph_deterministic"]
+                         and rec["node_hits"] == len(replies) - len(set(served))
+                         and all(rec["first_of_each_computed"])
+                         and sum(steps.values()) == len(set(served))
+                         and rec["replies_equal_per_unit"]
+                         and all(r["status"] == 200 for r in replies))
+            return rec
+        finally:
+            await app.close()
+
+    async def sampled() -> dict:
+        spec = _serve_spec(preset, 0, temperature=("0.8", "FLOAT"), n_layers=("2", "INT"),
+                           embed=("true", "BOOL"))
+        app, _ = await _boot(spec, device)
+        try:
+            replies = [await asyncio.to_thread(_req, app.port, _cache_body(prompts[1]))
+                       for _ in range(2)]
+            rec = {"engine_tier_bound": app._resp_cache is not None,
+                   "semantic_tier_bound": app._sem_cache is not None,
+                   "graph_deterministic": app.service.cache_snapshot()["graph_deterministic"],
+                   "x_sct_cache": [r["headers"].get("x-sct-cache") for r in replies],
+                   "status": [r["status"] for r in replies]}
+            rec["ok"] = (not rec["engine_tier_bound"] and not rec["semantic_tier_bound"]
+                         and rec["graph_deterministic"] is False
+                         and rec["x_sct_cache"] == [None, None] and rec["status"] == [200, 200])
+            return rec
+        finally:
+            await app.close()
+
+    # the whole environment is put back on exit: only after every engine closed
+    with unittest.mock.patch.dict(os.environ, planes):
+        rec, launches = asyncio.run(llama())
+        rec["C4"] = asyncio.run(node_tier())
+        rec["C5"] = asyncio.run(sampled())
+    rec.update(phase="serve_cache", preset=preset, dtype="bfloat16", launches=launches)
+    rec["ok"] = all(rec[c]["ok"] for c in ("C1", "C2", "C3", "C4", "C5"))
+    emit(rec)
+    if not rec["ok"]:
+        failed = [c for c in ("C1", "C2", "C3", "C4", "C5") if not rec[c]["ok"]]
+        raise AssertionError(f"serve_cache: {failed} failed (see the record)")
+    return launches
+
+
+def _admission_us(qos, n: int = 20000) -> float:
+    """Host microseconds of one admission decision and its release."""
+    ctl = qos.AdmissionController("bench")
+    t0 = time.perf_counter()
+    for _ in range(n):
+        ctl.admit().release()
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
+def phase_serve_qos(serve: dict, device: str = "cuda", preset: str = SERVE_PRESET) -> dict:
+    """Admission, priorities, deadlines and brownout at llama3-1b width (the
+    serve graph with ``kv_prefix_reuse`` and ``prefill_chunk=256``), each of
+    Q1-Q5 under its own controller built from ``SCT_QOS_*`` knobs, and the
+    usage meter over the whole phase.  Returns the launch counts."""
+    import numpy as np
+
+    from seldon_core_tpu_torch import qos
+    from seldon_core_tpu_torch.obs import METER, RECORDER, STAGE_DEVICE_STEP, STAGE_QUEUE_WAIT
+    from seldon_core_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(11)
+    spec = _serve_spec(preset, 0, kv_prefix_reuse=("true", "BOOL"),
+                       prefill_chunk=(CACHED_CHUNK, "INT"))
+    deadline, batch = qos.DEADLINE_HEADER, {qos.PRIORITY_HEADER: qos.PRIO_BATCH}
+
+    async def run() -> tuple[dict, dict]:
+        app, boot_s = await _boot(spec, device)
+        port = app.port
+        try:
+            model = app.service.walker.component.model
+            sched = app.service.walker.component.scheduler
+            vocab = model.cfg.vocab_size
+            ledger = {"sent": 0, "codes": {}, "delivered": 0}
+
+            def use(**knobs):
+                """A fresh controller from these SCT_QOS_* knobs."""
+                app.qos = qos.AdmissionController.from_env(
+                    app.service.deployment_name,
+                    environ={f"SCT_QOS_{k}": str(v) for k, v in knobs.items()})
+                qos.set_active_controller(app.qos)
+                return app.qos
+
+            async def send(bodies, headers=None) -> list[dict]:
+                replies = await _requests(port, bodies, headers)
+                for r in replies:
+                    ledger["sent"] += 1
+                    ledger["codes"][r["status"]] = ledger["codes"].get(r["status"], 0) + 1
+                    if r["status"] == 200:
+                        ledger["delivered"] += len(_tokens_of(r))
+                return replies
+
+            def prompt(n):
+                return rng.integers(0, vocab, n).tolist()
+
+            def body(p, max_new=QOS_NEW):
+                return _body(p, max_new_tokens=max_new)
+
+            admitted: list[int] = []  # prompt lengths, in the order they took a slot
+            dispatch = model.admit_dispatch
+
+            def logged(slot, p, *a, **kw):
+                out = dispatch(slot, p, *a, **kw)
+                admitted.append(len(p))  # once its prefill is counted
+                return out
+
+            model.admit_dispatch = logged
+            METER.reset()
+            _build.reset_launches()
+            base = (model.block_seconds, model.decode_blocks, model.host_syncs)
+            reaps0 = dict(sched.deadline_reaps)
+
+            # Q1: the caps (half of 32 decisions shed is a brownout: Q4 holds
+            # that, here it would clamp answers a shed left room for)
+            ctl = use(MAX_INFLIGHT=QOS_CAP, MAX_QUEUE=QOS_CAP, BROWNOUT_SHED_RATE=1.01)
+            q1_prompts = [prompt(n) for n in (24, 40, 56, 72, 88, 104, 120, 136)]
+            wave = await send([body(p) for p in q1_prompts] * (QOS_WAVE // len(q1_prompts)))
+            snap = ctl.snapshot()
+            use()
+            solo = {i: _tokens_of((await send([body(p)]))[0]) for i, p in enumerate(q1_prompts)}
+            ok_replies = [(i % len(q1_prompts), r) for i, r in enumerate(wave)
+                          if r["status"] == 200]
+            q1 = {"status": {c: sum(r["status"] == c for r in wave) for c in (200, 429)},
+                  "retry_after_min": min((int(r["headers"].get("retry-after", 0))
+                                          for r in wave if r["status"] == 429), default=None),
+                  "admitted_total": snap["admitted_total"], "shed_total": snap["shed_total"],
+                  "equal_to_solo": sum(_tokens_of(r) == solo[i] for i, r in ok_replies)}
+            q1["ok"] = (q1["status"][200] + q1["status"][429] == QOS_WAVE
+                        and q1["status"][429] > 0 and (q1["retry_after_min"] or 0) >= 1
+                        and snap["admitted_total"] + snap["shed_total"] == QOS_WAVE
+                        and q1["equal_to_solo"] == len(ok_replies)
+                        and all(len(solo[i]) == QOS_NEW for i in solo))
+
+            # Q2: priority, every slot busy
+            ctl = use(MAX_INFLIGHT=QOS_CAP, MAX_QUEUE=QOS_CAP)
+            del admitted[:]
+            holders = asyncio.ensure_future(send(
+                [body(prompt(10 + i), 128 + SERVE_BLOCK * i) for i in range(SERVE_SLOTS)]))
+            await _until(lambda: len(admitted) == SERVE_SLOTS, what="Q2's holders")
+            batch_wave = asyncio.ensure_future(send(
+                [body(prompt(40 + i), 8) for i in range(8)], [batch] * 8))
+            await _until(lambda: ctl.admitted_total + ctl.shed_total == SERVE_SLOTS + 8,
+                         what="Q2's batch decisions")
+            await asyncio.sleep(0.05)  # the admitted batch requests reach the queue
+            inter_wave = asyncio.ensure_future(send([body(prompt(60 + i), 8) for i in range(8)]))
+            b_replies, i_replies, h_replies = (await batch_wave, await inter_wave, await holders)
+            order = [n for n in admitted[SERVE_SLOTS:]]
+            snap = ctl.snapshot()
+            batch_cap = int(QOS_CAP * (1 - ctl.interactive_reserve))
+            q2 = {"admission_order": order,
+                  "batch_status": [r["status"] for r in b_replies],
+                  "interactive_status": [r["status"] for r in i_replies],
+                  "holders_status": sorted({r["status"] for r in h_replies}),
+                  "shed_by_reason": snap["shed_by_reason"]}
+            inter_pos = [i for i, n in enumerate(order) if n >= 60]
+            batch_pos = [i for i, n in enumerate(order) if 40 <= n < 60]
+            q2["ok"] = (q2["holders_status"] == [200]
+                        and q2["batch_status"].count(429) == 8 - batch_cap
+                        and q2["batch_status"].count(200) == batch_cap
+                        and q2["interactive_status"].count(200) >= 1
+                        and bool(inter_pos) and bool(batch_pos)
+                        and max(inter_pos) < min(batch_pos))
+
+            # Q3: deadlines (the predictive shed off: the 504s must come from queues)
+            use(PREDICTIVE=0)
+            del admitted[:]
+            holders = asyncio.ensure_future(send(
+                [body(prompt(12), 256) for _ in range(SERVE_SLOTS)]))
+            await _until(lambda: len(admitted) == SERVE_SLOTS, what="Q3's holders")
+            p0 = model.prefills
+            doomed = (await send([body(prompt(30))], [{deadline: "1"}]))[0]
+            qa = {"status": doomed["status"], "prefills": model.prefills - p0}
+            await holders
+            # (b) a deadline passing mid-decode beside seven greedy streams
+            others = serve["prompts"][1:SERVE_SLOTS]
+            late = prompt(50)
+            blocks0, syncs0 = model.decode_blocks, model.host_syncs
+            wave = await send([body(late, 512)] + [body(p) for p in others],
+                              [{deadline: "1000"}] + [None] * len(others))
+            wave_blocks, wave_syncs = model.decode_blocks - blocks0, model.host_syncs - syncs0
+            solo_b = [_tokens_of((await send([body(p)]))[0]) for p in others]
+            qb = {"status": [r["status"] for r in wave],
+                  "others_equal_to_solo": sum(r["status"] == 200 and _tokens_of(r) == s
+                                              for r, s in zip(wave[1:], solo_b)),
+                  "blocks": wave_blocks, "host_syncs": wave_syncs}
+            # (c) a deadline passing between the chunks of a 1900-token prompt
+            long = prompt(1900)
+            n0 = len(admitted)
+            holders = asyncio.ensure_future(send([body(prompt(14), 256) for _ in range(2)]))
+            await _until(lambda: len(admitted) == n0 + 2, what="Q3c's holders")
+            chunks0 = model.prefill_chunks
+            dropped = (await send([body(long, 32)], [{deadline: "250"}]))[0]
+            chunks = model.prefill_chunks - chunks0
+            await holders
+            await _until(lambda: not sched._prefilling and not model._slot_blocks,
+                         what="the pool to drain")
+            pool = model.pool_snapshot()["blocks"]
+            qc = {"status": dropped["status"], "chunks_dispatched": chunks,
+                  "chunks_planned": -(-len(long) // CACHED_CHUNK),
+                  "index_depth_of_the_dropped_prompt": model.prefix_index.peek_depth(
+                      np.asarray(long, np.int32), len(long) // model.kv_block_size),
+                  "blocks": pool}
+            reaps = {k: v - reaps0.get(k, 0) for k, v in sched.deadline_reaps.items()}
+            q3 = {"a": qa, "b": qb, "c": qc, "deadline_reaps": reaps}
+            q3["ok"] = (qa["status"] == 504 and qa["prefills"] == 0
+                        and qb["status"][0] == 504 and qb["status"][1:] == [200] * len(others)
+                        and qb["others_equal_to_solo"] == len(others)
+                        and qb["host_syncs"] == qb["blocks"]
+                        and qc["status"] == 504 and 1 <= chunks < qc["chunks_planned"]
+                        and qc["index_depth_of_the_dropped_prompt"] == 0
+                        and pool["free"] + pool["prefix_index"] == pool["total"]
+                        and reaps == {"generation-queue": 1, "decode": 1, "prefill": 1})
+
+            # Q4: brownout (a short window and cooldown)
+            ctl = use(MAX_INFLIGHT=QOS_CAP, MAX_QUEUE=0, BROWNOUT_WINDOW_S=2,
+                      BROWNOUT_COOLDOWN_S=3, PREDICTIVE=0)
+            holders = asyncio.ensure_future(send([body(prompt(16), 48)
+                                                  for _ in range(QOS_CAP)]))
+            await _until(lambda: ctl.admitted_total == QOS_CAP, what="Q4's holders")
+            flood = await send([body(prompt(8), 8) for _ in range(BROWNOUT_FLOOD)])
+            active = ctl.brownout_active
+            await holders
+            asked = prompt(20)
+            clamped = (await send([body(asked, 64)]))[0]
+            refused = (await send([body(prompt(9), 8)], [batch]))[0]
+            snap = ctl.snapshot()
+            await _until(lambda: not ctl.brownout_active, 10.0, "the brownout's cooldown")
+            lifted = (await send([body(asked, 64)]))[0]
+            q4 = {"decisions": snap["admitted_total"] + snap["shed_total"],
+                  "flood_status": sorted({r["status"] for r in flood}),
+                  "brownout_active": active, "entered_total": snap["brownout"]["entered_total"],
+                  "clamped_tokens": len(_tokens_of(clamped)) if clamped["status"] == 200 else None,
+                  "refused": (refused["status"], snap["shed_by_reason"].get("brownout")),
+                  "lifted_tokens": len(_tokens_of(lifted)) if lifted["status"] == 200 else None}
+            q4["ok"] = (active and q4["flood_status"] == [429]
+                        and q4["decisions"] >= QOS_CAP + BROWNOUT_FLOOD
+                        and q4["clamped_tokens"] == 16 and q4["refused"] == (429, 1)
+                        and q4["lifted_tokens"] == 64
+                        and _tokens_of(lifted)[:16] == _tokens_of(clamped))
+
+            # Q5: the predictive shed, once both EWMAs hold samples
+            ctl = use()
+            est = ctl.snapshot()["predicted_completion_ms"]
+            p0 = model.prefills
+            budget = max(1.0, (est or 0.0) / 4)
+            shed = (await send([body(prompt(22), 8)], [{deadline: f"{budget:.3f}"}]))[0]
+            shed_prefills = model.prefills - p0
+            roomy = (await send([body(prompt(22), 8)], [{deadline: "60000"}]))[0]
+            q5 = {"predicted_completion_ms": est, "budget_ms": budget,
+                  "status": shed["status"], "retry_after": shed["headers"].get("retry-after"),
+                  "reason": ctl.snapshot()["shed_by_reason"], "prefills": shed_prefills,
+                  "roomy_status": roomy["status"]}
+            q5["ok"] = (est is not None and shed["status"] == 429
+                        and q5["reason"] == {"predicted-slo-miss": 1} and shed_prefills == 0
+                        and int(q5["retry_after"] or 0) >= 1 and roomy["status"] == 200)
+
+            launches = dict(_build.LAUNCHES)
+            model.admit_dispatch = dispatch
+            # the meter over the phase: every request counted once; decode
+            # tokens are the delivered ones less each started request's first
+            # (its prefill's) plus the wasted; device seconds are the blocks'
+            usage = METER.snapshot()["total"]
+            n = {f: int(usage.get(f, 0)) for f in (
+                "requests_completed", "requests_shed", "requests_reaped", "requests_cached",
+                "tokens_decode", "tokens_wasted")}
+            block_s = model.block_seconds - base[0]
+            started = ledger["codes"].get(200, 0) + reaps.get("decode", 0)
+            meter = {**n, "sent": ledger["sent"], "codes": ledger["codes"],
+                     "delivered_200": ledger["delivered"], "started": started,
+                     "device_s": usage.get("device_s", 0.0), "block_s": block_s}
+            meter["ok"] = (n["requests_completed"] + n["requests_shed"] + n["requests_reaped"]
+                           + n["requests_cached"] == ledger["sent"]
+                           and n["tokens_decode"] + started
+                           == ledger["delivered"] + n["tokens_wasted"]
+                           and n["tokens_wasted"] > 0
+                           and abs(meter["device_s"] - block_s) <= 0.01 * block_s)
+            qw, step = RECORDER.stage_ewma(STAGE_QUEUE_WAIT), RECORDER.stage_ewma(STAGE_DEVICE_STEP)
+            rec = {"phase": "serve_qos", "preset": preset, "dtype": "bfloat16",
+                   "boot_and_warmup_s": boot_s, "Q1": q1, "Q2": q2, "Q3": q3, "Q4": q4,
+                   "Q5": q5, "meter": meter,
+                   "replies_429": ledger["codes"].get(429, 0),
+                   "replies_504": ledger["codes"].get(504, 0),
+                   "admission_us": _admission_us(qos),
+                   "queue_wait_ewma_ms": 1e3 * qw if qw is not None else None,
+                   "device_step_ewma_ms": 1e3 * step if step is not None else None,
+                   "blocks": model.decode_blocks - base[1],
+                   "host_syncs": model.host_syncs - base[2], "launches": launches}
+            return rec, launches
+        finally:
+            qos.set_active_controller(None)
+            await app.close()
+
+    rec, launches = asyncio.run(run())
+    parts = ("Q1", "Q2", "Q3", "Q4", "Q5", "meter")
+    rec["ok"] = all(rec[p]["ok"] for p in parts) and rec["host_syncs"] == rec["blocks"]
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"serve_qos: {[p for p in parts if not rec[p]['ok']]} failed "
+                             "(see the record)")
+    return launches
+
+
 def _flash_times(fa, S: int, D: int = 64) -> dict:
     """K1 at B=1, S, llama3-1b heads (32 and 8 KV; ``D`` 128 is the 8b's
     geometry), bf16: one input set per layer so no launch finds its inputs
@@ -3599,10 +4139,13 @@ def main() -> int:
     graph = timed("serve_graph", phase_serve_graph, serve)
     lora = timed("serve_lora", phase_serve_lora, serve)
     zoo = timed("serve_zoo", phase_serve_zoo)
+    tiers = timed("serve_cache", phase_serve_cache, serve)
+    admission = timed("serve_qos", phase_serve_qos, serve)
     times = timed("kernel_times", phase_kernel_times, serve)
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     launches = {name: serve["launches"][name] + cached["launches"][name] + spec[name]
                 + split[name] + stream[name] + graph[name] + lora[name] + zoo[name]
+                + tiers[name] + admission[name]
                 for name in KERNELS}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -67,6 +67,26 @@ generative unit:
 
 Outbound calls to peers use asyncio streams (``SCT_DISAGG_TIMEOUT_S``,
 default 30 s).
+
+The request planes, in the JAX engine's order.  A predictions request is
+parsed, looked up in the exact response tier (``SCT_CACHE=1``: an
+unchanged body, keys and whitespace aside, is answered with the cached
+bytes and ``x-sct-cache: hit``), then in the semantic tier
+(``SCT_SEMCACHE=1``: a single-prompt generative body whose pooled
+embedding is within ``SCT_SEMCACHE_SIM`` of a cached one made with the
+same options, ``x-sct-cache: semantic``), both only when every unit of
+the graph is deterministic and both before admission: a hit takes no
+admission slot and no device step.  A miss is admitted by the
+:class:`~seldon_core_tpu_torch.qos.AdmissionController` (``SCT_QOS_*``:
+a 429 with ``Retry-After`` when the caps, the rate limit, a brownout or
+a predicted deadline miss shed it; a 504 when its deadline has already
+passed), then identical requests in flight together are collapsed into
+one graph walk, and the reply fills both tiers.  The stream and
+embeddings routes are admitted too; a request's ticket is released once,
+on its reply, its error or its client leaving.  ``GET /stats/qos``,
+``/stats/cache``, ``/stats/usage`` (the usage meter), ``/stats/spans``
+and ``/stats/breakdown`` (per-stage latency and each generative unit's
+snapshot) serve the planes' state.
 """
 
 from __future__ import annotations
@@ -83,12 +103,13 @@ import time
 import numpy as np
 
 from seldon_core_tpu_torch import disagg, qos, resolve_device
+from seldon_core_tpu_torch.cache import canonical_body, request_key, semantic_tag
 from seldon_core_tpu_torch.cache.prefix import adapter_salt
 from seldon_core_tpu_torch.contract.codec import (
     CodecError,
     failure_status_dict,
     feedback_from_dict,
-    payload_from_json,
+    payload_from_dict,
     payload_to_dict,
 )
 from seldon_core_tpu_torch.contract.payload import DataKind, Payload
@@ -103,14 +124,17 @@ from seldon_core_tpu_torch.disagg.handoff import (
 )
 from seldon_core_tpu_torch.engine.service import PredictionService, load_predictor_spec
 from seldon_core_tpu_torch.executor.generation import AdapterUnavailable
-from seldon_core_tpu_torch.qos.admission import DeadlineExceeded, QueueFull
 from seldon_core_tpu_torch.graph.units import GraphUnitError
+from seldon_core_tpu_torch.obs import METER, RECORDER, STAGE_ENGINE_ROUTE
+from seldon_core_tpu_torch.obs.spans import TRACEPARENT_HEADER, set_traceparent
+from seldon_core_tpu_torch.qos.admission import QosRejection, QueueFull
 
 log = logging.getLogger(__name__)
 
 MAX_BODY = 64 << 20
 MAX_FRAME_BODY = 1 << 30  # a handoff frame: 64 MiB for a 2048-token llama3-1b prompt
 MAX_HEADERS = 100
+DISCONNECT_POLL_S = 0.05  # how often a request in flight checks its client is there
 _REASONS = {
     200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
     409: "Conflict", 413: "Payload Too Large", 429: "Too Many Requests",
@@ -216,10 +240,14 @@ def _event(obj: dict) -> bytes:
 
 class _EventStream:
     """A route's ``text/event-stream`` reply: ``groups`` yields lists of
-    token ids as they are delivered."""
+    token ids as they are delivered; ``ticket`` is the request's admission,
+    released when the stream ends.  It is written from the task that ran
+    the route: the first iteration submits the request, and the scheduler
+    reads its deadline and priority from that task's context."""
 
-    def __init__(self, groups):
+    def __init__(self, groups, ticket):
         self.groups = groups
+        self.ticket = ticket
 
 
 class EngineApp:
@@ -228,8 +256,19 @@ class EngineApp:
     ``SCT_DISAGG_DECODE``; an unknown role raises ``ValueError``."""
 
     def __init__(self, service: PredictionService, *, role: str | None = None,
-                 decode_upstreams: list[str] | None = None):
+                 decode_upstreams: list[str] | None = None,
+                 qos_controller: qos.AdmissionController | None = None):
         self.service = service
+        # admission control (SCT_QOS_*, on by default), registered
+        # process-wide so the schedulers' brownout clamp and deadline drops
+        # reach the same policy
+        self.qos = (qos_controller if qos_controller is not None
+                    else qos.AdmissionController.from_env(service.deployment_name))
+        qos.set_active_controller(self.qos)
+        # the response tiers, bound at boot when the whole graph is
+        # deterministic (one random router makes a reply uncacheable)
+        self._resp_cache = None
+        self._sem_cache = None
         self.ready = False
         self.paused = False
         # the SSE route's ledger: streams served, token events and the
@@ -271,6 +310,9 @@ class EngineApp:
         blocks), then warm them; ``/ready`` turns true after."""
         try:
             await asyncio.to_thread(self.service.start)
+            if self.service.graph_deterministic():
+                self._resp_cache = self.service.response_cache
+                self._sem_cache = self.service.semantic_cache
             self.warmup_report = await self.service.warmup()
             log.info("warmup: %s (seconds %s)", self.warmup_report,
                      self.service.walker.warmup_seconds)
@@ -284,12 +326,15 @@ class EngineApp:
             self._server.close()
             await self._server.wait_closed()
         await self.service.close()
+        if qos.active_controller() is self.qos:
+            qos.set_active_controller(None)
 
     async def _route(self, method: str, path: str, body: bytes,
                      headers: dict[str, str]) -> tuple:
         """-> ``(status, body, content type)``, plus a dict of extra
         response headers where a route sets some."""
         qos.seed_from_headers(headers.get(qos.DEADLINE_HEADER), headers.get(qos.PRIORITY_HEADER))
+        set_traceparent(headers.get(TRACEPARENT_HEADER))
         if path.startswith("/disagg/") or path == "/stats/disagg":
             return await self._disagg_route(method, path, body, headers)
         if path == "/ping":
@@ -312,7 +357,17 @@ class EngineApp:
         if path == "/api/v0.1/predictions/stream":
             if method != "POST":
                 return _json(405, failure_status_dict(405, "POST a generate body"))
-            return await self._predictions_stream(body, headers)
+            try:
+                ticket = self._admit(headers)
+            except QosRejection as e:
+                return self._qos_reject(e)
+            reply = None
+            try:
+                reply = await self._predictions_stream(body, headers, ticket)
+                return reply
+            finally:  # an event stream releases it when it ends
+                if not isinstance(reply, _EventStream):
+                    ticket.release()
         if path in ("/api/v0.1/feedback", "/api/v1.0/feedback"):
             if method != "POST":
                 return _json(405, failure_status_dict(405, "POST a Feedback message"))
@@ -320,13 +375,70 @@ class EngineApp:
         if path == "/api/v0.1/embeddings":
             if method != "POST":
                 return _json(405, failure_status_dict(405, "POST a tokens body"))
-            return await self._embeddings(body)
+            return await self._admitted(self._embeddings, headers, body)
+        if path in self._STATS:
+            return _json(200, self._STATS[path](self))
         return _json(404, failure_status_dict(404, f"no route {path}"))
 
-    async def _predictions_stream(self, body: bytes, headers: dict[str, str]):
-        """Validate a stream request (every failure is a JSON error reply,
-        before any header goes out) and return the :class:`_EventStream`
-        that serves it."""
+    # ------------------------------------------------------------ QoS plane
+
+    def _admit(self, headers: dict[str, str]):
+        """Seed the request's deadline and priority from its headers and pass
+        admission: a ticket, or a :class:`QosRejection`.  With the
+        controller off the request carries no deadline and no priority."""
+        if not self.qos.enabled:
+            qos.seed_from_headers(None, None)
+            return self.qos.admit()
+        budget_ms, priority = qos.seed_from_headers(
+            headers.get(qos.DEADLINE_HEADER), headers.get(qos.PRIORITY_HEADER))
+        if budget_ms is None and self.qos.default_deadline_ms:
+            budget_ms = self.qos.default_deadline_ms
+            qos.set_budget_ms(budget_ms)
+        return self.qos.admit(priority, budget_s=budget_ms / 1e3 if budget_ms else None)
+
+    def _qos_reject(self, e: QosRejection) -> tuple:
+        """A shed as its reply: 429 with ``Retry-After``, or 504; the reason
+        lands on a span."""
+        with RECORDER.span("qos.shed", service=self.service.deployment_name) as sp:
+            if sp is not None:
+                sp.set_attr("reason", e.reason)
+                sp.set_attr("code", e.status)
+                sp.set_status("ERROR")
+        extra = {"Retry-After": e.retry_after_header()} if e.status == 429 else {}
+        return (e.status, json.dumps(failure_status_dict(e.status, str(e))).encode(),
+                "application/json", extra)
+
+    async def _admitted(self, handler, headers: dict[str, str], *args) -> tuple:
+        """Run ``handler(*args)`` under an admission ticket, released when it
+        returns, raises or is cancelled (its client left)."""
+        try:
+            ticket = self._admit(headers)
+        except QosRejection as e:
+            return self._qos_reject(e)
+        try:
+            return await handler(*args)
+        except QosRejection as e:  # a queue below admission: 429, or 504 from the queue
+            return self._qos_reject(e)
+        finally:
+            ticket.release()
+
+    _STATS = {
+        "/stats/qos": lambda self: {"qos": self.qos.snapshot()},
+        "/stats/cache": lambda self: {"cache": {**self.service.cache_snapshot(),
+                                                "prefix_pull": dict(self.prefix_pull_stats)}},
+        "/stats/usage": lambda self: {"usage": METER.snapshot()},
+        "/stats/spans": lambda self: RECORDER.stats(),
+        "/stats/breakdown": lambda self: {
+            "stages": RECORDER.breakdown(),
+            "generation": {u.model.name: u.model.spec_snapshot()
+                           for u in self._generative_units()},
+        },
+    }
+
+    async def _predictions_stream(self, body: bytes, headers: dict[str, str], ticket):
+        """Validate an admitted stream request (every failure is a JSON
+        error reply, before any header goes out) and return the
+        :class:`_EventStream` that serves it under ``ticket``."""
         if not self.ready:
             return _json(503, failure_status_dict(503, "engine is not ready"))
         unit, reason = self._single_generative_unit()
@@ -343,56 +455,131 @@ class EngineApp:
                                           adapter)
         return _EventStream(unit.stream_groups(prompt, max_new_tokens=max_new,
                                                temperature=temperature, eos_id=eos,
-                                               adapter=adapter))
+                                               adapter=adapter), ticket)
 
     async def _send_events(self, writer: asyncio.StreamWriter, stream: "_EventStream") -> None:
         """Write an event stream: the headers, one write per delivered
         group of tokens, the closing event.  The connection closes after
         it (the body ends there: no length, no chunking)."""
-        writer.write(b"HTTP/1.1 200 OK\r\nContent-Type: text/event-stream\r\n"
-                     b"Cache-Control: no-cache\r\nX-Accel-Buffering: no\r\n"
-                     b"Connection: close\r\n\r\n")
-        self.stream_stats["streams"] += 1
-        out: list[int] = []
-        async with contextlib.aclosing(stream.groups) as groups:
-            try:
-                await writer.drain()
+        with stream.ticket:  # released when the stream ends, however it ends
+            writer.write(b"HTTP/1.1 200 OK\r\nContent-Type: text/event-stream\r\n"
+                         b"Cache-Control: no-cache\r\nX-Accel-Buffering: no\r\n"
+                         b"Connection: close\r\n\r\n")
+            self.stream_stats["streams"] += 1
+            out: list[int] = []
+            async with contextlib.aclosing(stream.groups) as groups:
                 try:
-                    async for group in groups:
-                        out.extend(group)
-                        writer.write(b"".join(_event({"token": t}) for t in group))
-                        self.stream_stats["events"] += len(group)
-                        self.stream_stats["writes"] += 1
-                        await writer.drain()
-                    final = {"done": True, "tokens": out}
+                    await writer.drain()
+                    try:
+                        async for group in groups:
+                            out.extend(group)
+                            writer.write(b"".join(_event({"token": t}) for t in group))
+                            self.stream_stats["events"] += len(group)
+                            self.stream_stats["writes"] += 1
+                            await writer.drain()
+                        final = {"done": True, "tokens": out}
+                    except ConnectionError:
+                        raise
+                    except Exception as e:  # noqa: BLE001 - the headers are gone: on the stream
+                        log.warning("token stream failed: %s: %s", type(e).__name__, e)
+                        final = {"error": f"{type(e).__name__}: {e}"}
+                    writer.write(_event(final))
+                    await writer.drain()
                 except ConnectionError:
-                    raise
-                except Exception as e:  # noqa: BLE001 - the headers are gone: it rides the stream
-                    log.warning("token stream failed: %s: %s", type(e).__name__, e)
-                    final = {"error": f"{type(e).__name__}: {e}"}
-                writer.write(_event(final))
-                await writer.drain()
-            except ConnectionError:
-                self.stream_stats["disconnects"] += 1
+                    self.stream_stats["disconnects"] += 1
 
-    async def _predictions(self, body: bytes, headers: dict[str, str]) -> tuple[int, bytes, str]:
+    async def _predictions(self, body: bytes, headers: dict[str, str]) -> tuple:
+        """Parse, the exact tier, the semantic tier, admission, then one
+        graph walk (collapsed with identical requests in flight) whose
+        reply fills the tiers."""
         if not self.ready:
             return _json(503, failure_status_dict(503, "engine is not ready"))
+        dep = self.service.deployment_name
+        with RECORDER.span("engine.predictions", service=dep, stage=STAGE_ENGINE_ROUTE) as sp:
+            try:
+                obj = json.loads(body)
+            except (ValueError, UnicodeDecodeError) as e:
+                return _json(400, failure_status_dict(400, f"invalid JSON: {e}"))
+            cache_key = sem = None
+            if self._resp_cache is not None:
+                cache_key = request_key("predictions", self.service.spec_hash,
+                                        canonical_body(obj))
+                entry = self._resp_cache.get(dep, cache_key)
+                if entry is not None:
+                    if sp is not None:
+                        sp.event("cache.hit", tier="engine")
+                    return 200, entry.value, "application/json", {"x-sct-cache": "hit"}
+            if self._sem_cache is not None:
+                sem = await self._semantic_key(obj)
+                hit = self._sem_cache.lookup(dep, *sem) if sem is not None else None
+                if hit is not None:
+                    if sp is not None:
+                        sp.event("cache.hit", tier="semantic")
+                    return 200, hit, "application/json", {"x-sct-cache": "semantic"}
+            return await self._admitted(self._walk_and_fill, headers, obj, headers,
+                                        cache_key, sem)
+
+    async def _walk_and_fill(self, obj, headers: dict[str, str], cache_key: str | None,
+                             sem: tuple | None) -> tuple:
+        """An admitted predictions request: one graph walk (shared with the
+        identical requests in flight when the exact tier is on), and its
+        reply into the tiers."""
+        dep = self.service.deployment_name
         try:
-            payload = payload_from_json(body)
+            payload = payload_from_dict(obj)
             await self._pull_prefix_from_header(payload, headers)
-            out = await self.service.predict(payload)
+            if cache_key is not None:
+                raw = await self.service.collapse.do(
+                    cache_key, lambda: self._predict_json_bytes(payload))
+                self._resp_cache.put(dep, cache_key, raw)
+            else:
+                raw = await self._predict_json_bytes(payload)
         except (CodecError, AdapterUnavailable) as e:
             return _json(400, failure_status_dict(400, str(e)))
-        except QueueFull as e:
-            return _json(429, failure_status_dict(429, str(e)))
-        except DeadlineExceeded as e:
-            return _json(504, failure_status_dict(504, str(e)))
         except GraphUnitError as e:
             return _json(500, failure_status_dict(500, str(e)))
+        except asyncio.CancelledError:
+            if asyncio.current_task().cancelling():
+                raise  # this request's own client left
+            # the request this one was collapsed into lost its client
+            return _json(503, failure_status_dict(
+                503, "the identical request this one waited on was cancelled; retry"))
+        if sem is not None:
+            self._sem_cache.put(dep, sem[0], raw, sem[1])
+        return 200, raw, "application/json"
+
+    async def _predict_json_bytes(self, payload: Payload) -> bytes:
+        """One graph walk -> the reply's JSON bytes (what the tiers store and
+        the collapser shares)."""
+        out = await self.service.predict(payload)
         resp = payload_to_dict(out)
         resp["status"] = {"code": 200, "status": "SUCCESS"}
-        return _json(200, resp)
+        return json.dumps(resp).encode()
+
+    async def _semantic_key(self, obj) -> tuple | None:
+        """``(pooled embedding, tag)`` of a single-prompt generative body, or
+        None when the body does not qualify (not strData, a batch of
+        prompts, no embedding unit).  An embed failure is a miss: the tier
+        never fails a request it could have missed."""
+        raw = obj.get("strData") if isinstance(obj, dict) else None
+        if not isinstance(raw, str):
+            return None
+        try:
+            inner = json.loads(raw)
+        except ValueError:
+            return None
+        prompt = inner.get("tokens") if isinstance(inner, dict) else None
+        if not isinstance(prompt, list) or not prompt or isinstance(prompt[0], list):
+            return None
+        unit = next((u for u in self._generative_units() if u.model.embed_enabled), None)
+        if unit is None:
+            return None
+        try:
+            vec = (await unit.embed_rows([np.asarray(prompt, np.int32)]))[0]
+        except Exception:  # noqa: BLE001 - a miss, never a failed request
+            log.debug("semantic tier: embedding failed; a miss", exc_info=True)
+            return None
+        return vec, semantic_tag(self.service.spec_hash, obj, inner)
 
     async def _feedback(self, body: bytes) -> tuple[int, bytes, str]:
         """Replay a Feedback message's routed path with its reward."""
@@ -436,8 +623,6 @@ class EngineApp:
             return _json(400, failure_status_dict(400, str(e)))
         try:
             vecs = await unit.embed_rows(rows)
-        except QueueFull as e:
-            return _json(429, failure_status_dict(429, str(e)))
         except GraphUnitError as e:
             return _json(500, failure_status_dict(500, str(e)))
         resp = payload_to_dict(Payload(vecs, [], DataKind.RAW))
@@ -711,6 +896,40 @@ class EngineApp:
                         type(e).__name__, e)
             return False
 
+    @staticmethod
+    async def _until_disconnect(reader: asyncio.StreamReader, coro):
+        """Run a route in this task, and cancel it when the client closes the
+        connection first (its scheduler withdraws the request, its
+        admission ticket is released); None then.  A timer checks every
+        ``DISCONNECT_POLL_S`` and reads nothing: a pipelined request stays
+        buffered.  It sees only the end of the client's writes, so a client
+        that half-closes its side after a whole request counts as gone and
+        gets no reply."""
+        loop, task = asyncio.get_running_loop(), asyncio.current_task()
+        left = False
+
+        def poll():
+            nonlocal timer, left
+            if reader.at_eof():
+                left = True
+                task.cancel()
+            else:
+                timer = loop.call_later(DISCONNECT_POLL_S, poll)
+
+        timer = loop.call_later(DISCONNECT_POLL_S, poll)
+        try:
+            reply = await coro
+        except asyncio.CancelledError:
+            if left and task.uncancel() == 0:  # ours, not the server's
+                return None
+            raise
+        finally:
+            timer.cancel()
+        if left:  # the route swallowed the cancel: the client is gone all the same
+            task.uncancel()
+            return None
+        return reply
+
     async def _handle(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
         try:
             while True:
@@ -726,7 +945,10 @@ class EngineApp:
                 conn = headers.get("connection", "").lower()
                 keep = conn == "keep-alive" if version == "HTTP/1.0" else conn != "close"
                 try:
-                    reply = await self._route(method, path, body, headers)
+                    reply = await self._until_disconnect(
+                        reader, self._route(method, path, body, headers))
+                    if reply is None:  # the client left: its request was cancelled
+                        break
                     if isinstance(reply, _EventStream):
                         await self._send_events(writer, reply)
                         break

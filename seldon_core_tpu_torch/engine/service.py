@@ -1,6 +1,12 @@
 """Per-predictor prediction service: the graph walker over the whole
-tree plus request-scope logic (puid assignment), the feedback walk and
-the graph's generative units.
+tree plus request-scope logic (puid assignment), the feedback walk, the
+graph's generative units and the response tiers.
+
+The spec hash (``cache/content.py``) is folded into every response-cache
+key, so another spec never serves this one's entries.  With ``SCT_CACHE=1``
+(and ``SCT_CACHE_DEPLOYMENTS``, when set, naming this deployment) the
+service holds the walker's node tier, the engine's exact tier and the
+request collapser; ``SCT_SEMCACHE=1`` adds the semantic tier.
 
 The predictor comes from ``ENGINE_PREDICTOR`` (base64 JSON, the same
 variable the JAX engine reads), else ``./deploymentdef.json``, else the
@@ -15,6 +21,13 @@ import os
 import uuid
 from typing import Any
 
+from seldon_core_tpu_torch.cache import (
+    SingleFlight,
+    cache_deployments,
+    response_cache_from_env,
+    semantic_cache_from_env,
+    spec_hash,
+)
 from seldon_core_tpu_torch.contract.payload import FeedbackPayload, Payload
 from seldon_core_tpu_torch.graph.spec import PredictorSpec
 from seldon_core_tpu_torch.graph.walker import GraphWalker
@@ -54,13 +67,21 @@ class PredictionService:
     def __init__(self, predictor: PredictorSpec, *, device: str = "cuda",
                  components: dict[str, Any] | None = None):
         self.predictor = predictor
+        self.deployment_name = predictor.name
         self.device = device
         self._components = components or {}
         self.walker: GraphWalker | None = None
+        self.spec_hash = spec_hash(predictor)
+        allowed = cache_deployments()
+        cache_on = allowed is None or self.deployment_name in allowed
+        self.node_cache = response_cache_from_env("node") if cache_on else None
+        self.response_cache = response_cache_from_env("engine") if cache_on else None
+        self.semantic_cache = semantic_cache_from_env() if cache_on else None
+        self.collapse = SingleFlight()
 
     def start(self) -> None:
         self.walker = GraphWalker(self.predictor.graph, components=self._components,
-                                  device=self.device)
+                                  device=self.device, node_cache=self.node_cache)
 
     def _walker(self) -> GraphWalker:
         if self.walker is None:
@@ -83,6 +104,25 @@ class PredictionService:
     def graph_deterministic(self) -> bool:
         """Whether every unit of the graph declares determinism."""
         return self.walker is not None and self.walker.deterministic()
+
+    def cache_snapshot(self) -> dict:
+        """The ``GET /stats/cache`` payload: the response tiers, the
+        collapser and each generative unit's prefix index."""
+        out: dict = {
+            "spec_hash": self.spec_hash,
+            "graph_deterministic": self.walker.deterministic() if self.walker else None,
+            "collapse": self.collapse.snapshot(),
+        }
+        for key, cache in (("response", self.response_cache), ("semantic", self.semantic_cache),
+                           ("node", self.node_cache)):
+            if cache is not None:
+                out[key] = cache.snapshot()
+        if self.walker is not None:
+            prefix = {u.model.name: snap for u in self.generative_units()
+                      if (snap := u.model.prefix_snapshot()) is not None}
+            if prefix:
+                out["prefix"] = prefix
+        return out
 
     def generative_units(self) -> list:
         """Every generative component of the graph, in walk order."""

@@ -21,11 +21,14 @@ group larger than the runner's largest bucket takes the plain call, which
 chunks.  ``maxsize`` (``SCT_BATCH_QUEUE_MAX``, default 2048; 0 = no bound)
 bounds the waiting requests: beyond it ``submit`` raises ``QueueFull``.  A
 request whose deadline (``qos.get_deadline()``, seeded at ingress) has
-passed before its step gets ``DeadlineExceeded``, and a cancelled request
-is skipped: no device step is spent on either.
+passed before its step gets ``DeadlineExceeded`` (counted against the
+active admission controller), and a cancelled request is skipped: no
+device step is spent on either.
 
-Left out here: the obs spans and stage timings, metering and the MFU
-gauge (ROADMAP A20).
+Each step records the flight recorder's batch-assembly, queue-wait,
+device-step and device-dispatch stages, and charges its device seconds
+(the step's wall time less the host dispatch) to the queue's deployment
+in the usage meter.  Left out here: the obs spans and the MFU gauge.
 """
 
 from __future__ import annotations
@@ -39,7 +42,15 @@ from typing import Callable
 
 import numpy as np
 
-from seldon_core_tpu_torch.qos.admission import DeadlineExceeded, QueueFull
+from seldon_core_tpu_torch.obs.metering import METER
+from seldon_core_tpu_torch.obs.spans import (
+    RECORDER,
+    STAGE_BATCH_ASSEMBLY,
+    STAGE_DEVICE_DISPATCH,
+    STAGE_DEVICE_STEP,
+    STAGE_QUEUE_WAIT,
+)
+from seldon_core_tpu_torch.qos.admission import DeadlineExceeded, QueueFull, note_deadline_miss
 from seldon_core_tpu_torch.qos.context import get_deadline
 
 
@@ -140,6 +151,7 @@ class BatchQueue:
                 f"deadline expired after {time.perf_counter() - t_enq:.3f}s waiting in "
                 f"batch queue {self.name!r}"))
             self.deadline_drops += 1
+            note_deadline_miss("batch-queue")
             return False
         return True
 
@@ -152,6 +164,7 @@ class BatchQueue:
                 first = pending.popleft() if pending else await self._queue.get()
                 if not self._viable(first):
                     continue
+                t_collect0 = loop.time()  # the batch-assembly stage starts here
                 group = [first]
                 key = self._key(first[0])
                 rows = self._rows(first[0])
@@ -202,6 +215,7 @@ class BatchQueue:
                     rows += self._rows(item[0])
                     rows = drain(rows)
 
+                RECORDER.record_stage(STAGE_BATCH_ASSEMBLY, loop.time() - t_collect0)
                 await self._sem.acquire()  # bound the in-flight pipeline
                 task = loop.create_task(self._step(loop, group))
                 self._inflight.add(task)
@@ -223,12 +237,19 @@ class BatchQueue:
             return
         xs = [np.atleast_2d(x) for x, _, _, _ in group]
         batch = np.concatenate(xs, axis=0) if len(xs) > 1 else xs[0]
+        t_step0 = time.perf_counter()
+        for _, _, t_enq, _ in group:
+            RECORDER.record_stage(STAGE_QUEUE_WAIT, t_step0 - t_enq)
+        split = [0.0]  # the host dispatch's seconds, from the pool thread
         try:
             try:
                 cap = getattr(getattr(self.runner, "buckets", None), "max", None)
                 if self._pipelined and (cap is None or batch.shape[0] <= cap):
                     def run_step(b=batch):
-                        return self._fetch(*self._dispatch(b))
+                        t_d0 = time.perf_counter()
+                        handle = self._dispatch(b)
+                        split[0] = time.perf_counter() - t_d0
+                        return self._fetch(*handle)
 
                     out = await loop.run_in_executor(self._pool, run_step)
                 else:
@@ -245,6 +266,13 @@ class BatchQueue:
                     if not fut.done():
                         fut.set_exception(exc)
                 return
+            step_s = time.perf_counter() - t_step0
+            RECORDER.record_stage(STAGE_DEVICE_STEP, step_s)
+            dispatch_s = split[0]
+            METER.add(self.name, device_s=step_s - dispatch_s
+                      if 0 < dispatch_s < step_s else step_s)
+            if dispatch_s > 0:
+                RECORDER.record_stage(STAGE_DEVICE_DISPATCH, dispatch_s)
             self.steps += 1
             self.rows += batch.shape[0]
             out = np.asarray(out)

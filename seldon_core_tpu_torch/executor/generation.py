@@ -84,7 +84,7 @@ from typing import Any, AsyncIterator, Callable
 import numpy as np
 import torch
 
-from seldon_core_tpu_torch import resolve_device
+from seldon_core_tpu_torch import qos, resolve_device
 from seldon_core_tpu_torch.cache.prefix import PrefixIndex
 from seldon_core_tpu_torch.cache.tiers import HostPrefixStore
 from seldon_core_tpu_torch.contract.payload import DataKind, Payload
@@ -100,8 +100,15 @@ from seldon_core_tpu_torch.graph.units import GraphUnitError, SeldonComponent
 from seldon_core_tpu_torch.models import llama
 from seldon_core_tpu_torch.models.registry import resolve_config
 from seldon_core_tpu_torch.models.weights import init_params
+from seldon_core_tpu_torch.obs.metering import METER
+from seldon_core_tpu_torch.obs.spans import (
+    RECORDER,
+    STAGE_DEVICE_STEP,
+    STAGE_QUEUE_WAIT,
+    STAGE_TTFT,
+)
 from seldon_core_tpu_torch.ops import _build, paged_attention
-from seldon_core_tpu_torch.qos.admission import QueueFull
+from seldon_core_tpu_torch.qos.admission import DeadlineExceeded, QueueFull
 
 log = logging.getLogger(__name__)
 
@@ -294,6 +301,8 @@ class GenerativeModel:
         self.prefix_index = PrefixIndex(kv_block_size) if prefix_reuse else None
         self._slot_prompt: dict[int, np.ndarray] = {}
         self._slot_matched: dict[int, int] = {}
+        # (prefix tokens spared, tier) per reservation, for the usage meter
+        self._slot_saved: dict[int, tuple[int, str]] = {}
         self._slot_filled: set[int] = set()
         self._slot_row: dict[int, np.ndarray] = {}  # the reservation's table row
         # the host-DRAM tier under the index (cache/tiers.py): evicted
@@ -962,11 +971,21 @@ class GenerativeModel:
             row[: len(matched)] = matched
             row[len(matched):need] = got
             self._slot_row[slot] = row.copy()
+            prefix_len = (len(matched) + n_promoted) * self.kv_block_size
             if self.prefix_index is not None and prompt is not None:
                 self._slot_prompt[slot] = np.asarray(prompt, np.int32).copy()
                 self._slot_matched[slot] = len(matched)
-                self._credit_peer_tier(prompt, len(matched), salt)
-        return row, (len(matched) + n_promoted) * self.kv_block_size
+                peer = self._credit_peer_tier(prompt, len(matched), salt)
+                # the tier that spared the prefill, for the usage meter
+                tier = ("dram" if n_promoted else "peer" if peer
+                        else "hbm" if matched else "none")
+                self._slot_saved[slot] = (prefix_len, tier)
+        return row, prefix_len
+
+    def reservation_saved(self, slot: int) -> tuple[int, str]:
+        """``(prefix tokens not prefilled, tier)`` of ``slot``'s reservation:
+        the tier is ``hbm`` (the index), ``dram``, ``peer`` or ``none``."""
+        return self._slot_saved.get(int(slot), (0, "none"))
 
     def release_slot(self, slot: int) -> None:
         """Return ``slot``'s owned blocks to the pool and drop its shared-
@@ -979,6 +998,7 @@ class GenerativeModel:
         slot = int(slot)
         with self._lock:  # the event loop releases while admissions run in a thread
             matched = self._slot_matched.pop(slot, 0)
+            self._slot_saved.pop(slot, None)
             prompt = self._slot_prompt.pop(slot, None)
             blocks = self._slot_blocks.pop(slot, None)
             salt = self._slot_salt.pop(slot, b"")
@@ -1198,16 +1218,18 @@ class GenerativeModel:
                             "evicted blocks", self.name, len(victims), exc_info=True)
         self._free_blocks.extend(b for _k, _d, b in victims)
 
-    def _credit_peer_tier(self, prompt: np.ndarray, n_matched: int, salt: bytes = b"") -> None:
+    def _credit_peer_tier(self, prompt: np.ndarray, n_matched: int, salt: bytes = b"") -> bool:
         """Count a peer hit when a matched level came from a peer pull no
         admission has used yet (the credit is used up: later matches of
-        those levels are plain index hits)."""
+        those levels are plain index hits); returns whether it counted."""
         if n_matched and self._peer_chains:
             keys = {HostPrefixStore.level_key(prompt, lvl, self.kv_block_size, salt)
                     for lvl in range(1, n_matched + 1)}
             if keys & self._peer_chains:
                 self._peer_chains -= keys
                 self.peer_hits += 1
+                return True
+        return False
 
     def _promote(self, blocks: list[int], entries: list[tuple]) -> None:
         """Copy DRAM store entries (``(key, depth, k, v, k_scale, v_scale)``,
@@ -1872,6 +1894,7 @@ class GenerativeModel:
             self.decode_blocks += 1
             self.last_block_s = seconds
             self.block_seconds += seconds
+            RECORDER.record_stage(STAGE_DEVICE_STEP, seconds)
             self.tokens_emitted += int(out[1].sum())
             if self.spec_draft and act_np.any():
                 emitted = out[1].sum(axis=0).astype(np.int64)
@@ -1990,6 +2013,12 @@ class _Request:
     # the named LoRA adapter the request decodes through (None: the base
     # model, the pool's null row)
     adapter: str | None = None
+    # QoS: the priority class and the absolute time.monotonic() deadline
+    # (None: no SLO), read from the request's context at submit
+    priority: str = qos.PRIO_INTERACTIVE
+    deadline: float | None = None
+    # the outcome went to the usage meter (exactly once)
+    metered: bool = False
 
 
 class GenerationScheduler:
@@ -2010,6 +2039,17 @@ class GenerationScheduler:
     A request may name a LoRA adapter (``adapter=``): its slot is bound to
     the adapter's pool row at admission and released with it, and the
     tokens its decode blocks deliver tick the adapter's ledger.
+
+    QoS, from the request's context (``qos/context.py``): a ``batch``
+    request may fill only half the intake (``_batch_cap``); the queue pops
+    interactive requests first, then by arrival; a request whose deadline
+    passes fails with :class:`DeadlineExceeded` at the next sync point,
+    from the queue before a prefill is spent on it, between two prefill
+    chunks, or mid-decode (its slot is reaped; the tokens the block in
+    flight still makes for it are dropped).  The active admission
+    controller's brownout clamps ``max_new_tokens`` at submit.  Every
+    request's prefill, decode tokens, share of each block's device
+    seconds and outcome go to the usage meter (``obs/metering.py``).
 
     Pooled-embedding requests (:meth:`submit_embed`) ride the same bounded
     intake but take no slot: the waiting ones are served as one wave at
@@ -2043,6 +2083,9 @@ class GenerationScheduler:
             overlap = os.environ.get("SCT_GEN_OVERLAP", "1") != "0"
         self.overlap = bool(overlap) and model.decode_block > 1
         self.overlap_breaks: collections.Counter = collections.Counter()
+        # requests failed with DeadlineExceeded, by where they were
+        # ("generation-queue", "prefill", "decode")
+        self.deadline_reaps: collections.Counter = collections.Counter()
         self._waiting: list[_Request] = []
         # admitted to a slot but not to the KV pool (OutOfKVBlocks): retried
         # ahead of the queue as completions free blocks
@@ -2056,7 +2099,12 @@ class GenerationScheduler:
         self._external: set[int] = set()
         self._external_release: list[int] = []
         self._prefix_installs: list[tuple[dict, asyncio.Future]] = []
-        self._maxsize = 256 if maxsize is None else int(maxsize)
+        self._maxsize = (int(maxsize) if maxsize is not None
+                         else int(os.environ.get("SCT_GEN_QUEUE_MAX", "256")))
+        self._batch_cap = max(1, self._maxsize // 2) if self._maxsize else 0
+        # slot -> the request reaped from it while a block may still be in
+        # flight: the tokens that block makes for it are wasted
+        self._reaped_rows: dict[int, _Request] = {}
         self._wake: asyncio.Event | None = None
         self._task: asyncio.Task | None = None
         self._closed = False
@@ -2096,10 +2144,14 @@ class GenerationScheduler:
         return prompt
 
     async def _enqueue(self, req: _Request):
-        """Queue ``req`` (bounded intake) and wait for its future."""
+        """Queue ``req`` (bounded intake, a batch request to half of it) and
+        wait for its future."""
         depth = len(self._waiting) + len(self._overflow)
-        if self._maxsize and depth >= self._maxsize:
-            raise QueueFull(f"generation queue is full ({depth} waiting, cap {self._maxsize})")
+        cap = self._maxsize if req.priority == qos.PRIO_INTERACTIVE else self._batch_cap
+        if self._maxsize and depth >= cap:
+            self._meter_end(req, "shed")
+            raise QueueFull(f"generation queue is full ({depth} waiting, cap {cap} "
+                            f"for {req.priority})")
         self._ensure_run_task()
         self._waiting.append(req)
         self._wake.set()
@@ -2108,11 +2160,36 @@ class GenerationScheduler:
         except asyncio.CancelledError:
             # the client is gone: withdraw before a slot is spent (in-slot
             # requests are reaped by the run loop via the cancelled future)
-            if req in self._waiting:
-                self._waiting.remove(req)
-            if req in self._overflow:
-                self._overflow.remove(req)
+            for q in (self._waiting, self._overflow):
+                if req in q:
+                    q.remove(req)
+                    self._meter_end(req, "reaped")
             raise
+
+    def _meter_end(self, req: _Request, outcome: str) -> None:
+        """Fold a request's outcome (``completed``, ``shed`` or ``reaped``:
+        a deadline, a disconnect or an error) into the usage meter, once.
+        A reaped request's delivered tokens count as wasted.  An embed has
+        no outcome of its own (it serves another request, or one row of an
+        ``/embeddings`` call)."""
+        if req.metered or req.embed_only:
+            return
+        req.metered = True
+        key = (self.model.name, req.adapter or "", req.priority)
+        if outcome == "reaped":
+            METER.add(*key, requests_reaped=1, tokens_wasted=len(req.out))
+        else:
+            METER.add(*key, **{f"requests_{outcome}": 1})
+
+    def _meter_admit(self, req: _Request, slot: int) -> None:
+        """An admission's prefill: the prompt tokens prefilled on the device
+        and the prefix tokens a tier spared."""
+        saved, tier = self.model.reservation_saved(slot)
+        saved = min(saved, int(req.prompt.size))
+        fields = {"tokens_prefill": int(req.prompt.size) - saved}
+        if saved and tier != "none":
+            fields[f"tokens_saved_{tier}"] = saved
+        METER.add(self.model.name, req.adapter or "", req.priority, **fields)
 
     def overlap_snapshot(self) -> dict:
         """Whether the pipeline overlaps, the blocks continued from a
@@ -2123,7 +2200,8 @@ class GenerationScheduler:
     def _request(self, prompt, max_new_tokens, temperature, eos_id, **kw) -> _Request:
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         return _Request(prompt, int(max_new_tokens), float(temperature), eos_id, fut,
-                        t0=time.perf_counter(), **kw)
+                        t0=time.perf_counter(), priority=qos.get_priority(),
+                        deadline=qos.get_deadline(), **kw)
 
     async def submit(
         self,
@@ -2148,6 +2226,8 @@ class GenerationScheduler:
         if max_new_tokens < 1:
             return np.zeros(0, np.int32)
         max_new_tokens = min(int(max_new_tokens), self.model.cfg.max_seq - int(prompt.size))
+        # a brownout shortens answers before it refuses them
+        max_new_tokens = qos.clamp_max_new_tokens(max_new_tokens)
         req = self._request(prompt, max_new_tokens, temperature, eos_id, on_token=on_token,
                             adapter=adapter or None)
         out = await self._enqueue(req)
@@ -2182,8 +2262,14 @@ class GenerationScheduler:
                 placed, vecs = [], []
             return placed, errors, vecs
 
+        t0 = time.perf_counter()
         placed, errors, vecs = await asyncio.to_thread(dispatch_and_fetch)
+        wave_s = time.perf_counter() - t0  # the wave's wall time ends in its one fetch
+        wave_toks = sum(int(r.prompt.size) for r, _ in placed) or 1
         for (req, _), vec in zip(placed, vecs):
+            n = int(req.prompt.size)
+            METER.add(self.model.name, req.adapter or "", req.priority,
+                      device_s=wave_s * n / wave_toks, tokens_prefill=n)
             if not req.future.done():
                 req.future.set_result(vec)
         for req, exc in errors:
@@ -2214,8 +2300,8 @@ class GenerationScheduler:
         result, the first token included, is what a unified engine returns
         for the same request."""
         prompt = self._validate_prompt(prompt)
-        max_new_tokens = min(max(1, int(max_new_tokens)),
-                             self.model.cfg.max_seq - int(prompt.size))
+        max_new_tokens = qos.clamp_max_new_tokens(min(
+            max(1, int(max_new_tokens)), self.model.cfg.max_seq - int(prompt.size)))
         return await self._enqueue(self._request(
             prompt, max_new_tokens, temperature, eos_id,
             imported={"first_token": int(first_token), "k": k, "v": v, "k_scale": k_scale,
@@ -2278,13 +2364,16 @@ class GenerationScheduler:
         for req in self._waiting:
             if not req.future.done():
                 req.future.set_exception(err)
+            self._meter_end(req, "reaped")
         self._waiting.clear()
 
     # ---------------------------------------------------------------- loop
 
     def _token_done(self, req: _Request, tok: int) -> bool:
         if not req.out:
-            self.ttft.append((int(req.prompt.size), time.perf_counter() - req.t0))
+            ttft = time.perf_counter() - req.t0
+            self.ttft.append((int(req.prompt.size), ttft))
+            RECORDER.record_stage(STAGE_TTFT, ttft)
         req.out.append(tok)
         if req.on_token is not None:
             try:
@@ -2297,32 +2386,63 @@ class GenerationScheduler:
         return len(req.out) >= req.max_new_tokens
 
     def _finish(self, req: _Request, slot: int, slots, active) -> None:
-        if not req.future.done():
+        if req.future.done():  # its client left: nothing was delivered
+            self._meter_end(req, "reaped")
+        else:
             req.future.set_result(np.asarray(req.out, np.int32))
+            self._meter_end(req, "completed")
         slots[slot] = None
         active[slot] = False
         self.model.release_slot(slot)
 
     def _reap(self, slots, active) -> int:
-        """Drop requests whose client vanished (cancelled future): from the
-        queues before a prefill is spent, from slots mid-prefill or
-        mid-generation.  Returns the decoding slots reaped: the device
-        carry still thinks them active, so the next block must be
-        dispatched from host state.  Their blocks may go back to the pool
-        while a continued block is in flight: nothing reserves them before
-        the next sync point, which waits for that block."""
+        """Drop requests whose client vanished (cancelled future) or whose
+        deadline passed (failed here with :class:`DeadlineExceeded`): from
+        the queues before a prefill is spent, from slots between prefill
+        chunks (the slot's blocks go back unwritten to the index, as for an
+        aborted prefill) or mid-generation.  Returns the decoding slots
+        reaped: the device carry still thinks them active, so the next
+        block must be dispatched from host state.  Their blocks may go back
+        to the pool while a continued block is in flight: nothing reserves
+        them before the next sync point, which waits for that block, and
+        the tokens it makes for them are dropped as wasted."""
+        now = time.monotonic()
+
+        def gone(req: _Request, stage: str, where: str) -> bool:
+            if req.future.done():
+                return True
+            if req.deadline is None or now < req.deadline:
+                return False
+            req.future.set_exception(DeadlineExceeded(f"deadline expired {where}"))
+            self.deadline_reaps[stage] += 1
+            qos.note_deadline_miss(stage, req.priority)
+            return True
+
         for q in (self._waiting, self._overflow):
-            q[:] = [r for r in q if not r.future.done()]
-        for ent in [e for e in self._prefilling if e["req"].future.done()]:
-            self._prefilling.remove(ent)
-            self.model.release_slot(ent["slot"])
+            keep = []
+            for r in q:
+                if gone(r, "generation-queue", f"after {time.perf_counter() - r.t0:.3f}s "
+                                               "waiting in the generation queue"):
+                    self._meter_end(r, "reaped")
+                else:
+                    keep.append(r)
+            q[:] = keep
+        for ent in list(self._prefilling):
+            if gone(ent["req"], "prefill", f"after {ent['i']} prefill chunks"):
+                self._prefilling.remove(ent)
+                self.model.release_slot(ent["slot"])
+                self._meter_end(ent["req"], "reaped")
         reaped = 0
         for i, req in enumerate(slots):
-            if req is not None and req.future.done():
+            if req is not None and gone(req, "decode", f"mid-generation after "
+                                                       f"{len(req.out)} tokens"):
                 slots[i] = None
-                reaped += int(active[i])
+                if active[i]:
+                    reaped += 1
+                    self._reaped_rows[i] = req
                 active[i] = False
                 self.model.release_slot(i)
+                self._meter_end(req, "reaped")
         return reaped
 
     def _deliver(self, toks_seq, act_seq, slots, cur, active) -> None:
@@ -2338,12 +2458,15 @@ class GenerationScheduler:
         if conf_seq is not None and conf_seq.shape != toks_seq.shape:
             conf_seq = None  # a stale stash: never misattribute
         delivered: collections.Counter = collections.Counter()
+        reqs = list(slots)  # completions below null the live entries
+        counts = [0] * len(slots)
         for step_i in range(toks_seq.shape[0]):
             for i, req in enumerate(slots):
                 if req is None or not act_seq[step_i, i]:
                     continue
                 tok = int(toks_seq[step_i, i])
                 cur[i] = tok
+                counts[i] += 1
                 if conf_seq is not None:
                     req.conf_sum += float(conf_seq[step_i, i])
                     req.conf_n += 1
@@ -2353,12 +2476,48 @@ class GenerationScheduler:
                     self._finish(req, i, slots, active)
         for adapter, n in delivered.items():
             self.model.note_adapter_tokens(adapter, n)
+        # the tokens this block made for slots reaped while it was in flight
+        wasted = set()
+        for i, req in self._reaped_rows.items():
+            if reqs[i] is None:  # no admission took the slot since
+                reqs[i], counts[i] = req, int(act_seq[:, i].sum())
+                wasted.add(i)
+        self._reaped_rows.clear()
+        self._meter_block(reqs, counts, wasted, act_seq)
+
+    def _meter_block(self, reqs, counts, wasted: set[int], act_seq) -> None:
+        """Split one fetched block's device seconds over the slots it served
+        by token share (a slot that made 3 of its 12 tokens is charged a
+        quarter), with each slot's decode tokens and accepted drafts; the
+        ``wasted`` slots' tokens were dropped.  A block that made no token
+        charges the deployment's base row."""
+        name, block_s = self.model.name, self.model.last_block_s
+        block_tokens = sum(counts)
+        if block_s and not block_tokens:
+            METER.add(name, device_s=block_s)
+        spec_d, tps = self.model.spec_draft, self.model._tps
+        for i, req in enumerate(reqs):
+            if req is None or not counts[i]:
+                continue
+            fields = {"device_s": block_s * counts[i] / block_tokens,
+                      "tokens_decode": counts[i]}
+            if i in wasted:
+                fields["tokens_wasted"] = counts[i]
+            elif spec_d and act_seq.shape[0] % tps == 0:
+                passes = int(act_seq[:, i].reshape(-1, tps).any(axis=1).sum())
+                accepted = max(0, counts[i] - passes)
+                if accepted:
+                    fields["tokens_spec_accepted"] = accepted
+                    fields[f"tokens_spec_accepted_{self.model.spec_method}"] = accepted
+            METER.add(name, req.adapter or "", req.priority, **fields)
 
     def _fail_inflight(self, slots, active, exc: BaseException) -> None:
         prefilling = {e["slot"] for e in self._prefilling}  # not in the decode batch
         for i, req in enumerate(slots):
-            if req is not None and not req.future.done():
-                req.future.set_exception(exc)
+            if req is not None:
+                if not req.future.done():
+                    req.future.set_exception(exc)
+                self._meter_end(req, "reaped")
             slots[i] = None
             if i not in prefilling:
                 self.model.release_slot(i)
@@ -2446,15 +2605,26 @@ class GenerationScheduler:
                 log.error("prefill admission failed", exc_info=exc)
             if not req.future.done():
                 req.future.set_exception(exc)
+            self._meter_end(req, "reaped")
+        now = time.perf_counter()
+        for req in [r for r, _, _ in placed] + [e["req"] for e in chunked]:
+            if req.imported is None and not req.prefill_only:
+                RECORDER.record_stage(STAGE_QUEUE_WAIT, now - req.t0)
+        for e in chunked:
+            self._meter_admit(e["req"], e["slot"])
         for (req, slot, _), tok in zip(placed, toks):
+            if req.imported is None:  # an import was prefilled by its sender
+                self._meter_admit(req, slot)
             if not req.prefill_only:
                 self._start(req, slot, tok, slots, cur, temps, active)
             elif req.future.done():  # the client left during the prefill
                 self.model.release_slot(slot)
+                self._meter_end(req, "reaped")
             else:  # pinned until release_external
                 self.ttft.append((int(req.prompt.size), time.perf_counter() - req.t0))
                 self._external.add(slot)
                 req.future.set_result((slot, int(tok)))
+                self._meter_end(req, "completed")
         if ent is not None and chunk_err is None:
             self.chunks_paced += int(live)
             ent["i"] += 1
@@ -2534,18 +2704,15 @@ class GenerationScheduler:
             self._prefix_installs.clear()
             self._external.clear()
             self._external_release.clear()
-            for ent in self._prefilling:
-                if not ent["req"].future.done():
-                    ent["req"].future.set_exception(err)
-            self._prefilling.clear()
-            for i, req in enumerate(slots):
-                if req is not None and not req.future.done():
-                    req.future.set_exception(err)
-                self.model.release_slot(i)
-            for req in self._overflow:
+            for req in ([e["req"] for e in self._prefilling] + self._overflow
+                        + [r for r in slots if r is not None]):
                 if not req.future.done():
                     req.future.set_exception(err)
+                self._meter_end(req, "reaped")
+            self._prefilling.clear()
             self._overflow.clear()
+            for i in range(S):
+                self.model.release_slot(i)
             raise
 
     async def _sync_and_dispatch(self, slots, cur, temps, active, k: int) -> tuple | None:
@@ -2567,16 +2734,22 @@ class GenerationScheduler:
             self._wake.clear()
             await self._wake.wait()
             return None
+        # the admissions are taken before the embed wave is awaited: an embed
+        # that arrives meanwhile waits for the next wave, never for a slot
         embeds = [r for r in self._waiting if r.embed_only]
         if embeds:
             self._waiting[:] = [r for r in self._waiting if not r.embed_only]
-            await self._admit_embeds(embeds)
         cap_free = S - int(active.sum()) - len(self._prefilling) - len(self._external)
         batch = []
         while self._overflow and len(batch) < cap_free:
             batch.append(self._overflow.pop(0))
+        if self._waiting and len(batch) < cap_free:
+            # interactive first, then by arrival
+            self._waiting.sort(key=lambda r: (qos.priority_rank(r.priority), r.t0))
         while self._waiting and len(batch) < cap_free:
             batch.append(self._waiting.pop(0))
+        if embeds:
+            await self._admit_embeds(embeds)
         if batch or self._prefilling:
             await self._sync_point(batch, slots, cur, temps, active)
         if not active.any():
@@ -2607,6 +2780,7 @@ class GenerationScheduler:
                 for req in self._overflow:
                     if not req.future.done():
                         req.future.set_exception(err)
+                    self._meter_end(req, "reaped")
                 self._overflow.clear()
             return None
         eos = np.array(

@@ -9,9 +9,13 @@ in ``meta.routing``, which the feedback walk replays.  A
 its component's decision.  The runtime tree is built once at startup; all
 payloads of one request share one mutable :class:`Meta`.
 
+With a ``node_cache`` (``cache/content.py``, built when ``SCT_CACHE=1``)
+a deterministic MODEL node serves an exact repeat of its input from the
+cache without calling its component (``request_path`` says ``"cache"``).
+
 Left out here: the obs spans (``predict(trace=True)`` still writes
-``sct_trace_ms`` into the tags) and the node-tier response cache.  Units
-behind REST or GRPC endpoints are refused by name.
+``sct_trace_ms`` into the tags).  Units behind REST or GRPC endpoints are
+refused by name.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Any, Callable
 
 import numpy as np
 
+from seldon_core_tpu_torch.cache.content import payload_cache_key
 from seldon_core_tpu_torch.contract.payload import FeedbackPayload, Metric, Payload
 from seldon_core_tpu_torch.graph.spec import (
     Method,
@@ -247,7 +252,7 @@ class GraphWalker:
     ``components`` maps unit name -> in-process component object; the other
     units come from the built-in registry, built on ``device``.
     ``feedback_hook(name, fb)`` fires for every unit the feedback walk
-    reaches.
+    reaches.  ``node_cache`` (a ``ResponseCache``) turns the node tier on.
     """
 
     def __init__(
@@ -257,8 +262,10 @@ class GraphWalker:
         feedback_hook: Callable[[str, FeedbackPayload], None] | None = None,
         *,
         device: str = "cuda",
+        node_cache: Any = None,
     ):
         self.spec = spec
+        self.node_cache = node_cache
         self._components = components or {}
         self._device = device
         self._feedback_hook = feedback_hook
@@ -349,7 +356,11 @@ class GraphWalker:
             return await self._execute_cascade(node, p, timings)
         methods = node.methods
         if Method.TRANSFORM_INPUT in methods:
-            p = await node.client.transform_input(p)
+            if (self.node_cache is not None and node.deterministic
+                    and node.spec.type == UnitType.MODEL):
+                p = await self._model_cached(node, p)
+            else:
+                p = await node.client.transform_input(p)
         if node.children:
             branch = ROUTE_ALL
             if Method.ROUTE in methods:
@@ -376,6 +387,24 @@ class GraphWalker:
         if Method.TRANSFORM_OUTPUT in methods:
             p = await node.client.transform_output(p)
         return p
+
+    async def _model_cached(self, node: _NodeState, p: Payload) -> Payload:
+        """A deterministic MODEL node through the node tier: an exact repeat
+        of its input skips the component (and its device step); a payload
+        with nothing hashable goes to the component."""
+        key = payload_cache_key(p)
+        if key is None:
+            return await node.client.transform_input(p)
+        ns = node.spec.name
+        entry = self.node_cache.get(ns, key)
+        if entry is not None:
+            data, names, kind = entry.value
+            p.meta.request_path.setdefault(ns, "cache")
+            return Payload(data=data, names=list(names), kind=kind, meta=p.meta)
+        out = await node.client.transform_input(p)
+        nbytes = out.data.nbytes if isinstance(out.data, np.ndarray) else len(out.data or b"")
+        self.node_cache.put(ns, key, (out.data, list(out.names), out.kind), nbytes=nbytes)
+        return out
 
     async def _execute_cascade(self, node: _NodeState, p: Payload,
                                timings: dict | None = None) -> Payload:

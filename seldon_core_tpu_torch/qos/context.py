@@ -5,7 +5,8 @@ The port's copy of the JAX package's ``qos/context.py``.  A client stamps
 optionally ``x-sct-priority`` (``interactive`` | ``batch``).  Ingress turns
 the budget into an ABSOLUTE monotonic deadline held in a contextvar, which
 every later stage of the request (the graph walk, the cascade's
-escalation gate) reads without plumbing.  An outgoing hop re-serializes
+escalation gate, the batching queue, the generation scheduler) reads
+without plumbing.  An outgoing hop re-serializes
 the header with the budget left.
 
 asyncio tasks inherit contextvars, so the walker's fan-out sees the
@@ -32,6 +33,19 @@ _deadline: contextvars.ContextVar[float | None] = contextvars.ContextVar(
 _priority: contextvars.ContextVar[str] = contextvars.ContextVar(
     "sct_qos_priority", default=PRIO_INTERACTIVE
 )
+# the Retry-After hint (delta-seconds) set where a shed was decided, read
+# where the wire reply is built
+_retry_after: contextvars.ContextVar[str | None] = contextvars.ContextVar(
+    "sct_qos_retry_after", default=None
+)
+
+
+def set_retry_after(value: str | None) -> None:
+    _retry_after.set(value)
+
+
+def get_retry_after() -> str | None:
+    return _retry_after.get()
 
 
 def parse_deadline_ms(value) -> float | None:
@@ -59,6 +73,11 @@ def parse_priority(value) -> str:
     if isinstance(value, str) and value.strip().lower() == PRIO_BATCH:
         return PRIO_BATCH
     return PRIO_INTERACTIVE
+
+
+def priority_rank(priority: str) -> int:
+    """Lower rank pops first."""
+    return 0 if priority == PRIO_INTERACTIVE else 1
 
 
 def set_budget_ms(budget_ms: float | None) -> None:
@@ -102,12 +121,13 @@ def get_priority() -> str:
 
 def seed_from_headers(deadline_value, priority_value) -> tuple[float | None, str]:
     """Ingress helper: parse and seed both contextvars in one shot (an
-    absent header resets its variable); returns ``(budget_ms, priority)``
-    as parsed."""
+    absent header resets its variable) and clear a stale Retry-After hint;
+    returns ``(budget_ms, priority)`` as parsed."""
     budget_ms = parse_deadline_ms(deadline_value)
     priority = parse_priority(priority_value)
     set_budget_ms(budget_ms)
     set_priority(priority)
+    _retry_after.set(None)
     return budget_ms, priority
 
 

@@ -441,6 +441,9 @@ def test_engine_outlier_transformer_before_a_combiner_over_two_berts():
 
 def test_engine_answers_429_504_and_400(monkeypatch):
     monkeypatch.setenv("SCT_BATCH_PIPELINE", "1")  # one step in flight
+    # the expired request must reach the queue: admission's predictive shed
+    # would answer it 429 once the flight recorder's stages hold samples
+    monkeypatch.setenv("SCT_QOS_PREDICTIVE", "0")
     graph = _unit("m", "mlp", max_queue=("1", "INT"), max_batch=("1", "INT"))
     row = {"data": {"ndarray": [[0.5] * 16]}}
     bad_bodies = [

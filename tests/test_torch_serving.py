@@ -303,7 +303,9 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "qos/context.py", "graphllm/cascade.py", "graphllm/guardrail.py",
                    "graph/walker.py", "models/mlp.py", "models/cnn.py", "models/resnet.py",
                    "models/bert.py", "executor/compiled.py", "executor/batcher.py",
-                   "executor/component.py", "qos/admission.py"):
+                   "executor/component.py", "qos/admission.py", "obs/spans.py",
+                   "obs/metering.py", "cache/content.py", "cache/singleflight.py",
+                   "cache/semantic.py"):
         assert ROOT / "seldon_core_tpu_torch" / module in sources
     hits = [
         f"{p.relative_to(ROOT)}:{i}"
