@@ -226,7 +226,34 @@ Phases, each printing one JSON line:
    plus the wasted, and the device seconds equal the blocks' within 1%.
    It prints an admission's host us, the EWMAs and the 429 and 504
    counts.
-15. ``kernel_times``: each kernel's time at the main path's shapes and at a
+15. ``serve_remote``: remote graph nodes.  Each microservice is a
+   subprocess of the port's runtime command line
+   (``python -m seldon_core_tpu_torch.runtime.microservice``) on a free
+   loopback port, waited on at ``/ready`` and killed at the end; a child
+   that does not boot fails the phase.  R1 (BASELINE config 1): the engine
+   serves ``examples/iris``'s single-node graph, its unit a REST
+   microservice of ``IrisClassifier.py``: 64 requests of 1-8 rows from a
+   seed one at a time, then again over 16 clients, each reply equal to
+   ``IrisClassifier().predict`` on the host (to the float64 JSON round
+   trip) with names ``setosa, versicolor, virginica``; the pool opens
+   one connection one at a time and at most 16 in the wave; a
+   form-encoded request answers the same.  R2:
+   ``examples/transform-pipeline/graph.json`` over three children
+   (``Standardize``, ``Scorer``, ``ArgmaxLabel``), every reply equal to
+   the three classes composed in-process.  R3: a remote ROUTER (a numpy
+   class, ``--persistence 1`` on a file store) before two branches,
+   llama3-1b (bf16, seeded weights, ``seq_impl=flash``) and
+   ``SIMPLE_MODEL``: serve's 8 prompts routed to the 1b answer ``serve``'s streams and the unit's
+   own called directly, both kernels launch; one feedback a reply
+   reaches the router once (its tags count 8); the router restarts
+   (SIGTERM flushes its state) and comes back with 8.  Then ROADMAP C9's
+   pin: ``serve_cache``'s C5 unit (2 layers, temperature 0.8, embed on)
+   booted and warmed 8 times, the engine before it closed and dropped
+   while it captures, the collector's objects frozen and its thresholds
+   lowered, every decode-graph capture succeeding.  It prints the client wall p50/p99
+   one at a time and in the wave, the pool's connections, the hop's ms on
+   the engine's side and the captures.
+16. ``kernel_times``: each kernel's time at the main path's shapes and at a
    long one (flash at S=2048 and its variant at 80 rows over 592 keys,
    against SDPA with the lower-right causal mask; paged at 8 slots near
    position 2000; paged
@@ -241,8 +268,8 @@ Phases, each printing one JSON line:
 
 Then the card's name and power limit (nvidia-smi), one line listing the
 kernels (launches summed over the serve phases, ``serve_graph``,
-``serve_lora``, ``serve_zoo``, ``serve_cache`` and ``serve_qos``
-included), and as the last line
+``serve_lora``, ``serve_zoo``, ``serve_cache``, ``serve_qos`` and
+``serve_remote`` included), and as the last line
 ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero before that line.  Without CUDA, or without
 the repository beside this file, it exits non-zero and prints no result.
@@ -3943,6 +3970,421 @@ def phase_serve_qos(serve: dict, device: str = "cuda", preset: str = SERVE_PRESE
     return launches
 
 
+# -- serve_remote: remote graph nodes (wrapped microservices) --------------------------
+
+REMOTE_READY_S = 90.0  # a child imports torch before it answers /ready
+IRIS_REQUESTS = 64
+IRIS_WAVE = 16  # concurrent clients in R1's wave
+PIPELINE_REQUESTS = 16
+C9_BOOTS = 8
+# R3's root: a numpy router in its own process, persisted to a file store
+SMOKE_ROUTER = '''\
+class SmokeRouter:
+    """strData (a prompt) to branch 0, numeric rows to branch 1; counts its
+    routes and the rewards it is sent."""
+
+    def __init__(self):
+        self.routed = 0
+        self.rewards = 0
+
+    def route(self, X, names):
+        self.routed += 1
+        return 0 if isinstance(X, (str, bytes)) else 1
+
+    def send_feedback(self, X, names, reward, truth=None, routing=None):
+        self.rewards += 1
+
+    def tags(self):
+        return {"router_routed": self.routed, "router_rewards": self.rewards}
+'''
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _pct(xs, q: float) -> float:
+    s = sorted(xs)
+    return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
+
+
+def _load_example(path: str, name: str):
+    """An example's module, loaded by its file path (not as a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _Children:
+    """Microservices of the port's runtime CLI, one subprocess each on a
+    free loopback port; every child is killed on exit."""
+
+    def __init__(self, logdir: str):
+        self.logdir = logdir
+        self.procs: dict = {}
+
+    def start(self, name: str, interface: str, service_type: str, cwd: str,
+              port: int | None = None, env: dict | None = None, persistence: int = 0) -> int:
+        port = port or _free_port()
+        log = open(os.path.join(self.logdir, f"{name}.log"), "ab")
+        self.procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice", interface,
+             "REST", "--service-type", service_type, "--port", str(port),
+             "--persistence", str(persistence)],
+            cwd=cwd, stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": ROOT, "PREDICTIVE_UNIT_ID": name, **(env or {})}),
+            port, log)
+        return port
+
+    def wait_ready(self, timeout_s: float = REMOTE_READY_S) -> float:
+        t0 = time.perf_counter()
+        waiting = set(self.procs)
+        while waiting:
+            for name in list(waiting):
+                proc, port, _ = self.procs[name]
+                if proc.poll() is not None:
+                    raise AssertionError(f"microservice {name} exited with {proc.returncode}: "
+                                         f"{self.tail(name)}")
+                try:
+                    if _get(port, "/ready") == 200:
+                        waiting.discard(name)
+                except (urllib.error.URLError, OSError):
+                    pass  # not listening yet
+            if waiting and time.perf_counter() - t0 > timeout_s:
+                raise AssertionError(f"microservices {sorted(waiting)} not ready in {timeout_s} s")
+            time.sleep(0.1)
+        return time.perf_counter() - t0
+
+    def tail(self, name: str) -> str:
+        with open(os.path.join(self.logdir, f"{name}.log"), "rb") as f:
+            return f.read()[-2000:].decode(errors="replace")
+
+    def stop(self, name: str) -> int:
+        """SIGTERM (the runtime's graceful exit, its persistence flush
+        included) -> the exit code."""
+        proc, _, log = self.procs.pop(name)
+        proc.terminate()
+        try:
+            return proc.wait(timeout=30)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+    def close(self) -> None:
+        for name in list(self.procs):
+            proc, _, log = self.procs.pop(name)
+            proc.kill()
+            proc.wait()
+            log.close()
+
+
+def _rest_node(name: str, port: int, unit_type: str, children=()) -> dict:
+    return {"name": name, "type": unit_type, "children": list(children),
+            "endpoint": {"service_host": "127.0.0.1", "service_port": port, "type": "REST"}}
+
+
+async def _walls(port: int, bodies, clients: int) -> tuple[list, list]:
+    """``bodies`` over ``clients`` concurrent clients -> (replies, walls)."""
+    loop = asyncio.get_running_loop()
+    with concurrent.futures.ThreadPoolExecutor(clients) as pool:
+        got = await asyncio.gather(*(loop.run_in_executor(pool, _req, port, b) for b in bodies))
+    return [(r["status"], json.loads(r["raw"])) for r in got], [r["s"] for r in got]
+
+
+async def _traced_hops(app, bodies, node: str, inner: str | None = None) -> list[float]:
+    """Each body walked alone with per-node timings -> ms of ``node`` less
+    ``inner``'s (the engine's side of a remote hop)."""
+    from seldon_core_tpu_torch.contract.codec import payload_from_dict
+
+    out = []
+    for b in bodies:
+        t = (await app.service.walker.predict(payload_from_dict(b), trace=True)).meta.tags[
+            "sct_trace_ms"]
+        out.append(t[node] - (t[inner] if inner else 0.0))
+    return out
+
+
+async def _r1_iris(iris_port: int, iris, device: str) -> dict:
+    """R1, BASELINE config 1: the Iris classifier behind the engine."""
+    import urllib.parse
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.obs import RECORDER, STAGE_ENGINE_ROUTE
+
+    rng = np.random.default_rng(11)
+    rows = [rng.uniform(0.1, 8.0, size=(int(rng.integers(1, 9)), 4)).round(3)
+            for _ in range(IRIS_REQUESTS)]
+    bodies = [{"data": {"names": ["sepal_length", "sepal_width", "petal_length", "petal_width"],
+                        "ndarray": r.tolist()}} for r in rows]
+    # examples/iris/seldondeployment.yaml's graph, its unit behind a REST endpoint
+    app, boot_s = await _boot(_graph_spec(_rest_node("iris", iris_port, "MODEL")), device)
+    try:
+        pool = app.service.transports.pools[("127.0.0.1", iris_port)]
+        one, one_walls = [], []
+        for b in bodies:
+            r = await asyncio.to_thread(_req, app.port, b)
+            one.append((r["status"], json.loads(r["raw"])))
+            one_walls.append(r["s"])
+        # the engine's own time a request (parse, walk, reply bytes): the
+        # rest of a client's wall is the client and the loopback front
+        routes = list(RECORDER._stages[STAGE_ENGINE_ROUTE])[-len(bodies):]
+        opened_one = pool.opened
+        wave, wave_walls = await _walls(app.port, bodies, IRIS_WAVE)
+        opened = pool.opened
+        form = await asyncio.to_thread(
+            _req, app.port, urllib.parse.urlencode({"json": json.dumps(bodies[0])}).encode(),
+            {"Content-Type": "application/x-www-form-urlencoded"})
+        hops = await _traced_hops(app, bodies[:16], "iris")
+    finally:
+        await app.close()
+    host = iris.IrisClassifier()
+    names = ["setosa", "versicolor", "virginica"]
+    equal = sum(int(st == 200 and np.array_equal(np.asarray(rep["data"]["ndarray"]),
+                                                 host.predict(r, []))
+                    and rep["data"]["names"] == names)
+                for (st, rep), r in zip(one + wave, rows + rows))
+    form_reply = json.loads(form["raw"])
+    rec = {"requests": 2 * len(bodies), "rows": [len(r) for r in rows], "equal_to_host": equal,
+           "boot_s": boot_s,
+           "one_at_a_time_ms_p50": 1e3 * _pct(one_walls, 0.5),
+           "one_at_a_time_ms_p99": 1e3 * _pct(one_walls, 0.99),
+           "engine_route_ms_p50": 1e3 * _pct(routes, 0.5),
+           "wave_clients": IRIS_WAVE, "wave_ms_p50": 1e3 * _pct(wave_walls, 0.5),
+           "wave_ms_p99": 1e3 * _pct(wave_walls, 0.99),
+           "pool_opened_one_at_a_time": opened_one, "pool_opened": opened,
+           "hop_ms_p50": _pct(hops, 0.5), "form_status": form["status"],
+           "form_equal": form_reply.get("data") == one[0][1]["data"]}
+    rec["ok"] = (equal == 2 * len(bodies) and opened_one == 1 and opened <= IRIS_WAVE
+                 and form["status"] == 200 and rec["form_equal"])
+    return rec
+
+
+async def _r2_pipeline(ports: dict, pipe, graph_file: dict, device: str) -> dict:
+    """R2: examples/transform-pipeline/graph.json, its ports the children's."""
+    import numpy as np
+
+    def rewrite(node):
+        return {**node, "endpoint": {**node["endpoint"], "service_port": ports[node["name"]]},
+                "children": [rewrite(c) for c in node.get("children", [])]}
+
+    rng = np.random.default_rng(12)
+    rows = [rng.uniform(0.1, 8.0, size=(int(rng.integers(1, 9)), 4)).round(3)
+            for _ in range(PIPELINE_REQUESTS)]
+    app, boot_s = await _boot(_graph_spec(rewrite(graph_file["graph"])), device)
+    try:
+        replies, walls = await _walls(app.port, [{"data": {"ndarray": r.tolist()}} for r in rows],
+                                      4)
+    finally:
+        await app.close()
+    want = [pipe.ArgmaxLabel().transform_output(
+        pipe.Scorer().predict(pipe.Standardize().transform_input(r, []), []), []) for r in rows]
+    equal = sum(int(st == 200 and np.array_equal(np.asarray(rep["data"]["ndarray"]), w))
+                for (st, rep), w in zip(replies, want))
+    paths = replies[0][1].get("meta", {}).get("requestPath", {})
+    rec = {"requests": len(rows), "equal_to_composition": equal, "boot_s": boot_s,
+           "wall_ms_p50": 1e3 * _pct(walls, 0.5), "request_path": sorted(paths)}
+    rec["ok"] = equal == len(rows) and rec["request_path"] == ["label", "scorer", "standardize"]
+    return rec
+
+
+async def _r3_router(kids: "_Children", router_port: int, router_dir: str, router_env: dict,
+                     serve: dict, device: str, preset: str) -> tuple[dict, dict]:
+    """R3: a remote router in front of llama3-1b on the card."""
+    from seldon_core_tpu_torch.ops import _build
+    from seldon_core_tpu_torch.runtime import persistence
+
+    graph = _rest_node("router", router_port, "ROUTER", children=[
+        _gen_node("gen", preset, 0, seq_impl=("flash", "STRING")),
+        {"name": "simple", "type": "MODEL", "implementation": "SIMPLE_MODEL"}])
+    prompts, want = serve["prompts"], serve["outs"]  # 8 distinct; the serve phase's streams
+    bodies = [_body(p) for p in prompts]
+    app, boot_s = await _boot(_graph_spec(graph), device)
+    try:
+        comp = dict(app.service.walker.iter_components())["gen"]
+        _build.reset_launches()  # this phase's main-path run starts here
+        replies, _, _ = await _graph_wave(app.port, bodies)
+        launches = dict(_build.LAUNCHES)  # and ends here
+        direct = await _direct(comp, bodies)
+        streams = [json.loads(r["strData"])["tokens"] if st == 200 else None
+                   for st, r in replies]
+        fb = [await asyncio.to_thread(_call, app.port, "/api/v0.1/feedback",
+                                      {"request": b, "response": r, "reward": 1.0})
+              for b, (_, r) in zip(bodies, replies)]
+        numeric = {"data": {"ndarray": [[1.0, 2.0]]}}
+        after = json.loads((await asyncio.to_thread(_req, app.port, numeric))["raw"])
+        hops = await _traced_hops(app, bodies, "router", "gen")
+        # the router restarts: a graceful stop flushes its state, a new process restores it
+        rc = kids.stop("router")
+        state = persistence.FileStateStore(router_env["PERSISTENCE_STORE"][len("file:"):]).get(
+            persistence.state_key("router"))
+        kids.start("router", "SmokeRouter", "ROUTER", router_dir, port=router_port,
+                   env=router_env, persistence=1)
+        kids.wait_ready()
+        restarted = await asyncio.to_thread(_req, app.port, numeric)
+    finally:
+        await app.close()
+    again = json.loads(restarted["raw"])
+    rec = {"boot_s": boot_s, "requests": len(bodies),
+           "routing": [r.get("meta", {}).get("routing", {}).get("router") for _, r in replies],
+           "streams_equal_serve": _streams_equal(want, streams),
+           "streams_equal_direct": sum(int(st == 200 and r["strData"] == d)
+                                       for (st, r), d in zip(replies, direct)),
+           "feedback_status": sorted({s for s, _ in fb}),
+           "router_rewards_after_feedback": after["meta"]["tags"].get("router_rewards"),
+           "router_exit_code": rc, "state_bytes": len(state or b""),
+           "restarted_status": restarted["status"],
+           "router_rewards_after_restart": again.get("meta", {}).get("tags", {}).get(
+               "router_rewards"),
+           "hop_ms_p50": _pct(hops, 0.5), "hop_ms": hops, "launches": launches}
+    rec["ok"] = (rec["routing"] == [0] * len(bodies) and rec["streams_equal_serve"] == len(bodies)
+                 and rec["streams_equal_direct"] == len(bodies) and rec["feedback_status"] == [200]
+                 and rec["router_rewards_after_feedback"] == len(bodies) and rc == 0
+                 and rec["state_bytes"] > 0 and restarted["status"] == 200
+                 and rec["router_rewards_after_restart"] == len(bodies)
+                 and all(n > 0 for n in launches.values()))
+    return rec, launches
+
+
+def _c9_capture_loop(device: str, preset: str, boots: int = C9_BOOTS) -> dict:
+    """ROADMAP C9's pin: ``serve_cache``'s C5 unit (2 layers at llama3-1b
+    width, temperature 0.8, embed on) booted and warmed ``boots`` times, the
+    engine before it closed and dropped while the new one captures its
+    decode graphs (after its first capture): a closed engine's objects are
+    garbage while another engine captures.  The collector's existing
+    objects are frozen and its thresholds lowered meanwhile, so that full
+    collections run often (one once ran inside a capture, on the capturing
+    thread, and destroyed a closed engine's graphs there; ``torch.cuda.graph``
+    no longer collects before a capture)."""
+    import gc
+
+    from seldon_core_tpu_torch.engine.app import EngineApp
+    from seldon_core_tpu_torch.engine.service import PredictionService
+
+    spec = _serve_spec(preset, 0, temperature=("0.8", "FLOAT"), n_layers=("2", "INT"),
+                       embed=("true", "BOOL"))
+    out = {"boots": 0, "captures": 0, "closed_during_capture": 0, "failures": []}
+
+    async def boot_while_closing(held: list) -> None:
+        """Boot the next engine; once it has captured a graph, close the one
+        in ``held`` and drop the last reference to it (it becomes garbage
+        while the new one captures); then hold the new one."""
+        app = EngineApp(PredictionService(spec, device=device))
+        await app.start("127.0.0.1", 0)
+        boot = asyncio.create_task(app.boot())
+        try:
+            if held:
+                while not boot.done():  # until the new unit has captured a graph
+                    walker = app.service.walker
+                    if walker is not None and walker.component.model.program_compiles >= 1:
+                        break
+                    await asyncio.sleep(0.002)
+                out["closed_during_capture"] += int(not boot.done())
+                await held.pop().close()
+            await boot
+        except BaseException:
+            boot.cancel()
+            await app.close()
+            raise
+        out["captures"] += app.service.walker.component.model.program_compiles
+        r = await asyncio.to_thread(_req, app.port, {"strData": json.dumps(
+            {"tokens": VERIFY_PROMPT, "max_new_tokens": MAX_NEW})})
+        if r["status"] != 200:
+            await app.close()
+            raise AssertionError(f"the sampled unit answered {r['status']}")
+        held.append(app)
+
+    async def run() -> None:
+        held: list = []
+        try:
+            for _ in range(boots):
+                try:
+                    await boot_while_closing(held)
+                except Exception as e:  # noqa: BLE001 - counted: the pin fails below
+                    out["failures"].append(f"{type(e).__name__}: {e}"[:300])
+                out["boots"] += 1
+        finally:
+            for app in held:
+                await app.close()
+
+    threshold = gc.get_threshold()
+    gc.freeze()
+    gc.collect()  # the long-lived count is the unfrozen survivors: full collections run
+    gc.set_threshold(100, 2, 2)
+    try:
+        with unittest.mock.patch.dict(os.environ, {"SCT_CACHE": "1", "SCT_SEMCACHE": "1"}):
+            asyncio.run(run())
+    finally:
+        gc.set_threshold(*threshold)
+        gc.unfreeze()
+    ok_boots = boots - len(out["failures"])
+    out["captures_per_boot"] = out["captures"] / max(1, ok_boots)
+    # no capture failed, and every engine but the first closed while the next captured
+    out["ok"] = (not out["failures"] and out["captures"] > 0
+                 and out["closed_during_capture"] == boots - 1)
+    return out
+
+
+def phase_serve_remote(serve: dict, device: str = "cuda", preset: str = SERVE_PRESET) -> dict:
+    """Remote graph nodes: wrapped microservices of the port's runtime, each
+    a subprocess on a free loopback port, behind the in-process engine.  R1
+    the Iris classifier (BASELINE config 1), R2 the transform pipeline, R3 a
+    persisted remote router in front of llama3-1b on the card; then ROADMAP
+    C9's capture loop.  Returns R3's launch counts."""
+    import tempfile
+
+    iris_dir = os.path.join(ROOT, "examples", "iris")
+    pipe_dir = os.path.join(ROOT, "examples", "transform-pipeline")
+    iris = _load_example("examples/iris/IrisClassifier.py", "iris_example")
+    pipe = _load_example("examples/transform-pipeline/pipeline.py", "pipeline_example")
+    with open(os.path.join(pipe_dir, "graph.json")) as f:
+        graph_file = json.load(f)
+    rec: dict = {"phase": "serve_remote"}
+    with tempfile.TemporaryDirectory(prefix="sct-remote-") as tmp:
+        with open(os.path.join(tmp, "SmokeRouter.py"), "w") as f:
+            f.write(SMOKE_ROUTER)
+        router_env = {"PERSISTENCE_STORE": f"file:{os.path.join(tmp, 'state')}",
+                      "PERSISTENCE_FREQUENCY": "3600"}
+        kids = _Children(tmp)
+        try:
+            iris_port = kids.start("iris", "IrisClassifier", "MODEL", iris_dir)
+            ports = {name: kids.start(name, f"pipeline.{cls}", kind, pipe_dir)
+                     for name, cls, kind in (("standardize", "Standardize", "TRANSFORMER"),
+                                             ("scorer", "Scorer", "MODEL"),
+                                             ("label", "ArgmaxLabel", "TRANSFORMER"))}
+            router_port = kids.start("router", "SmokeRouter", "ROUTER", tmp, env=router_env,
+                                     persistence=1)
+            rec["children_ready_s"] = kids.wait_ready()
+
+            async def run() -> tuple:
+                r1 = await _r1_iris(iris_port, iris, device)
+                r2 = await _r2_pipeline(ports, pipe, graph_file, device)
+                r3, launches = await _r3_router(kids, router_port, tmp, router_env, serve,
+                                                device, preset)
+                return r1, r2, r3, launches
+
+            rec["R1"], rec["R2"], rec["R3"], launches = asyncio.run(run())
+        finally:
+            kids.close()
+    rec["C9"] = _c9_capture_loop(device, preset)
+    parts = ("R1", "R2", "R3", "C9")
+    rec["ok"] = all(rec[p]["ok"] for p in parts)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"serve_remote: {[p for p in parts if not rec[p]['ok']]} failed "
+                             "(see the record)")
+    return launches
+
+
 def _flash_times(fa, S: int, D: int = 64) -> dict:
     """K1 at B=1, S, llama3-1b heads (32 and 8 KV; ``D`` 128 is the 8b's
     geometry), bf16: one input set per layer so no launch finds its inputs
@@ -4141,11 +4583,12 @@ def main() -> int:
     zoo = timed("serve_zoo", phase_serve_zoo)
     tiers = timed("serve_cache", phase_serve_cache, serve)
     admission = timed("serve_qos", phase_serve_qos, serve)
+    remote = timed("serve_remote", phase_serve_remote, serve)
     times = timed("kernel_times", phase_kernel_times, serve)
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     launches = {name: serve["launches"][name] + cached["launches"][name] + spec[name]
                 + split[name] + stream[name] + graph[name] + lora[name] + zoo[name]
-                + tiers[name] + admission[name]
+                + tiers[name] + admission[name] + remote[name]
                 for name in KERNELS}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -10,7 +10,35 @@ are hand-written CUDA C++ for ``sm_90a`` (``csrc/``), built at first use.
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
+
 import torch
+
+# one CUDA-graph capture at a time in the process, with the syncs and the
+# allocator calls around it: a capture on one thread and a capture, a
+# device-wide sync or an emptied allocator cache on another invalidate
+# each other
+CAPTURE_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def capture_section():
+    """What every model's CUDA-graph capture runs under: the process-wide
+    :data:`CAPTURE_LOCK`, with Python's automatic garbage collection paused
+    (``torch.cuda.graph`` collects once before it begins).  A collection
+    inside a capture would destroy the graphs of a model that became
+    garbage meanwhile (a closed engine's) on the capturing thread, which
+    invalidates the capture."""
+    with CAPTURE_LOCK:
+        paused = gc.isenabled()
+        gc.disable()
+        try:
+            yield
+        finally:
+            if paused:
+                gc.enable()
 
 
 def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:

@@ -8,11 +8,14 @@ Serves ``POST /api/v0.1/predictions`` (a SeldonMessage JSON body),
 warmed, false while paused) and ``/pause`` and ``/unpause`` (GET or POST:
 the drain toggle a preStop hook sends) with a minimal HTTP/1.1 handler on
 ``asyncio.start_server``: Content-Length bodies, keep-alive unless the
-client says ``close``.  The predictor comes from ``ENGINE_PREDICTOR`` as
+client says ``close``.  A JSON body may also come form-encoded, the
+message in a ``json`` field, as the reference engine posts it
+(``wire/h1server.py``).  The predictor comes from ``ENGINE_PREDICTOR`` as
 for the JAX engine; its graph may hold routers, combiners, transformers,
-cascade routers and guardrails, ``JAX_MODEL`` zoo units (their batching
-queues answer 429 when full and 504 for a request whose deadline passed
-before its device step) and ``JAX_GENERATIVE`` units.  A ``rawTensor``
+cascade routers and guardrails, units behind REST endpoints (wrapped
+microservices, ``engine/transport.py``), ``JAX_MODEL`` zoo units (their
+batching queues answer 429 when full and 504 for a request whose deadline
+passed before its device step) and ``JAX_GENERATIVE`` units.  A ``rawTensor``
 request is answered with a ``rawTensor``.  Every request seeds the
 request-scoped QoS context from ``x-sct-deadline-ms`` and
 ``x-sct-priority`` (an absent header resets it, so a keep-alive connection
@@ -128,69 +131,23 @@ from seldon_core_tpu_torch.graph.units import GraphUnitError
 from seldon_core_tpu_torch.obs import METER, RECORDER, STAGE_ENGINE_ROUTE
 from seldon_core_tpu_torch.obs.spans import TRACEPARENT_HEADER, set_traceparent
 from seldon_core_tpu_torch.qos.admission import QosRejection, QueueFull
+from seldon_core_tpu_torch.wire.h1server import (
+    MAX_BODY,
+    BadRequest,
+    keep_alive,
+    read_request,
+    request_json,
+    response,
+)
 
 log = logging.getLogger(__name__)
 
-MAX_BODY = 64 << 20
 MAX_FRAME_BODY = 1 << 30  # a handoff frame: 64 MiB for a 2048-token llama3-1b prompt
-MAX_HEADERS = 100
 DISCONNECT_POLL_S = 0.05  # how often a request in flight checks its client is there
-_REASONS = {
-    200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
-    409: "Conflict", 413: "Payload Too Large", 429: "Too Many Requests",
-    500: "Internal Server Error", 501: "Not Implemented", 503: "Service Unavailable",
-    504: "Gateway Timeout",
-}
 
 
-class _BadRequest(Exception):
-    def __init__(self, status: int, reason: str):
-        super().__init__(reason)
-        self.status = status
-
-
-async def _read_request(reader: asyncio.StreamReader):
-    """One HTTP/1.x request -> ``(method, path, version, headers, body)``,
-    or None at a clean end of stream."""
-    line = await reader.readline()
-    if not line:
-        return None
-    try:
-        method, target, version = line.decode("latin-1").rstrip("\r\n").split(" ")
-    except ValueError:
-        raise _BadRequest(400, "malformed request line") from None
-    headers: dict[str, str] = {}
-    while True:
-        h = await reader.readline()
-        if h in (b"\r\n", b"\n", b""):
-            break
-        if len(headers) >= MAX_HEADERS:
-            raise _BadRequest(400, "too many headers")
-        name, _, value = h.decode("latin-1").partition(":")
-        headers[name.strip().lower()] = value.strip()
-    if "chunked" in headers.get("transfer-encoding", "").lower():
-        raise _BadRequest(501, "chunked request bodies are not supported")
-    try:
-        length = int(headers.get("content-length", "0"))
-    except ValueError:
-        raise _BadRequest(400, "bad Content-Length") from None
-    path = target.split("?", 1)[0]
-    limit = MAX_FRAME_BODY if path == "/disagg/import" else MAX_BODY
-    if length < 0 or length > limit:
-        raise _BadRequest(413, f"body of {length} bytes exceeds {limit}")
-    body = await reader.readexactly(length) if length else b""
-    return method.upper(), path, version, headers, body
-
-
-def _response(status: int, body: bytes, ctype: str, keep_alive: bool,
-              extra: dict[str, str] | None = None) -> bytes:
-    more = "".join(f"{k}: {v}\r\n" for k, v in (extra or {}).items())
-    head = (
-        f"HTTP/1.1 {status} {_REASONS.get(status, 'Unknown')}\r\n"
-        f"Content-Type: {ctype}\r\nContent-Length: {len(body)}\r\n{more}"
-        f"Connection: {'keep-alive' if keep_alive else 'close'}\r\n\r\n"
-    )
-    return head.encode("latin-1") + body
+def _body_limit(path: str) -> int:
+    return MAX_FRAME_BODY if path == "/disagg/import" else MAX_BODY
 
 
 async def http_post(target: str, path: str, body: bytes, ctype: str,
@@ -371,11 +328,11 @@ class EngineApp:
         if path in ("/api/v0.1/feedback", "/api/v1.0/feedback"):
             if method != "POST":
                 return _json(405, failure_status_dict(405, "POST a Feedback message"))
-            return await self._feedback(body)
+            return await self._feedback(body, headers)
         if path == "/api/v0.1/embeddings":
             if method != "POST":
                 return _json(405, failure_status_dict(405, "POST a tokens body"))
-            return await self._admitted(self._embeddings, headers, body)
+            return await self._admitted(self._embeddings, headers, body, headers)
         if path in self._STATS:
             return _json(200, self._STATS[path](self))
         return _json(404, failure_status_dict(404, f"no route {path}"))
@@ -445,7 +402,8 @@ class EngineApp:
         if unit is None:
             return _json(400, failure_status_dict(400, reason))
         try:
-            prompt, max_new, temperature, eos, adapter = self._parse_generate_body(body, unit)
+            prompt, max_new, temperature, eos, adapter = self._parse_generate_body(
+                body, unit, headers)
             unit.model.check_adapter(adapter)
         except (CodecError, GraphUnitError) as e:
             return _json(400, failure_status_dict(400, f"bad stream request: {e}"))
@@ -497,9 +455,9 @@ class EngineApp:
         dep = self.service.deployment_name
         with RECORDER.span("engine.predictions", service=dep, stage=STAGE_ENGINE_ROUTE) as sp:
             try:
-                obj = json.loads(body)
-            except (ValueError, UnicodeDecodeError) as e:
-                return _json(400, failure_status_dict(400, f"invalid JSON: {e}"))
+                obj = request_json(body, headers)
+            except CodecError as e:
+                return _json(400, failure_status_dict(400, str(e)))
             cache_key = sem = None
             if self._resp_cache is not None:
                 cache_key = request_key("predictions", self.service.spec_hash,
@@ -581,12 +539,12 @@ class EngineApp:
             return None
         return vec, semantic_tag(self.service.spec_hash, obj, inner)
 
-    async def _feedback(self, body: bytes) -> tuple[int, bytes, str]:
+    async def _feedback(self, body: bytes, headers: dict[str, str]) -> tuple[int, bytes, str]:
         """Replay a Feedback message's routed path with its reward."""
         if not self.ready:
             return _json(503, failure_status_dict(503, "engine is not ready"))
         try:
-            fb = feedback_from_dict(json.loads(body))
+            fb = feedback_from_dict(request_json(body, headers))
             await self.service.send_feedback(fb)
         except (CodecError, KeyError, ValueError) as e:
             return _json(400, failure_status_dict(400, str(e)))
@@ -594,14 +552,14 @@ class EngineApp:
             return _json(500, failure_status_dict(500, str(e)))
         return _json(200, {"status": {"code": 200, "status": "SUCCESS"}})
 
-    async def _embeddings(self, body: bytes) -> tuple[int, bytes, str]:
+    async def _embeddings(self, body: bytes, headers: dict[str, str]) -> tuple[int, bytes, str]:
         """Mean-pooled final hidden states from the graph's first generative
         unit with ``embed`` on (its own weights), each row through its
         scheduler; a ``(B, E)`` float32 ``rawTensor``."""
         if not self.ready:
             return _json(503, failure_status_dict(503, "engine is not ready"))
         try:
-            obj = json.loads(body)
+            obj = request_json(body, headers)
             if isinstance(obj, dict) and "strData" in obj:
                 obj = json.loads(obj["strData"])
             rows_in = obj.get("tokens") if isinstance(obj, dict) else None
@@ -669,12 +627,12 @@ class EngineApp:
         return await routes[path](unit, body, headers)
 
     @staticmethod
-    def _parse_generate_body(body: bytes, unit) -> tuple:
-        """The generative strData contract -> ``(prompt, max_new,
-        temperature, eos, adapter)`` (the body's ``"adapter"``, else the
-        unit's default); raises :class:`CodecError`."""
+    def _parse_generate_body(body: bytes, unit, headers: dict[str, str]) -> tuple:
+        """The generative strData contract (a JSON or form body) -> ``(prompt,
+        max_new, temperature, eos, adapter)`` (the body's ``"adapter"``, else
+        the unit's default); raises :class:`CodecError`."""
         try:
-            obj = json.loads(body)
+            obj = request_json(body, headers)
             if isinstance(obj, dict) and "strData" in obj:
                 obj = json.loads(obj["strData"])
             prompt = obj.get("tokens")
@@ -697,7 +655,8 @@ class EngineApp:
         """Prefill here and hand the KV to a decode peer (a prefill engine
         with peers and more than one token to make), else generate here."""
         try:
-            prompt, max_new, temperature, eos, adapter = self._parse_generate_body(body, unit)
+            prompt, max_new, temperature, eos, adapter = self._parse_generate_body(
+                body, unit, headers)
             unit.model.check_adapter(adapter)
         except (CodecError, GraphUnitError) as e:
             return _json(400, failure_status_dict(400, str(e)))
@@ -797,7 +756,7 @@ class EngineApp:
         """Serve the longest prefix chain this engine holds for the tokens,
         as a prefix-chain frame (404 when it holds none)."""
         try:
-            req = json.loads(body)
+            req = request_json(body, headers)
             toks = req.get("tokens")
             if not (isinstance(toks, list) and toks
                     and all(isinstance(t, int) and not isinstance(t, bool) for t in toks)):
@@ -934,16 +893,15 @@ class EngineApp:
         try:
             while True:
                 try:
-                    req = await _read_request(reader)
-                except _BadRequest as e:
-                    writer.write(_response(e.status, str(e).encode(), "text/plain", False))
+                    req = await read_request(reader, _body_limit)
+                except BadRequest as e:
+                    writer.write(response(e.status, str(e).encode(), "text/plain", False))
                     await writer.drain()
                     break
                 if req is None:
                     break
                 method, path, version, headers, body = req
-                conn = headers.get("connection", "").lower()
-                keep = conn == "keep-alive" if version == "HTTP/1.0" else conn != "close"
+                keep = keep_alive(version, headers)
                 try:
                     reply = await self._until_disconnect(
                         reader, self._route(method, path, body, headers))
@@ -959,7 +917,7 @@ class EngineApp:
                         500, failure_status_dict(500, f"{type(e).__name__}: {e}")
                     )
                     extra = []
-                writer.write(_response(status, payload, ctype, keep, *extra))
+                writer.write(response(status, payload, ctype, keep, *extra))
                 await writer.drain()
                 if not keep:
                     break

@@ -1,6 +1,7 @@
 """Per-predictor prediction service: the graph walker over the whole
 tree plus request-scope logic (puid assignment), the feedback walk, the
-graph's generative units and the response tiers.
+graph's generative units, the response tiers and the transports to the
+graph's remote units (``engine/transport.py``).
 
 The spec hash (``cache/content.py``) is folded into every response-cache
 key, so another spec never serves this one's entries.  With ``SCT_CACHE=1``
@@ -29,6 +30,7 @@ from seldon_core_tpu_torch.cache import (
     spec_hash,
 )
 from seldon_core_tpu_torch.contract.payload import FeedbackPayload, Payload
+from seldon_core_tpu_torch.engine.transport import TransportManager
 from seldon_core_tpu_torch.graph.spec import PredictorSpec
 from seldon_core_tpu_torch.graph.walker import GraphWalker
 
@@ -59,17 +61,21 @@ def load_predictor_spec(environ: dict[str, str] | None = None) -> PredictorSpec:
 
 
 class PredictionService:
-    """Owns one predictor's walker for the process lifetime.  Units are
-    built on ``device`` by :meth:`start` (a blocking call: it loads the
-    models); ``components`` (unit name -> component) mounts in-process
-    components in place of the built-in registry's."""
+    """Owns one predictor's walker and transports for the process lifetime.
+    Units are built on ``device`` by :meth:`start` (a blocking call: it
+    loads the models); ``components`` (unit name -> component) mounts
+    in-process components in place of the built-in registry's; a unit
+    behind a REST endpoint is called over HTTP within
+    ``transport_timeout_s`` a hop."""
 
     def __init__(self, predictor: PredictorSpec, *, device: str = "cuda",
-                 components: dict[str, Any] | None = None):
+                 components: dict[str, Any] | None = None,
+                 transport_timeout_s: float = 5.0):
         self.predictor = predictor
         self.deployment_name = predictor.name
         self.device = device
         self._components = components or {}
+        self.transports = TransportManager(timeout_s=transport_timeout_s, device=device)
         self.walker: GraphWalker | None = None
         self.spec_hash = spec_hash(predictor)
         allowed = cache_deployments()
@@ -81,6 +87,7 @@ class PredictionService:
 
     def start(self) -> None:
         self.walker = GraphWalker(self.predictor.graph, components=self._components,
+                                  client_factory=self.transports.client_factory,
                                   device=self.device, node_cache=self.node_cache)
 
     def _walker(self) -> GraphWalker:
@@ -134,3 +141,4 @@ class PredictionService:
     async def close(self) -> None:
         if self.walker is not None:
             await self.walker.aclose()
+        await self.transports.close()

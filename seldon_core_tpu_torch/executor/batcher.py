@@ -113,7 +113,9 @@ class BatchQueue:
             _, fut, _, _ = self._queue.get_nowait()
             if not fut.done():
                 fut.set_exception(err)
-        self._pool.shutdown(wait=False)
+        # a step in flight keeps running in its thread: wait for it, so no
+        # device work of a closed queue overlaps what the process does next
+        await asyncio.to_thread(self._pool.shutdown)
 
     # ------------------------------------------------------------- interface
     async def submit(self, x: np.ndarray) -> np.ndarray:

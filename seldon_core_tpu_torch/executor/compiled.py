@@ -30,13 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from seldon_core_tpu_torch import resolve_device
+from seldon_core_tpu_torch import capture_section, resolve_device
 from seldon_core_tpu_torch.models.zoo import cast_floats
-
-# one capture at a time in the process: a capture on one model's stream
-# and a capture (or a device-wide sync) on another thread would invalidate
-# each other
-_CAPTURE_LOCK = threading.Lock()
 
 # pinned staging slots per graph: the batching queue keeps up to
 # SCT_BATCH_PIPELINE (default 8) steps of one model in flight
@@ -194,12 +189,13 @@ class CompiledModel:
         eagerly on the capture stream first, so that kernels are loaded and
         library workspaces exist outside the graph.  Only the capture
         stream is synchronized (other threads may be replaying other
-        graphs), and captures take turns process-wide.  A capture that
+        graphs), and captures take turns process-wide, with the garbage
+        collector paused (``capture_section``).  A capture that
         fails raises: nothing falls back to eager."""
         dev = self.device
         t0 = time.perf_counter()
         x = torch.zeros((bucket,) + tuple(shape), dtype=_torch_dtype(dtype), device=dev)
-        with _CAPTURE_LOCK:
+        with capture_section():
             if self._stream is None:
                 self._stream = torch.cuda.Stream(dev)
             stream = self._stream

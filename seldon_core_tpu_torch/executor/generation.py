@@ -84,7 +84,7 @@ from typing import Any, AsyncIterator, Callable
 import numpy as np
 import torch
 
-from seldon_core_tpu_torch import qos, resolve_device
+from seldon_core_tpu_torch import capture_section, qos, resolve_device
 from seldon_core_tpu_torch.cache.prefix import PrefixIndex
 from seldon_core_tpu_torch.cache.tiers import HostPrefixStore
 from seldon_core_tpu_torch.contract.payload import DataKind, Payload
@@ -857,8 +857,11 @@ class GenerativeModel:
         }
 
     def release_memory(self) -> None:
-        """Drop this model's rows from the device ledger."""
-        self.memory.release(self._mem_key)
+        """Drop this model's rows from the device ledger, once the device
+        call in flight (one a closed scheduler left running in a thread)
+        has ended: it holds the model's lock."""
+        with self._lock:
+            self.memory.release(self._mem_key)
 
     def pool_snapshot(self) -> dict:
         """The pool's blocks and byte classes beside the card's ledger."""
@@ -1730,40 +1733,46 @@ class GenerativeModel:
         memory pool: their intermediates die inside a replay and replays
         never overlap.  The sampler is registered with every graph, so a
         replay draws from its current seed and offset as an eager block
-        would.  Returns the graph, its kernel launches per replay, the
-        capture's seconds and the pool bytes it added."""
+        would.  The capture section (the process-wide lock, the garbage
+        collector paused) is held from the warm-up run to the last sync,
+        since the syncs and the emptied allocator cache around a capture
+        would invalidate another thread's.  Returns the
+        graph, its kernel launches per replay, the capture's seconds and
+        the pool bytes it added."""
         dev = self.device
         self._out_buffers(k)
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        if self._capture_stream is None:
-            self._capture_stream = torch.cuda.Stream(dev)
-        stream = self._capture_stream
-        saved = self._gcarry.clone()  # the warm-up run must not clobber a live carry
-        self._gin.zero_()  # every slot inactive
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            paged_attention.reserve_counters(dev, self._counter_rows())
-            self._block_body(k, window)
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        torch.cuda.synchronize(dev)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self._gen)
-        torch.cuda.empty_cache()  # as the capture does first: the pool's bytes are the delta
-        reserved = torch.cuda.memory_reserved(dev)
-        snap = _build.snapshot_launches()
-        try:
-            with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
-                                  capture_error_mode="thread_local"):
+        with capture_section():
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            if self._capture_stream is None:
+                self._capture_stream = torch.cuda.Stream(dev)
+            stream = self._capture_stream
+            saved = self._gcarry.clone()  # the warm-up run must not clobber a live carry
+            self._gin.zero_()  # every slot inactive
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                paged_attention.reserve_counters(dev, self._counter_rows())
                 self._block_body(k, window)
-        finally:
-            launches = _build.take_captured(snap)
-        if self._graph_pool is None:
-            self._graph_pool = graph.pool()
-        self._gcarry.copy_(saved)
-        torch.cuda.synchronize(dev)
-        return {"graph": graph, "launches": launches, "capture_s": time.perf_counter() - t0,
-                "pool_bytes": torch.cuda.memory_reserved(dev) - reserved}
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            torch.cuda.synchronize(dev)
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self._gen)
+            torch.cuda.empty_cache()  # as the capture does first: the pool's bytes are the delta
+            reserved = torch.cuda.memory_reserved(dev)
+            snap = _build.snapshot_launches()
+            try:
+                with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self._block_body(k, window)
+            finally:
+                launches = _build.take_captured(snap)
+            if self._graph_pool is None:
+                self._graph_pool = graph.pool()
+            self._gcarry.copy_(saved)
+            torch.cuda.synchronize(dev)
+            return {"graph": graph, "launches": launches,
+                    "capture_s": time.perf_counter() - t0,
+                    "pool_bytes": torch.cuda.memory_reserved(dev) - reserved}
 
     def _launch_block(self, entry: dict | None, k: int, seed: int, act_np: np.ndarray,
                       window: int) -> tuple:
@@ -2850,7 +2859,7 @@ class GenerativeComponent(SeldonComponent):
 
     async def close(self) -> None:
         await self.scheduler.close()
-        self.model.release_memory()
+        await asyncio.to_thread(self.model.release_memory)
 
     def metrics(self) -> list[dict[str, Any]]:
         m, n = self.model, self.model.name

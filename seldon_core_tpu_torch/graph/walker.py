@@ -13,9 +13,12 @@ With a ``node_cache`` (``cache/content.py``, built when ``SCT_CACHE=1``)
 a deterministic MODEL node serves an exact repeat of its input from the
 cache without calling its component (``request_path`` says ``"cache"``).
 
+A unit behind a REST endpoint is walked through the ``client_factory``
+the engine passes (``engine/transport.py``); it is never deterministic,
+and it has no in-process component to warm or close.
+
 Left out here: the obs spans (``predict(trace=True)`` still writes
-``sct_trace_ms`` into the tags).  Units behind REST or GRPC endpoints are
-refused by name.
+``sct_trace_ms`` into the tags).
 """
 
 from __future__ import annotations
@@ -216,24 +219,29 @@ class _NodeState:
 
     __slots__ = ("spec", "client", "children", "methods", "deterministic")
 
-    def __init__(self, spec: PredictiveUnitSpec, client: LocalClient,
+    def __init__(self, spec: PredictiveUnitSpec, client: Any,
                  children: list["_NodeState"]):
         self.spec = spec
         self.client = client
         self.children = children
         self.methods = set(spec.resolved_methods())
-        # a node is deterministic only when its component DECLARES it
-        self.deterministic = bool(getattr(client.component, "DETERMINISTIC", False))
+        # a node is deterministic only when its in-process component
+        # DECLARES it: a remote unit never is
+        self.deterministic = bool(getattr(self.component, "DETERMINISTIC", False))
+
+    @property
+    def component(self) -> Any:
+        """The in-process component, or None for a remote unit."""
+        return getattr(self.client, "component", None)
 
 
 def default_client_factory(spec: PredictiveUnitSpec, device: str = "cuda") -> LocalClient:
     """LOCAL endpoints get an in-process client over the built-in registry,
-    built on ``device``; this engine has no transport for REST or GRPC
-    endpoints yet."""
+    built on ``device``; remote endpoints need the engine's transports."""
     if spec.endpoint.type != TransportType.LOCAL:
         raise GraphUnitError(
-            f"unit {spec.name!r}: this engine serves LOCAL units only, not "
-            f"{spec.endpoint.type.value} endpoints"
+            f"unit {spec.name!r}: no transport for {spec.endpoint.type.value} endpoints "
+            "(build the walker with the engine's client_factory)"
         )
     if not has_builtin(spec.implementation):
         raise GraphUnitError(
@@ -250,7 +258,8 @@ class GraphWalker:
     """Executes an inference graph.
 
     ``components`` maps unit name -> in-process component object; the other
-    units come from the built-in registry, built on ``device``.
+    units come from ``client_factory(spec)`` (default: the built-in
+    registry, built on ``device``).
     ``feedback_hook(name, fb)`` fires for every unit the feedback walk
     reaches.  ``node_cache`` (a ``ResponseCache``) turns the node tier on.
     """
@@ -259,6 +268,7 @@ class GraphWalker:
         self,
         spec: PredictiveUnitSpec,
         components: dict[str, Any] | None = None,
+        client_factory: Callable[[PredictiveUnitSpec], Any] | None = None,
         feedback_hook: Callable[[str, FeedbackPayload], None] | None = None,
         *,
         device: str = "cuda",
@@ -267,15 +277,15 @@ class GraphWalker:
         self.spec = spec
         self.node_cache = node_cache
         self._components = components or {}
-        self._device = device
+        self._factory = client_factory or (lambda s: default_client_factory(s, device))
         self._feedback_hook = feedback_hook
         self.warmup_seconds: dict[str, float] = {}
         self.root = self._build(spec)
 
     @property
     def component(self) -> Any:
-        """The root unit's component."""
-        return self.root.client.component
+        """The root unit's component (None when the root is remote)."""
+        return self.root.component
 
     def _nodes(self):
         """Every runtime node, in pre-order (children in spec order)."""
@@ -294,14 +304,21 @@ class GraphWalker:
         if spec.name in self._components:
             client = LocalClient(spec, self._components[spec.name])
         else:
-            client = default_client_factory(spec, self._device)
-        return _NodeState(spec, client, [self._build(c) for c in spec.children])
+            client = self._factory(spec)
+        node = _NodeState(spec, client, [self._build(c) for c in spec.children])
+        if (spec.type == UnitType.CASCADE_ROUTER and spec.children
+                and not callable(getattr(node.component, "decide", None))):
+            raise GraphUnitError(
+                f"unit {spec.name!r} is a CASCADE_ROUTER but has no in-process decide() "
+                "policy (a remote cascade router is not served)")
+        return node
 
     def iter_components(self):
         """Yield ``(unit_name, component)`` for every in-process node, in
         pre-order."""
         for node in self._nodes():
-            yield node.spec.name, node.client.component
+            if node.component is not None:
+                yield node.spec.name, node.component
 
     async def warmup(self) -> dict[str, int]:
         """Run every unit's warmup off the event loop, one unit after the
@@ -416,12 +433,7 @@ class GraphWalker:
         and request path accumulate, as in the JAX walker).  The chosen
         tier's reply ships unmodified, and the tier index lands in
         ``meta.routing`` for the feedback walk."""
-        comp = node.client.component
-        if not callable(getattr(comp, "decide", None)):
-            raise GraphUnitError(
-                f"unit {node.spec.name!r} is a CASCADE_ROUTER but its component has no "
-                "decide() policy"
-            )
+        comp = node.component
         n_tiers = len(node.children)
         tier = 0
         out = await self._execute(node.children[0], p, timings)
