@@ -253,7 +253,30 @@ Phases, each printing one JSON line:
    lowered, every decode-graph capture succeeding.  It prints the client wall p50/p99
    one at a time and in the wave, the pool's connections, the hop's ms on
    the engine's side and the captures.
-16. ``kernel_times``: each kernel's time at the main path's shapes and at a
+16. ``serve_pack``: chip packing and live drain at llama3-1b width.  P1:
+   one engine boots the primary ``chat`` (``pack_slo_ms`` 50) and, from
+   ``ENGINE_CO_PREDICTORS``, ``bulk`` (``pack_class=batch``, top-k 40, its
+   own seed); both register with the device arbiter and warm in turn.  A
+   16-client chat burst (32-256-token prompts, 32 new tokens) with bulk
+   idle, then another mid-way through 8 bulk requests (64-512-token
+   prompts, 256 new tokens, driven through bulk's unit in the engine's
+   loop), then a third mid-way through a seeded top-k pair.  It fails
+   unless the arbiter preempted bulk, every suspend resumed, the suspend
+   store and the host ledger's ``suspend_dram`` are back at 0, every bulk
+   stream equals the same request on a sole bulk engine and the pair its
+   own uninterrupted run, no graph was captured after warmup on either
+   tenant and each decode block cost one host sync.  P2: a second engine
+   with chat's weights; ``/admin/drain {"peer": ...}`` moves 8 live chat
+   streams (256 new tokens), each equal to its uninterrupted run on the
+   peer, ``migrated`` 8 and the source's blocks all free.  P3: the same
+   with ``disagg.handoff.send:torn:only=1``: 7 migrate, 1 resumes here,
+   all equal, ``/stats/chaos`` shows 1 fired.  P4: ``/admin/drain {}``
+   parks the 8, a repeat is a 409 with ``phase: parked``,
+   ``/admin/undrain`` resumes them with equal tokens.  It prints chat's
+   TTFT p50/p99 with bulk idle and decoding, bulk tokens/s before, during
+   and after a burst, the suspend ms and bytes a slot and the arbiter's
+   grants, beside the card's name and power limit.
+17. ``kernel_times``: each kernel's time at the main path's shapes and at a
    long one (flash at S=2048 and its variant at 80 rows over 592 keys,
    against SDPA with the lower-right causal mask; paged at 8 slots near
    position 2000; paged
@@ -268,8 +291,8 @@ Phases, each printing one JSON line:
 
 Then the card's name and power limit (nvidia-smi), one line listing the
 kernels (launches summed over the serve phases, ``serve_graph``,
-``serve_lora``, ``serve_zoo``, ``serve_cache``, ``serve_qos`` and
-``serve_remote`` included), and as the last line
+``serve_lora``, ``serve_zoo``, ``serve_cache``, ``serve_qos``,
+``serve_remote`` and ``serve_pack`` included), and as the last line
 ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero before that line.  Without CUDA, or without
 the repository beside this file, it exits non-zero and prints no result.
@@ -1358,24 +1381,29 @@ def _prefill_tile_cost(model, buckets=(256, 1024, 2048), iters: int = 3) -> dict
     return out
 
 
-def _serve_spec(preset: str, seed: int, **extra):
-    """The smoke's ``JAX_GENERATIVE`` graph: llama ``preset`` in bf16 with
-    seeded weights, 8 slots, 16-step blocks, 32 new tokens; ``extra`` adds
-    graph parameters (name -> (value, type))."""
-    from seldon_core_tpu_torch.graph.spec import PredictorSpec
-
+def _serve_spec_dict(preset: str, seed: int, name: str = "smoke", **extra) -> dict:
+    """The smoke's ``JAX_GENERATIVE`` predictor as a dict: llama ``preset``
+    in bf16 with seeded weights, 8 slots, 16-step blocks, 32 new tokens;
+    ``extra`` adds graph parameters (name -> (value, type))."""
     params = {"family": ("llama", "STRING"), "preset": (preset, "STRING"),
               "dtype": ("bfloat16", "STRING"), "n_slots": (SERVE_SLOTS, "INT"),
               "decode_block": (SERVE_BLOCK, "INT"), "max_new_tokens": (MAX_NEW, "INT"),
               "rng": (seed, "INT"), **extra}
-    return PredictorSpec.from_dict({
-        "name": "smoke",
+    return {
+        "name": name,
         "graph": {
             "name": "gen", "type": "MODEL", "implementation": "JAX_GENERATIVE",
             "parameters": [{"name": k, "value": str(v), "type": t}
                            for k, (v, t) in params.items()],
         },
-    })
+    }
+
+
+def _serve_spec(preset: str, seed: int, name: str = "smoke", **extra):
+    """:func:`_serve_spec_dict` as a ``PredictorSpec``."""
+    from seldon_core_tpu_torch.graph.spec import PredictorSpec
+
+    return PredictorSpec.from_dict(_serve_spec_dict(preset, seed, name, **extra))
 
 
 async def _boot(spec, device: str, **engine):
@@ -4385,6 +4413,307 @@ def phase_serve_remote(serve: dict, device: str = "cuda", preset: str = SERVE_PR
     return launches
 
 
+PACK_SLO_MS = 50  # chat's queue-wait SLO band on the packed card
+PACK_BULK_SEED = 1  # bulk's weights: its own seed
+PACK_TOP_K = 40  # bulk's top-k (its greedy requests are argmax all the same)
+PACK_BULK_NEW = 256
+PACK_BULK_LENS = (64, 100, 160, 211, 256, 333, 420, 512)
+PACK_BURST = 16  # chat clients in a burst
+PACK_BURST_LENS = (32, 256)  # a burst prompt's length: uniform in this range
+PACK_BURST_NEW = 32
+PACK_PAIR_SEED = 4242  # the seeded top-k pair's seed counter
+PACK_PAIR_TEMP = 0.8
+PACK_PAIR_LENS = (96, 200)
+PACK_MID = 64  # a burst starts once every bulk stream has this many tokens
+PACK_DRAIN_NEW = 256  # P2-P4's chat streams
+PACK_DRAIN_LENS = (40, 64, 100, 128, 160, 200, 256, 300)
+
+
+def _card() -> str:
+    """The card's ``name, power limit`` as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=False)
+    lines = smi.stdout.strip().splitlines()
+    return lines[0] if lines else f"nvidia-smi: {smi.stderr.strip()}"
+
+
+def _rate(stamps, t0: float, t1: float) -> float | None:
+    """Tokens a second delivered in ``[t0, t1)`` (``stamps``: delivery times)."""
+    n = sum(t0 <= t < t1 for t in stamps)
+    return n / (t1 - t0) if t1 > t0 and n else None
+
+
+async def _bulk_wave(sched, prompts, stamps=None, seed=None, temperature=0.0) -> list:
+    """``prompts`` submitted together to ``sched`` (the engine's loop), each
+    token's delivery time appended to ``stamps``; returns the tasks."""
+    import numpy as np
+
+    if seed is not None:
+        sched._seed = seed
+
+    def hook(_tok):
+        if stamps is not None:
+            stamps.append(time.perf_counter())
+
+    return [asyncio.ensure_future(sched.submit(
+        np.asarray(p, np.int32), max_new_tokens=PACK_BULK_NEW, temperature=temperature,
+        on_token=hook)) for p in prompts]
+
+
+async def _cool(chat_sched, arb) -> None:
+    """Wait until chat's pressure is under the resume floor and let the
+    arbiter lift a preemption, so a bulk wave starts unpreempted."""
+    await _until(lambda: chat_sched.queue_pressure() * 1e3 < PACK_SLO_MS * arb.low, 60.0,
+                 "chat's pressure to cool")
+    arb.poll()
+
+
+def _ttfts_since(sched, n0: int) -> list[float]:
+    return [t for _, t in list(sched.ttft)[n0:]]
+
+
+async def _burst(port: int, prompts) -> tuple[list, float, float]:
+    """``prompts`` posted concurrently to chat: (replies, start, end)."""
+    t0 = time.perf_counter()
+    replies = await _requests(port, [_body(p, max_new_tokens=PACK_BURST_NEW) for p in prompts])
+    return replies, t0, time.perf_counter()
+
+
+async def _drain_wave(a, peer_port: int | None, prompts, body: dict, want) -> dict:
+    """P2-P4: chat streams live on ``a``, then ``/admin/drain`` with ``body``
+    (and, with no peer, a repeat and ``/admin/undrain``); every reply must
+    equal its uninterrupted stream ``want``."""
+    model = a.service.walker.component.model
+    sched = a.service.walker.component.scheduler
+    blocks0, n0 = model.decode_blocks, len(sched.ttft)
+    wave = asyncio.ensure_future(_requests(a.port, [_body(p, max_new_tokens=PACK_DRAIN_NEW)
+                                                    for p in prompts]))
+    # every stream has its first token, and two blocks more went by
+    await _until(lambda: len(sched.ttft) - n0 >= len(prompts)
+                 and model.decode_blocks - blocks0 >= 2, what="the chat streams to decode")
+    code, raw = await asyncio.to_thread(_call, a.port, "/admin/drain", body)
+    rec = {"drain_status": code, "drain": json.loads(raw)}
+    if peer_port is None:
+        code, raw = await asyncio.to_thread(_call, a.port, "/admin/drain", {})
+        rec["repeat_status"], rec["repeat_phase"] = code, json.loads(raw).get(
+            "drain", {}).get("phase")
+        await asyncio.sleep(0.2)
+        rec["held"] = not wave.done()
+        code, raw = await asyncio.to_thread(_call, a.port, "/admin/undrain", {})
+        rec["undrain_status"] = code
+    replies = await wave
+    got = [_tokens_of(r) if r["status"] == 200 else None for r in replies]
+    rec["equal"] = sum(g == w for g, w in zip(got, want))
+    await _quiet(model)
+    rec["free_blocks"] = [model.free_block_count, model.kv_blocks - 1]
+    rec["packing"] = sched.packing_snapshot()
+    return rec
+
+
+def phase_serve_pack(device: str = "cuda", preset: str = SERVE_PRESET) -> dict:
+    """Chip packing and live drain at llama3-1b width.  P1: one engine, the
+    primary ``chat`` (interactive, ``pack_slo_ms`` 50) and, through
+    ``ENGINE_CO_PREDICTORS``, ``bulk`` (``pack_class=batch``, its own
+    seed); a chat burst mid-way through a bulk wave preempts bulk, which
+    resumes bit-exactly.  P2: ``/admin/drain`` to a peer engine moves 8 live
+    chat streams.  P3: the same with ``disagg.handoff.send:torn:only=1``.
+    P4: a drain with no peer parks, a repeat is a 409, ``/admin/undrain``
+    resumes.  Returns the phase's launch counts."""
+    import base64
+
+    import numpy as np
+
+    from seldon_core_tpu_torch import chaos
+    from seldon_core_tpu_torch.engine.service import PredictionService, load_co_predictor_specs
+    from seldon_core_tpu_torch.executor.arbiter import get_arbiter
+    from seldon_core_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(12)
+    from seldon_core_tpu_torch.graph.spec import PredictorSpec
+    from seldon_core_tpu_torch.models.registry import resolve_config
+
+    chat_spec = _serve_spec(preset, 0, name="chat", pack_slo_ms=(PACK_SLO_MS, "FLOAT"))
+    bulk_dict = _serve_spec_dict(preset, PACK_BULK_SEED, name="bulk",
+                                 pack_class=("batch", "STRING"), top_k=(PACK_TOP_K, "INT"))
+    bulk_spec = PredictorSpec.from_dict(bulk_dict)
+    rec: dict = {"phase": "serve_pack", "card": _card(), "preset": preset, "dtype": "bfloat16",
+                 "n_slots": SERVE_SLOTS, "decode_block": SERVE_BLOCK}
+
+    async def run() -> dict:
+        vocab = resolve_config(preset).vocab_size
+
+        def prompts(lengths):
+            return [rng.integers(0, vocab, n).tolist() for n in lengths]
+
+        bulk_prompts = prompts(PACK_BULK_LENS)
+        pair = prompts(PACK_PAIR_LENS)
+        lo, hi = PACK_BURST_LENS
+        bursts = [prompts(rng.integers(lo, hi + 1, PACK_BURST)) for _ in range(3)]
+        drain_prompts = prompts(PACK_DRAIN_LENS)
+        # the sole bulk unit: the uninterrupted streams
+        ref, _ = await _boot(bulk_spec, device)
+        try:
+            rsched = ref.service.walker.component.scheduler
+            want_bulk = [o.tolist() for o in await asyncio.gather(*await _bulk_wave(
+                rsched, bulk_prompts))]
+            want_pair = [o.tolist() for o in await asyncio.gather(*await _bulk_wave(
+                rsched, pair, seed=PACK_PAIR_SEED, temperature=PACK_PAIR_TEMP))]
+        finally:
+            await ref.close()
+        # P2-P4's peer, with chat's weights, and the drain streams'
+        # uninterrupted runs on it: booted and run before the phase's count
+        # starts, as the sole bulk unit is
+        peer, _ = await _boot(chat_spec, device)
+        a = None
+        try:
+            want = _check_replies(
+                [(r["status"], json.loads(r["raw"])) for r in await _requests(
+                    peer.port, [_body(p, max_new_tokens=PACK_DRAIN_NEW)
+                                for p in drain_prompts])],
+                drain_prompts, vocab, PACK_DRAIN_NEW)
+            os.environ["ENGINE_CO_PREDICTORS"] = base64.b64encode(json.dumps(
+                [bulk_dict]).encode()).decode()
+            try:
+                co = [PredictionService(s, device=device) for s in load_co_predictor_specs()]
+            finally:
+                del os.environ["ENGINE_CO_PREDICTORS"]
+            a, boot_s = await _boot(chat_spec, device, co_services=co)
+            chat = a.service.walker.component
+            bulk = co[0].walker.component
+            cm, bm = chat.model, bulk.model
+            cs, bs = chat.scheduler, bulk.scheduler
+            arb = get_arbiter()
+            warm = (cm.program_compiles, bm.program_compiles)
+            _build.reset_launches()  # the phase's main path starts here
+            base = {m: (m.decode_blocks, m.host_syncs) for m in (cm, bm)}
+            suspend_ms, frame_bytes = [], []
+            susp, park = bs._suspend_active, bs._park_record
+
+            async def timed_suspend(*args):
+                t0 = time.perf_counter()
+                n = await susp(*args)
+                if n:
+                    suspend_ms.append(1e3 * (time.perf_counter() - t0) / n)
+                return n
+
+            def logged_park(req, frame):
+                frame_bytes.append(len(frame))
+                return park(req, frame)
+
+            bs._suspend_active, bs._park_record = timed_suspend, logged_park
+            # P1: chat alone (bulk resident, idle), then mid-way through a bulk wave
+            n0 = len(cs.ttft)
+            await _burst(a.port, bursts[0])
+            ttft_alone = _ttfts_since(cs, n0)
+            await _cool(cs, arb)
+            stamps: list = []
+            p0 = (arb.preemptions, arb.resumes)
+            tasks = await _bulk_wave(bs, bulk_prompts, stamps)
+            await _until(lambda: len(stamps) >= PACK_MID * len(bulk_prompts), 120.0,
+                         "the bulk wave to reach its middle")
+            n0 = len(cs.ttft)
+            replies, t_b0, t_b1 = await _burst(a.port, bursts[1])
+            ttft_packed = _ttfts_since(cs, n0)
+            got_bulk = [o.tolist() for o in await asyncio.gather(*tasks)]
+            t_end = max(stamps)
+            # bulk resumes once chat's pressure decays under the floor
+            t_back = min((t for t in stamps if t >= t_b1), default=t_end)
+            p1 = {"preemptions": arb.preemptions - p0[0], "resumes": arb.resumes - p0[1],
+                  "burst_ok": sum(r["status"] == 200 for r in replies),
+                  "bulk_equal": sum(g == w for g, w in zip(got_bulk, want_bulk)),
+                  "chat_ttft_ms_alone": {"p50": 1e3 * _pct(ttft_alone, 0.5),
+                                         "p99": 1e3 * _pct(ttft_alone, 0.99)},
+                  "chat_ttft_ms_packed": {"p50": 1e3 * _pct(ttft_packed, 0.5),
+                                          "p99": 1e3 * _pct(ttft_packed, 0.99)},
+                  "bulk_tokens_per_s": {"before": _rate(stamps, min(stamps), t_b0),
+                                        "during": _rate(stamps, t_b0, t_b1),
+                                        "after": _rate(stamps, t_b1, t_end + 1e-9),
+                                        "after_resumed": _rate(stamps, t_back, t_end + 1e-9)},
+                  "burst_s": t_b1 - t_b0, "resume_wait_s": t_back - t_b1}
+            # the seeded top-k pair, preempted the same way: its own
+            # suspends and resumes are counted apart from the wave's
+            await _cool(cs, arb)
+            snap0 = bs.packing_snapshot()
+            stamps2: list = []
+            tasks = await _bulk_wave(bs, pair, stamps2, seed=PACK_PAIR_SEED,
+                                     temperature=PACK_PAIR_TEMP)
+            await _until(lambda: len(stamps2) >= PACK_MID * len(pair), 120.0,
+                         "the pair to reach its middle")
+            await _burst(a.port, bursts[2])
+            got_pair = [o.tolist() for o in await asyncio.gather(*tasks)]
+            await _quiet(bm)
+            snap = bs.packing_snapshot()
+            p1.update({
+                "pair_equal": sum(g == w for g, w in zip(got_pair, want_pair)),
+                "pair_differs_from_greedy": got_pair[0] != want_bulk[0],
+                "pair_suspends": snap["suspends"] - snap0["suspends"],
+                "pair_resumes": snap["resumes"] - snap0["resumes"],
+                "suspends": snap["suspends"], "resumes_bulk": snap["resumes"],
+                "suspend_ms_per_slot_mean": (statistics.mean(suspend_ms)
+                                             if suspend_ms else None),
+                "suspend_bytes_per_slot_mean": (statistics.mean(frame_bytes)
+                                                if frame_bytes else None),
+                "store_bytes": snap["suspend_store"]["bytes"] if snap["suspend_store"] else 0,
+                "suspend_dram": (bm.memory_snapshot()["host"] or {}).get("suspend_dram", 0),
+                "arbiter": arb.snapshot(),
+                "arbiter_yield": {"chat": cs.overlap_breaks["arbiter-yield"],
+                                  "bulk": bs.overlap_breaks["arbiter-yield"]},
+                "captures_after_warmup": [cm.program_compiles - warm[0],
+                                          bm.program_compiles - warm[1]],
+                "syncs_per_block": [(m.host_syncs - base[m][1])
+                                    / max(1, m.decode_blocks - base[m][0]) for m in (cm, bm)],
+            })
+            p1["ok"] = (p1["preemptions"] >= 1 and p1["suspends"] >= 1
+                        and p1["resumes_bulk"] == p1["suspends"]
+                        and p1["store_bytes"] == 0 and p1["suspend_dram"] == 0
+                        and p1["bulk_equal"] == len(bulk_prompts)
+                        and p1["pair_equal"] == len(pair) and p1["burst_ok"] == PACK_BURST
+                        and p1["pair_suspends"] >= len(pair)
+                        and p1["pair_resumes"] == p1["pair_suspends"]
+                        and p1["captures_after_warmup"] == [0, 0]
+                        and p1["syncs_per_block"] == [1.0, 1.0])
+            rec["boot_and_warmup_s"], rec["P1"] = boot_s, p1
+            # P2-P4: chat streams drained to the peer
+            target = {"peer": f"127.0.0.1:{peer.port}", "timeout_s": 120}
+            p2 = await _drain_wave(a, peer.port, drain_prompts, target, want)
+            p2["ok"] = (p2["drain_status"] == 200 and p2["drain"]["migrated"] == 8
+                        and p2["drain"]["failed"] == 0 and p2["equal"] == 8
+                        and p2["free_blocks"][0] == p2["free_blocks"][1])
+            chaos.configure("disagg.handoff.send:torn:only=1")
+            try:
+                p3 = await _drain_wave(a, peer.port, drain_prompts, target, want)
+                code, raw = await asyncio.to_thread(_call, a.port, "/stats/chaos", None)
+                p3["chaos"] = json.loads(raw)["chaos"]
+            finally:
+                chaos.reset()
+            p3["ok"] = (p3["drain_status"] == 200 and p3["drain"]["migrated"] == 7
+                        and p3["drain"]["failed"] == 1 and p3["equal"] == 8
+                        and p3["chaos"]["fired"] == {"disagg.handoff.send": 1}
+                        and p3["free_blocks"][0] == p3["free_blocks"][1])
+            p4 = await _drain_wave(a, None, drain_prompts, {}, want)
+            p4["ok"] = (p4["drain_status"] == 200 and p4["drain"]["parked"] == 8
+                        and p4["repeat_status"] == 409 and p4["repeat_phase"] == "parked"
+                        and p4["held"] and p4["undrain_status"] == 200 and p4["equal"] == 8
+                        and p4["free_blocks"][0] == p4["free_blocks"][1])
+            rec["P2"], rec["P3"], rec["P4"] = p2, p3, p4
+            rec["launches"] = dict(_build.LAUNCHES)
+            return rec
+        finally:
+            if a is not None:
+                await a.close()
+            await peer.close()
+
+    asyncio.run(run())
+    parts = ("P1", "P2", "P3", "P4")
+    rec["ok"] = (all(rec[p]["ok"] for p in parts)
+                 and all(rec["launches"].get(k, 0) > 0 for k in KERNELS))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"serve_pack: {[p for p in parts if not rec[p]['ok']]} failed, "
+                             f"or a kernel never launched (see the record)")
+    return rec["launches"]
+
+
 def _flash_times(fa, S: int, D: int = 64) -> dict:
     """K1 at B=1, S, llama3-1b heads (32 and 8 KV; ``D`` 128 is the 8b's
     geometry), bf16: one input set per layer so no launch finds its inputs
@@ -4584,18 +4913,14 @@ def main() -> int:
     tiers = timed("serve_cache", phase_serve_cache, serve)
     admission = timed("serve_qos", phase_serve_qos, serve)
     remote = timed("serve_remote", phase_serve_remote, serve)
+    pack = timed("serve_pack", phase_serve_pack)
     times = timed("kernel_times", phase_kernel_times, serve)
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     launches = {name: serve["launches"][name] + cached["launches"][name] + spec[name]
                 + split[name] + stream[name] + graph[name] + lora[name] + zoo[name]
-                + tiers[name] + admission[name] + remote[name]
+                + tiers[name] + admission[name] + remote[name] + pack[name]
                 for name in KERNELS}
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=False,
-    )
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
-          f"nvidia-smi: {smi.stderr.strip()}", flush=True)
+    print(_card(), flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": origin,
          "launches": launches[name], "max_abs_err": errs[name],

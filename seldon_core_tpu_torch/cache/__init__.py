@@ -3,7 +3,8 @@
 request collapsing (``cache/singleflight.py``), the semantic tier over
 pooled prompt embeddings (``cache/semantic.py``), and the generative
 path's KV prefix index and its DRAM tier (``cache/prefix.py``,
-``cache/tiers.py``).  Response-tier hits are served before QoS admission:
+``cache/tiers.py``, which also holds the suspend store of preempted and
+drained generations).  Response-tier hits are served before QoS admission:
 they take no admission slot, no queue position and no device step."""
 
 from seldon_core_tpu_torch.cache.content import (  # noqa: F401

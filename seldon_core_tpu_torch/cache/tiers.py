@@ -1,7 +1,8 @@
-"""Tiered prefix KV store: the host-DRAM tier under the radix index.
+"""Host-DRAM stores: the tiered prefix KV store under the radix index
+(:class:`HostPrefixStore`) and the suspend store of preempted or drained
+generations (:class:`SuspendStore`).
 
-The port's copy of the JAX package's ``cache/tiers.py``
-(``HostPrefixStore``).  A :class:`~seldon_core_tpu_torch.cache.prefix.
+The port's copy of the JAX package's ``cache/tiers.py``.  A :class:`~seldon_core_tpu_torch.cache.prefix.
 PrefixIndex` eviction under pool pressure drops blocks that cost a
 prefill to rebuild; with the tier on (``prefix_dram_gb``) the evicted
 chain levels are fetched to the host once (at an admission sync point,
@@ -16,8 +17,11 @@ tokens[:k * block_size])`` per chain level, so the routing digests match.
 Under its byte bound the store evicts the chains cheapest to rebuild
 first (depth x block count), and never drops a deeper chain to make room
 for a shallower one.  Entries hold torch CPU tensors (or numpy arrays):
-anything with ``nbytes``.  The suspend store of the JAX package's
-``cache/tiers.py`` (preempted streams) is not ported yet.
+anything with ``nbytes``.
+
+The suspend store holds whole-slot suspend records, each one handoff
+frame, under a byte bound it never evicts to meet: an over-budget put is
+refused and the slot keeps running.
 """
 
 from __future__ import annotations
@@ -295,5 +299,82 @@ class HostPrefixStore:
                 "promotions": self.promotions,
                 "demotions": self.demotions,
                 "evictions": self.evictions,
+                "rejected": self.rejected,
+            }
+
+
+class SuspendStore:
+    """Byte-bounded host-DRAM store of whole-slot suspend records: the
+    prefix tier's machinery generalized from chain levels to whole
+    preempted generations.
+
+    Each record is ONE encoded handoff frame (codec v4: prompt and emitted
+    tokens, the carry token, the generation options and the slot's paged-
+    KV blocks, int8 blocks and scales verbatim on a quantized pool), so a
+    resume rides the import path and is bit-exact by construction.
+
+    The store NEVER evicts: a record is a live generation's only copy of
+    its KV.  An over-budget ``put``, or one under a key already held, is
+    refused and the caller leaves that slot resident.  ``on_bytes`` is
+    called with the live byte total after every change (the generative
+    model wires it to the host ledger's ``suspend_dram`` class)."""
+
+    def __init__(self, budget_bytes: int, on_bytes=None):
+        self.budget_bytes = max(0, int(budget_bytes))
+        self._frames: dict = {}
+        self._lock = threading.Lock()
+        self._on_bytes = on_bytes
+        self.bytes = 0
+        self.puts = 0
+        self.takes = 0
+        self.rejected = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._frames)
+
+    def _note_bytes(self) -> None:
+        if self._on_bytes is not None:
+            self._on_bytes(self.bytes)
+
+    def put(self, key, frame: bytes) -> bool:
+        """Park one suspend record; False when it cannot fit or ``key`` is
+        taken (the caller keeps that slot running)."""
+        n = len(frame)
+        with self._lock:
+            if self.bytes + n > self.budget_bytes or key in self._frames:
+                self.rejected += 1
+                return False
+            self._frames[key] = frame
+            self.bytes += n
+            self.puts += 1
+            self._note_bytes()
+            return True
+
+    def take(self, key) -> "bytes | None":
+        """Pop one record (for a resume, a migration, or discarding a
+        request that ended while it was parked)."""
+        with self._lock:
+            frame = self._frames.pop(key, None)
+            if frame is not None:
+                self.bytes -= len(frame)
+                self.takes += 1
+                self._note_bytes()
+            return frame
+
+    def flush(self) -> None:
+        with self._lock:
+            self._frames.clear()
+            self.bytes = 0
+            self._note_bytes()
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "records": len(self._frames),
+                "bytes": self.bytes,
+                "budget_bytes": self.budget_bytes,
+                "puts": self.puts,
+                "takes": self.takes,
                 "rejected": self.rejected,
             }

@@ -68,6 +68,35 @@ generative unit:
 * ``GET /stats/disagg``: the role, the peers and the handoff and pull
   ledgers.
 
+Both routes that take a request (``/disagg/generate`` and
+``/disagg/import``) pass QoS admission.  A handoff POST carries the
+request's deadline and priority headers.
+
+Chip packing and live drain.  ``ENGINE_CO_PREDICTORS`` (a base64 JSON list
+of predictor specs) boots further deployments beside the primary on the
+same card; each generative unit of every deployment registers with the
+process's device arbiter (``executor/arbiter.py``) before readiness, under
+its ``pack_class`` and ``pack_slo_ms``, and they warm in turn.  A
+co-resident deployment has no route of its own: it is reached through its
+units.  ``SCT_PACK=1`` registers a sole deployment too.
+``GET /stats/breakdown`` then carries the arbiter's ledger (``packing``),
+the card's and the host's byte ledgers (``memory``) and each unit's
+packing snapshot.
+
+* ``POST /admin/drain`` (``{"peer": "host:port", "timeout_s": 30}``, both
+  optional): pause admission and suspend every live stream of the
+  primary's generative unit at its next sync point, then ship each suspend
+  record, a handoff frame, to the peer's ``/disagg/import`` with the
+  scheduler's seed counter (``x-sct-drain-seed``, which the peer adopts)
+  and relay the peer's tokens through the original request, so its
+  client sees one stream.  A stream the peer refuses re-parks and resumes
+  here.  With no peer the records stay parked until ``POST
+  /admin/undrain``.  A second drain answers 409 with the current drain's
+  state; an undrain while a drain quiesces or migrates answers 409.
+* ``GET /stats/chaos``: the chaos plane's arrivals and firings
+  (``SCT_CHAOS_PLAN``; its sites here are ``disagg.handoff.send`` and
+  ``disagg.prefix.pull``).
+
 Outbound calls to peers use asyncio streams (``SCT_DISAGG_TIMEOUT_S``,
 default 30 s).
 
@@ -105,7 +134,7 @@ import time
 
 import numpy as np
 
-from seldon_core_tpu_torch import disagg, qos, resolve_device
+from seldon_core_tpu_torch import chaos, disagg, qos, resolve_device
 from seldon_core_tpu_torch.cache import canonical_body, request_key, semantic_tag
 from seldon_core_tpu_torch.cache.prefix import adapter_salt
 from seldon_core_tpu_torch.contract.codec import (
@@ -125,8 +154,14 @@ from seldon_core_tpu_torch.disagg.handoff import (
     decode_prefix_chain,
     encode_prefix_chain,
 )
-from seldon_core_tpu_torch.engine.service import PredictionService, load_predictor_spec
+from seldon_core_tpu_torch.engine.service import (
+    PredictionService,
+    load_co_predictor_specs,
+    load_predictor_spec,
+)
+from seldon_core_tpu_torch.executor.arbiter import get_arbiter
 from seldon_core_tpu_torch.executor.generation import AdapterUnavailable
+from seldon_core_tpu_torch.executor.memory import device_memory, host_memory
 from seldon_core_tpu_torch.graph.units import GraphUnitError
 from seldon_core_tpu_torch.obs import METER, RECORDER, STAGE_ENGINE_ROUTE
 from seldon_core_tpu_torch.obs.spans import TRACEPARENT_HEADER, set_traceparent
@@ -150,10 +185,12 @@ def _body_limit(path: str) -> int:
     return MAX_FRAME_BODY if path == "/disagg/import" else MAX_BODY
 
 
-async def http_post(target: str, path: str, body: bytes, ctype: str,
-                    timeout: float) -> tuple[int, dict[str, str], bytes]:
-    """POST ``body`` to ``http://target/path`` over one asyncio connection
-    (closed after the reply) -> ``(status, headers, body)``."""
+async def http_post(target: str, path: str, body: bytes, ctype: str, timeout: float,
+                    headers: dict[str, str] | None = None) -> tuple[int, dict[str, str], bytes]:
+    """POST ``body`` (with ``headers`` besides the framing ones) to
+    ``http://target/path`` over one asyncio connection (closed after the
+    reply) -> ``(status, headers, body)``."""
+    extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
 
     async def go():
         host, _, port = target.rpartition(":")
@@ -161,7 +198,7 @@ async def http_post(target: str, path: str, body: bytes, ctype: str,
         try:
             writer.write((f"POST {path} HTTP/1.1\r\nHost: {target}\r\n"
                           f"Content-Type: {ctype}\r\nContent-Length: {len(body)}\r\n"
-                          "Connection: close\r\n\r\n").encode("latin-1"))
+                          f"{extra}Connection: close\r\n\r\n").encode("latin-1"))
             writer.write(body)
             await writer.drain()
             status_line = await reader.readline()
@@ -208,14 +245,22 @@ class _EventStream:
 
 
 class EngineApp:
-    """The engine's HTTP front over one :class:`PredictionService`.
+    """The engine's HTTP front over one :class:`PredictionService`, with
+    ``co_services`` booted beside it on the same card (chip packing).
     ``role`` and ``decode_upstreams`` default to ``SCT_ENGINE_ROLE`` and
     ``SCT_DISAGG_DECODE``; an unknown role raises ``ValueError``."""
 
     def __init__(self, service: PredictionService, *, role: str | None = None,
                  decode_upstreams: list[str] | None = None,
-                 qos_controller: qos.AdmissionController | None = None):
+                 qos_controller: qos.AdmissionController | None = None,
+                 co_services: list[PredictionService] | None = None):
         self.service = service
+        # the deployments packed beside the primary: their generative units
+        # register with the device arbiter at boot and time-share the card
+        self.co_services = list(co_services or [])
+        # the drain this app is running (phase, peer, progress), None when
+        # none is: /admin/drain's 409 carries it
+        self._drain_state: dict | None = None
         # admission control (SCT_QOS_*, on by default), registered
         # process-wide so the schedulers' brownout clamp and deadline drops
         # reach the same policy
@@ -267,10 +312,19 @@ class EngineApp:
         blocks), then warm them; ``/ready`` turns true after."""
         try:
             await asyncio.to_thread(self.service.start)
+            for svc in self.co_services:
+                await asyncio.to_thread(svc.start)
+            self._register_packed_units()
             if self.service.graph_deterministic():
                 self._resp_cache = self.service.response_cache
                 self._sem_cache = self.service.semantic_cache
             self.warmup_report = await self.service.warmup()
+            for svc in self.co_services:
+                # each co-tenant warms (captures) its own graphs before
+                # readiness, in turn: no capture meets a co-tenant's traffic
+                report = await svc.warmup()
+                self.warmup_report.update({f"{svc.deployment_name}/{k}": v
+                                           for k, v in report.items()})
             log.info("warmup: %s (seconds %s)", self.warmup_report,
                      self.service.walker.warmup_seconds)
         except Exception as e:
@@ -278,10 +332,22 @@ class EngineApp:
             raise
         self.ready = True
 
+    def _register_packed_units(self) -> None:
+        """Attach every generative unit of the primary and the co-resident
+        deployments to the process's device arbiter, when there are
+        co-resident deployments: a sole engine keeps the fast path."""
+        if not self.co_services:
+            return
+        for svc in (self.service, *self.co_services):
+            for unit in svc.generative_units():
+                unit.register_packed()
+
     async def close(self) -> None:
         if self._server is not None:
             self._server.close()
             await self._server.wait_closed()
+        for svc in self.co_services:
+            await svc.close()
         await self.service.close()
         if qos.active_controller() is self.qos:
             qos.set_active_controller(None)
@@ -333,6 +399,12 @@ class EngineApp:
             if method != "POST":
                 return _json(405, failure_status_dict(405, "POST a tokens body"))
             return await self._admitted(self._embeddings, headers, body, headers)
+        if path in ("/admin/drain", "/admin/undrain"):
+            if method != "POST":
+                return _json(405, failure_status_dict(405, f"POST to {path}"))
+            if path == "/admin/drain":
+                return await self._admin_drain(body)
+            return self._admin_undrain()
         if path in self._STATS:
             return _json(200, self._STATS[path](self))
         return _json(404, failure_status_dict(404, f"no route {path}"))
@@ -385,12 +457,30 @@ class EngineApp:
                                                 "prefix_pull": dict(self.prefix_pull_stats)}},
         "/stats/usage": lambda self: {"usage": METER.snapshot()},
         "/stats/spans": lambda self: RECORDER.stats(),
-        "/stats/breakdown": lambda self: {
-            "stages": RECORDER.breakdown(),
-            "generation": {u.model.name: u.model.spec_snapshot()
-                           for u in self._generative_units()},
-        },
+        "/stats/breakdown": lambda self: self._breakdown(),
+        "/stats/chaos": lambda self: {"chaos": chaos.snapshot()},
     }
+
+    def _breakdown(self) -> dict:
+        """Per-stage latency and each generative unit's snapshot with its
+        packing ledger (a co-resident deployment's units under
+        ``deployment/model``); on a packed card also the arbiter's ledger
+        and the card's and the host's byte ledgers."""
+        gen = {}
+        for svc in (self.service, *self.co_services):
+            units = svc.generative_units() if svc.walker is not None else []
+            for unit in units:
+                snap = unit.model.spec_snapshot()
+                snap["packing"] = unit.scheduler.packing_snapshot()
+                key = unit.model.name if svc is self.service else (
+                    f"{svc.deployment_name}/{unit.model.name}")
+                gen[key] = snap
+        out = {"stages": RECORDER.breakdown(), "generation": gen}
+        if self.co_services:
+            out["packing"] = get_arbiter().snapshot()
+            out["memory"] = {"hbm": device_memory(self.service.device).snapshot(),
+                             "host": host_memory().snapshot()}
+        return out
 
     async def _predictions_stream(self, body: bytes, headers: dict[str, str], ticket):
         """Validate an admitted stream request (every failure is a JSON
@@ -624,7 +714,9 @@ class EngineApp:
         unit, reason = self._single_generative_unit()
         if unit is None:
             return _json(400, failure_status_dict(400, reason))
-        return await routes[path](unit, body, headers)
+        if path == "/disagg/prefix/pull":  # serves KV bytes, takes no slot
+            return await routes[path](unit, body, headers)
+        return await self._admitted(routes[path], headers, unit, body, headers)
 
     @staticmethod
     def _parse_generate_body(body: bytes, unit, headers: dict[str, str]) -> tuple:
@@ -709,19 +801,30 @@ class EngineApp:
                                  eos_id=eos, adapter=adapter)
         return [int(t) for t in out], "unified-fallback"
 
-    async def _send_handoff(self, frame: bytes) -> list[int]:
-        """POST one frame to a decode peer (the one configured, or the less
-        busy of two picked at random) and return its tokens."""
-        ups = self.decode_upstreams
-        if len(ups) == 1:
-            target = ups[0]
-        else:
-            a, b = random.sample(ups, 2)
-            target = min((a, b), key=lambda u: self._handoff_inflight.get(u, 0))
+    async def _send_handoff(self, frame: bytes, *, target: str | None = None,
+                            extra_headers: dict[str, str] | None = None) -> list[int]:
+        """POST one frame to ``target``, by default a decode peer (the one
+        configured, or the less busy of two picked at random), with the
+        request's QoS headers and ``extra_headers``, and return its tokens.
+        The chaos site ``disagg.handoff.send`` may fail or tear the frame
+        here."""
+        if target is None:
+            ups = self.decode_upstreams
+            if len(ups) == 1:
+                target = ups[0]
+            else:
+                a, b = random.sample(ups, 2)
+                target = min((a, b), key=lambda u: self._handoff_inflight.get(u, 0))
+        headers = {**qos.outgoing_qos_headers(), **(extra_headers or {})}
+        if chaos.ENABLED:
+            # a raise lands in the caller's fallback, a torn frame is refused
+            # by the importer's codec check
+            frame = await chaos.act("disagg.handoff.send", frame)
         self._handoff_inflight[target] = self._handoff_inflight.get(target, 0) + 1
         try:
             status, _, data = await http_post(target, "/disagg/import", frame,
-                                              "application/octet-stream", self._handoff_timeout_s)
+                                              "application/octet-stream", self._handoff_timeout_s,
+                                              headers)
         finally:
             self._handoff_inflight[target] -= 1
         if status != 200:
@@ -738,6 +841,14 @@ class EngineApp:
             self.disagg_stats["imports_failed"] += 1
             return _json(400, failure_status_dict(400, f"bad handoff frame: {e}"))
         self.disagg_stats["import_decode_s"] += time.perf_counter() - t0
+        drain_seed = headers.get("x-sct-drain-seed")
+        if drain_seed is not None:
+            # a drain's migration: the source's seed counter, so a sampled
+            # stream goes on with the seeds its uninterrupted run would draw
+            try:
+                unit.scheduler.adopt_seed(int(drain_seed))
+            except ValueError:
+                return _json(400, failure_status_dict(400, "bad x-sct-drain-seed"))
         try:
             out = await apply_handoff(unit, payload)
         except HandoffError as e:  # a good frame for another pool
@@ -831,6 +942,8 @@ class EngineApp:
             if adapter:
                 pull["adapter"] = adapter
             req = json.dumps(pull)
+            if chaos.ENABLED:  # a raise costs the shortcut, as a failed pull does
+                await chaos.act("disagg.prefix.pull")
             status, _, frame = await http_post(peer, "/disagg/prefix/pull", req.encode(),
                                                "application/json", self._handoff_timeout_s)
             if status == 404:  # the peer no longer holds it: a miss
@@ -854,6 +967,109 @@ class EngineApp:
             log.warning("peer prefix pull from %s failed (%s: %s); prefilling", peer,
                         type(e).__name__, e)
             return False
+
+    # ----------------------------------------------------------- live drain
+
+    def _drain_snapshot(self, sched) -> dict:
+        """The current drain for a 409: this app's drain (phase, peer,
+        progress, elapsed ms), or a parked view when the drain was begun at
+        the scheduler; with the records parked and the draining flag."""
+        st = dict(self._drain_state or {})
+        start = st.pop("started", None)
+        if start is not None:
+            st["elapsed_ms"] = round((time.monotonic() - start) * 1e3, 3)
+        if not st:
+            st = {"phase": "parked", "peer": None}
+        snap = sched.packing_snapshot()
+        st["parked"] = int(snap["suspended"])
+        st["draining"] = bool(snap["draining"])
+        return st
+
+    async def _admin_drain(self, body: bytes) -> tuple:
+        """``POST /admin/drain``: quiesce the primary's generative unit (every
+        live stream suspended at its next sync point), then migrate each
+        record to ``peer`` and relay its tokens, or, with no peer, keep
+        them parked until ``/admin/undrain``."""
+        unit, reason = self._single_generative_unit()
+        if unit is None:
+            return _json(400, failure_status_dict(400, reason))
+        try:
+            obj = json.loads(body) if body.strip() else {}
+            if not isinstance(obj, dict):
+                raise ValueError("a drain body is a JSON object")
+            peer = str(obj["peer"]) if obj.get("peer") else None
+            timeout_s = float(obj.get("timeout_s", 30.0))
+        except (ValueError, TypeError) as e:
+            return _json(400, failure_status_dict(400, f"bad drain body: {e}"))
+        sched = unit.scheduler
+        if self._drain_state is not None or sched._draining:
+            # idempotent: a retry sees how far the drain in flight got
+            return _json(409, {**failure_status_dict(409, "drain already in progress"),
+                               "drain": self._drain_snapshot(sched)})
+        t0 = time.perf_counter()
+        self._drain_state = {"phase": "quiescing", "peer": peer, "timeout_s": timeout_s,
+                             "migrated": 0, "failed": 0, "started": time.monotonic()}
+        sched.drain_begin()
+        try:
+            quiesced = await sched.drain_wait_quiesced(timeout_s)
+        except BaseException:
+            self._drain_state = None  # no phantom drain to wedge later calls
+            raise
+        migrated, failed = 0, []
+        if peer:
+            self._drain_state["phase"] = "migrating"
+            pairs = sched.drain_take()
+            # one counter value for every frame: adopting it is idempotent
+            seed = {"x-sct-drain-seed": str(sched._seed)}
+            try:
+                for req, frame in pairs:
+                    try:
+                        tokens = await self._send_handoff(frame, target=peer, extra_headers=seed)
+                    except asyncio.CancelledError:
+                        raise
+                    except Exception as e:  # noqa: BLE001 - the stream resumes here
+                        log.warning("drain: migrating a stream to %s failed (%s: %s); it "
+                                    "resumes locally", peer, type(e).__name__, e)
+                        failed.append((req, frame))
+                        self._drain_state["failed"] = len(failed)
+                        continue
+                    sched.complete_migrated(req, tokens)
+                    migrated += 1
+                    self._drain_state["migrated"] = migrated
+            finally:
+                # whatever was not relayed (a cancel mid-loop too) re-parks,
+                # then the drain lifts and the parked records resume here
+                failed += pairs[migrated + len(failed):]
+                if failed:
+                    sched.drain_abort(failed)
+                sched.drain_finish()
+                self._drain_state = None
+        else:
+            self._drain_state["phase"] = "parked"
+        snap = sched.packing_snapshot()
+        return _json(200, {"quiesced": bool(quiesced), "peer": peer, "migrated": migrated,
+                           "failed": len(failed), "parked": int(snap["suspended"]),
+                           "draining": bool(snap["draining"]),
+                           "duration_ms": round((time.perf_counter() - t0) * 1e3, 3)})
+
+    def _admin_undrain(self) -> tuple:
+        """``POST /admin/undrain``: lift a parked drain; the parked records
+        re-queue as imports and go on bit-exactly."""
+        unit, reason = self._single_generative_unit()
+        if unit is None:
+            return _json(400, failure_status_dict(400, reason))
+        sched = unit.scheduler
+        st = self._drain_state
+        if st is not None and st["phase"] in ("quiescing", "migrating"):
+            # lifting it now would fork the streams already relayed
+            return _json(409, {**failure_status_dict(
+                409, "drain in flight; undrain applies only after it parks or finishes"),
+                "drain": self._drain_snapshot(sched)})
+        if not sched._draining:
+            return _json(409, failure_status_dict(409, "engine is not draining"))
+        sched.drain_finish()
+        self._drain_state = None
+        return _json(200, {"draining": False, "resuming": True})
 
     @staticmethod
     async def _until_disconnect(reader: asyncio.StreamReader, coro):
@@ -932,7 +1148,9 @@ class EngineApp:
 async def _serve(host: str, port: int, device: str, role: str | None,
                  decode: str | None) -> None:
     service = PredictionService(load_predictor_spec(), device=device)
-    app = EngineApp(service, role=role, decode_upstreams=disagg.decode_upstreams(decode))
+    co_services = [PredictionService(spec, device=device) for spec in load_co_predictor_specs()]
+    app = EngineApp(service, role=role, decode_upstreams=disagg.decode_upstreams(decode),
+                    co_services=co_services)
     await app.start(host, port)
     log.info("engine listening on %s:%d (device %s, role %s)", host, app.port, device, app.role)
     try:

@@ -11,7 +11,9 @@ request collapser; ``SCT_SEMCACHE=1`` adds the semantic tier.
 
 The predictor comes from ``ENGINE_PREDICTOR`` (base64 JSON, the same
 variable the JAX engine reads), else ``./deploymentdef.json``, else the
-built-in SIMPLE_MODEL graph.
+built-in SIMPLE_MODEL graph.  ``ENGINE_CO_PREDICTORS`` (a base64 JSON list
+of predictor specs) names the deployments an engine boots beside it on the
+same card, time-sharing it under the device arbiter (chip packing).
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ from seldon_core_tpu_torch.graph.spec import PredictorSpec
 from seldon_core_tpu_torch.graph.walker import GraphWalker
 
 ENGINE_PREDICTOR_ENV = "ENGINE_PREDICTOR"
+# chip packing: a base64 JSON list of ADDITIONAL predictor specs booted in
+# the same process, time-sharing the card
+ENGINE_CO_PREDICTORS_ENV = "ENGINE_CO_PREDICTORS"
 PREDICTOR_FILE_FALLBACK = "./deploymentdef.json"
 
 DEFAULT_PREDICTOR: dict[str, Any] = {
@@ -58,6 +63,22 @@ def load_predictor_spec(environ: dict[str, str] | None = None) -> PredictorSpec:
         with open(PREDICTOR_FILE_FALLBACK) as f:
             return PredictorSpec.from_dict(json.load(f))
     return PredictorSpec.from_dict(DEFAULT_PREDICTOR)
+
+
+def load_co_predictor_specs(environ: dict[str, str] | None = None) -> list[PredictorSpec]:
+    """The co-resident predictor specs of chip packing: ``ENGINE_CO_PREDICTORS``
+    is a base64 JSON list of predictor specs, booted beside the primary as
+    further :class:`PredictionService` s that time-share the card under
+    the device arbiter.  Empty when unset."""
+    env = environ if environ is not None else os.environ
+    raw = env.get(ENGINE_CO_PREDICTORS_ENV)
+    if not raw:
+        return []
+    decoded = json.loads(base64.b64decode(raw))
+    if not isinstance(decoded, list):
+        raise ValueError(f"{ENGINE_CO_PREDICTORS_ENV} must decode to a JSON list of "
+                         "predictor specs")
+    return [PredictorSpec.from_dict(p) for p in decoded]
 
 
 class PredictionService:

@@ -55,9 +55,16 @@ The paged path of the JAX package's ``executor/generation.py``:
   inside the same call.  Registering an adapter writes its row in place
   between blocks, so no graph is captured again.  Prefix chains are salted
   per adapter;
-* **the memory ledger** (``executor/memory.py``): every model reserves its
+* **the memory ledgers** (``executor/memory.py``): every model reserves its
   byte classes (weights, KV pool and scales, adapter pool, speculation
-  state) on its card's ledger at build.
+  state) on its card's ledger at build, and its host-DRAM classes (the
+  prefix tier's and the suspend store's bytes) on the host ledger;
+* **chip packing and live drain**: co-resident deployments time-share one
+  card under a device arbiter (``executor/arbiter.py``); a preempted or
+  drained scheduler exports its live slots as handoff frames into a
+  host-DRAM suspend store (``cache/tiers.py``) at a sync point and frees
+  their blocks, and resumes them through the import path, bit-exactly,
+  here or on a peer.
 
 ``GenerationScheduler`` is the asyncio front (``submit(prompt) ->
 generated ids``, with an ``on_token`` hook per delivered token);
@@ -86,7 +93,7 @@ import torch
 
 from seldon_core_tpu_torch import capture_section, qos, resolve_device
 from seldon_core_tpu_torch.cache.prefix import PrefixIndex
-from seldon_core_tpu_torch.cache.tiers import HostPrefixStore
+from seldon_core_tpu_torch.cache.tiers import HostPrefixStore, SuspendStore
 from seldon_core_tpu_torch.contract.payload import DataKind, Payload
 from seldon_core_tpu_torch.cache.prefix import adapter_salt
 from seldon_core_tpu_torch.executor.lora import AdapterPool, UnknownAdapter
@@ -94,6 +101,8 @@ from seldon_core_tpu_torch.executor.memory import (
     MemoryManager,
     device_memory,
     hbm_budget_bytes,
+    host_memory,
+    suspend_budget_bytes,
 )
 from seldon_core_tpu_torch.executor.speculative import propose_heads, propose_ngram, seed_history
 from seldon_core_tpu_torch.graph.units import GraphUnitError, SeldonComponent
@@ -313,7 +322,11 @@ class GenerativeModel:
         if prefix_dram_gb is None:
             prefix_dram_gb = float(os.environ.get("SCT_PREFIX_DRAM_GB", "0") or 0)
         self._dram_bytes = int(float(prefix_dram_gb) * (1 << 30)) if prefix_reuse else 0
-        self.host_store = (HostPrefixStore(kv_block_size, self._dram_bytes)
+        # this model's host-DRAM byte classes (prefix tier, suspend store):
+        # its row in the host ledger, re-reserved whole on every change
+        self._host_classes: dict[str, int] = {}
+        self.host_store = (HostPrefixStore(kv_block_size, self._dram_bytes,
+                                           on_bytes=self._note_dram_bytes)
                            if self._dram_bytes > 0 else None)
         # chain levels a peer pull installed that no admission has used yet
         self._peer_chains: set = set()
@@ -678,6 +691,7 @@ class GenerativeModel:
             "lora_rank": self.lora_rank or None,
             "adapters": self.adapters_snapshot(),
             "pool": self.pool_snapshot(),
+            "memory": self.memory_snapshot(),
         }
 
 
@@ -843,6 +857,7 @@ class GenerativeModel:
         self.param_bytes = sum(p.nbytes for p in self.params.parameters())
         self.memory.reserve(self._mem_key, self._byte_classes())
         weakref.finalize(self, self.memory.release, self._mem_key)
+        weakref.finalize(self, host_memory().release, self._mem_key)
 
     def _byte_classes(self) -> dict[str, int]:
         c = self._cache
@@ -857,11 +872,38 @@ class GenerativeModel:
         }
 
     def release_memory(self) -> None:
-        """Drop this model's rows from the device ledger, once the device
-        call in flight (one a closed scheduler left running in a thread)
-        has ended: it holds the model's lock."""
+        """Drop this model's rows from the device ledger and the host ledger
+        (suspend records ledger host bytes on a model with no prefix tier
+        too), once the device call in flight (one a closed scheduler left
+        running in a thread) has ended: it holds the model's lock."""
         with self._lock:
             self.memory.release(self._mem_key)
+            self._host_classes.clear()
+            host_memory().release(self._mem_key)
+
+    def _note_host_bytes(self, cls: str, nbytes: int) -> None:
+        """Set one host-DRAM byte class of this model in the host ledger.
+        A reservation replaces the owner's classes, so every class is
+        re-reserved together: the suspend store never wipes the prefix
+        tier's bytes, nor the other way round."""
+        self._host_classes[str(cls)] = int(nbytes)
+        host_memory().reserve(self._mem_key, dict(self._host_classes))
+
+    def _note_dram_bytes(self, nbytes: int) -> None:
+        """The prefix tier's byte callback (``prefix_dram``)."""
+        self._note_host_bytes("prefix_dram", nbytes)
+
+    def note_suspend_bytes(self, nbytes: int) -> None:
+        """The suspend store's byte callback (``suspend_dram``)."""
+        self._note_host_bytes("suspend_dram", nbytes)
+
+    def memory_snapshot(self) -> dict:
+        """This model's rows in the card's ledger and the host ledger."""
+        return {
+            "owner": self._mem_key,
+            "hbm": self.memory.snapshot()["owners"].get(self._mem_key),
+            "host": host_memory().snapshot()["owners"].get(self._mem_key),
+        }
 
     def pool_snapshot(self) -> dict:
         """The pool's blocks and byte classes beside the card's ledger."""
@@ -1970,7 +2012,8 @@ class GenerativeModel:
             if self.prefix_index is not None:  # warmup's hits are not traffic
                 self.prefix_index = PrefixIndex(self.kv_block_size)
             if self.host_store is not None:
-                self.host_store = HostPrefixStore(self.kv_block_size, self._dram_bytes)
+                self.host_store = HostPrefixStore(self.kv_block_size, self._dram_bytes,
+                                                  on_bytes=self._note_dram_bytes)
             self._zero_tier_counters()
             self.prefills = self.steps = self.decode_blocks = self.host_syncs = 0
             self.prefills_reused = self.prefill_chunks = 0
@@ -2075,12 +2118,27 @@ class GenerationScheduler:
     peer-pulled prefix installs (:meth:`install_prefix`) all happen at a
     sync point, never while a decode block is in flight.
 
+    On a packed card (:meth:`attach_arbiter`) every device call of the run
+    loop runs under the arbiter's grant, taken at a sync point and given
+    back once the pipeline drains to the next, on a park and on every
+    error path; a holder whose co-tenant waits yields at the next block.
+    :meth:`request_preempt` (the arbiter's verb) and :meth:`drain_begin`
+    suspend the active slots at the next sync point into the suspend store
+    and hold admissions; :meth:`request_resume` and :meth:`drain_finish`
+    re-queue the records as imports of the original requests (their
+    ``t0`` keeps their place), which continue bit-exactly: no seed is drawn
+    while a stream is parked, and the carry token is not delivered twice.
+    A drain's records can instead go to a peer (:meth:`drain_take`,
+    :meth:`complete_migrated`, :meth:`drain_abort`).
+
     The pipeline overlaps (``overlap``, on by default when ``decode_block
     > 1``; ``SCT_GEN_OVERLAP=0`` turns it off): while block N's tokens are
     fetched, block N+1 is already dispatched from block N's device carry
     (:meth:`GenerativeModel.step_k_continue`).  The chain breaks for a
     named cause (``overlap_breaks``): ``carry-dirty`` (a host-side reap
-    left the carry stale), ``admission`` (a request waits), ``kv-starved``
+    left the carry stale), ``arbiter-yield`` (a co-tenant waits for the
+    grant, or a preemption or drain is due), ``admission`` (a request
+    waits), ``kv-starved``
     (an admission waits for blocks), ``handoff-release`` (a pinned slot
     goes back to the pool), ``chunked-prefill`` (a chunk is due) or
     ``dispatch-error``.  Either way each block costs one host sync."""
@@ -2122,6 +2180,25 @@ class GenerationScheduler:
         # random base so sampled streams differ across restarts; within one
         # process the sequence is deterministic
         self._seed = int.from_bytes(os.urandom(4), "little")
+        # chip packing: the device arbiter this scheduler's device work runs
+        # under (None: a sole tenant), the preemption and drain flags, the
+        # generations parked in the suspend store, and the queue-wait EWMA
+        # the arbiter reads as pressure
+        self._arbiter = None
+        self._arb_key: str | None = None
+        self._preempt = False
+        self._draining = False
+        self._quiesced = asyncio.Event()
+        self._suspended: list[dict] = []
+        self._suspend_store: SuspendStore | None = None
+        self._suspend_seq = 0
+        self._qwait_ewma: float | None = None
+        self._qwait_stamp = 0.0
+        self.suspends = 0
+        self.resumes = 0
+        self.suspend_rejected = 0
+        self.drains = 0
+        self.drained_out = 0
 
     def _next_seed(self) -> int:
         self._seed = (self._seed + 1) % (2**31 - 1)
@@ -2360,8 +2437,337 @@ class GenerationScheduler:
             if not fut.done():
                 fut.set_result(n)
 
+    # ------------------------------------------------- chip packing (arbiter)
+    #
+    # The scheduler's side of time-sharing a card: the device grant covers
+    # the device work of a sync point and the blocks chained from it until
+    # their fetch; preemption and resume are verbs the arbiter calls, acted
+    # on between blocks, never inside one.
+
+    def attach_arbiter(self, arbiter, *, priority: str = qos.PRIO_INTERACTIVE,
+                       slo_ms: float | None = None) -> None:
+        """Join a packed card: register with ``arbiter`` under the model's
+        name (the arbiter de-duplicates colliding names) and run every
+        device call of the run loop under its grant.  A draft model's
+        prefills (``spec_method='draft'``), which the JAX package defers
+        under a second, batch-class registrant, are not ported: such a
+        model raises by name."""
+        if self.model.spec_method == "draft":
+            raise GraphUnitError(
+                "spec_method='draft' on a packed card (pack_class, SCT_PACK=1 or "
+                "ENGINE_CO_PREDICTORS) is not served by the PyTorch port yet")
+        self._arbiter = arbiter
+        self._arb_key = arbiter.register(self.model.name, scheduler=self,
+                                         priority=priority, slo_ms=slo_ms)
+
+    def detach_arbiter(self) -> None:
+        if self._arbiter is not None:
+            self._arbiter.unregister(self._arb_key)
+            self._arbiter = None
+            self._arb_key = None
+
+    async def _arb_acquire(self) -> None:
+        if self._arbiter is not None:
+            # _arb_release pairs it on every park, drain and error path
+            await self._arbiter.acquire(self._arb_key)
+
+    def _arb_release(self) -> None:
+        # idempotent: a parked co-tenant must never wait on a scheduler that
+        # is itself waiting
+        if self._arbiter is not None:
+            self._arbiter.release(self._arb_key)
+
+    def _arb_contended(self) -> bool:
+        return self._arbiter is not None and self._arbiter.contended(self._arb_key)
+
+    def queue_pressure(self) -> float:
+        """Deadline pressure in seconds: the larger of the queue-wait EWMA,
+        decayed with a 1 s half-life, and the oldest live waiter's age.
+        Host bookkeeping only: the arbiter reads it at grant edges."""
+        now = time.perf_counter()
+        oldest = max((now - r.t0 for r in self._waiting if not r.future.done()), default=0.0)
+        ewma = 0.0
+        if self._qwait_ewma is not None:
+            # a drained burst's pressure fades instead of preempting
+            # co-tenants forever
+            ewma = self._qwait_ewma * (0.5 ** max(0.0, now - self._qwait_stamp))
+        return max(ewma, oldest)
+
+    def _note_queue_wait(self, req: _Request) -> None:
+        """Fold one admission's queue wait into the EWMA.  A resumed suspend
+        record is skipped: its ``t0`` is the original submission, so its
+        suspension would read as queue pressure."""
+        if req.imported is not None and req.imported.get("resumed"):
+            return
+        wait = max(0.0, time.perf_counter() - req.t0)
+        e = self._qwait_ewma
+        self._qwait_ewma = wait if e is None else 0.8 * e + 0.2 * wait
+        self._qwait_stamp = time.perf_counter()
+
+    def _wake_loop(self) -> None:
+        if self._wake is not None:
+            self._wake.set()
+
+    def request_preempt(self) -> None:
+        """Arbiter verb: suspend the active slots at the next sync point and
+        hold admissions until resumed."""
+        self._preempt = True
+        self._wake_loop()
+
+    def request_resume(self) -> None:
+        """Arbiter verb: lift the preemption; the suspended records re-queue
+        at the next sync point and resume bit-exactly."""
+        self._preempt = False
+        self._wake_loop()
+
+    def _get_suspend_store(self) -> SuspendStore:
+        if self._suspend_store is None:
+            self._suspend_store = SuspendStore(suspend_budget_bytes(),
+                                               on_bytes=self.model.note_suspend_bytes)
+        return self._suspend_store
+
+    def _park_record(self, req: _Request, frame: bytes) -> bool:
+        """Put one suspend record in the store; False when it does not fit."""
+        self._suspend_seq += 1
+        key = (id(req), self._suspend_seq)
+        if not self._get_suspend_store().put(key, frame):
+            return False
+        self._suspended.append({"req": req, "key": key, "bytes": len(frame),
+                                "t_park": time.perf_counter()})
+        return True
+
+    async def _suspend_active(self, slots, active) -> int:
+        """The preemption verb's device half, at a sync point with no block
+        in flight: each active slot's KV (prompt and emitted tokens but the
+        last) is exported as ONE handoff frame (int8 blocks and scales
+        verbatim) into the suspend store, and the slot's blocks go back.
+        The request stays alive (its future, its streaming hook); only its
+        device residency is taken.  A record the store refuses leaves its
+        slot running.  Returns the slots suspended."""
+        from seldon_core_tpu_torch.disagg.handoff import encode_handoff
+
+        victims = [i for i in range(len(slots))
+                   if slots[i] is not None and active[i] and slots[i].out]
+        if not victims:
+            return 0
+
+        def export() -> list:
+            frames = []
+            for i in victims:
+                req = slots[i]
+                n = len(req.out)
+                # the KV covers prompt + out[:-1] (the carry's KV is not
+                # written yet); out[-1] rides as the frame's first token, so
+                # the resume reserves (L + n - 1) + (max_new - n + 1): the
+                # uninterrupted reservation
+                hist = np.concatenate([req.prompt, np.asarray(req.out[:-1], np.int32)])
+                try:
+                    kv = self.model.export_slot_kv(i, int(hist.size))
+                    ks, vs = (kv[2], kv[3]) if len(kv) == 4 else (None, None)
+                    frames.append(encode_handoff(
+                        hist, int(req.out[-1]), kv[0], kv[1],
+                        block_size=self.model.kv_block_size,
+                        max_new_tokens=req.max_new_tokens - n + 1,
+                        temperature=req.temperature, eos_id=req.eos_id,
+                        k_scale=ks, v_scale=vs, priority=req.priority,
+                        adapter=req.adapter, spec_state=self.model.export_spec_state(i),
+                    ))
+                except Exception:  # noqa: BLE001 - the slot stays resident
+                    log.exception("suspend export failed for slot %d; leaving it resident", i)
+                    frames.append(None)
+            return frames
+
+        frames = await asyncio.to_thread(export)
+        n_susp = 0
+        for i, frame in zip(victims, frames):
+            if frame is None:
+                continue
+            if not self._park_record(slots[i], frame):
+                self.suspend_rejected += 1  # over the suspend budget: it keeps running
+                continue
+            self.model.release_slot(i)
+            slots[i] = None
+            active[i] = False
+            self.suspends += 1
+            n_susp += 1
+        return n_susp
+
+    def _meter_unpark(self, rec: dict) -> None:
+        """Charge a record's bytes x seconds parked as it leaves the store
+        (resume, reap, drain or close)."""
+        req = rec["req"]
+        METER.add(self.model.name, req.adapter or "", req.priority,
+                  suspend_byte_s=rec["bytes"] * (time.perf_counter() - rec["t_park"]))
+
+    def _take_record(self, rec: dict) -> bytes | None:
+        """Pop ``rec``'s frame from the store, charged; None (and the
+        request ended) when its client left or its frame is gone."""
+        self._meter_unpark(rec)
+        req = rec["req"]
+        frame = self._suspend_store.take(rec["key"]) if self._suspend_store else None
+        if req.future.done():
+            self._meter_end(req, "reaped")
+            return None
+        if frame is None:
+            req.future.set_exception(GraphUnitError("suspend record lost from the store"))
+            self._meter_end(req, "reaped")
+        return frame
+
+    def _drain_resumes(self) -> None:
+        """The resume verb, at a sync point with the preemption lifted: each
+        suspend record becomes an imported admission of the ORIGINAL
+        request, re-queued (its ``t0`` sorts it ahead of younger work of its
+        class)."""
+        from seldon_core_tpu_torch.disagg.handoff import decode_handoff
+
+        while self._suspended:
+            rec = self._suspended.pop(0)
+            frame = self._take_record(rec)
+            if frame is None:
+                continue
+            payload = decode_handoff(frame)
+            rec["req"].imported = {
+                "first_token": int(payload["first_token"]), "k": payload["k"],
+                "v": payload["v"], "k_scale": payload.get("k_scale"),
+                "v_scale": payload.get("v_scale"),
+                "prompt": np.asarray(payload["prompt"], np.int32),
+                "reserve_tokens": int(payload["max_new_tokens"]), "resumed": True,
+                "spec": payload.get("spec_state"),
+            }
+            self.resumes += 1
+            self._waiting.append(rec["req"])
+
+    def _reap_suspended(self) -> None:
+        """A suspended request whose client left or whose deadline passed
+        gives its record back at once."""
+        if not self._suspended:
+            return
+        now = time.monotonic()
+        keep = []
+        for rec in self._suspended:
+            req = rec["req"]
+            if not req.future.done() and (req.deadline is None or now < req.deadline):
+                keep.append(rec)
+                continue
+            if not req.future.done():
+                req.future.set_exception(DeadlineExceeded(
+                    f"deadline expired while suspended after {len(req.out)} tokens"))
+                self.deadline_reaps["suspended"] += 1
+                qos.note_deadline_miss("suspended", req.priority)
+            self._take_record(rec)
+        self._suspended[:] = keep
+
+    async def _park(self) -> None:
+        """Preempted (or draining) with nothing device-resident: give the
+        grant back, tell a drain it is quiesced, let the arbiter evaluate
+        its policy off a grant edge, and wait for a wake, at most 50 ms (the
+        deadline reaps of held and suspended requests)."""
+        self._arb_release()
+        if self._draining:
+            self._quiesced.set()
+        self._wake.clear()
+        if self._arbiter is not None:
+            # with the interactive side quiet no grant edge may come to
+            # trigger this scheduler's resume
+            self._arbiter.poll()
+        if not self._preempt:
+            return
+        with contextlib.suppress(asyncio.TimeoutError):
+            await asyncio.wait_for(self._wake.wait(), timeout=0.05)
+
+    # -- live drain: the scheduler's verbs of /admin/drain
+
+    def drain_begin(self) -> None:
+        """Pause admission and suspend every active slot at the next sync
+        point (the export preemption uses).  Pair with :meth:`drain_finish`
+        once the frames moved to a peer, or to resume them here."""
+        self._draining = True
+        # clear, never replace: drain_wait_quiesced may hold this event
+        self._quiesced.clear()
+        self.drains += 1
+        self._preempt = True
+        self._wake_loop()
+        if self._task is None or self._task.done():
+            self._quiesced.set()  # no run loop: nothing is device-resident
+
+    async def drain_wait_quiesced(self, timeout_s: float = 30.0) -> bool:
+        """Wait until no slot is device-resident (records are parked, and
+        slots the store refused ran to their end)."""
+        try:
+            await asyncio.wait_for(self._quiesced.wait(), timeout_s)
+            return True
+        except asyncio.TimeoutError:
+            return False
+
+    def drain_take(self) -> list[tuple[_Request, bytes]]:
+        """Pop every parked record as ``(request, frame)``: the migration's
+        payload.  The caller owns each request's completion from here
+        (:meth:`complete_migrated`, or :meth:`drain_abort`)."""
+        out = []
+        while self._suspended:
+            rec = self._suspended.pop(0)
+            frame = self._take_record(rec)
+            if frame is not None:
+                self.drained_out += 1
+                out.append((rec["req"], frame))
+        return out
+
+    def drain_abort(self, pairs: list[tuple[_Request, bytes]]) -> None:
+        """The peer refused or died: re-park the frames so that
+        :meth:`drain_finish` resumes them here; a failed migration never
+        kills a generation."""
+        for req, frame in pairs:
+            if req.future.done():
+                continue
+            if not self._park_record(req, frame):
+                req.future.set_exception(GraphUnitError("drain abort: suspend store full"))
+                self._meter_end(req, "reaped")
+
+    def complete_migrated(self, req: _Request, tokens) -> None:
+        """Finish a migrated request with the peer's tokens: ``tokens[0]``
+        is the carry, delivered here before the drain; the rest go through
+        the request's hook and its future resolves with the whole output,
+        so the client sees ONE stream."""
+        for t in list(tokens)[1:]:
+            if self._token_done(req, int(t)):
+                break
+        if not req.future.done():
+            req.future.set_result(np.asarray(req.out, np.int32))
+            self._meter_end(req, "completed")
+
+    def drain_finish(self) -> None:
+        """Lift the drain: admission resumes and the records still parked
+        (no peer, or after :meth:`drain_abort`) resume here bit-exactly."""
+        self._draining = False
+        self._preempt = False
+        self._wake_loop()
+
+    def adopt_seed(self, seed: int) -> None:
+        """The drain peer's side: adopt the source's sampling-seed counter,
+        so that a migrated sampled stream draws the seeds its uninterrupted
+        run would have."""
+        self._seed = int(seed) % (2**31 - 1)
+
+    def packing_snapshot(self) -> dict:
+        """This deployment's packing ledger (``GET /stats/breakdown``)."""
+        return {
+            "arbitrated": self._arbiter is not None,
+            "preempted": self._preempt,
+            "draining": self._draining,
+            "drains": self.drains,
+            "drained_out": self.drained_out,
+            "suspended": len(self._suspended),
+            "suspends": self.suspends,
+            "resumes": self.resumes,
+            "suspend_rejected": self.suspend_rejected,
+            "queue_pressure_ms": round(self.queue_pressure() * 1e3, 3),
+            "suspend_store": (self._suspend_store.snapshot()
+                              if self._suspend_store is not None else None),
+        }
+
     async def close(self) -> None:
         self._closed = True
+        self.detach_arbiter()
         if self._task is not None:
             self._task.cancel()
             self._wake.set()
@@ -2558,12 +2964,16 @@ class GenerationScheduler:
             for req, slot in zip(batch, free):
                 try:
                     if req.imported is not None:  # a handoff: import, no prefill
+                        # (a resumed suspend record carries its extended
+                        # prompt, prompt + tokens emitted but the carry, and
+                        # the budget left)
                         imp = req.imported
                         self.model.attach_imported(
-                            slot, req.prompt, imp["k"], imp["v"],
-                            reserve_tokens=req.max_new_tokens, k_scale=imp["k_scale"],
-                            v_scale=imp["v_scale"], first_token=imp["first_token"],
-                            spec_state=imp["spec"], adapter=req.adapter,
+                            slot, imp.get("prompt", req.prompt), imp["k"], imp["v"],
+                            reserve_tokens=imp.get("reserve_tokens", req.max_new_tokens),
+                            k_scale=imp["k_scale"], v_scale=imp["v_scale"],
+                            first_token=imp["first_token"], spec_state=imp["spec"],
+                            adapter=req.adapter,
                         )
                         placed.append((req, slot, imp["first_token"]))
                         continue
@@ -2619,11 +3029,23 @@ class GenerationScheduler:
         for req in [r for r, _, _ in placed] + [e["req"] for e in chunked]:
             if req.imported is None and not req.prefill_only:
                 RECORDER.record_stage(STAGE_QUEUE_WAIT, now - req.t0)
+            if not req.prefill_only:
+                self._note_queue_wait(req)
         for e in chunked:
             self._meter_admit(e["req"], e["slot"])
         for (req, slot, _), tok in zip(placed, toks):
             if req.imported is None:  # an import was prefilled by its sender
                 self._meter_admit(req, slot)
+            if req.imported is not None and req.imported.get("resumed"):
+                # a resumed suspend record: its carry token was delivered
+                # before the suspension, so the slot is re-armed without
+                # delivering it again
+                req.imported = None  # the record's host arrays go
+                slots[slot] = req
+                cur[slot] = tok
+                temps[slot] = req.temperature
+                active[slot] = True
+                continue
             if not req.prefill_only:
                 self._start(req, slot, tok, slots, cur, temps, active)
             elif req.future.done():  # the client left during the prefill
@@ -2646,6 +3068,11 @@ class GenerationScheduler:
         None when it may."""
         if carry_dirty:
             return "carry-dirty"
+        if self._preempt or self._arb_contended():
+            # a packed card: a co-tenant wants the device, or this scheduler
+            # must suspend; the block boundary yields before another block
+            # (and another seed) goes from the carry
+            return "arbiter-yield"
         if self._waiting:
             return "admission"
         if self._overflow:
@@ -2673,6 +3100,7 @@ class GenerationScheduler:
                     raise asyncio.CancelledError
                 if self._reap(slots, active):
                     carry_dirty = True
+                self._reap_suspended()
                 if pending is None:
                     pending = await self._sync_and_dispatch(slots, cur, temps, active, k)
                     carry_dirty = False
@@ -2701,9 +3129,15 @@ class GenerationScheduler:
                         with contextlib.suppress(Exception):
                             await asyncio.to_thread(self.model.step_k_fetch, nxt)
                     pending, carry_dirty = None, True
+                    self._arb_release()
                     self._fail_inflight(slots, active, exc)
                     continue
                 pending = nxt
+                if pending is None:
+                    # the pipeline drained to a sync point: the grant rotates
+                    # before the host delivers, so a parked co-tenant's
+                    # dispatch overlaps this bookkeeping
+                    self._arb_release()
                 self._deliver(toks_seq, act_seq, slots, cur, active)
         except asyncio.CancelledError:
             err = RuntimeError("GenerationScheduler closed")
@@ -2722,6 +3156,15 @@ class GenerationScheduler:
             self._overflow.clear()
             for i in range(S):
                 self.model.release_slot(i)
+            for rec in self._suspended:
+                self._meter_unpark(rec)
+                if not rec["req"].future.done():
+                    rec["req"].future.set_exception(err)
+                self._meter_end(rec["req"], "reaped")
+            self._suspended.clear()
+            if self._suspend_store is not None:
+                self._suspend_store.flush()
+            self._arb_release()
             raise
 
     async def _sync_and_dispatch(self, slots, cur, temps, active, k: int) -> tuple | None:
@@ -2731,24 +3174,41 @@ class GenerationScheduler:
         handle, or None when nothing decodes (parked or failed)."""
         S = len(slots)
         # no block is in flight, so pinned slots may go back to the pool and
-        # pulled chains may take blocks
+        # pulled chains may take blocks; on a packed card every device call
+        # from here to the block's fetch runs under the device grant
         self._drain_external_releases()
         if self._prefix_installs:
+            await self._arb_acquire()
             await self._drain_prefix_installs()
+        if self._preempt and active.any():
+            # the preemption (or drain) verb: the active slots go to the
+            # suspend store; the next dispatch goes from host state
+            await self._arb_acquire()
+            await self._suspend_active(slots, active)
+        if self._suspended and not self._preempt:
+            self._drain_resumes()  # the resume verb: re-queued as imports
+        if self._preempt and not active.any() and not self._prefilling:
+            await self._park()
+            return None
         if (not active.any() and not self._waiting and not self._overflow
                 and not self._prefilling and not self._external_release
                 and not self._prefix_installs):
-            # fully idle: park until a submit wakes us (no await between the
-            # emptiness check and clear)
+            # fully idle: the grant goes back (an idle co-tenant never holds
+            # the device), then park until a submit wakes us (no await
+            # between the emptiness check and clear)
+            self._arb_release()
             self._wake.clear()
             await self._wake.wait()
             return None
         # the admissions are taken before the embed wave is awaited: an embed
-        # that arrives meanwhile waits for the next wave, never for a slot
-        embeds = [r for r in self._waiting if r.embed_only]
+        # that arrives meanwhile waits for the next wave, never for a slot.
+        # A preempted scheduler admits nothing, embeds included: the device
+        # belongs to the co-tenant until the arbiter resumes it
+        embeds = [] if self._preempt else [r for r in self._waiting if r.embed_only]
         if embeds:
             self._waiting[:] = [r for r in self._waiting if not r.embed_only]
-        cap_free = S - int(active.sum()) - len(self._prefilling) - len(self._external)
+        cap_free = 0 if self._preempt else (
+            S - int(active.sum()) - len(self._prefilling) - len(self._external))
         batch = []
         while self._overflow and len(batch) < cap_free:
             batch.append(self._overflow.pop(0))
@@ -2757,11 +3217,16 @@ class GenerationScheduler:
             self._waiting.sort(key=lambda r: (qos.priority_rank(r.priority), r.t0))
         while self._waiting and len(batch) < cap_free:
             batch.append(self._waiting.pop(0))
+        if batch or embeds or self._prefilling or active.any():
+            # the sync point's device work (prefills, a chunk, the block and
+            # the blocks chained from it) runs under the grant
+            await self._arb_acquire()
         if embeds:
             await self._admit_embeds(embeds)
         if batch or self._prefilling:
             await self._sync_point(batch, slots, cur, temps, active)
         if not active.any():
+            self._arb_release()  # nothing to dispatch: before any park below
             if self._prefilling:
                 return None  # chunks still advancing: each turn does device work
             cap_free = S - len(self._prefilling) - len(self._external)
@@ -2807,6 +3272,7 @@ class GenerationScheduler:
         except Exception as exc:  # noqa: BLE001 - fails the in-flight requests
             log.error("decode dispatch failed; failing %d requests", int(active.sum()),
                       exc_info=exc)
+            self._arb_release()
             self._fail_inflight(slots, active, exc)
             return None
 
@@ -2843,6 +3309,8 @@ class GenerativeComponent(SeldonComponent):
         queue_max: int | None = None,
         overlap: bool | None = None,
         adapter: str | None = None,
+        pack_class: str | None = None,
+        pack_slo_ms: float | None = None,
     ):
         self.model = model
         self.scheduler = GenerationScheduler(model, maxsize=queue_max, overlap=overlap)
@@ -2853,6 +3321,27 @@ class GenerativeComponent(SeldonComponent):
         self.adapter = adapter or None
         # greedy decode is a pure function of the prompt
         self.DETERMINISTIC = self.temperature == 0.0
+        # chip packing: the deployment's QoS class and queue-wait SLO band
+        # on a packed card.  It joins the process's arbiter through
+        # register_packed (the engine's co-resident boot) or SCT_PACK=1; a
+        # sole tenant never touches it
+        self.pack_class = qos.parse_priority(pack_class) if pack_class else None
+        self.pack_slo_ms = float(pack_slo_ms) if pack_slo_ms else None
+        if os.environ.get("SCT_PACK", "0") == "1":
+            self.register_packed()
+
+    def register_packed(self, arbiter=None) -> None:
+        """Attach the scheduler to the device arbiter (the process's by
+        default) under the deployment's packing class and SLO; a second
+        call is a no-op."""
+        if self.scheduler._arbiter is not None:
+            return
+        if arbiter is None:
+            from seldon_core_tpu_torch.executor.arbiter import get_arbiter
+
+            arbiter = get_arbiter()
+        self.scheduler.attach_arbiter(arbiter, priority=self.pack_class or qos.PRIO_INTERACTIVE,
+                                      slo_ms=self.pack_slo_ms)
 
     def warmup(self) -> int:
         return self.model.warmup()

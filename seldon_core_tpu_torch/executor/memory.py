@@ -13,6 +13,11 @@ allocations): its job is arbitration and attribution, and its snapshot
 rides ``GenerativeModel.spec_snapshot()``.  The budget is ``SCT_HBM_GB``
 GiB when that is set; unset, it is the card's ``total_memory`` on CUDA,
 and the JAX package's default of 16 GiB on the CPU.
+
+A second, process-wide ledger (:func:`host_memory`) counts host DRAM: the
+prefix tier's demoted blocks (class ``prefix_dram``) and the suspend
+records of preempted or drained generations (``suspend_dram``), so that
+neither eats the card's budget or trips ``SCT_HBM_ENFORCE``.
 """
 
 from __future__ import annotations
@@ -25,11 +30,13 @@ import torch
 
 log = logging.getLogger(__name__)
 
-#: byte classes the ledger recognises (free-form keys are allowed; these
-#: are the ones the generative plane reports)
+#: byte classes the ledgers recognise (free-form keys are allowed; these
+#: are the ones the generative plane reports); ``prefix_dram`` and
+#: ``suspend_dram`` live in the HOST ledger (:func:`host_memory`)
 CLASSES = (
     "weights", "kv_pool", "kv_scales", "adapter_pool",
     "spec_heads", "draft_weights", "draft_kv",
+    "prefix_dram", "suspend_dram",
 )
 
 # the two settings the ledger reads, with the JAX package's defaults
@@ -152,3 +159,25 @@ def device_memory(device: "str | torch.device") -> MemoryManager:
             _MEMORY[key] = MemoryManager(device=device)
         return _MEMORY[key]
 
+
+
+_HOST_MEMORY: MemoryManager | None = None
+
+
+def suspend_budget_bytes() -> int:
+    """A deployment's suspend-store bound: ``SCT_PACK_SUSPEND_GB``, default 1."""
+    return int(float(os.environ.get("SCT_PACK_SUSPEND_GB", "1") or 1) * (1 << 30))
+
+
+def host_memory() -> MemoryManager:
+    """The process-wide HOST-DRAM ledger, apart from the card's: its budget
+    is the sum of the two host tiers' own, ``SCT_PREFIX_DRAM_GB`` (default
+    0: the DRAM prefix tier is opt-in) and :func:`suspend_budget_bytes`,
+    and it never enforces.  Built at first use, so that a test's settings
+    made before it apply."""
+    global _HOST_MEMORY
+    with _LOCK:
+        if _HOST_MEMORY is None:
+            prefix = int(float(os.environ.get("SCT_PREFIX_DRAM_GB", "0") or 0) * (1 << 30))
+            _HOST_MEMORY = MemoryManager(prefix + suspend_budget_bytes(), enforce=False)
+        return _HOST_MEMORY

@@ -168,8 +168,8 @@ PRESETS = {
 
 # parameters of the JAX package's generative unit that belong to later
 # slices of the port (trained Medusa heads from a checkpoint, mesh,
-# checkpoints, chip packing)
-LATER_SLICE_PARAMS = ("spec_heads_path", "mesh", "checkpoint", "pack_class", "pack_slo_ms")
+# checkpoints)
+LATER_SLICE_PARAMS = ("spec_heads_path", "mesh", "checkpoint")
 
 
 def _is_off(value: Any) -> bool:
@@ -230,6 +230,8 @@ def build_generative_component(
     lora_targets: str | None = None,
     lora_adapters: Any = None,
     adapter: str | None = None,
+    pack_class: str | None = None,
+    pack_slo_ms: float | None = None,
     device: str = "cuda",
     **overrides,
 ):
@@ -262,7 +264,11 @@ def build_generative_component(
     batched multi-LoRA serving: one stacked adapter pool gathered per slot
     inside every prefill, decode block and verify pass; ``adapter`` is the
     deployment's default adapter, which a request's ``"adapter"``
-    overrides."""
+    overrides.  ``pack_class`` (``interactive`` or ``batch``) and
+    ``pack_slo_ms`` are the deployment's QoS class and queue-wait SLO band
+    on a packed card, read when the engine registers co-resident
+    deployments with the device arbiter (``ENGINE_CO_PREDICTORS``, or
+    ``SCT_PACK=1``); a packed ``spec_method='draft'`` raises by name."""
     from seldon_core_tpu_torch.executor.generation import (
         GenerativeComponent,
         GenerativeModel,
@@ -335,4 +341,6 @@ def build_generative_component(
         queue_max=queue_max,
         overlap=overlap,
         adapter=adapter,
+        pack_class=pack_class,
+        pack_slo_ms=None if _is_off(pack_slo_ms) else float(pack_slo_ms),
     )

@@ -11,7 +11,10 @@ by ``(deployment, adapter, qos_class)``:
 * **tokens**: prefilled, decoded, accepted drafts, and prefix tokens
   saved per tier;
 * **costs of failure**: shed and reaped requests, and the decode tokens
-  spent on requests that were later reaped (``tokens_wasted``).
+  spent on requests that were later reaped (``tokens_wasted``);
+* **packing**: the wall seconds the device arbiter granted a deployment
+  (``grant_s``) and the bytes x seconds its suspend records were parked
+  (``suspend_byte_s``).
 
 Every ``add`` uses values the host already holds at a sync point; nothing
 here reads a device tensor.  The table keeps at most
@@ -33,7 +36,7 @@ MAX_KEYS_ENV = "SCT_METER_MAX_KEYS"
 # the counter vocabulary (the JAX package's)
 FIELDS = (
     "device_s",            # token-share-attributed device seconds
-    "grant_s",             # arbiter grant seconds (no arbiter in the port yet)
+    "grant_s",             # wall seconds the device arbiter granted
     "tokens_prefill",      # prompt tokens prefilled on the device
     "tokens_decode",       # tokens emitted by decode blocks
     "tokens_spec_accepted",  # of those, accepted drafts
@@ -48,7 +51,7 @@ FIELDS = (
     "requests_shed",       # admission and queue-overflow sheds
     "requests_reaped",     # deadline reaps, disconnects, errors
     "requests_cached",     # answered from a response cache
-    "suspend_byte_s",      # bytes x seconds parked (no suspend store yet)
+    "suspend_byte_s",      # bytes x seconds parked in the suspend store
 )
 
 _SEP = "|"

@@ -26,6 +26,7 @@ from seldon_core_tpu_torch.qos.context import (  # noqa: F401
     get_priority,
     get_retry_after,
     outgoing_qos_headers,
+    pack_slo_ms,
     parse_deadline_ms,
     parse_priority,
     priority_rank,

@@ -17,6 +17,7 @@ ingress deadline; a call run on the thread pool with
 from __future__ import annotations
 
 import contextvars
+import os
 import time
 
 DEADLINE_HEADER = "x-sct-deadline-ms"
@@ -25,6 +26,7 @@ PRIORITY_HEADER = "x-sct-priority"
 PRIO_INTERACTIVE = "interactive"
 PRIO_BATCH = "batch"
 _PRIORITIES = (PRIO_INTERACTIVE, PRIO_BATCH)
+PACK_SLO_ENV = "SCT_PACK_SLO_MS"
 
 # absolute time.monotonic() deadline of the current request (None = no SLO)
 _deadline: contextvars.ContextVar[float | None] = contextvars.ContextVar(
@@ -78,6 +80,16 @@ def parse_priority(value) -> str:
 def priority_rank(priority: str) -> int:
     """Lower rank pops first."""
     return 0 if priority == PRIO_INTERACTIVE else 1
+
+
+def pack_slo_ms(default: float = 250.0) -> float:
+    """The interactive queue-wait SLO band of a packed card
+    (``SCT_PACK_SLO_MS``): the device arbiter preempts a batch co-tenant
+    when an interactive deployment's queue-wait pressure crosses it."""
+    try:
+        return float(os.environ.get(PACK_SLO_ENV, "") or default)
+    except ValueError:
+        return default
 
 
 def set_budget_ms(budget_ms: float | None) -> None:
