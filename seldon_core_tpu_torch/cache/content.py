@@ -25,6 +25,7 @@ from typing import Any
 import numpy as np
 
 from seldon_core_tpu_torch.obs.metering import METER
+from seldon_core_tpu_torch.utils.metrics import DEFAULT as DEFAULT_METRICS
 
 # -- keying ------------------------------------------------------------------
 
@@ -128,9 +129,11 @@ class ResponseCache:
                 entry = None
             if entry is None:
                 self.misses += 1
+                DEFAULT_METRICS.cache_misses.labels(self.tier, namespace).inc()
                 return None
             self._entries.move_to_end((namespace, key))
             self.hits += 1
+            DEFAULT_METRICS.cache_hits.labels(self.tier, namespace).inc()
         # a hit is a request its tenant got for free: metered per namespace
         METER.add(namespace, requests_cached=1)
         return entry
@@ -153,12 +156,19 @@ class ResponseCache:
                 _, evicted = self._entries.popitem(last=False)
                 self.bytes -= evicted.nbytes
                 self.evictions += 1
+            self._set_gauges()
 
     def flush(self, namespace: str | None = None) -> int:
         """Drop one namespace's entries, or every entry when ``namespace``
         is None; returns how many went."""
         with self._lock:
-            return _flush_locked(self, namespace)
+            n = _flush_locked(self, namespace)
+            self._set_gauges()
+            return n
+
+    def _set_gauges(self) -> None:
+        DEFAULT_METRICS.cache_entries.labels(self.tier).set(len(self._entries))
+        DEFAULT_METRICS.cache_bytes.labels(self.tier).set(self.bytes)
 
     def snapshot(self) -> dict:
         with self._lock:

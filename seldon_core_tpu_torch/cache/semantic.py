@@ -32,6 +32,7 @@ import numpy as np
 
 from seldon_core_tpu_torch.cache.content import _flush_locked, canonical_body
 from seldon_core_tpu_torch.obs.metering import METER
+from seldon_core_tpu_torch.utils.metrics import DEFAULT as DEFAULT_METRICS
 
 
 def semantic_tag(spec_hash_: str, body: dict, inner: dict) -> str:
@@ -110,11 +111,13 @@ class SemanticCache:
             if best is None:
                 self.misses += 1
                 self.last_sim = None
+                DEFAULT_METRICS.semcache_misses.labels(namespace).inc()
                 return None
             sim, key, entry = best
             self._entries.move_to_end(key)
             self.hits += 1
             self.last_sim = sim
+            DEFAULT_METRICS.semcache_hits.labels(namespace).inc()
         METER.add(namespace, requests_cached=1)
         return entry.value
 
@@ -136,12 +139,19 @@ class SemanticCache:
                 _, evicted = self._entries.popitem(last=False)
                 self.bytes -= evicted.nbytes
                 self.evictions += 1
+            self._set_gauges()
 
     def flush(self, namespace: str | None = None) -> int:
         """Drop one namespace's entries, or every entry when ``namespace``
         is None; returns how many went."""
         with self._lock:
-            return _flush_locked(self, namespace)
+            n = _flush_locked(self, namespace)
+            self._set_gauges()
+            return n
+
+    def _set_gauges(self) -> None:
+        DEFAULT_METRICS.semcache_entries.set(len(self._entries))
+        DEFAULT_METRICS.semcache_bytes.set(self.bytes)
 
     def snapshot(self) -> dict:
         with self._lock:

@@ -252,13 +252,27 @@ def build_handoff_frame(model, slot: int, prompt: np.ndarray, first_token: int, 
     """Export ``slot``'s prompt KV from ``model`` (one device-to-host
     fetch) and frame the handoff, with the speculation envelope when the
     model speculates and the v4 ``adapter`` bound to the slot, which its
-    KV was made through.  No v3 field is written."""
+    KV was made through.  The v3 envelope carries the caller's context as
+    the JAX package's does: the CURRENT ``traceparent`` (the engine's
+    ``handoff.export`` span, whose id is the frame's ``origin_span``, so
+    the decode engine's spans stitch under it), the remaining deadline
+    and the priority.  Run it in a thread with ``asyncio.to_thread``,
+    which copies the caller's context."""
+    from seldon_core_tpu_torch import qos
+    from seldon_core_tpu_torch.obs.spans import get_traceparent, parse_traceparent
+
     out = model.export_slot_kv(slot, int(np.asarray(prompt).size))
     k_scale, v_scale = (out[2], out[3]) if len(out) == 4 else (None, None)
+    tp = get_traceparent()
+    parsed = parse_traceparent(tp)
+    remaining = qos.remaining_s()
     return encode_handoff(
         prompt, first_token, out[0], out[1], block_size=model.kv_block_size,
         max_new_tokens=max_new_tokens, temperature=temperature, eos_id=eos_id,
-        k_scale=k_scale, v_scale=v_scale, spec_state=model.export_spec_state(slot),
+        k_scale=k_scale, v_scale=v_scale, traceparent=tp if parsed else None,
+        origin_span=parsed[1] if parsed else None,
+        deadline_ms=remaining * 1e3 if remaining is not None else None,
+        priority=qos.get_priority(), spec_state=model.export_spec_state(slot),
         adapter=model.slot_adapter(slot),
     )
 

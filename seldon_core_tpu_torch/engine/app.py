@@ -119,6 +119,26 @@ on its reply, its error or its client leaving.  ``GET /stats/qos``,
 ``/stats/cache``, ``/stats/usage`` (the usage meter), ``/stats/spans``
 and ``/stats/breakdown`` (per-stage latency and each generative unit's
 snapshot) serve the planes' state.
+
+The telemetry plane, with the JAX engine's routes and payloads: every
+reply of a traced request echoes its trace id in ``x-sct-trace-id`` (a
+request without a ``traceparent`` gets a fresh root trace), and its spans
+go to the exporters (``SCT_OTLP_ENDPOINT``: OTLP/HTTP JSON, bounded and
+drop-on-full).  ``GET /prometheus`` is the metric families of
+``utils/metrics.py`` (text 0.0.4, or OpenMetrics with trace-id exemplars
+under ``SCT_METRICS_EXEMPLARS=1``), the KV pool and usage families
+refreshed at the scrape; ``GET /stats/wire`` each transport edge's bytes
+(this front is ``engine-rest``, hops to remote units ``engine-node``),
+the event loop's lag and the host syncs by model; ``GET /stats/warmup``
+each unit's warm-up runs, seconds and programs, ``warmed``, ``error`` and
+``total_seconds``; ``GET /stats/summary`` the qos, breakdown, cache, wire
+and usage payloads and the mergeable stage histograms in one scrape;
+``GET /stats/timeline?trace=<id>`` every lifecycle timeline of a trace
+(``?n=`` the newest, ``SCT_TIMELINE=0`` turns them off).  ``POST
+/profile/start`` (``{"dir": path}``) and ``POST /profile/stop`` run
+``torch.profiler`` (CUDA activity too on the card) and write a Chrome
+trace into the directory at the stop: 409 for a second start or a stop
+with none running, 500 when the directory cannot be made.
 """
 
 from __future__ import annotations
@@ -130,7 +150,9 @@ import json
 import logging
 import os
 import random
+import tempfile
 import time
+import urllib.parse
 
 import numpy as np
 
@@ -163,8 +185,28 @@ from seldon_core_tpu_torch.executor.arbiter import get_arbiter
 from seldon_core_tpu_torch.executor.generation import AdapterUnavailable
 from seldon_core_tpu_torch.executor.memory import device_memory, host_memory
 from seldon_core_tpu_torch.graph.units import GraphUnitError
-from seldon_core_tpu_torch.obs import METER, RECORDER, STAGE_ENGINE_ROUTE
-from seldon_core_tpu_torch.obs.spans import TRACEPARENT_HEADER, set_traceparent
+from seldon_core_tpu_torch.obs import (
+    LOOP_LAG,
+    METER,
+    RECORDER,
+    STAGE_ENGINE_ROUTE,
+    TIMELINE,
+    WIRE,
+    WIRE_ENGINE_REST,
+    close_exporters,
+    configure_exporters_from_env,
+    set_engine_role,
+    set_process_role,
+    wire_stats_payload,
+)
+from seldon_core_tpu_torch.obs.spans import (
+    TRACE_RESPONSE_HEADER,
+    TRACEPARENT_HEADER,
+    current_trace_id,
+    outgoing_headers,
+    set_traceparent,
+)
+from seldon_core_tpu_torch.utils.metrics import DEFAULT as DEFAULT_METRICS
 from seldon_core_tpu_torch.qos.admission import QosRejection, QueueFull
 from seldon_core_tpu_torch.wire.h1server import (
     MAX_BODY,
@@ -298,18 +340,33 @@ class EngineApp:
             "pulls_ok": 0, "pulls_failed": 0, "pull_misses": 0, "pull_bytes": 0,
             "pull_blocks": 0, "serves_ok": 0, "serve_misses": 0,
         }
+        # the telemetry plane: the process's registry, this front's wire
+        # edge, the warmup's wall seconds, and the profiler /profile/* runs
+        self.metrics = DEFAULT_METRICS
+        self._wire = WIRE.counter(WIRE_ENGINE_REST, service.deployment_name)
+        self._warmup_total_s: float | None = None
+        self._planes = False  # start() took the lag probe and the exporters
+        self._profiler = None
+        self._profile_dir: str | None = None
 
     @property
     def port(self) -> int:
         return self._server.sockets[0].getsockname()[1]
 
     async def start(self, host: str, port: int) -> None:
-        """Listen (``/ping`` answers from here on)."""
+        """Listen (``/ping`` answers from here on), with the span exporters
+        the environment selects, this engine's role on spans recorded off a
+        request, and the event loop's lag probe."""
+        configure_exporters_from_env()
+        set_process_role(self.role)
         self._server = await asyncio.start_server(self._handle, host, port)
+        LOOP_LAG.start("engine")
+        self._planes = True
 
     async def boot(self) -> None:
         """Build the graph's units off the event loop (loading a model
         blocks), then warm them; ``/ready`` turns true after."""
+        t0 = time.perf_counter()
         try:
             await asyncio.to_thread(self.service.start)
             for svc in self.co_services:
@@ -330,6 +387,7 @@ class EngineApp:
         except Exception as e:
             self.boot_error = f"{type(e).__name__}: {e}"
             raise
+        self._warmup_total_s = round(time.perf_counter() - t0, 3)
         self.ready = True
 
     def _register_packed_units(self) -> None:
@@ -343,9 +401,18 @@ class EngineApp:
                 unit.register_packed()
 
     async def close(self) -> None:
+        planes, self._planes = self._planes, False
+        if planes:
+            LOOP_LAG.stop()
+        if self._profiler is not None:
+            with contextlib.suppress(Exception):
+                self._profiler.stop()
+            self._profiler = self._profile_dir = None
         if self._server is not None:
             self._server.close()
             await self._server.wait_closed()
+        if planes:
+            await close_exporters()
         for svc in self.co_services:
             await svc.close()
         await self.service.close()
@@ -353,11 +420,12 @@ class EngineApp:
             qos.set_active_controller(None)
 
     async def _route(self, method: str, path: str, body: bytes,
-                     headers: dict[str, str]) -> tuple:
+                     headers: dict[str, str], query: str = "") -> tuple:
         """-> ``(status, body, content type)``, plus a dict of extra
         response headers where a route sets some."""
         qos.seed_from_headers(headers.get(qos.DEADLINE_HEADER), headers.get(qos.PRIORITY_HEADER))
         set_traceparent(headers.get(TRACEPARENT_HEADER))
+        set_engine_role(self.role)
         if path.startswith("/disagg/") or path == "/stats/disagg":
             return await self._disagg_route(method, path, body, headers)
         if path == "/ping":
@@ -405,9 +473,109 @@ class EngineApp:
             if path == "/admin/drain":
                 return await self._admin_drain(body)
             return self._admin_undrain()
+        if path == "/prometheus":
+            return self._prometheus()
+        if path == "/stats/timeline":
+            return _json(200, self._timeline(urllib.parse.parse_qs(query)))
+        if path in ("/profile/start", "/profile/stop"):
+            if method != "POST":
+                return _json(405, failure_status_dict(405, f"POST to {path}"))
+            if path == "/profile/start":
+                return self._profile_start(body)
+            return await self._profile_stop()
         if path in self._STATS:
             return _json(200, self._STATS[path](self))
         return _json(404, failure_status_dict(404, f"no route {path}"))
+
+    # ------------------------------------------------------ telemetry plane
+
+    def _prometheus(self) -> tuple:
+        """The registry's exposition, after a scrape-time refresh of the KV
+        pool gauges (host bookkeeping, no device sync) and the usage
+        families; OpenMetrics with exemplars under SCT_METRICS_EXEMPLARS."""
+        for svc in (self.service, *self.co_services):
+            for unit in (svc.generative_units() if svc.walker is not None else []):
+                unit.model.pool_snapshot()
+        self.metrics.refresh_usage()
+        return 200, self.metrics.expose(), self.metrics.expose_content_type()
+
+    @staticmethod
+    def _timeline(q: dict) -> dict:
+        """``?trace=<id>``: every entry of that trace (a handoff's prefill
+        and decode legs apart); else the newest ``n`` (default 20, at most
+        200) and the ledger's counters."""
+        trace = (q.get("trace") or [""])[0]
+        if trace:
+            return {"timeline": TIMELINE.by_trace(trace)}
+        try:
+            n = int((q.get("n") or ["20"])[0])
+        except ValueError:
+            n = 20
+        return {"timeline": TIMELINE.recent(max(1, min(n, 200))), **TIMELINE.snapshot()}
+
+    def _warmup_payload(self) -> dict:
+        snap = self.service.warmup_snapshot()
+        snap.update(warmed=self.ready, error=self.boot_error,
+                    total_seconds=self._warmup_total_s)
+        return {"warmup": snap}
+
+    def _summary(self) -> dict:
+        """One scrape for a fleet collector: the qos, breakdown, cache,
+        wire and usage payloads and the mergeable stage histograms."""
+        return {
+            "qos": self.qos.snapshot(),
+            "breakdown": self._breakdown(),
+            "cache": self._cache_payload(),
+            "wire": wire_stats_payload(),
+            "usage": METER.snapshot(),
+            "stage_hist": RECORDER.stage_histograms(),
+        }
+
+    def _cache_payload(self) -> dict:
+        return {**self.service.cache_snapshot(), "prefix_pull": dict(self.prefix_pull_stats)}
+
+    def _profile_start(self, body: bytes) -> tuple:
+        """Start ``torch.profiler`` (CPU activity, and CUDA's on the card)
+        into ``dir`` (default ``$TMPDIR/sct-profile``); 409 while one runs,
+        500 when the directory cannot be made.  Start it on a warmed
+        engine: every CUDA graph is captured at warmup, and a capture under
+        the profiler would record the capture's kernels once, not the
+        replays."""
+        try:
+            obj = json.loads(body) if body.strip() else {}
+        except ValueError:
+            obj = {}
+        out_dir = (obj.get("dir") if isinstance(obj, dict) else None) or os.path.join(
+            tempfile.gettempdir(), "sct-profile")
+        if self._profiler is not None:
+            return _json(409, {"error": "profiler already running", "dir": self._profile_dir})
+        try:
+            os.makedirs(out_dir, exist_ok=True)
+            import torch
+
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if str(self.service.device).startswith("cuda"):
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+        except Exception as e:  # noqa: BLE001 - the operator's bad path: a 500
+            return _json(500, {"error": f"{type(e).__name__}: {e}"})
+        self._profiler, self._profile_dir = prof, out_dir
+        return _json(200, {"status": "profiling", "dir": out_dir})
+
+    async def _profile_stop(self) -> tuple:
+        """Stop the profiler (on the thread that started it) and write its
+        Chrome trace into the directory (``trace-<pid>-<ms>.json``) off the
+        event loop: a served wave's trace is tens of MB.  409 when none
+        runs."""
+        if self._profiler is None:
+            return _json(409, {"error": "profiler not running"})
+        prof, out_dir = self._profiler, self._profile_dir
+        self._profiler = self._profile_dir = None
+        path = os.path.join(out_dir, f"trace-{os.getpid()}-{int(time.time() * 1e3)}.json")
+        prof.stop()
+        await asyncio.to_thread(prof.export_chrome_trace, path)
+        return _json(200, {"status": "stopped", "dir": out_dir, "trace": path})
 
     # ------------------------------------------------------------ QoS plane
 
@@ -453,9 +621,11 @@ class EngineApp:
 
     _STATS = {
         "/stats/qos": lambda self: {"qos": self.qos.snapshot()},
-        "/stats/cache": lambda self: {"cache": {**self.service.cache_snapshot(),
-                                                "prefix_pull": dict(self.prefix_pull_stats)}},
+        "/stats/cache": lambda self: {"cache": self._cache_payload()},
         "/stats/usage": lambda self: {"usage": METER.snapshot()},
+        "/stats/wire": lambda self: wire_stats_payload(),
+        "/stats/warmup": lambda self: self._warmup_payload(),
+        "/stats/summary": lambda self: self._summary(),
         "/stats/spans": lambda self: RECORDER.stats(),
         "/stats/breakdown": lambda self: self._breakdown(),
         "/stats/chaos": lambda self: {"chaos": chaos.snapshot()},
@@ -510,9 +680,11 @@ class EngineApp:
         group of tokens, the closing event.  The connection closes after
         it (the body ends there: no length, no chunking)."""
         with stream.ticket:  # released when the stream ends, however it ends
+            tid = current_trace_id()
+            echo = f"{TRACE_RESPONSE_HEADER}: {tid}\r\n".encode() if tid else b""
             writer.write(b"HTTP/1.1 200 OK\r\nContent-Type: text/event-stream\r\n"
-                         b"Cache-Control: no-cache\r\nX-Accel-Buffering: no\r\n"
-                         b"Connection: close\r\n\r\n")
+                         b"Cache-Control: no-cache\r\nX-Accel-Buffering: no\r\n" + echo
+                         + b"Connection: close\r\n\r\n")
             self.stream_stats["streams"] += 1
             out: list[int] = []
             async with contextlib.aclosing(stream.groups) as groups:
@@ -776,23 +948,40 @@ class EngineApp:
                                    ) -> tuple[list[int], str]:
         """Prefill (through ``adapter``) into a pinned slot, export and POST
         the handoff, relay the peer's tokens.  The slot is released whatever
-        happens, and any failure decodes locally instead."""
+        happens, and any failure decodes locally instead.  Spans, as the
+        JAX engine's: ``disagg.prefill`` over the pinned prefill,
+        ``handoff.export`` over the export and framing (the frame's
+        ``traceparent`` is this span, so the decode engine's import span is
+        its child) and ``handoff.relay`` over the POST and the relay."""
         sched = unit.scheduler
-        slot, tok1 = await sched.submit_prefill(prompt, temperature=temperature, adapter=adapter)
+        dep = self.service.deployment_name
+        with RECORDER.span("disagg.prefill", service=dep) as psp:
+            slot, tok1 = await sched.submit_prefill(prompt, temperature=temperature,
+                                                    adapter=adapter)
+            if psp is not None:
+                psp.set_attr("slot", slot)
         try:
-            t0 = time.perf_counter()
-            frame = await asyncio.to_thread(
-                build_handoff_frame, unit.model, slot, prompt, tok1, max_new_tokens=max_new,
-                temperature=temperature, eos_id=eos)
-            self.disagg_stats["export_s"] += time.perf_counter() - t0
-            self.disagg_stats["handoff_bytes"] += len(frame)
-            tokens = await self._send_handoff(frame)
+            with RECORDER.span("handoff.export", service=dep) as esp:
+                t0 = time.perf_counter()
+                # the export runs in this span's context (to_thread copies
+                # the context): the frame names this span as its origin
+                frame = await asyncio.to_thread(
+                    build_handoff_frame, unit.model, slot, prompt, tok1, max_new_tokens=max_new,
+                    temperature=temperature, eos_id=eos)
+                self.disagg_stats["export_s"] += time.perf_counter() - t0
+                self.disagg_stats["handoff_bytes"] += len(frame)
+                if esp is not None:
+                    esp.set_attr("bytes", len(frame))
+                TIMELINE.note(current_trace_id(), "handoff-export", bytes=len(frame), slot=slot)
+            with RECORDER.span("handoff.relay", service=dep):
+                tokens = await self._send_handoff(frame)
             self.disagg_stats["handoffs_ok"] += 1
             return tokens, "disagg"
         except asyncio.CancelledError:
             raise
         except Exception as e:  # noqa: BLE001 - the request falls back, never fails
             self.disagg_stats["handoffs_failed"] += 1
+            TIMELINE.note(current_trace_id(), "handoff-failed", error=str(e)[:200])
             log.warning("KV handoff failed (%s: %s); decoding locally", type(e).__name__, e)
         finally:
             sched.release_external(slot)
@@ -805,7 +994,8 @@ class EngineApp:
                             extra_headers: dict[str, str] | None = None) -> list[int]:
         """POST one frame to ``target``, by default a decode peer (the one
         configured, or the less busy of two picked at random), with the
-        request's QoS headers and ``extra_headers``, and return its tokens.
+        request's ``traceparent``, its QoS headers and ``extra_headers``,
+        and return its tokens.
         The chaos site ``disagg.handoff.send`` may fail or tear the frame
         here."""
         if target is None:
@@ -815,7 +1005,7 @@ class EngineApp:
             else:
                 a, b = random.sample(ups, 2)
                 target = min((a, b), key=lambda u: self._handoff_inflight.get(u, 0))
-        headers = {**qos.outgoing_qos_headers(), **(extra_headers or {})}
+        headers = {**outgoing_headers(), **qos.outgoing_qos_headers(), **(extra_headers or {})}
         if chaos.ENABLED:
             # a raise lands in the caller's fallback, a torn frame is refused
             # by the importer's codec check
@@ -841,6 +1031,12 @@ class EngineApp:
             self.disagg_stats["imports_failed"] += 1
             return _json(400, failure_status_dict(400, f"bad handoff frame: {e}"))
         self.disagg_stats["import_decode_s"] += time.perf_counter() - t0
+        # the frame's traceparent (the prefill engine's export span) wins over
+        # the header: the import and decode spans and the timeline stitch
+        # under the original request even when a hop dropped the header
+        frame_tp = payload.get("traceparent")
+        if frame_tp:
+            set_traceparent(str(frame_tp))
         drain_seed = headers.get("x-sct-drain-seed")
         if drain_seed is not None:
             # a drain's migration: the source's seed counter, so a sampled
@@ -849,17 +1045,21 @@ class EngineApp:
                 unit.scheduler.adopt_seed(int(drain_seed))
             except ValueError:
                 return _json(400, failure_status_dict(400, "bad x-sct-drain-seed"))
-        try:
-            out = await apply_handoff(unit, payload)
-        except HandoffError as e:  # a good frame for another pool
-            self.disagg_stats["imports_failed"] += 1
-            return _json(409, failure_status_dict(409, str(e)))
-        except QueueFull as e:
-            self.disagg_stats["imports_failed"] += 1
-            return _json(429, failure_status_dict(429, str(e)))
-        except GraphUnitError as e:
-            self.disagg_stats["imports_failed"] += 1
-            return _json(500, failure_status_dict(500, str(e)))
+        with RECORDER.span("disagg.import", service=self.service.deployment_name) as isp:
+            if isp is not None:
+                isp.set_attr("handoff.version", int(payload.get("hv", 1)))
+                if payload.get("origin_span"):
+                    isp.set_attr("origin_span_id", str(payload["origin_span"]))
+            try:
+                out = await apply_handoff(unit, payload)
+            except (HandoffError, QueueFull, GraphUnitError) as e:
+                self.disagg_stats["imports_failed"] += 1
+                if isp is not None:
+                    isp.set_status("ERROR")
+                # a good frame for another pool: 409; a full queue: 429
+                code = (409 if isinstance(e, HandoffError) else 429 if isinstance(e, QueueFull)
+                        else 500)
+                return _json(code, failure_status_dict(code, str(e)))
         self.disagg_stats["imports_ok"] += 1
         return _json(200, {"tokens": [int(t) for t in out]})
 
@@ -959,6 +1159,8 @@ class EngineApp:
             self.prefix_pull_stats["pulls_ok"] += 1
             self.prefix_pull_stats["pull_bytes"] += len(frame)
             self.prefix_pull_stats["pull_blocks"] += int(absorbed)
+            TIMELINE.note(current_trace_id(), "prefix-pull", peer=peer, blocks=int(absorbed),
+                          bytes=len(frame))
             return absorbed > 0
         except asyncio.CancelledError:
             raise
@@ -966,6 +1168,8 @@ class EngineApp:
             self.prefix_pull_stats["pulls_failed"] += 1
             log.warning("peer prefix pull from %s failed (%s: %s); prefilling", peer,
                         type(e).__name__, e)
+            TIMELINE.note(current_trace_id(), "prefix-pull-failed", peer=peer,
+                          error=str(e)[:200])
             return False
 
     # ----------------------------------------------------------- live drain
@@ -1071,6 +1275,24 @@ class EngineApp:
         self._drain_state = None
         return _json(200, {"draining": False, "resuming": True})
 
+    # the routes timed in seldon_api_engine_server_requests_duration_seconds,
+    # by the JAX engine's service names
+    _SERVICES = {
+        "/api/v0.1/predictions": "predictions", "/api/v1.0/predictions": "predictions",
+        "/api/v0.1/predictions/stream": "predictions_stream",
+        "/api/v0.1/embeddings": "embeddings", "/api/v0.1/feedback": "feedback",
+        "/api/v1.0/feedback": "feedback", "/disagg/generate": "disagg_generate",
+        "/disagg/import": "disagg_import", "/disagg/prefix/pull": "disagg_prefix_pull",
+        "/admin/drain": "admin_drain", "/admin/undrain": "admin_undrain",
+    }
+
+    def _note_request(self, path: str, method: str, status: int, t0: float) -> None:
+        service = self._SERVICES.get(path)
+        if service is not None:
+            self.metrics.server_requests.labels(
+                self.service.deployment_name, self.service.predictor.name, service, method,
+                str(status)).observe(time.perf_counter() - t0)
+
     @staticmethod
     async def _until_disconnect(reader: asyncio.StreamReader, coro):
         """Run a route in this task, and cancel it when the client closes the
@@ -1116,15 +1338,17 @@ class EngineApp:
                     break
                 if req is None:
                     break
-                method, path, version, headers, body = req
+                method, path, version, headers, body, query = req
                 keep = keep_alive(version, headers)
+                t0 = time.perf_counter()
                 try:
                     reply = await self._until_disconnect(
-                        reader, self._route(method, path, body, headers))
+                        reader, self._route(method, path, body, headers, query))
                     if reply is None:  # the client left: its request was cancelled
                         break
                     if isinstance(reply, _EventStream):
                         await self._send_events(writer, reply)
+                        self._note_request(path, method, 200, t0)
                         break
                     status, payload, ctype, *extra = reply
                 except Exception as e:  # noqa: BLE001 - the connection must get an answer
@@ -1133,8 +1357,16 @@ class EngineApp:
                         500, failure_status_dict(500, f"{type(e).__name__}: {e}")
                     )
                     extra = []
-                writer.write(response(status, payload, ctype, keep, *extra))
+                more = dict(extra[0]) if extra else {}
+                tid = current_trace_id()
+                if tid:
+                    more[TRACE_RESPONSE_HEADER] = tid
+                writer.write(response(status, payload, ctype, keep, more))
                 await writer.drain()
+                # the front's wire edge: request and reply bodies
+                self._wire.record(bytes_in=len(body), bytes_out=len(payload),
+                                  duration_s=time.perf_counter() - t0)
+                self._note_request(path, method, status, t0)
                 if not keep:
                     break
         except (ConnectionError, asyncio.IncompleteReadError):

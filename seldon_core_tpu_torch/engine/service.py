@@ -35,6 +35,8 @@ from seldon_core_tpu_torch.contract.payload import FeedbackPayload, Payload
 from seldon_core_tpu_torch.engine.transport import TransportManager
 from seldon_core_tpu_torch.graph.spec import PredictorSpec
 from seldon_core_tpu_torch.graph.walker import GraphWalker
+from seldon_core_tpu_torch.utils.metrics import DEFAULT as DEFAULT_METRICS
+from seldon_core_tpu_torch.utils.metrics import MetricsRegistry
 
 ENGINE_PREDICTOR_ENV = "ENGINE_PREDICTOR"
 # chip packing: a base64 JSON list of ADDITIONAL predictor specs booted in
@@ -91,8 +93,10 @@ class PredictionService:
 
     def __init__(self, predictor: PredictorSpec, *, device: str = "cuda",
                  components: dict[str, Any] | None = None,
-                 transport_timeout_s: float = 5.0):
+                 transport_timeout_s: float = 5.0, metrics: MetricsRegistry | None = None):
         self.predictor = predictor
+        self.metrics = metrics or DEFAULT_METRICS
+        self.warmup_report: dict[str, int] = {}
         self.deployment_name = predictor.name
         self.device = device
         self._components = components or {}
@@ -109,6 +113,7 @@ class PredictionService:
     def start(self) -> None:
         self.walker = GraphWalker(self.predictor.graph, components=self._components,
                                   client_factory=self.transports.client_factory,
+                                  feedback_hook=self._on_feedback,
                                   device=self.device, node_cache=self.node_cache)
 
     def _walker(self) -> GraphWalker:
@@ -117,13 +122,32 @@ class PredictionService:
         return self.walker
 
     async def warmup(self) -> dict[str, int]:
-        return await self._walker().warmup()
+        self.warmup_report = await self._walker().warmup()
+        return self.warmup_report
+
+    def warmup_snapshot(self) -> dict[str, Any]:
+        """``GET /stats/warmup``'s per-unit part: warm-up runs, wall
+        seconds, and the programs (buckets, window graphs) each made."""
+        w = self.walker
+        return {"programs": dict(self.warmup_report),
+                "seconds": dict(w.warmup_seconds) if w is not None else None,
+                "variants": dict(w.warmup_variants) if w is not None else None}
+
+    def _on_feedback(self, unit_name: str, fb: FeedbackPayload) -> None:
+        self.metrics.feedback.labels(self.deployment_name, self.predictor.name,
+                                     unit_name).inc()
+        self.metrics.feedback_reward.labels(self.deployment_name, self.predictor.name,
+                                            unit_name).inc(fb.reward)
 
     async def predict(self, payload: Payload) -> Payload:
         walker = self._walker()
         if not payload.meta.puid:
             payload.meta.puid = uuid.uuid4().hex
-        return await walker.predict(payload)
+        out = await walker.predict(payload)
+        if out.meta.metrics:  # a user model's custom metrics
+            self.metrics.record_custom(self.deployment_name, self.predictor.name,
+                                       self.predictor.graph.name, out.meta.metrics)
+        return out
 
     async def send_feedback(self, fb: FeedbackPayload) -> None:
         """Replay the routed path of ``fb.response`` with its reward."""

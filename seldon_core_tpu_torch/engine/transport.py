@@ -11,8 +11,9 @@ failures a bounded number of times: any method when the connection was
 never made, and only the pure methods (``/predict``, ``/aggregate``) when
 the request may have reached the unit.
 
-GRPC endpoints are refused by name (no gRPC transport in the port yet),
-and the hop's wire counter is not kept (no ``obs/wire.py`` yet).
+GRPC endpoints are refused by name (no gRPC transport in the port yet).
+Every hop's request and reply bytes count on the ``engine-node`` wire
+edge of its unit (``obs/wire.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import asyncio
 import json
 import random
+import time
 from typing import Any
 
 import numpy as np
@@ -34,6 +36,7 @@ from seldon_core_tpu_torch.graph.spec import PredictiveUnitSpec, TransportType, 
 from seldon_core_tpu_torch.graph.units import GraphUnitError
 from seldon_core_tpu_torch.graph.walker import ROUTE_ALL, default_client_factory
 from seldon_core_tpu_torch.obs.spans import TRACEPARENT_HEADER, get_traceparent
+from seldon_core_tpu_torch.obs.wire import WIRE, WIRE_ENGINE_NODE
 from seldon_core_tpu_torch.qos.context import outgoing_qos_headers
 from seldon_core_tpu_torch.wire.h1client import H1ConnectError, H1Pool, H1SentError
 
@@ -97,6 +100,8 @@ class RestNodeClient:
         self.timeout_s = timeout_s
         ep = spec.endpoint
         self.base = f"http://{ep.service_host}:{ep.service_port}"
+        # the hop's wire accounting (client edge: out = request, in = reply)
+        self._wire = WIRE.counter(WIRE_ENGINE_NODE, spec.name)
 
     async def _post(self, path: str, body: dict[str, Any], idempotent: bool) -> dict[str, Any]:
         return await retry_loop(lambda: self._post_once(path, body), idempotent=idempotent)
@@ -108,15 +113,18 @@ class RestNodeClient:
         if tp:
             headers[TRACEPARENT_HEADER] = tp
         name = self.spec.name
+        raw = json.dumps(body).encode()
+        t0 = time.perf_counter()
         try:
-            resp = await self.pool.post(path, json.dumps(body).encode(), headers,
-                                        timeout=self.timeout_s)
+            resp = await self.pool.post(path, raw, headers, timeout=self.timeout_s)
         except H1ConnectError as e:
             raise _RetryableConnect(
                 RemoteUnitError(f"unit {name!r} {path} unreachable: {e}")) from e
         except (H1SentError, asyncio.TimeoutError) as e:
             raise _RetryableSent(
                 RemoteUnitError(f"unit {name!r} {path} failed: {type(e).__name__}: {e}")) from e
+        self._wire.record(bytes_in=len(resp.body), bytes_out=len(raw),
+                          duration_s=time.perf_counter() - t0)
         try:
             data = json.loads(resp.body)
         except ValueError as e:

@@ -26,9 +26,12 @@ active admission controller), and a cancelled request is skipped: no
 device step is spent on either.
 
 Each step records the flight recorder's batch-assembly, queue-wait,
-device-step and device-dispatch stages, and charges its device seconds
-(the step's wall time less the host dispatch) to the queue's deployment
-in the usage meter.  Left out here: the obs spans and the MFU gauge.
+device-step and device-dispatch stages, charges its device seconds (the
+step's wall time less the host dispatch) to the queue's deployment in the
+usage meter, counts its one host sync (``obs/probes.py``) and feeds the
+``seldon_executor_*`` families: queue wait, batch size, queue depth,
+device step, the device's share of the step and, with ``flops_per_row``
+set and a known card, the MFU.  Left out here: the obs spans.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from typing import Callable
 import numpy as np
 
 from seldon_core_tpu_torch.obs.metering import METER
+from seldon_core_tpu_torch.obs.probes import record_host_sync
 from seldon_core_tpu_torch.obs.spans import (
     RECORDER,
     STAGE_BATCH_ASSEMBLY,
@@ -52,6 +56,8 @@ from seldon_core_tpu_torch.obs.spans import (
 )
 from seldon_core_tpu_torch.qos.admission import DeadlineExceeded, QueueFull, note_deadline_miss
 from seldon_core_tpu_torch.qos.context import get_deadline
+from seldon_core_tpu_torch.utils.metrics import DEFAULT as DEFAULT_METRICS
+from seldon_core_tpu_torch.utils.roofline import chip_peak_flops
 
 
 class BatchQueue:
@@ -89,6 +95,19 @@ class BatchQueue:
         self.steps = 0  # device steps run
         self.rows = 0  # rows those steps carried
         self.deadline_drops = 0  # requests failed with DeadlineExceeded
+        self.last_step: tuple[int, float] | None = None  # (rows, device seconds)
+        # FLOPs a row costs (the component sets it from the roofline's
+        # count) and the card's peak: the MFU gauge's inputs
+        self.flops_per_row: float | None = getattr(runner, "flops_per_row", None)
+        device = getattr(runner, "device", None)
+        self._peak = chip_peak_flops(device) if device is not None else None
+        m = DEFAULT_METRICS
+        self._m_queue_wait = m.queue_wait.labels(name)
+        self._m_device_step = m.device_step.labels(name)
+        self._m_batch_size = m.batch_size.labels(name)
+        self._m_queue_depth = m.queue_depth.labels(name)
+        self._m_mfu = m.mfu.labels(name)
+        self._m_device_frac = m.device_frac.labels(name)
 
     # ------------------------------------------------------------- lifecycle
     def _ensure_running(self) -> None:
@@ -131,6 +150,7 @@ class BatchQueue:
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         # the deadline rides the item: the step loop runs in its own context
         await self._queue.put((x, fut, time.perf_counter(), get_deadline()))
+        self._m_queue_depth.set(self._queue.qsize())
         return await fut
 
     # ------------------------------------------------------------- internals
@@ -154,6 +174,7 @@ class BatchQueue:
                 f"batch queue {self.name!r}"))
             self.deadline_drops += 1
             note_deadline_miss("batch-queue")
+            DEFAULT_METRICS.qos_deadline_miss.labels(self.name, "batch-queue").inc()
             return False
         return True
 
@@ -242,6 +263,8 @@ class BatchQueue:
         t_step0 = time.perf_counter()
         for _, _, t_enq, _ in group:
             RECORDER.record_stage(STAGE_QUEUE_WAIT, t_step0 - t_enq)
+            self._m_queue_wait.observe(t_step0 - t_enq)
+        self._m_batch_size.observe(batch.shape[0])
         split = [0.0]  # the host dispatch's seconds, from the pool thread
         try:
             try:
@@ -270,11 +293,19 @@ class BatchQueue:
                 return
             step_s = time.perf_counter() - t_step0
             RECORDER.record_stage(STAGE_DEVICE_STEP, step_s)
+            self._m_device_step.observe(step_s)
+            record_host_sync(self.name)  # the step's one fetch
             dispatch_s = split[0]
-            METER.add(self.name, device_s=step_s - dispatch_s
-                      if 0 < dispatch_s < step_s else step_s)
+            device_s = step_s - dispatch_s if 0 < dispatch_s < step_s else step_s
+            METER.add(self.name, device_s=device_s)
             if dispatch_s > 0:
                 RECORDER.record_stage(STAGE_DEVICE_DISPATCH, dispatch_s)
+                self._m_device_frac.set(device_s / step_s if step_s > 0 else 0.0)
+            self.last_step = (batch.shape[0], device_s)
+            if self.flops_per_row and device_s > 0 and self._peak is not None:
+                # the MFU against the step's device time (less the host's
+                # dispatch), on the host's timestamps around the one fetch
+                self._m_mfu.set(batch.shape[0] * self.flops_per_row / device_s / self._peak)
             self.steps += 1
             self.rows += batch.shape[0]
             out = np.asarray(out)

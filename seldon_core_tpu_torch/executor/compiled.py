@@ -32,6 +32,8 @@ from torch import nn
 
 from seldon_core_tpu_torch import capture_section, resolve_device
 from seldon_core_tpu_torch.models.zoo import cast_floats
+from seldon_core_tpu_torch.obs.spans import RECORDER, make_trace_id
+from seldon_core_tpu_torch.utils.metrics import DEFAULT as DEFAULT_METRICS
 
 # pinned staging slots per graph: the batching queue keeps up to
 # SCT_BATCH_PIPELINE (default 8) steps of one model in flight
@@ -90,6 +92,7 @@ class CompiledModel:
         self.program_compiles = 0
         self.program_hits = 0
         self.host_syncs = 0
+        self._in_warmup = False
 
     # ----------------------------------------------------------------- calls
     def check(self, batch: np.ndarray) -> None:
@@ -180,6 +183,13 @@ class CompiledModel:
         if entry is None:
             entry = self._graphs[key] = self._capture(bucket, shape, dtype)
             self.program_compiles += 1
+            DEFAULT_METRICS.program_compiles.labels(self.name).inc()
+            if not self._in_warmup:  # a request paid for this capture
+                s = entry["capture_s"]
+                RECORDER.record_span("program.compile", trace_id=make_trace_id(),
+                                     parent_id=None, start=time.time() - s, duration_s=s,
+                                     service=self.name,
+                                     attrs={"variant": f"bucket={bucket}", "model": self.name})
         else:
             self.program_hits += 1
         return entry
@@ -223,9 +233,13 @@ class CompiledModel:
     def warmup(self, feature_shape: tuple[int, ...], dtype: Any = np.float32) -> int:
         """Run (on the card: capture) every bucket, one after another, in
         ``dtype``; returns the number of buckets."""
-        for b in self.buckets.sizes:
-            x = np.zeros((b,) + tuple(feature_shape), dtype=dtype)
-            self.fetch(*self.dispatch(x))
+        self._in_warmup = True
+        try:
+            for b in self.buckets.sizes:
+                x = np.zeros((b,) + tuple(feature_shape), dtype=dtype)
+                self.fetch(*self.dispatch(x))
+        finally:
+            self._in_warmup = False
         return len(self.buckets.sizes)
 
     def program_snapshot(self) -> dict:

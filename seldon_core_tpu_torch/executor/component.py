@@ -13,6 +13,7 @@ import asyncio
 from typing import Any
 
 import numpy as np
+import torch
 
 from seldon_core_tpu_torch.executor.batcher import BatchQueue
 from seldon_core_tpu_torch.executor.compiled import CompiledModel
@@ -54,7 +55,19 @@ class ModelComponent(SeldonComponent):
         if self.warmup_example is None:
             return 0
         ex = np.asarray(self.warmup_example)
+        if self.queue is not None and self.queue.flops_per_row is None:
+            # the MFU gauge's FLOPs: the roofline's count of one row's forward
+            # in the warm-up example's shape
+            from seldon_core_tpu_torch.utils.roofline import count_flops
+
+            x = torch.from_numpy(np.ascontiguousarray(self.model._host_batch(ex[:1])))
+            x = x.to(self.model.device)
+            self.queue.flops_per_row = float(count_flops(lambda: self.model._forward(x))[0])
         return self.model.warmup(ex.shape[1:], ex.dtype)
+
+    def warmup_variants(self) -> list[str]:
+        """The programs warmup made: one a batch bucket."""
+        return [f"bucket:{b}" for b in self.model.buckets.sizes]
 
     async def predict(self, X: np.ndarray, names: list[str]) -> np.ndarray:
         X = np.asarray(X)

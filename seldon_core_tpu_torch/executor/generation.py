@@ -64,7 +64,16 @@ The paged path of the JAX package's ``executor/generation.py``:
   drained scheduler exports its live slots as handoff frames into a
   host-DRAM suspend store (``cache/tiers.py``) at a sync point and frees
   their blocks, and resumes them through the import path, bit-exactly,
-  here or on a peer.
+  here or on a peer;
+* **telemetry**: at the one fetch of each block the model counts a host
+  sync (``obs/probes.py``), observes the device step and sets the MFU
+  gauge (about 2 x params FLOPs a token over the block's CUDA-event
+  seconds and the card's peak, ``utils/roofline.py``); the scheduler
+  writes each request's lifecycle timeline (``obs/timeline.py``: queued,
+  admit with the reservation's reuse depth, chunks, blocks with
+  speculation's split, overlap breaks, preempt/suspend/resume, the
+  terminal reason and what the request spent) and feeds the TTFT,
+  inter-token and token families, all from values the host holds.
 
 ``GenerationScheduler`` is the asyncio front (``submit(prompt) ->
 generated ids``, with an ``on_token`` hook per delivered token);
@@ -110,13 +119,26 @@ from seldon_core_tpu_torch.models import llama
 from seldon_core_tpu_torch.models.registry import resolve_config
 from seldon_core_tpu_torch.models.weights import init_params
 from seldon_core_tpu_torch.obs.metering import METER
+from seldon_core_tpu_torch.obs.probes import record_host_sync
 from seldon_core_tpu_torch.obs.spans import (
     RECORDER,
     STAGE_DEVICE_STEP,
     STAGE_QUEUE_WAIT,
     STAGE_TTFT,
+    current_span,
+    current_trace_id,
+    make_trace_id,
+)
+from seldon_core_tpu_torch.obs.timeline import (
+    EVENT_PREEMPT,
+    EVENT_RESUME,
+    EVENT_SUSPEND,
+    TIMELINE,
 )
 from seldon_core_tpu_torch.ops import _build, paged_attention
+from seldon_core_tpu_torch.utils.metrics import DEFAULT as DEFAULT_METRICS
+from seldon_core_tpu_torch.utils.metrics import observe_exemplar
+from seldon_core_tpu_torch.utils.roofline import chip_peak_flops
 from seldon_core_tpu_torch.qos.admission import DeadlineExceeded, QueueFull
 
 log = logging.getLogger(__name__)
@@ -312,6 +334,7 @@ class GenerativeModel:
         self._slot_matched: dict[int, int] = {}
         # (prefix tokens spared, tier) per reservation, for the usage meter
         self._slot_saved: dict[int, tuple[int, str]] = {}
+        self._slot_promoted: dict[int, int] = {}
         self._slot_filled: set[int] = set()
         self._slot_row: dict[int, np.ndarray] = {}  # the reservation's table row
         # the host-DRAM tier under the index (cache/tiers.py): evicted
@@ -390,6 +413,20 @@ class GenerativeModel:
         self._zero_tier_counters()
         self._reserve_memory(memory)
         self._register_declared(lora_adapters)
+        # the metric sinks, fed at the host's sync points only (never inside
+        # a captured graph: a capture runs host code once, a replay never).
+        # Decode FLOPs are about 2 x params a token; the MFU gauge divides
+        # them by the block's measured seconds and the card's peak (none off
+        # a known card: the gauge then stays unset)
+        self.flops_per_token = 2.0 * sum(p.numel() for p in self.params.parameters())
+        self._peak_flops = chip_peak_flops(self.device)
+        self._m_device_step = DEFAULT_METRICS.device_step.labels(name)
+        self._m_mfu = DEFAULT_METRICS.mfu.labels(name)
+        self._m_itl = DEFAULT_METRICS.itl.labels(name)
+        self._blocks_high_water = 0
+        self._in_warmup = False
+        DEFAULT_METRICS.kv_slots_per_chip.labels(name).set(
+            self.kv_slots_per_chip(hbm_budget_bytes(self.device)))
 
     def _zero_tier_counters(self) -> None:
         self.imports = 0  # handoffs imported into this pool
@@ -827,8 +864,9 @@ class GenerativeModel:
         """The per-adapter served-token ledger (the scheduler's delivery
         loop), by NAME: a request that finished inside the delivered block
         has already released its slot."""
-        if self.lora_pool is not None and adapter:
-            self.lora_pool.note_tokens_name(adapter, n)
+        if self.lora_pool is not None and adapter and self.lora_pool.note_tokens_name(adapter, n):
+            DEFAULT_METRICS.lora_tokens.labels(
+                self.name, DEFAULT_METRICS.adapter_label(adapter)).inc(int(n))
 
     def slot_adapter(self, slot: int) -> str | None:
         """The resident adapter bound to ``slot`` (None: the base model)."""
@@ -844,6 +882,10 @@ class GenerativeModel:
             return None
         snap = self.lora_pool.snapshot()
         snap["bytes"] = self.lora_bytes
+        m = DEFAULT_METRICS
+        m.lora_resident.labels(self.name).set(snap["resident"])
+        m.lora_evictions.labels(self.name).set(snap["evictions"])
+        m.lora_bytes.labels(self.name).set(self.lora_bytes)
         return snap
 
     # ------------------------------------------------------- memory ledger
@@ -892,6 +934,7 @@ class GenerativeModel:
     def _note_dram_bytes(self, nbytes: int) -> None:
         """The prefix tier's byte callback (``prefix_dram``)."""
         self._note_host_bytes("prefix_dram", nbytes)
+        DEFAULT_METRICS.prefix_tier_bytes.labels(self.name, "dram").set(int(nbytes))
 
     def note_suspend_bytes(self, nbytes: int) -> None:
         """The suspend store's byte callback (``suspend_dram``)."""
@@ -906,20 +949,33 @@ class GenerativeModel:
         }
 
     def pool_snapshot(self) -> dict:
-        """The pool's blocks and byte classes beside the card's ledger."""
+        """The pool's blocks and byte classes beside the card's ledger; also
+        refreshes the ``seldon_kv_*`` gauges (a scrape's, never the decode
+        path's)."""
         with self._lock:
-            return {
+            snap = {
                 "blocks": {"total": self.kv_blocks - 1, "free": len(self._free_blocks),
                            "prefix_index": (len(self.prefix_index)
                                             if self.prefix_index is not None else 0),
                            "slots": sum(len(b) for b in self._slot_blocks.values()),
+                           "high_water": self._blocks_high_water,
                            "block_size": self.kv_block_size},
                 "bytes": {**self._byte_classes(),
                           "prefix_dram": (self.host_store.bytes
                                           if self.host_store is not None else 0),
                           "per_slot": self.kv_bytes_per_slot()},
                 "hbm": self.memory.snapshot(),
+                "prefix_evictions": (self.prefix_index.evicted
+                                     if self.prefix_index is not None else 0),
             }
+        m, b = DEFAULT_METRICS, snap["blocks"]
+        for state in ("free", "prefix_index", "slots"):
+            m.kv_blocks.labels(self.name, state).set(b[state])
+        m.kv_blocks_high_water.labels(self.name).set(b["high_water"])
+        for cls in ("weights", "kv_pool", "kv_scales", "adapter_pool"):
+            m.kv_bytes.labels(self.name, cls).set(snap["bytes"].get(cls, 0))
+        m.kv_prefix_evictions.labels(self.name).set(snap["prefix_evictions"])
+        return snap
 
     # ------------------------------------------------------------ helpers
 
@@ -1016,7 +1072,12 @@ class GenerativeModel:
             row[: len(matched)] = matched
             row[len(matched):need] = got
             self._slot_row[slot] = row.copy()
+            self._slot_promoted[slot] = n_promoted
+            used = (self.kv_blocks - 1) - len(self._free_blocks)
+            self._blocks_high_water = max(self._blocks_high_water, used)
             prefix_len = (len(matched) + n_promoted) * self.kv_block_size
+            if prefix_len:
+                DEFAULT_METRICS.prefix_tokens_reused.labels(self.name).inc(prefix_len)
             if self.prefix_index is not None and prompt is not None:
                 self._slot_prompt[slot] = np.asarray(prompt, np.int32).copy()
                 self._slot_matched[slot] = len(matched)
@@ -1026,6 +1087,22 @@ class GenerativeModel:
                         else "hbm" if matched else "none")
                 self._slot_saved[slot] = (prefix_len, tier)
         return row, prefix_len
+
+    def reservation_snapshot(self, slot: int) -> dict | None:
+        """The host's bookkeeping of ``slot``'s reservation (None when it
+        holds none): the timeline's admit event."""
+        slot = int(slot)
+        if self._slot_row.get(slot) is None:
+            return None
+        matched = self._slot_matched.get(slot, 0)
+        promoted = self._slot_promoted.get(slot, 0)
+        return {
+            "blocks_reused": matched,
+            "blocks_promoted": promoted,
+            "blocks_allocated": len(self._slot_blocks.get(slot, ())),
+            "prefix_tokens": (matched + promoted) * self.kv_block_size,
+            "tier": self._slot_saved.get(slot, (0, "none"))[1],
+        }
 
     def reservation_saved(self, slot: int) -> tuple[int, str]:
         """``(prefix tokens not prefilled, tier)`` of ``slot``'s reservation:
@@ -1044,6 +1121,7 @@ class GenerativeModel:
         with self._lock:  # the event loop releases while admissions run in a thread
             matched = self._slot_matched.pop(slot, 0)
             self._slot_saved.pop(slot, None)
+            self._slot_promoted.pop(slot, None)
             prompt = self._slot_prompt.pop(slot, None)
             blocks = self._slot_blocks.pop(slot, None)
             salt = self._slot_salt.pop(slot, b"")
@@ -1069,6 +1147,8 @@ class GenerativeModel:
                     absorbed = set(insertable) - set(rejected)
                     blocks = [b for b in blocks if b not in absorbed]
             self._free_blocks.extend(blocks)
+            if self.prefix_index is not None:
+                DEFAULT_METRICS.prefix_blocks.labels(self.name).set(len(self.prefix_index))
 
     @property
     def free_block_count(self) -> int:
@@ -1762,9 +1842,22 @@ class GenerativeModel:
         if entry is None:
             entry = self._graphs[key] = self._capture(k, window)
             self.program_compiles += 1
+            self._note_capture(f"decode k={k} window={window}", entry["capture_s"])
         else:
             self.program_hits += 1
         return entry
+
+    def _note_capture(self, label: str, seconds: float) -> None:
+        """Count a capture in ``seldon_program_compiles``; one after warmup
+        (a request paid for it) also records a ``program.compile`` span."""
+        DEFAULT_METRICS.program_compiles.labels(self.name).inc()
+        if not self._in_warmup:
+            RECORDER.record_span("program.compile", trace_id=make_trace_id(), parent_id=None,
+                                 start=time.time() - seconds, duration_s=seconds,
+                                 service=self.name,
+                                 attrs={"variant": label, "model": self.name})
+            log.warning("generative model %r: capture after warmup, %s (%.3f s)",
+                        self.name, label, seconds)
 
     def _capture(self, k: int, window: int) -> dict:
         """Capture the block body for ``(k, window)``.  The body runs once
@@ -1940,21 +2033,45 @@ class GenerativeModel:
         out = host.numpy().copy()  # the buffer serves the block after next
         tps = self._tps
         self.last_conf_seq = out[2].view(np.float32) if self.conf_signal else None
+        emitted_n = int(out[1].sum())
         with self._lock:
             self.host_syncs += 1
             self.decode_blocks += 1
             self.last_block_s = seconds
             self.block_seconds += seconds
             RECORDER.record_stage(STAGE_DEVICE_STEP, seconds)
-            self.tokens_emitted += int(out[1].sum())
+            self.tokens_emitted += emitted_n
             if self.spec_draft and act_np.any():
                 emitted = out[1].sum(axis=0).astype(np.int64)
                 self._pos_ceiling[act_np] -= k * tps - emitted[act_np]
                 # productive passes only: a slot that finished mid-block
                 # rides the rest of it inactive, as in the plain path
+                productive = int(out[1].reshape(k, tps, -1).any(axis=1).sum())
                 self.spec_emitted_tokens += int(emitted.sum())
-                self.spec_verify_passes += int(out[1].reshape(k, tps, -1).any(axis=1).sum())
+                self.spec_verify_passes += productive
+                self._note_spec(int(emitted.sum()), productive)
+        # the metric sinks: host values of this one fetch, no other sync
+        record_host_sync(self.name)
+        self._m_device_step.observe(seconds)
+        if emitted_n and seconds > 0 and self._peak_flops:
+            self._m_mfu.set(emitted_n * self.flops_per_token / seconds / self._peak_flops)
         return out[0], out[1].astype(bool)
+
+    def _note_spec(self, emitted: int, passes: int) -> None:
+        """The acceptance ledger's families, plain and by proposer."""
+        m, name = DEFAULT_METRICS, self.name
+        method = self.spec_method or "ngram"
+        ratio = self.spec_emitted_tokens / max(1, self.spec_verify_passes)
+        m.spec_emitted.labels(name).inc(emitted)
+        m.spec_verify_passes.labels(name).inc(passes)
+        m.spec_accepted_per_step.labels(name).set(ratio)
+        m.spec_emitted_by_method.labels(name, method).inc(emitted)
+        m.spec_verify_passes_by_method.labels(name, method).inc(passes)
+        m.spec_accepted_per_step_by_method.labels(name, method).set(ratio)
+
+    def note_itl(self, seconds: float) -> None:
+        """One inter-token-latency sample (the scheduler's delivery)."""
+        self._m_itl.observe(seconds)
 
     def program_snapshot(self) -> dict:
         """The decode-block programs: captures, replays of a cached graph,
@@ -1983,44 +2100,52 @@ class GenerativeModel:
         with self._lock:
             if self.prefills or self.steps:
                 return 0
-            n = 0
-            # the decode blocks first: a capture empties the allocator's
-            # cache, which the prefills then fill again before traffic
-            S = self.n_slots
-            for w in self._window_buckets():
-                self.step_k(
-                    np.zeros(S, np.int32), np.zeros(S, bool), np.zeros(S, np.float32), 0,
-                    np.full(S, -1, np.int32), np.zeros(S, np.int32), self.decode_block,
-                    window=w,
-                )
-                n += 1
-            for b in self.prefill_buckets:
-                self.admit(0, np.ones(b, np.int32), 0.0, 0)
-                n += 1
-            if self.embed_enabled:
-                self.embed_fetch([self.embed_dispatch(np.ones(b, np.int32))
-                                  for b in self.prefill_buckets])
-                n += len(self.prefill_buckets)
-            if self.prefix_index is not None or self.prefill_chunk:
-                bs = self.kv_block_size
-                row = self.reserve_blocks(0, 2 * bs)
-                self._exec_prefill_suffix(self._with_hist(
-                    self._suffix_payload(np.ones(bs, np.int32), bs, 2 * bs, 0, row, 0.0, 0),
-                    np.ones(2 * bs, np.int32)))
-                n += 1
-            self.reset()
-            if self.prefix_index is not None:  # warmup's hits are not traffic
-                self.prefix_index = PrefixIndex(self.kv_block_size)
-            if self.host_store is not None:
-                self.host_store = HostPrefixStore(self.kv_block_size, self._dram_bytes,
-                                                  on_bytes=self._note_dram_bytes)
-            self._zero_tier_counters()
-            self.prefills = self.steps = self.decode_blocks = self.host_syncs = 0
-            self.prefills_reused = self.prefill_chunks = 0
-            self.tokens_emitted, self.block_seconds = 0, 0.0
-            self.spec_emitted_tokens = self.spec_verify_passes = self.draft_prefills = 0
-            self.embeds = self.embed_fetches = 0
-            return n
+            self._in_warmup = True
+            try:
+                return self._warmup_locked()
+            finally:
+                self._in_warmup = False
+
+    def _warmup_locked(self) -> int:
+        n = 0
+        # the decode blocks first: a capture empties the allocator's
+        # cache, which the prefills then fill again before traffic
+        S = self.n_slots
+        for w in self._window_buckets():
+            self.step_k(
+                np.zeros(S, np.int32), np.zeros(S, bool), np.zeros(S, np.float32), 0,
+                np.full(S, -1, np.int32), np.zeros(S, np.int32), self.decode_block,
+                window=w,
+            )
+            n += 1
+        for b in self.prefill_buckets:
+            self.admit(0, np.ones(b, np.int32), 0.0, 0)
+            n += 1
+        if self.embed_enabled:
+            self.embed_fetch([self.embed_dispatch(np.ones(b, np.int32))
+                              for b in self.prefill_buckets])
+            n += len(self.prefill_buckets)
+        if self.prefix_index is not None or self.prefill_chunk:
+            bs = self.kv_block_size
+            row = self.reserve_blocks(0, 2 * bs)
+            self._exec_prefill_suffix(self._with_hist(
+                self._suffix_payload(np.ones(bs, np.int32), bs, 2 * bs, 0, row, 0.0, 0),
+                np.ones(2 * bs, np.int32)))
+            n += 1
+        self.reset()
+        if self.prefix_index is not None:  # warmup's hits are not traffic
+            self.prefix_index = PrefixIndex(self.kv_block_size)
+        if self.host_store is not None:
+            self.host_store = HostPrefixStore(self.kv_block_size, self._dram_bytes,
+                                              on_bytes=self._note_dram_bytes)
+        self._zero_tier_counters()
+        self.prefills = self.steps = self.decode_blocks = self.host_syncs = 0
+        self.prefills_reused = self.prefill_chunks = 0
+        self.tokens_emitted, self.block_seconds = 0, 0.0
+        self.spec_emitted_tokens = self.spec_verify_passes = self.draft_prefills = 0
+        self.embeds = self.embed_fetches = 0
+        self._blocks_high_water = 0
+        return n
 
     def reset(self) -> None:
         """Zero every slot position, reclaim every reservation and empty the
@@ -2071,6 +2196,17 @@ class _Request:
     deadline: float | None = None
     # the outcome went to the usage meter (exactly once)
     metered: bool = False
+    # forensics: the request's timeline entry (obs/timeline.py) and the
+    # live span it was submitted under, the first terminal reason (eos,
+    # budget, ...), the last delivery (the inter-token latency), and the
+    # device seconds and prefix tokens it was charged
+    timeline: Any = None
+    span: Any = None
+    done_reason: str | None = None
+    t_last_tok: float = 0.0
+    u_device_s: float = 0.0
+    u_saved_tokens: int = 0
+    u_saved_tier: str = "none"
 
 
 class GenerationScheduler:
@@ -2236,9 +2372,13 @@ class GenerationScheduler:
         cap = self._maxsize if req.priority == qos.PRIO_INTERACTIVE else self._batch_cap
         if self._maxsize and depth >= cap:
             self._meter_end(req, "shed")
+            self._note_shed(req.priority, depth, cap)
             raise QueueFull(f"generation queue is full ({depth} waiting, cap {cap} "
                             f"for {req.priority})")
         self._ensure_run_task()
+        self._begin_tl(req, "prefill" if req.prefill_only else "embed" if req.embed_only
+                       else "imported" if req.imported is not None else "generate")
+        self._tl(req, "queued", span=False, depth=len(self._waiting))
         self._waiting.append(req)
         self._wake.set()
         try:
@@ -2250,7 +2390,61 @@ class GenerationScheduler:
                 if req in q:
                     q.remove(req)
                     self._meter_end(req, "reaped")
+                    self._end_tl(req, "disconnect", stage="queue")
             raise
+
+    # -- lifecycle timelines (obs/timeline.py): every event is stamped from
+    # values the host already holds; nothing here reads a device tensor
+
+    def _begin_tl(self, req: _Request, kind: str = "generate") -> None:
+        req.timeline = TIMELINE.begin(
+            current_trace_id(), model=self.model.name, kind=kind,
+            prompt_tokens=int(req.prompt.size), max_new_tokens=int(req.max_new_tokens),
+            priority=req.priority)
+
+    def _tl(self, req: _Request, name: str, span: bool = True, **attrs) -> None:
+        """One lifecycle event on the request's timeline and, bounded, on the
+        span it was submitted under."""
+        if req.timeline is not None:
+            req.timeline.event(name, **attrs)
+        if span and req.span is not None and len(req.span.span.events) < 256:
+            req.span.event(name, **attrs)
+
+    def _end_tl(self, req: _Request, reason: str, **attrs) -> None:
+        """The terminal event (the first reason wins), with what the
+        request spent."""
+        if req.done_reason is None:
+            req.done_reason = reason
+        usage = {"device_ms": round(req.u_device_s * 1e3, 3),
+                 "tokens_in": int(req.prompt.size), "tokens_out": len(req.out)}
+        if req.u_saved_tokens:
+            usage.update(tokens_saved=int(req.u_saved_tokens), saved_tier=req.u_saved_tier)
+        attrs["usage"] = usage
+        if req.timeline is not None:
+            req.timeline.end(reason, **attrs)
+        if req.span is not None and len(req.span.span.events) < 256:
+            req.span.event("terminal", reason=reason, **attrs)
+
+    def _finish_tl(self, req: _Request) -> None:
+        """A completed request's terminal event, after the event that
+        delivered its last token."""
+        self._end_tl(req, req.done_reason or "budget", tokens=len(req.out))
+
+    def _note_shed(self, priority: str, depth: int, cap: int) -> None:
+        """A queue shed leaves a terminal-only timeline entry."""
+        tl = TIMELINE.begin(current_trace_id(), model=self.model.name, priority=priority)
+        if tl is not None:
+            tl.end("shed", depth=depth, cap=cap,
+                   usage={"device_ms": 0.0, "tokens_in": 0, "tokens_out": 0})
+
+    def _deadline_miss(self, req: _Request, stage: str) -> None:
+        """Count a deadline reap at ``stage`` (``generation-queue``,
+        ``prefill``, ``decode``, ``suspended``)."""
+        self.deadline_reaps[stage] += 1
+        qos.note_deadline_miss(stage, req.priority)
+        DEFAULT_METRICS.qos_deadline_miss.labels(self.model.name, stage).inc()
+        if req.span is not None:
+            req.span.event("qos-drop", reason="deadline", stage=stage)
 
     def _meter_end(self, req: _Request, outcome: str) -> None:
         """Fold a request's outcome (``completed``, ``shed`` or ``reaped``:
@@ -2275,6 +2469,8 @@ class GenerationScheduler:
         fields = {"tokens_prefill": int(req.prompt.size) - saved}
         if saved and tier != "none":
             fields[f"tokens_saved_{tier}"] = saved
+            req.u_saved_tokens += saved
+            req.u_saved_tier = tier
         METER.add(self.model.name, req.adapter or "", req.priority, **fields)
 
     def overlap_snapshot(self) -> dict:
@@ -2287,7 +2483,7 @@ class GenerationScheduler:
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         return _Request(prompt, int(max_new_tokens), float(temperature), eos_id, fut,
                         t0=time.perf_counter(), priority=qos.get_priority(),
-                        deadline=qos.get_deadline(), **kw)
+                        deadline=qos.get_deadline(), span=current_span(), **kw)
 
     async def submit(
         self,
@@ -2354,13 +2550,17 @@ class GenerationScheduler:
         wave_toks = sum(int(r.prompt.size) for r, _ in placed) or 1
         for (req, _), vec in zip(placed, vecs):
             n = int(req.prompt.size)
+            req.u_device_s += wave_s * n / wave_toks
             METER.add(self.model.name, req.adapter or "", req.priority,
                       device_s=wave_s * n / wave_toks, tokens_prefill=n)
+            self._tl(req, "embed", tokens=n)
             if not req.future.done():
                 req.future.set_result(vec)
+            self._end_tl(req, "embedded", dim=int(vec.shape[-1]))
         for req, exc in errors:
             if not req.future.done():
                 req.future.set_exception(exc)
+            self._end_tl(req, "error", stage="embed")
 
     async def submit_prefill(self, prompt: np.ndarray, *, temperature: float = 0.0,
                              adapter: str | None = None) -> tuple[int, int]:
@@ -2550,6 +2750,8 @@ class GenerationScheduler:
                    if slots[i] is not None and active[i] and slots[i].out]
         if not victims:
             return 0
+        for i in victims:
+            self._tl(slots[i], EVENT_PREEMPT, victim=self.model.name)
 
         def export() -> list:
             frames = []
@@ -2582,14 +2784,19 @@ class GenerationScheduler:
         for i, frame in zip(victims, frames):
             if frame is None:
                 continue
-            if not self._park_record(slots[i], frame):
+            req = slots[i]
+            if not self._park_record(req, frame):
                 self.suspend_rejected += 1  # over the suspend budget: it keeps running
+                self._tl(req, "suspend-rejected", bytes=len(frame))
                 continue
+            before = self.model.free_block_count
             self.model.release_slot(i)
             slots[i] = None
             active[i] = False
             self.suspends += 1
             n_susp += 1
+            self._tl(req, EVENT_SUSPEND, victim=self.model.name, tokens=len(req.out),
+                     blocks_freed=self.model.free_block_count - before, bytes=len(frame))
         return n_susp
 
     def _meter_unpark(self, rec: dict) -> None:
@@ -2607,10 +2814,12 @@ class GenerationScheduler:
         frame = self._suspend_store.take(rec["key"]) if self._suspend_store else None
         if req.future.done():
             self._meter_end(req, "reaped")
+            self._end_tl(req, "disconnect", stage="suspended")
             return None
         if frame is None:
             req.future.set_exception(GraphUnitError("suspend record lost from the store"))
             self._meter_end(req, "reaped")
+            self._end_tl(req, "error", stage="suspended")
         return frame
 
     def _drain_resumes(self) -> None:
@@ -2635,6 +2844,7 @@ class GenerationScheduler:
                 "spec": payload.get("spec_state"),
             }
             self.resumes += 1
+            self._tl(rec["req"], "resume-queued", span=False)
             self._waiting.append(rec["req"])
 
     def _reap_suspended(self) -> None:
@@ -2652,8 +2862,8 @@ class GenerationScheduler:
             if not req.future.done():
                 req.future.set_exception(DeadlineExceeded(
                     f"deadline expired while suspended after {len(req.out)} tokens"))
-                self.deadline_reaps["suspended"] += 1
-                qos.note_deadline_miss("suspended", req.priority)
+                self._deadline_miss(req, "suspended")
+                self._end_tl(req, "deadline-reap", stage="suspended", tokens=len(req.out))
             self._take_record(rec)
         self._suspended[:] = keep
 
@@ -2665,6 +2875,9 @@ class GenerationScheduler:
         self._arb_release()
         if self._draining:
             self._quiesced.set()
+        for q in (self._waiting, self._overflow):
+            for r in q:
+                self._tl(r, "paused", span=False, cause="preempted")
         self._wake.clear()
         if self._arbiter is not None:
             # with the interactive side quiet no grant edge may come to
@@ -2709,6 +2922,7 @@ class GenerationScheduler:
             frame = self._take_record(rec)
             if frame is not None:
                 self.drained_out += 1
+                self._tl(rec["req"], "drain-export", bytes=len(frame))
                 out.append((rec["req"], frame))
         return out
 
@@ -2719,9 +2933,12 @@ class GenerationScheduler:
         for req, frame in pairs:
             if req.future.done():
                 continue
-            if not self._park_record(req, frame):
+            if self._park_record(req, frame):
+                self._tl(req, "drain-abort", span=False)
+            else:
                 req.future.set_exception(GraphUnitError("drain abort: suspend store full"))
                 self._meter_end(req, "reaped")
+                self._end_tl(req, "error", stage="suspended")
 
     def complete_migrated(self, req: _Request, tokens) -> None:
         """Finish a migrated request with the peer's tokens: ``tokens[0]``
@@ -2734,6 +2951,8 @@ class GenerationScheduler:
         if not req.future.done():
             req.future.set_result(np.asarray(req.out, np.int32))
             self._meter_end(req, "completed")
+            self._note_completed(req)
+        self._finish_tl(req)
 
     def drain_finish(self) -> None:
         """Lift the drain: admission resumes and the records still parked
@@ -2780,15 +2999,23 @@ class GenerationScheduler:
             if not req.future.done():
                 req.future.set_exception(err)
             self._meter_end(req, "reaped")
+            self._end_tl(req, "error", cause="closed")
         self._waiting.clear()
 
     # ---------------------------------------------------------------- loop
 
     def _token_done(self, req: _Request, tok: int) -> bool:
         if not req.out:
-            ttft = time.perf_counter() - req.t0
+            req.t_last_tok = time.perf_counter()
+            ttft = req.t_last_tok - req.t0
             self.ttft.append((int(req.prompt.size), ttft))
             RECORDER.record_stage(STAGE_TTFT, ttft)
+            # the bucket's exemplar names the trace (SCT_METRICS_EXEMPLARS):
+            # a p99 spike links to GET /stats/timeline?trace=
+            observe_exemplar(DEFAULT_METRICS.ttft.labels(self.model.name), ttft,
+                             req.timeline.trace_id if req.timeline is not None else None)
+            if req.span is not None:
+                req.span.event("first-token", ttft_ms=round(ttft * 1e3, 3))
         req.out.append(tok)
         if req.on_token is not None:
             try:
@@ -2797,18 +3024,36 @@ class GenerationScheduler:
                 log.exception("on_token hook failed; detaching it")
                 req.on_token = None
         if req.eos_id is not None and tok == req.eos_id:
+            req.done_reason = req.done_reason or "eos"
             return True
-        return len(req.out) >= req.max_new_tokens
+        if len(req.out) >= req.max_new_tokens:
+            req.done_reason = req.done_reason or "budget"
+            return True
+        return False
 
-    def _finish(self, req: _Request, slot: int, slots, active) -> None:
+    def _note_completed(self, req: _Request) -> None:
+        """The generated-token counter and the request's decode rate."""
+        if req.out and req.t0:
+            m = DEFAULT_METRICS
+            m.generated_tokens.labels(self.model.name).inc(len(req.out))
+            dur = time.perf_counter() - req.t0
+            if dur > 0:
+                m.tokens_per_s.labels(self.model.name).set(len(req.out) / dur)
+
+    def _finish(self, req: _Request, slot: int, slots, active, *, terminal: bool = True) -> None:
+        """A request that made its last token: resolved, its slot freed; its
+        terminal event unless the caller stamps it after a block event."""
         if req.future.done():  # its client left: nothing was delivered
             self._meter_end(req, "reaped")
         else:
             req.future.set_result(np.asarray(req.out, np.int32))
             self._meter_end(req, "completed")
+            self._note_completed(req)
         slots[slot] = None
         active[slot] = False
         self.model.release_slot(slot)
+        if terminal:
+            self._finish_tl(req)
 
     def _reap(self, slots, active) -> int:
         """Drop requests whose client vanished (cancelled future) or whose
@@ -2823,34 +3068,41 @@ class GenerationScheduler:
         the tokens it makes for them are dropped as wasted."""
         now = time.monotonic()
 
-        def gone(req: _Request, stage: str, where: str) -> bool:
+        def gone(req: _Request, stage: str, where: str) -> str | None:
+            """None while the request lives, else ``disconnect`` (its client
+            left) or ``deadline-reap`` (failed here)."""
             if req.future.done():
-                return True
+                return "disconnect"
             if req.deadline is None or now < req.deadline:
-                return False
+                return None
             req.future.set_exception(DeadlineExceeded(f"deadline expired {where}"))
-            self.deadline_reaps[stage] += 1
-            qos.note_deadline_miss(stage, req.priority)
-            return True
+            self._deadline_miss(req, stage)
+            return "deadline-reap"
 
         for q in (self._waiting, self._overflow):
             keep = []
             for r in q:
-                if gone(r, "generation-queue", f"after {time.perf_counter() - r.t0:.3f}s "
-                                               "waiting in the generation queue"):
-                    self._meter_end(r, "reaped")
-                else:
+                why = gone(r, "generation-queue", f"after {time.perf_counter() - r.t0:.3f}s "
+                                                  "waiting in the generation queue")
+                if why is None:
                     keep.append(r)
+                    continue
+                self._meter_end(r, "reaped")
+                if why == "deadline-reap":  # a withdrawn request ended at its cancel
+                    self._end_tl(r, why, stage="queue")
             q[:] = keep
         for ent in list(self._prefilling):
-            if gone(ent["req"], "prefill", f"after {ent['i']} prefill chunks"):
+            why = gone(ent["req"], "prefill", f"after {ent['i']} prefill chunks")
+            if why is not None:
                 self._prefilling.remove(ent)
                 self.model.release_slot(ent["slot"])
                 self._meter_end(ent["req"], "reaped")
+                self._end_tl(ent["req"], why, stage="prefill", chunks=ent["i"])
         reaped = 0
         for i, req in enumerate(slots):
-            if req is not None and gone(req, "decode", f"mid-generation after "
-                                                       f"{len(req.out)} tokens"):
+            why = None if req is None else gone(
+                req, "decode", f"mid-generation after {len(req.out)} tokens")
+            if why is not None:
                 slots[i] = None
                 if active[i]:
                     reaped += 1
@@ -2858,6 +3110,7 @@ class GenerationScheduler:
                 active[i] = False
                 self.model.release_slot(i)
                 self._meter_end(req, "reaped")
+                self._end_tl(req, why, stage="decode", tokens=len(req.out))
         return reaped
 
     def _deliver(self, toks_seq, act_seq, slots, cur, active) -> None:
@@ -2875,6 +3128,7 @@ class GenerationScheduler:
         delivered: collections.Counter = collections.Counter()
         reqs = list(slots)  # completions below null the live entries
         counts = [0] * len(slots)
+        finished: set[int] = set()
         for step_i in range(toks_seq.shape[0]):
             for i, req in enumerate(slots):
                 if req is None or not act_seq[step_i, i]:
@@ -2888,9 +3142,30 @@ class GenerationScheduler:
                 if req.adapter:
                     delivered[req.adapter] += 1
                 if self._token_done(req, tok):
-                    self._finish(req, i, slots, active)
+                    self._finish(req, i, slots, active, terminal=False)
+                    finished.add(i)
         for adapter, n in delivered.items():
             self.model.note_adapter_tokens(adapter, n)
+        # per slot: an inter-token-latency sample (the delivery gap over the
+        # tokens it carried) and the timeline's block event, the terminal
+        # after it for a request this block finished
+        now = time.perf_counter()
+        spec_d, tps = self.model.spec_draft, self.model._tps
+        for i, req in enumerate(reqs):
+            if req is None or not counts[i]:
+                continue
+            if req.t_last_tok:
+                self.model.note_itl((now - req.t_last_tok) / counts[i])
+            req.t_last_tok = now
+            if req.timeline is not None or req.span is not None:
+                attrs = {"tokens": counts[i]}
+                if spec_d and toks_seq.shape[0] % tps == 0:
+                    passes = int(act_seq[:, i].reshape(-1, tps).any(axis=1).sum())
+                    attrs.update(passes=passes, drafted=passes * spec_d,
+                                 accepted=max(0, counts[i] - passes))
+                self._tl(req, "block", **attrs)
+            if i in finished:
+                self._finish_tl(req)
         # the tokens this block made for slots reaped while it was in flight
         wasted = set()
         for i, req in self._reaped_rows.items():
@@ -2916,6 +3191,7 @@ class GenerationScheduler:
                 continue
             fields = {"device_s": block_s * counts[i] / block_tokens,
                       "tokens_decode": counts[i]}
+            req.u_device_s += fields["device_s"]
             if i in wasted:
                 fields["tokens_wasted"] = counts[i]
             elif spec_d and act_seq.shape[0] % tps == 0:
@@ -2933,6 +3209,7 @@ class GenerationScheduler:
                 if not req.future.done():
                     req.future.set_exception(exc)
                 self._meter_end(req, "reaped")
+                self._end_tl(req, "error", stage="decode")
             slots[i] = None
             if i not in prefilling:
                 self.model.release_slot(i)
@@ -3014,7 +3291,24 @@ class GenerationScheduler:
             dispatch_and_fetch
         )
         self._prefilling.extend(chunked)
+        # the admit events read the host's reservation bookkeeping, and name
+        # the proposer a request's drafts came from
+        smkw = {"spec_method": self.model.spec_method} if self.model.spec_draft else {}
+
+        def admit_attrs(req: _Request, slot: int) -> dict:
+            attrs = self.model.reservation_snapshot(slot) or {}
+            if req.adapter:
+                attrs["adapter"] = req.adapter
+            return attrs
+
+        for e in chunked:
+            self._tl(e["req"], "admit", slot=e["slot"], chunked=True,
+                     chunks=len(e["plan"]["payloads"]), **admit_attrs(e["req"], e["slot"]),
+                     **smkw)
+        for req in starved:
+            self._tl(req, "kv-starved", span=False)
         self._overflow.extend(starved)
+        chunk_i = ent["i"] if ent is not None else 0
         if chunk_err is not None:
             errors.append((ent["req"], chunk_err))
             self._prefilling.remove(ent)
@@ -3025,6 +3319,10 @@ class GenerationScheduler:
             if not req.future.done():
                 req.future.set_exception(exc)
             self._meter_end(req, "reaped")
+            if chunk_err is not None and req is ent["req"]:
+                self._end_tl(req, "error", stage="prefill", chunks=chunk_i)
+            else:
+                self._end_tl(req, "error", stage="admit")
         now = time.perf_counter()
         for req in [r for r, _, _ in placed] + [e["req"] for e in chunked]:
             if req.imported is None and not req.prefill_only:
@@ -3041,25 +3339,39 @@ class GenerationScheduler:
                 # before the suspension, so the slot is re-armed without
                 # delivering it again
                 req.imported = None  # the record's host arrays go
+                req.t_last_tok = time.perf_counter()  # the park is no inter-token gap
+                self._tl(req, EVENT_RESUME, slot=slot, tokens=len(req.out),
+                         **admit_attrs(req, slot))
                 slots[slot] = req
                 cur[slot] = tok
                 temps[slot] = req.temperature
                 active[slot] = True
                 continue
             if not req.prefill_only:
+                attrs = admit_attrs(req, slot)
+                if req.imported is not None:
+                    attrs["imported"] = True
+                self._tl(req, "admit", slot=slot, **attrs, **smkw)
                 self._start(req, slot, tok, slots, cur, temps, active)
             elif req.future.done():  # the client left during the prefill
                 self.model.release_slot(slot)
                 self._meter_end(req, "reaped")
+                self._end_tl(req, "disconnect", stage="prefill")
             else:  # pinned until release_external
                 self.ttft.append((int(req.prompt.size), time.perf_counter() - req.t0))
                 self._external.add(slot)
+                self._tl(req, "admit", slot=slot, prefill_only=True, **admit_attrs(req, slot),
+                         **smkw)
                 req.future.set_result((slot, int(tok)))
                 self._meter_end(req, "completed")
+                self._end_tl(req, "exported", slot=slot)
         if ent is not None and chunk_err is None:
             self.chunks_paced += int(live)
+            n_chunks = len(ent["plan"]["payloads"])
+            last = ent["i"] == n_chunks - 1
+            self._tl(ent["req"], "chunk", i=ent["i"], of=n_chunks, last=last)
             ent["i"] += 1
-            if ent["i"] == len(ent["plan"]["payloads"]):
+            if last:
                 self._prefilling.remove(ent)
                 self._start(ent["req"], ent["slot"], toks[-1], slots, cur, temps, active)
 
@@ -3120,6 +3432,9 @@ class GenerationScheduler:
                             cause, carry_dirty = "dispatch-error", True
                     if cause is not None:
                         self.overlap_breaks[cause] += 1
+                        for i, req in enumerate(slots):
+                            if req is not None and active[i]:
+                                self._tl(req, "overlap-break", cause=cause)
                 try:
                     toks_seq, act_seq = await asyncio.to_thread(self.model.step_k_fetch, pending)
                 except Exception as exc:  # noqa: BLE001 - fails the in-flight requests
@@ -3152,6 +3467,7 @@ class GenerationScheduler:
                 if not req.future.done():
                     req.future.set_exception(err)
                 self._meter_end(req, "reaped")
+                self._end_tl(req, "error", cause="closed")
             self._prefilling.clear()
             self._overflow.clear()
             for i in range(S):
@@ -3161,6 +3477,7 @@ class GenerationScheduler:
                 if not rec["req"].future.done():
                     rec["req"].future.set_exception(err)
                 self._meter_end(rec["req"], "reaped")
+                self._end_tl(rec["req"], "error", cause="closed")
             self._suspended.clear()
             if self._suspend_store is not None:
                 self._suspend_store.flush()
@@ -3238,6 +3555,9 @@ class GenerationScheduler:
                 # until a release or a submit wakes the loop (no await
                 # between the check and clear); the timeout reaps parked
                 # clients within 50 ms.
+                for q in (self._waiting, self._overflow):
+                    for r in q:
+                        self._tl(r, "paused", span=False, cause="externals-pinned")
                 self._wake.clear()
                 try:
                     await asyncio.wait_for(self._wake.wait(), timeout=0.05)
@@ -3255,6 +3575,7 @@ class GenerationScheduler:
                     if not req.future.done():
                         req.future.set_exception(err)
                     self._meter_end(req, "reaped")
+                    self._end_tl(req, "error", stage="admit")
                 self._overflow.clear()
             return None
         eos = np.array(
@@ -3345,6 +3666,13 @@ class GenerativeComponent(SeldonComponent):
 
     def warmup(self) -> int:
         return self.model.warmup()
+
+    def warmup_variants(self) -> list[str]:
+        """The programs warmup made: a decode block per window bucket (a
+        captured graph on the card) and a prefill per bucket."""
+        m = self.model
+        return ([f"decode:k{m.decode_block}:w{w}" for w in m._window_buckets()]
+                + [f"prefill:{b}" for b in m.prefill_buckets])
 
     async def close(self) -> None:
         await self.scheduler.close()

@@ -280,6 +280,9 @@ class GraphWalker:
         self._factory = client_factory or (lambda s: default_client_factory(s, device))
         self._feedback_hook = feedback_hook
         self.warmup_seconds: dict[str, float] = {}
+        # unit -> the programs its warmup made (buckets, window graphs):
+        # /stats/warmup shows that readiness covered what is served
+        self.warmup_variants: dict[str, list[str]] = {}
         self.root = self._build(spec)
 
     @property
@@ -327,12 +330,16 @@ class GraphWalker:
         land in :attr:`warmup_seconds`."""
         report: dict[str, int] = {}
         self.warmup_seconds = {}
+        self.warmup_variants = {}
         for name, comp in self.iter_components():
             fn = getattr(comp, "warmup", None)
             if callable(fn):
                 t0 = time.perf_counter()
                 report[name] = await asyncio.to_thread(fn)
                 self.warmup_seconds[name] = round(time.perf_counter() - t0, 3)
+                variants = getattr(comp, "warmup_variants", None)
+                if callable(variants):
+                    self.warmup_variants[name] = variants()
         return report
 
     async def aclose(self) -> None:

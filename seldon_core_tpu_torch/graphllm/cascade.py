@@ -24,6 +24,7 @@ from typing import Any
 
 from seldon_core_tpu_torch import qos
 from seldon_core_tpu_torch.graph.units import SeldonComponent
+from seldon_core_tpu_torch.utils.metrics import DEFAULT as DEFAULT_METRICS
 
 
 class CascadeRouter(SeldonComponent):
@@ -84,6 +85,8 @@ class CascadeRouter(SeldonComponent):
         for the last tier.  Reasons: ``no-signal``, ``confident``,
         ``deadline-budget``, ``low-confidence``."""
         self.last_confidence = confidence
+        if confidence is not None:
+            DEFAULT_METRICS.cascade_confidence.labels(self.name).set(confidence)
         if confidence is None:
             # no signal: trust the cheap tier rather than escalate blind
             return False, "no-signal"
@@ -99,9 +102,11 @@ class CascadeRouter(SeldonComponent):
 
     def note_escalation(self) -> None:
         self.escalations += 1
+        DEFAULT_METRICS.cascade_escalations.labels(self.name).inc()
 
     def note_served(self, tier: int) -> None:
         self.served_by_tier[tier] = self.served_by_tier.get(tier, 0) + 1
+        DEFAULT_METRICS.cascade_requests.labels(self.name, str(tier)).inc()
 
     def tags(self) -> dict[str, Any]:
         if self.last_confidence is None:

@@ -32,6 +32,7 @@ from typing import Any, Callable
 from seldon_core_tpu_torch import qos
 from seldon_core_tpu_torch.contract.payload import DataKind, Payload
 from seldon_core_tpu_torch.graph.units import GraphUnitError, SeldonComponent
+from seldon_core_tpu_torch.utils.metrics import DEFAULT as DEFAULT_METRICS
 
 # conservative, low-false-positive PII patterns
 _PII_PATTERNS: tuple[tuple[str, re.Pattern], ...] = (
@@ -101,6 +102,7 @@ class Guardrail(SeldonComponent):
 
     def _note(self, action: str) -> None:
         self.actions[action] = self.actions.get(action, 0) + 1
+        DEFAULT_METRICS.guardrail_actions.labels(self.name, action).inc()
 
     def apply(self, text: str) -> tuple[str, list[str]]:
         """Run the pipeline over ``text`` -> ``(clean_text, actions)``.

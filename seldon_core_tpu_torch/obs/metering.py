@@ -19,9 +19,9 @@ by ``(deployment, adapter, qos_class)``:
 Every ``add`` uses values the host already holds at a sync point; nothing
 here reads a device tensor.  The table keeps at most
 ``SCT_METER_MAX_KEYS`` rows (LRU); an evicted row folds into ``other``,
-so totals are conserved.  ``SCT_METER=0`` turns it off.  The Prometheus
-export of the top rows (``SCT_METER_TOP_K``) waits for the port's
-``/prometheus``.
+so totals are conserved.  ``SCT_METER=0`` turns it off.  ``/prometheus``
+exports the top ``SCT_METER_TOP_K`` rows (default 16) by device time and
+sums the rest into one ``other`` row (:meth:`UsageMeter.export_rows`).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from collections import OrderedDict
 
 ENABLE_ENV = "SCT_METER"
 MAX_KEYS_ENV = "SCT_METER_MAX_KEYS"
+TOP_K_ENV = "SCT_METER_TOP_K"
 
 # the counter vocabulary (the JAX package's)
 FIELDS = (
@@ -54,6 +55,8 @@ FIELDS = (
     "suspend_byte_s",      # bytes x seconds parked in the suspend store
 )
 
+OTHER_KEY = ("other", "", "")
+
 _SEP = "|"
 _FALSY = ("", "0", "false", "off", "no")
 
@@ -64,16 +67,26 @@ def key_str(deployment: str, adapter: str = "", qos: str = "") -> str:
     return f"{deployment}{_SEP}{adapter}{_SEP}{qos}"
 
 
+def split_key(key: str) -> tuple[str, str, str]:
+    parts = key.split(_SEP, 2)
+    parts += [""] * (3 - len(parts))
+    return parts[0], parts[1], parts[2]
+
+
 class UsageMeter:
     """Bounded per-tenant usage counter table (thread-safe)."""
 
-    def __init__(self, max_keys: int | None = None, enabled: bool | None = None):
+    def __init__(self, max_keys: int | None = None, top_k: int | None = None,
+                 enabled: bool | None = None):
         if max_keys is None:
             max_keys = int(os.environ.get(MAX_KEYS_ENV) or 512)
+        if top_k is None:
+            top_k = int(os.environ.get(TOP_K_ENV) or 16)
         if enabled is None:
             enabled = os.environ.get(ENABLE_ENV, "1").strip().lower() not in _FALSY
         self.enabled = bool(enabled)
         self.max_keys = max(1, int(max_keys))
+        self.top_k = max(1, int(top_k))
         self._lock = threading.Lock()
         self._table: OrderedDict[str, dict] = OrderedDict()
         self._other: dict[str, float] = {}
@@ -105,6 +118,10 @@ class UsageMeter:
             self._other.clear()
             self.evicted = 0
 
+    def size(self) -> int:
+        with self._lock:
+            return len(self._table)
+
     def totals(self) -> dict[str, float]:
         """Every field summed over the rows and the ``other`` rollup."""
         return self.snapshot()["total"]
@@ -122,6 +139,24 @@ class UsageMeter:
                 totals[f] = totals.get(f, 0.0) + v
         return {"enabled": self.enabled, "keys": keys, "other": other,
                 "evicted": evicted, "total": totals}
+
+    def export_rows(self) -> list[tuple[tuple[str, str, str], dict]]:
+        """The ``seldon_usage_*`` export: the top ``top_k`` rows by device
+        seconds (then grant seconds, then tokens), the rest and the evicted
+        history summed into one :data:`OTHER_KEY` row."""
+        with self._lock:
+            rows = [(k, dict(row)) for k, row in self._table.items()]
+            other = dict(self._other)
+        rows.sort(key=lambda kr: (kr[1].get("device_s", 0.0), kr[1].get("grant_s", 0.0),
+                                  kr[1].get("tokens_decode", 0.0)
+                                  + kr[1].get("tokens_prefill", 0.0)), reverse=True)
+        out = [(split_key(k), row) for k, row in rows[:self.top_k]]
+        for _, row in rows[self.top_k:]:
+            for f, v in row.items():
+                other[f] = other.get(f, 0.0) + v
+        if other:
+            out.append((OTHER_KEY, other))
+        return out
 
 
 # the process-wide meter

@@ -11,9 +11,11 @@ the JAX package's ``obs/spans.py``.
   thread.  The QoS plane reads two of them at admission
   (:meth:`SpanRecorder.stage_ewma`).
 
-The engine serves both at ``GET /stats/spans`` and ``GET /stats/breakdown``.
-The JAX package's exporters, wire counters, probes, SLO engine and fleet
-history are not ported yet.
+The engine serves both at ``GET /stats/spans`` and ``GET /stats/breakdown``
+and echoes each request's trace id in ``x-sct-trace-id``.  Finished spans
+also go to the recorder's exporters (``obs/export.py``, OTLP/HTTP JSON),
+each behind its own bounded queue.  Every span names the pool role that
+recorded it (``engine.role``): the request's role, else the process's.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ BUCKET_EDGES: tuple[float, ...] = tuple(5e-5 * 10.0 ** (i / 40.0) for i in range
 # -- W3C trace context -------------------------------------------------------
 
 TRACEPARENT_HEADER = "traceparent"
+TRACE_RESPONSE_HEADER = "x-sct-trace-id"  # echoed like x-seldon-puid
 
 _traceparent: contextvars.ContextVar[str | None] = contextvars.ContextVar(
     "sct_traceparent", default=None
@@ -74,6 +77,14 @@ def _random_id(nbytes: int) -> str:
         rid = os.urandom(nbytes).hex()
         if rid.strip("0"):
             return rid
+
+
+def make_trace_id() -> str:
+    return _random_id(16)
+
+
+def make_span_id() -> str:
+    return _random_id(8)
 
 
 def new_traceparent(sampled: bool = True) -> str:
@@ -107,6 +118,55 @@ def set_traceparent(value: str | None) -> None:
 
 def get_traceparent() -> str | None:
     return _traceparent.get()
+
+
+def ensure_traceparent() -> tuple[str, bool]:
+    """The current traceparent when valid, else a fresh root one, set for
+    this context -> ``(traceparent, minted)``."""
+    tp = _traceparent.get()
+    if tp is not None and parse_traceparent(tp) is not None:
+        return tp, False
+    tp = new_traceparent()
+    _traceparent.set(tp)
+    return tp, True
+
+
+def current_trace_id() -> str | None:
+    parsed = parse_traceparent(_traceparent.get())
+    return parsed[0] if parsed else None
+
+
+def is_sampled() -> bool:
+    parsed = parse_traceparent(_traceparent.get())
+    return bool(parsed and parsed[2] & 0x01)
+
+
+def outgoing_headers() -> dict[str, str]:
+    """The headers a downstream hop carries ({} with no trace)."""
+    tp = _traceparent.get()
+    return {TRACEPARENT_HEADER: tp} if tp else {}
+
+
+# the pool role every recorded span names (``engine.role``): the request's
+# (seeded at each ingress) over the process's (seeded at boot), as several
+# engines of different roles may share one process
+_engine_role: contextvars.ContextVar[str | None] = contextvars.ContextVar(
+    "sct_engine_role", default=None
+)
+_process_role: str | None = None
+
+
+def set_engine_role(role: str | None) -> None:
+    _engine_role.set(role or None)
+
+
+def set_process_role(role: str | None) -> None:
+    global _process_role
+    _process_role = role or None
+
+
+def current_engine_role() -> str | None:
+    return _engine_role.get() or _process_role
 
 
 # -- spans -------------------------------------------------------------------
@@ -203,6 +263,8 @@ class SpanRecorder:
         self._stage_hist: dict[str, list[int]] = defaultdict(
             lambda: [0] * (len(BUCKET_EDGES) + 1))
         self.recorded = 0
+        self.sampled_out = 0
+        self.exporters: list = []
 
     # -- recording ---------------------------------------------------------
 
@@ -238,9 +300,13 @@ class SpanRecorder:
         if flags & 0x01 and self.sample > 0.0:
             span_id = _random_id(8)
             token = _traceparent.set(f"00-{trace_id}-{span_id}-{flags:02x}")
+            span_attrs = dict(attrs) if attrs else {}
+            role = current_engine_role()
+            if role is not None:
+                span_attrs.setdefault("engine.role", role)
             live = _LiveSpan(Span(trace_id=trace_id, span_id=span_id, parent_id=parent_id,
                                   name=name, service=service, start=start, duration_s=0.0,
-                                  attrs=dict(attrs) if attrs else {}))
+                                  attrs=span_attrs))
             live_token = _live_span.set(live)
         else:  # not recorded, but propagated unchanged
             token = _traceparent.set(tp)
@@ -267,6 +333,25 @@ class SpanRecorder:
     def record(self, span: Span) -> None:
         self._spans.append(span)
         self.recorded += 1
+        for exp in self.exporters:
+            exp.offer(span)
+
+    def record_span(self, name: str, *, trace_id: str, parent_id: str | None, start: float,
+                    duration_s: float, service: str = "", status: str = "OK",
+                    attrs: dict | None = None, sampled: bool = True,
+                    span_id: str | None = None) -> None:
+        """Record a span timed outside a context manager (a capture after
+        warmup is timed by the model, not inside a request)."""
+        if not sampled or self.sample <= 0.0:
+            self.sampled_out += 1
+            return
+        span_attrs = dict(attrs) if attrs else {}
+        role = current_engine_role()
+        if role is not None:
+            span_attrs.setdefault("engine.role", role)
+        self.record(Span(trace_id=trace_id, span_id=span_id or make_span_id(),
+                         parent_id=parent_id, name=name, service=service, start=start,
+                         duration_s=duration_s, status=status, attrs=span_attrs))
 
     def record_stage(self, stage: str, duration_s: float) -> None:
         """One stage sample: unconditional, O(1), safe from any thread."""
@@ -337,12 +422,13 @@ class SpanRecorder:
         return [s.to_dict() for s in roots[:n]]
 
     def stats(self, n: int = 20) -> dict:
-        """The ``GET /stats/spans`` payload (no exporters in the port yet)."""
+        """The ``GET /stats/spans`` payload."""
         return {
             "recorded": self.recorded,
             "ring": len(self._spans),
             "sample": self.sample,
-            "exporters": {},
+            "exporters": {type(e).__name__: {"exported": e.exported, "dropped": e.dropped}
+                          for e in self.exporters},
             "slowest": self.slowest(min(n, 10)),
             "traces": self.recent_traces(n),
         }

@@ -41,7 +41,7 @@ import math
 
 import torch
 
-from seldon_core_tpu_torch.ops import _build
+from seldon_core_tpu_torch.ops import _build, _flops
 
 KERNEL_DIMS = (16, 32, 64, 128)
 
@@ -156,6 +156,15 @@ def flash_attention(q, k, v, *, causal: bool = True):
     query row ``i`` sees keys ``[0, Sk - Sq + i]`` (``Sk == Sq`` masks ``col
     > row``); rows with nothing visible are zeros."""
     _check_shapes(q, k, v, causal)
+    if _flops.active():  # a roofline's FLOP count: the formula, not the route
+        B, H, Sq, D = q.shape
+        _flops.add("flash_attention", _flops.attention_flops(B, H, Sq, k.shape[2], D))
+        with _flops.paused():
+            return _flash_attention(q, k, v, causal)
+    return _flash_attention(q, k, v, causal)
+
+
+def _flash_attention(q, k, v, causal: bool):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
@@ -173,6 +182,15 @@ def flash_causal_attention_blhd(q, k, v):
     prefix (``models/llama.py::prefill_suffix_paged``)."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     _check_shapes(qt, kt, vt, True)
+    if _flops.active():
+        B, Sq, H, D = q.shape
+        _flops.add("flash_attention", _flops.attention_flops(B, H, Sq, k.shape[1], D))
+        with _flops.paused():
+            return _flash_causal_blhd(q, k, v, qt, kt, vt)
+    return _flash_causal_blhd(q, k, v, qt, kt, vt)
+
+
+def _flash_causal_blhd(q, k, v, qt, kt, vt):
     if q.device.type == "cpu":
         return _attention_blhd_plain(q, k, v, True)
     if q.device.type != "cuda":

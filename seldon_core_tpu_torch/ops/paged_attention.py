@@ -39,7 +39,7 @@ import math
 
 import torch
 
-from seldon_core_tpu_torch.ops import _build
+from seldon_core_tpu_torch.ops import _build, _flops
 
 KERNEL_DIMS = (16, 32, 64, 128)
 ROWS_PER_BLOCK = 4  # query rows one block serves (csrc/paged_attention.cu RB)
@@ -220,6 +220,16 @@ def paged_decode_attention(
     window reads; ``pos (S,)`` each slot's base position.  Returns
     ``(S, L, H, D)`` in q's dtype."""
     _check(q, k_pages, v_pages, table, pos, k_scale, v_scale)
+    if _flops.active():  # a roofline's FLOP count: the formula, not the route
+        S, L, H, D = q.shape
+        W = table.shape[1] * k_pages.shape[1]
+        _flops.add("paged_decode_attention", _flops.attention_flops(S, H, L, W, D))
+        with _flops.paused():
+            return _paged(q, k_pages, v_pages, table, pos, k_scale, v_scale)
+    return _paged(q, k_pages, v_pages, table, pos, k_scale, v_scale)
+
+
+def _paged(q, k_pages, v_pages, table, pos, k_scale, v_scale):
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pages, v_pages, table, pos, k_scale=k_scale, v_scale=v_scale

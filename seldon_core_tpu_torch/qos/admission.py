@@ -165,9 +165,13 @@ class AdmissionController:
         brownout_clamp_tokens: int = 16,
         recorder=None,
         clock=time.monotonic,
+        metrics=None,
     ):
         if recorder is None:
             from seldon_core_tpu_torch.obs.spans import RECORDER as recorder
+        if metrics is None:
+            from seldon_core_tpu_torch.utils.metrics import DEFAULT as metrics
+        self.metrics = metrics
         self.name = name or "engine"
         self.enabled = bool(enabled)
         self.max_inflight = max(1, int(max_inflight))
@@ -262,11 +266,14 @@ class AdmissionController:
             self.inflight += 1
             self.admitted_total += 1
             self._events.append((now, False))
+        self.metrics.qos_admitted.labels(self.name, priority).inc()
+        self.metrics.qos_inflight.labels(self.name).set(self.inflight)
         return _Ticket(self)
 
     def _release(self) -> None:
         with self._lock:
             self.inflight = max(0, self.inflight - 1)
+        self.metrics.qos_inflight.labels(self.name).set(self.inflight)
 
     def _shed_locked(self, now: float, priority: str, exc: QosRejection):
         """Count the shed (reason, brownout window, usage meter) and raise
@@ -277,6 +284,7 @@ class AdmissionController:
             self.deadline_miss_total += 1
         self._events.append((now, True))
         self._maybe_enter_brownout(now)
+        self.metrics.qos_shed.labels(self.name, exc.reason, priority).inc()
         METER.add(self.name, qos=priority, requests_shed=1)
         raise exc
 
@@ -312,10 +320,14 @@ class AdmissionController:
         if sum(1 for _, s in self._events if s) / total >= self.brownout_shed_rate:
             self._brownout_until = now + self.brownout_cooldown_s
             self.brownouts_entered += 1
+            self.metrics.qos_brownout.labels(self.name).set(1)
 
     @property
     def brownout_active(self) -> bool:
-        return self._clock() < self._brownout_until
+        active = self._clock() < self._brownout_until
+        if not active and self._brownout_until:
+            self.metrics.qos_brownout.labels(self.name).set(0)
+        return active
 
     def clamp_max_new_tokens(self, requested: int) -> int:
         """During a brownout a generative request gets a shorter answer."""

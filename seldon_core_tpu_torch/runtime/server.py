@@ -12,13 +12,14 @@ HTTP (a REST endpoint):
     POST /aggregate      {"seldonMessages": [...]}
     POST /send-feedback  a Feedback message, ``routing`` optional
     GET  /ping, /ready, /health/status
+    GET  /prometheus     the process's metric families (``utils/metrics.py``)
 
 A body is JSON or form-encoded with the message in a ``json`` field.  A
 bad body is a 400, a :class:`GraphUnitError` a 500, and any other
 exception of the user's code a 500 whose reason is ``"<Type>: <msg>"``,
 all with a FAILURE status.  The component is served as given: the server
-puts nothing on a device.  The JAX server's ``/prometheus`` is not served
-(no metrics registry in the port yet).
+puts nothing on a device.  While it listens, the event loop's lag probe
+runs (``seldon_eventloop_lag_seconds{service="microservice"}``).
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ from seldon_core_tpu_torch.contract.payload import Payload
 from seldon_core_tpu_torch.graph.spec import PredictiveUnitSpec, UnitType
 from seldon_core_tpu_torch.graph.units import GraphUnitError
 from seldon_core_tpu_torch.graph.walker import LocalClient, make_annotation_lock
+from seldon_core_tpu_torch.obs.probes import LOOP_LAG
+from seldon_core_tpu_torch.utils.metrics import DEFAULT as DEFAULT_METRICS
 from seldon_core_tpu_torch.wire.h1server import (
     BadRequest,
     keep_alive,
@@ -80,6 +83,7 @@ class MicroserviceApp:
             PredictiveUnitSpec(name=name, type=UnitType.TRANSFORMER), component,
             tag_lock=shared_lock)
         self._server: asyncio.base_events.Server | None = None
+        self._probing = False  # this server holds the loop-lag probe
         self._conns: set[asyncio.StreamWriter] = set()
         self._posts = {
             "/predict": self.predict,
@@ -98,10 +102,15 @@ class MicroserviceApp:
 
     async def start(self, host: str = "127.0.0.1", port: int = 0) -> None:
         self._server = await asyncio.start_server(self._handle, host, port)
+        LOOP_LAG.start("microservice")
+        self._probing = True
 
     async def close(self) -> None:
         """Stop listening and close every connection, the idle keep-alive
         ones of an engine's pool included (the server waits for them)."""
+        if self._probing:
+            LOOP_LAG.stop()
+            self._probing = False
         if self._server is not None:
             self._server.close()
             for writer in list(self._conns):
@@ -113,6 +122,10 @@ class MicroserviceApp:
     async def dispatch(self, method: str, path: str, body: bytes,
                        headers: dict[str, str]) -> tuple[int, bytes, str]:
         """One request -> ``(status, body, content type)``."""
+        if path == "/prometheus":
+            if method != "GET":
+                return _failure(405, f"GET {path}", status=405)
+            return 200, DEFAULT_METRICS.expose(), DEFAULT_METRICS.expose_content_type()
         if path in self._gets:
             if method != "GET":
                 return _failure(405, f"GET {path}", status=405)
@@ -204,7 +217,7 @@ class MicroserviceApp:
                     break
                 if req is None:
                     break
-                method, path, version, headers, body = req
+                method, path, version, headers, body, _query = req
                 keep = keep_alive(version, headers)
                 status, payload, ctype = await self.dispatch(method, path, body, headers)
                 writer.write(response(status, payload, ctype, keep))

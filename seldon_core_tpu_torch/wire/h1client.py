@@ -45,11 +45,14 @@ class _StaleConn(ConnectionError):
 
 
 class H1Response:
-    __slots__ = ("status", "body")
+    """A reply: its status, body and headers (names lower case)."""
 
-    def __init__(self, status: int, body: bytes):
+    __slots__ = ("status", "body", "headers")
+
+    def __init__(self, status: int, body: bytes, headers: dict[str, str] | None = None):
         self.status = status
         self.body = body
+        self.headers = headers if headers is not None else {}
 
 
 _CRLF = b"\r\n"
@@ -175,6 +178,7 @@ class H1Pool:
         length = None
         chunked = False
         keep_alive = True
+        headers: dict[str, str] = {}
         while True:
             line = await reader.readline()
             if line in (_CRLF, b"\n", b""):
@@ -182,6 +186,7 @@ class H1Pool:
             name, _, value = line.partition(b":")
             name = name.strip().lower()
             value = value.strip()
+            headers[name.decode("latin-1")] = value.decode("latin-1")
             if name == b"content-length":
                 length = int(value)
             elif name == b"transfer-encoding" and b"chunked" in value.lower():
@@ -200,7 +205,7 @@ class H1Pool:
             self._recycle(conn)
         else:
             writer.close()
-        return H1Response(status, bytes(body))
+        return H1Response(status, bytes(body), headers)
 
     @staticmethod
     async def _read_chunked(reader: asyncio.StreamReader) -> bytes:

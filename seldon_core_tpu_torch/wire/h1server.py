@@ -39,8 +39,9 @@ class BadRequest(Exception):
 
 async def read_request(reader: asyncio.StreamReader,
                        body_limit: Callable[[str], int] = lambda _path: MAX_BODY):
-    """One HTTP/1.x request -> ``(method, path, version, headers, body)``
-    (header names lower case), or None at a clean end of stream.  A body
+    """One HTTP/1.x request -> ``(method, path, version, headers, body,
+    query)`` (header names lower case, ``query`` the raw string after
+    ``?``), or None at a clean end of stream.  A body
     over ``body_limit(path)`` bytes is refused (413), as is a chunked one
     (501)."""
     line = await reader.readline()
@@ -65,12 +66,12 @@ async def read_request(reader: asyncio.StreamReader,
         length = int(headers.get("content-length", "0"))
     except ValueError:
         raise BadRequest(400, "bad Content-Length") from None
-    path = target.split("?", 1)[0]
+    path, _, query = target.partition("?")
     limit = body_limit(path)
     if length < 0 or length > limit:
         raise BadRequest(413, f"body of {length} bytes exceeds {limit}")
     body = await reader.readexactly(length) if length else b""
-    return method.upper(), path, version, headers, body
+    return method.upper(), path, version, headers, body, query
 
 
 def keep_alive(version: str, headers: dict[str, str]) -> bool:
