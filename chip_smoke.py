@@ -300,7 +300,35 @@ Phases, each printing one JSON line:
    queue: one host sync a step and an ``mfu`` gauge equal to the
    roofline's FLOPs over the measured step.  It prints the harness's
    p50/p99 and the wave's tokens/s with the planes on and off.
-18. ``kernel_times``: each kernel's time at the main path's shapes and at a
+18. ``serve_checkpoint``: weights from disk at llama3-1b width (bf16),
+   written under a temporary directory removed at the end.  S1:
+   ``serve``'s seeded weights saved with the port's ``save_params``
+   (about 2.2 GB) and an engine booted with them through the
+   ``checkpoint`` graph parameter: every loaded bf16 leaf bit-equal to the
+   saved one (never widened on the host), ``serve``'s 8 greedy streams,
+   one sync a block; it prints the file's bytes, the save seconds, the
+   load seconds (host read and upload apart) and the seconds to
+   ``/ready``, beside the seeded weights' making and ``serve``'s boot.
+   S2: the Medusa heads ``serve_spec`` synthesizes at ``spec_draft=3``
+   (``w1 (3, 2048, 2048)``, ``head (3, 2048, 32000)``) saved and served
+   through ``spec_heads_path``: loaded bit-equal, the streams of
+   speculation off, the acceptance ledger of ``serve_spec``'s heads run
+   on the same wave, one sync a block; a malformed heads file refused at
+   boot by name.  S3: ``chat`` and ``bulk`` (batch, top-k 40,
+   ``spec_method=draft``, ``truncate:auto``) packed as in ``serve_pack``,
+   a 16-client chat burst mid-way through 8 bulk requests: bulk's streams
+   equal ``serve_pack``'s sole bulk engine's, after warmup
+   ``draft_prefills`` equals bulk's admissions (imports of resumed slots
+   included), every draft prefill ran from the deferral under
+   the ``{name}/draft`` registrant's grant, none inline, one sync a block; it prints chat's
+   TTFT p50/p99 and bulk's tokens/s before and during the burst.  S4: a
+   ResNet-50 unit's ``save_checkpoint``, then a unit of another seed
+   booted with ``checkpoint``: the same 16-image request gives equal
+   replies.  S5: when ``transformers`` imports, a tiny random HF Llama
+   converted by ``models/convert.py`` and its logits on the card (f32)
+   against transformers' on the CPU within ``HF_TOL``; else reported as
+   skipped with the reason.
+19. ``kernel_times``: each kernel's time at the main path's shapes and at a
    long one (flash at S=2048 and its variant at 80 rows over 592 keys,
    against SDPA with the lower-right causal mask; paged at 8 slots near
    position 2000; paged
@@ -316,7 +344,8 @@ Phases, each printing one JSON line:
 Then the card's name and power limit (nvidia-smi), one line listing the
 kernels (launches summed over the serve phases, ``serve_graph``,
 ``serve_lora``, ``serve_zoo``, ``serve_cache``, ``serve_qos``,
-``serve_remote``, ``serve_pack`` and ``serve_obs`` included), and as the last line
+``serve_remote``, ``serve_pack``, ``serve_obs`` and ``serve_checkpoint`` included),
+and as the last line
 ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero before that line.  Without CUDA, or without
 the repository beside this file, it exits non-zero and prints no result.
@@ -1754,6 +1783,7 @@ def phase_serve_spec(serve: dict, device: str = "cuda", preset: str = SERVE_PRES
     from seldon_core_tpu_torch.ops import _build
 
     total = {name: 0 for name in KERNELS}
+    ledgers: dict = {}  # each method's wave and acceptance ledger, for serve_checkpoint
     for method, extra in SPEC_METHODS.items():
         spec = _serve_spec(preset, seed, spec_draft=(SPEC_DRAFT, "INT"), **extra)
 
@@ -1837,6 +1867,8 @@ def phase_serve_spec(serve: dict, device: str = "cuda", preset: str = SERVE_PRES
                              and rec["streams_equal_to_serve"] == len(agree)
                              and (rows is None or rows["bit_equal"]))
                 emit(rec)
+                ledgers[method] = {"prompts": prompts, "emitted": emitted, "passes": passes,
+                                   "boot_s": boot_s}
                 if not rec["ok"]:
                     raise AssertionError(
                         f"serve_spec {method}: one host sync per block, verify passes at "
@@ -1850,6 +1882,7 @@ def phase_serve_spec(serve: dict, device: str = "cuda", preset: str = SERVE_PRES
         launches = asyncio.run(run())
         for name in total:
             total[name] += launches[name]
+    total["ledgers"] = ledgers
     return total
 
 
@@ -4566,6 +4599,7 @@ def phase_serve_pack(device: str = "cuda", preset: str = SERVE_PRESET) -> dict:
     bulk_spec = PredictorSpec.from_dict(bulk_dict)
     rec: dict = {"phase": "serve_pack", "card": _card(), "preset": preset, "dtype": "bfloat16",
                  "n_slots": SERVE_SLOTS, "decode_block": SERVE_BLOCK}
+    bulk_reference: list = []  # bulk's prompts and sole-engine streams, for serve_checkpoint
 
     async def run() -> dict:
         vocab = resolve_config(preset).vocab_size
@@ -4725,6 +4759,7 @@ def phase_serve_pack(device: str = "cuda", preset: str = SERVE_PRESET) -> dict:
                         and p4["free_blocks"][0] == p4["free_blocks"][1])
             rec["P2"], rec["P3"], rec["P4"] = p2, p3, p4
             rec["launches"] = dict(_build.LAUNCHES)
+            bulk_reference[:] = [bulk_prompts, want_bulk]
             return rec
         finally:
             if a is not None:
@@ -4739,7 +4774,7 @@ def phase_serve_pack(device: str = "cuda", preset: str = SERVE_PRESET) -> dict:
     if not rec["ok"]:
         raise AssertionError(f"serve_pack: {[p for p in parts if not rec[p]['ok']]} failed, "
                              f"or a kernel never launched (see the record)")
-    return rec["launches"]
+    return {**rec["launches"], "bulk_reference": bulk_reference}
 
 
 # -- the telemetry plane ------------------------------------------------------------
@@ -5132,6 +5167,369 @@ def phase_serve_obs(device: str = "cuda", preset: str = SERVE_PRESET) -> dict:
     return launches
 
 
+# -- checkpoints, conversion, trained heads and packed draft speculation ------------
+
+CKPT_BURST = 16  # S3's chat clients, mid-way through the bulk wave
+# S5: a tiny random HF Llama (head dim 64, GQA 4 over 2), the port's f32
+# logits on the card against transformers' on the CPU
+HF_TINY = dict(vocab_size=128, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+               num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128,
+               rope_theta=10000.0, rms_norm_eps=1e-5, attention_bias=False,
+               tie_word_embeddings=False)
+HF_TOL = 1e-3  # abs and rel: f32 both sides, different summation orders
+HF_TOKENS = [5, 9, 2, 17, 3, 42, 8, 1, 77, 12, 100, 31, 64, 7, 99, 15]
+
+
+def _bits_equal(a, b) -> bool:
+    """Two tensors equal bit for bit (dtype, shape and bytes)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return bool(torch.equal(a, b.to(a.device)))
+
+
+def _sync_device(device: str) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tree_leaves(tree) -> list:
+    return [v for x in tree.values() for v in (_tree_leaves(x) if isinstance(x, dict) else [x])]
+
+
+def _wave_counts(model, before: tuple) -> dict:
+    blocks = model.decode_blocks - before[0]
+    return {"decode_blocks": blocks, "host_syncs": model.host_syncs - before[1],
+            "one_sync_a_block": blocks > 0 and model.host_syncs - before[1] == blocks}
+
+
+def _ckpt_convert(tmp: str, device: str) -> dict:
+    """S5: a tiny random HF Llama converted on the CPU, served on the card."""
+    try:
+        import transformers
+    except ImportError as e:
+        return {"skipped": f"transformers does not import here: {e}", "ok": True}
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.executor.checkpoint import load_params
+    from seldon_core_tpu_torch.models.convert import convert_hf_llama
+    from seldon_core_tpu_torch.models.weights import params_from_jax
+
+    torch.manual_seed(0)
+    hf = transformers.LlamaForCausalLM(transformers.LlamaConfig(**HF_TINY)).eval()
+    hf_dir, out = os.path.join(tmp, "hf"), os.path.join(tmp, "hf.npz")
+    hf.save_pretrained(hf_dir)
+    t0 = time.perf_counter()
+    cfg = convert_hf_llama(hf_dir, out)
+    convert_s = time.perf_counter() - t0
+    toks = torch.tensor([HF_TOKENS])
+    with torch.no_grad():
+        want = hf(toks).logits.numpy()
+        model = params_from_jax(load_params(out), cfg, device=device)
+        got = model(toks.to(device=device, dtype=torch.int32), seq_impl="flash").float().cpu()
+    got = got.numpy()
+    err = float(np.abs(got - want).max())
+    close = bool(np.allclose(got, want, rtol=HF_TOL, atol=HF_TOL))
+    return {"transformers": transformers.__version__, "config": HF_TINY, "convert_s": convert_s,
+            "max_abs_err": err, "tol": HF_TOL, "argmax_equal": bool(
+                (got.argmax(-1) == want.argmax(-1)).all()), "ok": close}
+
+
+def phase_serve_checkpoint(serve: dict, spec: dict, pack: dict, device: str = "cuda",
+                           preset: str = SERVE_PRESET) -> dict:
+    """Weights from disk at llama3-1b width (bf16).  S1: ``serve``'s seeded
+    weights saved with the port's ``save_params`` and served through the
+    ``checkpoint`` graph parameter: ``serve``'s streams, every loaded bf16
+    leaf bit-equal to the saved one.  S2: the Medusa heads ``serve_spec``
+    synthesizes (``spec_draft=3``) saved and served through
+    ``spec_heads_path``: the streams of speculation off, the acceptance
+    ledger of ``serve_spec``'s heads run, one sync a block; a malformed
+    heads file refused at boot by name.  S3: ``chat`` and ``bulk`` (batch,
+    ``spec_method=draft``) packed on the card, a 16-client chat burst while
+    bulk decodes: bulk's streams equal its unpacked run (``serve_pack``'s
+    sole bulk engine; greedy speculation emits the streams of speculation
+    off), every draft prefill deferred and run under ``bulk/draft``'s
+    grant, one a bulk admission.  S4: a ResNet-50 unit's
+    ``save_checkpoint`` served by a second unit with another seed through
+    ``checkpoint``: equal replies.  S5: a tiny random HF Llama converted
+    and its logits on the card against transformers' on the CPU, when
+    ``transformers`` imports (reported as skipped otherwise).  Returns the
+    kernels' launches over S1-S3's waves."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from seldon_core_tpu_torch.engine.service import PredictionService, load_co_predictor_specs
+    from seldon_core_tpu_torch.executor.arbiter import get_arbiter
+    from seldon_core_tpu_torch.executor.checkpoint import load_params, save_params
+    from seldon_core_tpu_torch.models import llama
+    from seldon_core_tpu_torch.models.registry import resolve_config
+    from seldon_core_tpu_torch.models.weights import init_params, params_from_jax, params_to_jax
+    from seldon_core_tpu_torch.ops import _build
+
+    cfg = resolve_config(preset)
+    prompts, outs = serve["prompts"], serve["outs"]
+    launches = {name: 0 for name in KERNELS}
+    rec: dict = {"phase": "serve_checkpoint", "card": _card(), "preset": preset,
+                 "dtype": "bfloat16"}
+    tmp = tempfile.mkdtemp(prefix="sct-ckpt-")
+
+    def count() -> None:
+        for name in KERNELS:
+            launches[name] += _build.LAUNCHES[name]
+
+    async def wave(app, ps) -> tuple[list, dict]:
+        model = app.service.walker.component.model
+        before = (model.decode_blocks, model.host_syncs)
+        _build.reset_launches()  # a wave of the main path starts here
+        replies, wave_s = await _serve_wave(app.port, ps)
+        count()
+        got = _check_replies(replies, ps, cfg.vocab_size)
+        await _quiet(model)
+        return got, {"wave_s": wave_s, **_wave_counts(model, before)}
+
+    async def s1_s2() -> tuple[dict, dict]:
+        # S1: save serve's seeded weights, load them apart, serve them
+        t0 = time.perf_counter()
+        seeded = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                             dtype=torch.bfloat16, device=device)
+        _sync_device(device)
+        make_s = time.perf_counter() - t0
+        path = os.path.join(tmp, "llama3-1b.npz")
+        t0 = time.perf_counter()
+        leaves = save_params(path, params_to_jax(seeded))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree = load_params(path)
+        read_s = time.perf_counter() - t0
+        host_bf16 = all(isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16
+                        for x in _tree_leaves(tree))
+        t0 = time.perf_counter()
+        loaded = params_from_jax(tree, cfg, device=device)
+        _sync_device(device)
+        upload_s = time.perf_counter() - t0
+        want = dict(seeded.named_parameters())
+        bit_equal = all(_bits_equal(t, want[k]) for k, t in loaded.named_parameters())
+        del tree, loaded
+        s1 = {"file_bytes": os.path.getsize(path), "leaves": leaves,
+              "param_bytes": sum(p.nbytes for p in seeded.parameters()),
+              "save_s": save_s, "load_host_read_s": read_s, "load_upload_s": upload_s,
+              "seeded_make_s": make_s, "loaded_leaves_bf16_on_host": host_bf16,
+              "loaded_bit_equal": bit_equal}
+        app, s1["ready_s"] = await _boot(_serve_spec(preset, 0, name="ckpt",
+                                                     checkpoint=(path, "STRING")), device)
+        s1["seeded_ready_s"] = serve["boot_and_warmup_s"]
+        try:
+            got, s1["wave"] = await wave(app, prompts)
+        finally:
+            await app.close()
+        s1["streams_equal"] = _streams_equal(outs, got)
+        s1["ok"] = (bit_equal and host_bf16 and s1["streams_equal"] == len(prompts)
+                    and s1["wave"]["one_sync_a_block"])
+        # S2: the heads serve_spec synthesizes, from a file
+        heads = llama.init_medusa_heads(torch.Generator(device=device).manual_seed(0), cfg,
+                                        SPEC_DRAFT, base_head=seeded.head,
+                                        dtype=torch.bfloat16, device=device)
+        hpath = os.path.join(tmp, "medusa.npz")
+        t0 = time.perf_counter()
+        save_params(hpath, heads)
+        s2 = {"file_bytes": os.path.getsize(hpath), "save_s": time.perf_counter() - t0,
+              "shapes": {k: list(v.shape) for k, v in heads.items()}}
+        del seeded
+        ref = spec["ledgers"]["heads"]
+        app, s2["ready_s"] = await _boot(_serve_spec(
+            preset, 0, name="heads", checkpoint=(path, "STRING"), spec_draft=(SPEC_DRAFT, "INT"),
+            spec_method=("heads", "STRING"), spec_heads_path=(hpath, "STRING")), device)
+        s2["synthesized_ready_s"] = ref["boot_s"]
+        try:
+            model = app.service.walker.component.model
+            s2["heads_bit_equal"] = all(_bits_equal(model._heads[k], heads[k]) for k in heads)
+            s2["spec_heads"] = model.spec_heads
+            before = (model.spec_emitted_tokens, model.spec_verify_passes)
+            got, s2["wave"] = await wave(app, ref["prompts"])
+            s2["ledger"] = [model.spec_emitted_tokens - before[0],
+                            model.spec_verify_passes - before[1]]
+        finally:
+            await app.close()
+        s2["synthesized_ledger"] = [ref["emitted"], ref["passes"]]
+        s2["streams_equal_spec_off"] = _streams_equal(outs, got)
+        bad = os.path.join(tmp, "bad-medusa.npz")
+        save_params(bad, {"w1": np.zeros((2, 8, 8), np.float32),
+                          "head": np.zeros((2, 8, cfg.vocab_size), np.float32)})
+        try:
+            app, _ = await _boot(_serve_spec(preset, 0, name="bad", spec_draft=(SPEC_DRAFT, "INT"),
+                                             spec_method=("heads", "STRING"),
+                                             spec_heads_path=(bad, "STRING")), device)
+            await app.close()
+            s2["malformed_refused"] = None
+        except Exception as e:  # noqa: BLE001 - the refusal is the expected outcome
+            s2["malformed_refused"] = str(e)[:300]
+        s2["ok"] = (s2["heads_bit_equal"] and s2["spec_heads"] == SPEC_DRAFT
+                    and s2["streams_equal_spec_off"] == len(prompts)
+                    and s2["ledger"] == s2["synthesized_ledger"]
+                    and s2["wave"]["one_sync_a_block"]
+                    and "Medusa checkpoint" in (s2["malformed_refused"] or "")
+                    and bad in (s2["malformed_refused"] or ""))
+        return s1, s2
+
+    async def s3() -> dict:
+        rng = np.random.default_rng(14)
+        bulk_prompts, want_bulk = pack["bulk_reference"]
+        lo, hi = PACK_BURST_LENS
+        burst = [rng.integers(0, cfg.vocab_size, n).tolist()
+                 for n in rng.integers(lo, hi + 1, CKPT_BURST)]
+        chat_spec = _serve_spec(preset, 0, name="chat", pack_slo_ms=(PACK_SLO_MS, "FLOAT"))
+        bulk_dict = _serve_spec_dict(
+            preset, PACK_BULK_SEED, name="bulk", pack_class=("batch", "STRING"),
+            top_k=(PACK_TOP_K, "INT"), spec_draft=(SPEC_DRAFT, "INT"),
+            spec_method=("draft", "STRING"), spec_draft_model=("truncate:auto", "STRING"))
+        co = [PredictionService(sp, device=device) for sp in load_co_predictor_specs(
+            {"ENGINE_CO_PREDICTORS": base64.b64encode(json.dumps([bulk_dict]).encode()).decode()})]
+        a, boot_s = await _boot(chat_spec, device, co_services=co)
+        try:
+            chat, bulk = a.service.walker.component, co[0].walker.component
+            cm, bm, cs, bs = chat.model, bulk.model, chat.scheduler, bulk.scheduler
+            arb = get_arbiter()
+            deps = arb.snapshot()["deployments"]
+            rec3 = {"boot_and_warmup_s": boot_s, "registrants": {
+                k: d["priority"] for k, d in deps.items()},
+                "bulk_keys": [bs._arb_key, bs._arb_draft_key],
+                "draft_prefills_after_warmup": bm.draft_prefills}
+            runs, dispatched, draining = [], [0], [0]
+            drain, run1, dispatch = (bm.drain_draft_prefills, bm._exec_draft_prefill,
+                                     bm.draft_prefill_dispatch)
+
+            def logged_drain():
+                draining[0] += 1
+                try:
+                    return drain()
+                finally:
+                    draining[0] -= 1
+
+            def logged_run(payload):
+                runs.append((draining[0] > 0, arb._holder))
+                return run1(payload)
+
+            def logged_dispatch(*args, **kw):
+                dispatched[0] += 1
+                return dispatch(*args, **kw)
+
+            bm.drain_draft_prefills, bm._exec_draft_prefill = logged_drain, logged_run
+            bm.draft_prefill_dispatch = logged_dispatch
+            base = {m: (m.decode_blocks, m.host_syncs) for m in (cm, bm)}
+            d0, i0 = bm.draft_prefills, bm.imports
+            _build.reset_launches()  # the packed wave of the main path starts here
+            stamps: list = []
+            tasks = await _bulk_wave(bs, bulk_prompts, stamps)
+            await _until(lambda: len(stamps) >= PACK_MID * len(bulk_prompts), 180.0,
+                         "the bulk wave to reach its middle")
+            n0 = len(cs.ttft)
+            replies, t_b0, t_b1 = await _burst(a.port, burst)
+            ttft = _ttfts_since(cs, n0)
+            got = [o.tolist() for o in await asyncio.gather(*tasks)]
+            t_end = max(stamps)
+            admissions = len(bulk_prompts) + bm.imports - i0
+            await _until(lambda: bm.draft_prefills - d0 >= admissions, 60.0,
+                         "the deferred draft prefills to drain")
+            await _quiet(bm)
+            count()
+            rec3.update({
+                "burst_ok": sum(r["status"] == 200 for r in replies),
+                "bulk_equal_unpacked": sum(g == w for g, w in zip(got, want_bulk)),
+                "admissions": admissions, "imports": bm.imports - i0,
+                "draft_dispatches": dispatched[0], "draft_prefills": bm.draft_prefills - d0,
+                "draft_runs_from_the_deferral": sum(d for d, _ in runs),
+                "draft_run_holders": sorted({h or "" for _, h in runs}),
+                "chat_ttft_ms": {"p50": 1e3 * _pct(ttft, 0.5), "p99": 1e3 * _pct(ttft, 0.99)},
+                "bulk_tokens_per_s": {"before": _rate(stamps, min(stamps), t_b0),
+                                      "during": _rate(stamps, t_b0, t_b1)},
+                "burst_s": t_b1 - t_b0, "bulk_s": t_end - min(stamps),
+                "spec": {k: bm.spec_snapshot()[k] for k in (
+                    "spec_verify_passes", "spec_emitted_tokens", "accepted_tokens_per_step")},
+                "arbiter": {k: arb.snapshot()[k] for k in ("grants", "preemptions", "resumes")},
+                "packing": {k: bs.packing_snapshot()[k] for k in ("suspends", "resumes")},
+                "syncs_per_block": [(m.host_syncs - base[m][1])
+                                    / max(1, m.decode_blocks - base[m][0]) for m in (cm, bm)],
+            })
+        finally:
+            await a.close()
+        bulk_key, draft_key = rec3["bulk_keys"]
+        rec3["ok"] = (draft_key == f"{bulk_key.partition('#')[0]}/draft"
+                      and rec3["registrants"].get(draft_key) == "batch"
+                      and len(rec3["registrants"]) == 3
+                      and rec3["draft_prefills_after_warmup"] == 0
+                      and rec3["burst_ok"] == CKPT_BURST
+                      and rec3["bulk_equal_unpacked"] == len(bulk_prompts)
+                      and rec3["draft_prefills"] == rec3["admissions"] == rec3["draft_dispatches"]
+                      and rec3["draft_runs_from_the_deferral"] == len(runs) == rec3["admissions"]
+                      and rec3["draft_run_holders"] == [draft_key]
+                      and rec3["syncs_per_block"] == [1.0, 1.0])
+        return rec3
+
+    async def s4() -> dict:
+        images = _zoo_rows("resnet", _zoo_cfg("resnet"), 16, np.random.default_rng(14))
+        body = _raw_body(images)
+        unit = dict(input_dtype=("uint8", "STRING"), buckets=("16", "STRING"))
+        rpath = os.path.join(tmp, "resnet50.npz")
+        app, boot_a = await _boot(_graph_spec(_zoo_unit("res", "resnet", 0, **unit)), device)
+        try:
+            r_a = await asyncio.to_thread(_req, app.port, body)
+            t0 = time.perf_counter()
+            leaves = dict(app.service.walker.iter_components())["res"].model.save_checkpoint(rpath)
+            save_s = time.perf_counter() - t0
+        finally:
+            await app.close()
+        # another seed: the replies can only agree through the checkpoint
+        app, boot_b = await _boot(_graph_spec(_zoo_unit(
+            "res", "resnet", 7, checkpoint=(rpath, "STRING"), **unit)), device)
+        try:
+            r_b = await asyncio.to_thread(_req, app.port, body)
+        finally:
+            await app.close()
+        out = [_raw_reply(json.loads(r["raw"])) if r["status"] == 200 else None
+               for r in (r_a, r_b)]
+        equal = out[0] is not None and out[1] is not None and np.array_equal(out[0], out[1])
+        return {"file_bytes": os.path.getsize(rpath), "leaves": leaves, "save_s": save_s,
+                "ready_s": [boot_a, boot_b], "status": [r_a["status"], r_b["status"]],
+                "rows": 16, "replies_equal": bool(equal), "ok": bool(equal)}
+
+    def part(names, fn, *args):
+        """Run one part; a part that raises is recorded as failed, so the
+        record still names what passed."""
+        t0 = time.perf_counter()
+        try:
+            out = fn(*args)
+        except Exception as e:  # noqa: BLE001 - recorded, and the phase fails below
+            out = [{"ok": False, "error": f"{type(e).__name__}: {e}"[:600]}] * len(names)
+        for name, r in zip(names, out):
+            rec[name] = r
+        rec["seconds"]["+".join(names)] = time.perf_counter() - t0
+
+    rec["seconds"] = {}
+    try:
+        part(("S1", "S2"), lambda: asyncio.run(s1_s2()))
+        part(("S3",), lambda: [asyncio.run(s3())])
+        part(("S4",), lambda: [asyncio.run(s4())])
+        part(("S5",), lambda: [_ckpt_convert(tmp, device)])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["launches"] = launches
+    parts = ("S1", "S2", "S3", "S4", "S5")
+    rec["ok"] = (all(rec[p]["ok"] for p in parts) and all(n > 0 for n in launches.values()))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"serve_checkpoint: {[p for p in parts if not rec[p]['ok']]} "
+                             "failed, or a kernel never launched (see the record)")
+    return launches
+
+
 def _flash_times(fa, S: int, D: int = 64) -> dict:
     """K1 at B=1, S, llama3-1b heads (32 and 8 KV; ``D`` 128 is the 8b's
     geometry), bf16: one input set per layer so no launch finds its inputs
@@ -5333,12 +5731,13 @@ def main() -> int:
     remote = timed("serve_remote", phase_serve_remote, serve)
     pack = timed("serve_pack", phase_serve_pack)
     obs = timed("serve_obs", phase_serve_obs)
+    ckpt = timed("serve_checkpoint", phase_serve_checkpoint, serve, spec, pack)
     times = timed("kernel_times", phase_kernel_times, serve)
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     launches = {name: serve["launches"][name] + cached["launches"][name] + spec[name]
                 + split[name] + stream[name] + graph[name] + lora[name] + zoo[name]
                 + tiers[name] + admission[name] + remote[name] + pack[name] + obs[name]
-                for name in KERNELS}
+                + ckpt[name] for name in KERNELS}
     print(_card(), flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": origin,

@@ -256,7 +256,8 @@ class DeviceArbiter:
                 cool = False
         if hot:
             victim = next((r for r in self._regs.values()
-                           if r.priority == qos.PRIO_BATCH and not r.preempted), None)
+                           if r.priority == qos.PRIO_BATCH and not r.preempted
+                           and not self._covered(r)), None)
             if victim is not None:
                 victim.preempted = True
                 victim.scheduler.request_preempt()
@@ -269,6 +270,15 @@ class DeviceArbiter:
                     reg.scheduler.request_resume()
                     self.resumes += 1
                     log.info("arbiter: resuming %s", reg.name)
+
+    def _covered(self, reg: _Reg) -> bool:
+        """A second registrant of one scheduler (a draft model's prefills,
+        ``{name}/draft``) is no victim of its own: the scheduler is
+        preempted through its first registrant, and an interactive
+        deployment's draft work never suspends it."""
+        return any(o is not reg and o.scheduler is reg.scheduler
+                   and (o.preempted or o.priority != qos.PRIO_BATCH)
+                   for o in self._regs.values())
 
     # ----------------------------------------------------------- telemetry
 

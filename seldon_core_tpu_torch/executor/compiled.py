@@ -14,8 +14,10 @@ for that download outside the lock, the step's one host sync, and hands
 the slot back.  No pinned memory is allocated on the hot path.  On the CPU
 the forward runs eagerly.
 
-Not ported: ``mesh``/``rules`` (sharding, ROADMAP A15), the multi-host
-driver, ``aot_lower`` and ``save_checkpoint`` (A14).
+:meth:`CompiledModel.save_checkpoint` writes the module as the JAX
+package's flax variables, which its ``load_params`` and
+``build_compiled(params=...)`` serve.  Not ported: ``mesh``/``rules``
+(sharding, ROADMAP A15), the multi-host driver and ``aot_lower``.
 """
 
 from __future__ import annotations
@@ -241,6 +243,15 @@ class CompiledModel:
         finally:
             self._in_warmup = False
         return len(self.buckets.sizes)
+
+    def save_checkpoint(self, path: str) -> int:
+        """Write the module's weights to ``path`` as the JAX package's flax
+        variables of its family (bf16 kept as bf16); returns the leaf
+        count."""
+        from seldon_core_tpu_torch.executor.checkpoint import save_params
+        from seldon_core_tpu_torch.models.weights import zoo_to_flax
+
+        return save_params(path, zoo_to_flax(self.name.partition(":")[0], self.module))
 
     def program_snapshot(self) -> dict:
         """Captures, replays of a captured graph, and each graph's key and

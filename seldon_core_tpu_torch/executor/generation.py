@@ -117,7 +117,7 @@ from seldon_core_tpu_torch.executor.speculative import propose_heads, propose_ng
 from seldon_core_tpu_torch.graph.units import GraphUnitError, SeldonComponent
 from seldon_core_tpu_torch.models import llama
 from seldon_core_tpu_torch.models.registry import resolve_config
-from seldon_core_tpu_torch.models.weights import init_params
+from seldon_core_tpu_torch.models.weights import init_params, medusa_heads_from_jax
 from seldon_core_tpu_torch.obs.metering import METER
 from seldon_core_tpu_torch.obs.probes import record_host_sync
 from seldon_core_tpu_torch.obs.spans import (
@@ -193,10 +193,12 @@ class GenerativeModel:
     parameters: ``spec_draft`` (env ``SCT_SPEC_DRAFT``; 0 is off),
     ``spec_ngram`` (``SCT_SPEC_NGRAM``, default 3), ``spec_hist``,
     ``spec_method`` (``SCT_SPEC_METHOD``, default ``ngram``), ``spec_heads``
-    (``SCT_SPEC_HEADS``) and ``spec_draft_model`` (``SCT_SPEC_DRAFT_MODEL``:
-    ``truncate:N``, ``truncate:auto`` or ``preset:NAME``).  ``medusa_heads``
-    carries a head block (``{"w1", "head"}``) in place of the heads made
-    from the model's ``lm_head``; ``draft_params`` carries the weights of a
+    (``SCT_SPEC_HEADS``), ``spec_heads_path`` (``SCT_SPEC_HEADS_PATH``: an
+    npz of trained heads, read for ``heads`` only) and
+    ``spec_draft_model`` (``SCT_SPEC_DRAFT_MODEL``: ``truncate:N``,
+    ``truncate:auto`` or ``preset:NAME``).  ``medusa_heads`` (or the file
+    of ``spec_heads_path``) carries a head block (``{"w1", "head"}``) in
+    place of the heads made from the model's ``lm_head``; ``draft_params`` carries the weights of a
     ``preset:`` draft model in place of seeded ones.  ``conf_signal`` (env
     ``SCT_CASCADE_CONF_SIGNAL=1``) computes the top-2 logit margin of each
     step inside the decode blocks and stashes a fetched block's margins in
@@ -245,6 +247,7 @@ class GenerativeModel:
         spec_hist: int = 64,
         spec_method: str | None = None,
         spec_heads: int | None = None,
+        spec_heads_path: str | None = None,
         spec_draft_model: str | None = None,
         medusa_heads: dict | None = None,
         draft_params: llama.Llama | None = None,
@@ -300,7 +303,7 @@ class GenerativeModel:
         if prefix_reuse is None:
             prefix_reuse = os.environ.get("SCT_CACHE_PREFIX", "0") == "1"
         self._spec_config(spec_draft, spec_ngram, spec_hist, spec_method, spec_heads,
-                          spec_draft_model)
+                          spec_draft_model, spec_heads_path)
         self._lora_config(lora_rank, lora_slots, lora_targets)
         if conf_signal is None:
             conf_signal = os.environ.get("SCT_CASCADE_CONF_SIGNAL", "0") == "1"
@@ -407,7 +410,11 @@ class GenerativeModel:
         # pairs, i.e. passes in which the slot emitted at least one token
         self.spec_emitted_tokens = 0
         self.spec_verify_passes = 0
-        self.draft_prefills = 0
+        # deferred draft-model prefills (spec_method='draft' on a packed
+        # card): queued at admission, drained at the scheduler's sync points
+        self._pending_draft_prefill: list[dict] = []
+        self.defer_draft_prefill = False
+        self.draft_prefills = 0  # draft-pool prompt prefills dispatched
         self.embeds = 0  # pooled-embedding forwards dispatched
         self.embed_fetches = 0  # device->host fetches made by embed waves
         self._zero_tier_counters()
@@ -438,7 +445,7 @@ class GenerativeModel:
     # -------------------------------------------------------- speculation
 
     def _spec_config(self, spec_draft, spec_ngram, spec_hist, spec_method, spec_heads,
-                     spec_draft_model) -> None:
+                     spec_draft_model, spec_heads_path) -> None:
         """The speculation parameters, their env fallbacks and checks."""
         if spec_draft is None:
             spec_draft = int(os.environ.get("SCT_SPEC_DRAFT", "0") or 0)
@@ -468,7 +475,17 @@ class GenerativeModel:
             spec_heads = int(os.environ.get("SCT_SPEC_HEADS", "0") or 0)
         if spec_draft_model is None:
             spec_draft_model = os.environ.get("SCT_SPEC_DRAFT_MODEL") or None
+        if spec_heads_path and self.spec_method != "heads":
+            # the JAX package reads it for 'heads' only; the port ignores
+            # no parameter (the env default below stays harmless)
+            raise GraphUnitError(
+                f"spec_heads_path={spec_heads_path!r} needs spec_method='heads' with "
+                f"spec_draft > 0, got spec_method={self.spec_method!r}"
+            )
+        if spec_heads_path is None:
+            spec_heads_path = os.environ.get("SCT_SPEC_HEADS_PATH") or None
         self.spec_heads = 0
+        self.spec_heads_path: str | None = None
         self._draft_geom: tuple | None = None
         if self.spec_draft:
             if self.spec_hist <= self.spec_ngram + self.spec_draft:
@@ -478,6 +495,7 @@ class GenerativeModel:
                 )
             if self.spec_method == "heads":
                 self.spec_heads = max(self.spec_draft, int(spec_heads or 0))
+                self.spec_heads_path = spec_heads_path
             elif self.spec_method == "draft":
                 self._draft_geom = self._parse_draft_model(spec_draft_model)
         # tokens a slot can emit per step of a block (the verify width)
@@ -534,8 +552,12 @@ class GenerativeModel:
                 "medusa_heads needs spec_method='heads' and draft_params a "
                 "spec_draft_model='preset:NAME'"
             )
+        if medusa_heads is not None and self.spec_heads_path:
+            raise GraphUnitError("medusa_heads and spec_heads_path both name the heads")
         if not self.spec_draft:
             return
+        if self.spec_heads_path:
+            medusa_heads = self._load_heads(self.spec_heads_path)
         # the ops whose rows this device rounds otherwise at S * (1 + d)
         # rows than at S: the verify pass runs them per query position
         self._row_split = llama.row_variant_ops(cfg, S, self._tps, self.dtype, dev,
@@ -596,6 +618,38 @@ class GenerativeModel:
                 1 + torch.arange(S * mbd, dtype=torch.int32, device=dev).reshape(S, mbd))
             self.draft_kv_bytes = self._draft_cache["k"].nbytes + self._draft_cache["v"].nbytes
 
+    def _load_heads(self, path: str) -> dict:
+        """Trained Medusa heads from an npz of ``executor/checkpoint.py``
+        (either package's): ``w1 (K, E, E)`` and ``head (K, E, V)`` with
+        ``K >= spec_draft`` and ``V == vocab``, in the cache dtype on the
+        model's device (bf16 carried bit for bit)."""
+        from seldon_core_tpu_torch.executor.checkpoint import load_params
+
+        def refuse(why: str = "") -> GraphUnitError:
+            return GraphUnitError(
+                f"generative model {self.name!r}: Medusa checkpoint {path!r} must hold "
+                f"w1 (K, E, E) + head (K, E, V) with K >= spec_draft={self.spec_draft} "
+                f"and V == {self.cfg.vocab_size}{why}"
+            )
+
+        try:
+            heads = load_params(path)
+        except (OSError, ValueError, KeyError) as e:
+            raise refuse(f"; spec_heads_path cannot be read: {e}") from e
+        w1 = heads.get("w1") if isinstance(heads, dict) else None
+        hd = heads.get("head") if isinstance(heads, dict) else None
+        E = self.cfg.hidden
+        if (w1 is None or hd is None or np.shape(w1)[:1] != np.shape(hd)[:1]
+                or np.shape(w1)[0] < self.spec_draft
+                or np.shape(hd)[-1] != self.cfg.vocab_size
+                or tuple(np.shape(w1)[1:]) != (E, E) or tuple(np.shape(hd)[1:-1]) != (E,)):
+            raise refuse(f" (E={E})")
+        try:
+            return medusa_heads_from_jax({"w1": w1, "head": hd}, dtype=self.dtype,
+                                         device=self.device)
+        except (ValueError, TypeError) as e:
+            raise refuse(f": {e}") from e
+
     def _with_hist(self, payload: dict, prompt: np.ndarray) -> dict:
         """Add the history-ring seed of ``prompt`` (the tokens the prefill
         leaves in the pool) to a prefill payload when speculation is on."""
@@ -619,15 +673,44 @@ class GenerativeModel:
         """Prefill the draft model's pool for ``slot`` with the WHOLE prompt
         (``spec_method='draft'``; a reused prefix or a chunk plan prefills
         it whole too).  Nothing is sampled or fetched.  A no-op for the
-        other methods."""
+        other methods.  Batch-class work: with :attr:`defer_draft_prefill`
+        set (the scheduler joined an arbiter) it is queued instead, outside
+        warmup, and runs at the scheduler's next sync point
+        (:meth:`drain_draft_prefills`) under the draft registrant's grant.
+        A late draft prefill costs acceptance only: the verify pass emits
+        the model's own tokens, and the draft position re-syncs every
+        pass."""
         if self._draft_params is None:
             return
         prompt = np.asarray(prompt, np.int32).ravel()
+        payload = {"prompt": prompt, "slot": int(slot)}
+        if self.defer_draft_prefill and not self._in_warmup:
+            with self._lock:
+                self._pending_draft_prefill.append(payload)
+            return
+        self._exec_draft_prefill(payload)
+
+    def drain_draft_prefills(self) -> int:
+        """Run the deferred draft-model prefills, oldest first; returns how
+        many ran."""
+        n = 0
+        while True:
+            with self._lock:
+                if not self._pending_draft_prefill:
+                    return n
+                payload = self._pending_draft_prefill.pop(0)
+            self._exec_draft_prefill(payload)
+            n += 1
+
+    def _exec_draft_prefill(self, payload: dict) -> None:
+        """One draft-pool prefill: dispatch only, nothing fetched, so the
+        one-host-sync-a-block audit is untouched."""
+        prompt, slot = payload["prompt"], payload["slot"]
         dc = self._draft_cache
         with self._lock, torch.no_grad():
             llama.prefill_slot_paged(
-                self._draft_params, self._h2d(self._padded(prompt)), prompt.size, int(slot),
-                dc["table"][int(slot)].clone(), dc, self._draft_cfg, seq_impl=self.seq_impl,
+                self._draft_params, self._h2d(self._padded(prompt)), prompt.size, slot,
+                dc["table"][slot].clone(), dc, self._draft_cfg, seq_impl=self.seq_impl,
             )
             self.draft_prefills += 1
 
@@ -2322,6 +2405,7 @@ class GenerationScheduler:
         # the arbiter reads as pressure
         self._arbiter = None
         self._arb_key: str | None = None
+        self._arb_draft_key: str | None = None  # a draft model's prefills
         self._preempt = False
         self._draining = False
         self._quiesced = asyncio.Event()
@@ -2648,23 +2732,47 @@ class GenerationScheduler:
                        slo_ms: float | None = None) -> None:
         """Join a packed card: register with ``arbiter`` under the model's
         name (the arbiter de-duplicates colliding names) and run every
-        device call of the run loop under its grant.  A draft model's
-        prefills (``spec_method='draft'``), which the JAX package defers
-        under a second, batch-class registrant, are not ported: such a
-        model raises by name."""
-        if self.model.spec_method == "draft":
-            raise GraphUnitError(
-                "spec_method='draft' on a packed card (pack_class, SCT_PACK=1 or "
-                "ENGINE_CO_PREDICTORS) is not served by the PyTorch port yet")
+        device call of the run loop under its grant.  With a draft model
+        (``spec_method='draft'``) a second, batch-class registrant,
+        ``"{name}/draft"``, covers its prompt prefills: they stop running
+        inline at admission and drain at the next sync point under the
+        draft grant, so an interactive co-tenant's blocks never queue
+        behind draft warm-up work."""
         self._arbiter = arbiter
         self._arb_key = arbiter.register(self.model.name, scheduler=self,
                                          priority=priority, slo_ms=slo_ms)
+        if self.model.spec_method == "draft":
+            self._arb_draft_key = arbiter.register(f"{self.model.name}/draft",
+                                                   scheduler=self, priority=qos.PRIO_BATCH)
+            self.model.defer_draft_prefill = True
 
     def detach_arbiter(self) -> None:
         if self._arbiter is not None:
+            if self._arb_draft_key is not None:
+                self._arbiter.unregister(self._arb_draft_key)
+                self._arb_draft_key = None
+                self.model.defer_draft_prefill = False
             self._arbiter.unregister(self._arb_key)
             self._arbiter = None
             self._arb_key = None
+
+    async def _drain_draft_prefills(self) -> None:
+        """Run the deferred draft-model prefills under the batch-class
+        draft grant (at a sync point only, never between a block's dispatch
+        and its fetch, so the one-sync-a-block audit holds)."""
+        if not self.model._pending_draft_prefill:
+            return
+        # local refs: close() detaches the arbiter concurrently with the run
+        # loop, and the release must pair with the acquire made here
+        arb, key = self._arbiter, self._arb_draft_key
+        if arb is None or key is None:
+            await asyncio.to_thread(self.model.drain_draft_prefills)
+            return
+        await arb.acquire(key)
+        try:
+            await asyncio.to_thread(self.model.drain_draft_prefills)
+        finally:
+            arb.release(key)
 
     async def _arb_acquire(self) -> None:
         if self._arbiter is not None:
@@ -3492,8 +3600,11 @@ class GenerationScheduler:
         S = len(slots)
         # no block is in flight, so pinned slots may go back to the pool and
         # pulled chains may take blocks; on a packed card every device call
-        # from here to the block's fetch runs under the device grant
+        # from here to the block's fetch runs under the device grant.  The
+        # draft prefills deferred at the last admissions run first, under
+        # their own batch-class grant, while this scheduler holds none
         self._drain_external_releases()
+        await self._drain_draft_prefills()
         if self._prefix_installs:
             await self._arb_acquire()
             await self._drain_prefix_installs()

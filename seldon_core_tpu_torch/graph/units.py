@@ -227,10 +227,12 @@ def _torch_generative(parameters: dict[str, Any], device: str) -> Any:
 
     Graph parameters as the JAX package reads them: ``family`` (default
     "llama"), ``preset``, ``n_slots``, ``max_new_tokens``, ``temperature``,
-    ``top_k``, ``eos_id``, ``dtype``, ``rng`` (weight seed), ``seq_impl``,
+    ``top_k``, ``eos_id``, ``dtype``, ``rng`` (weight seed), ``checkpoint``
+    (an npz the weights are read from in place of the seed),
+    ``spec_heads_path`` (trained Medusa heads), ``seq_impl``,
     ``decode_block``, ``decode_kernel``, ``kv_block_size``, ``kv_blocks``,
     ``queue_max``, plus model-config overrides.  Parameters of features the
-    port does not serve yet raise (models/registry.py)."""
+    port does not serve yet (``mesh``) raise (models/registry.py)."""
     from seldon_core_tpu_torch.models import registry
 
     params = dict(parameters)
@@ -245,8 +247,8 @@ def _torch_generative(parameters: dict[str, Any], device: str) -> Any:
 
 
 # parameters of the JAX package's JAX_MODEL unit that belong to later
-# slices of the port: checkpoints (ROADMAP A14) and the mesh (A15)
-MODEL_LATER_PARAMS = ("mesh", "checkpoint")
+# slices of the port: the mesh (ROADMAP A15)
+MODEL_LATER_PARAMS = ("mesh",)
 
 
 def _torch_model(parameters: dict[str, Any], device: str) -> Any:
@@ -258,8 +260,10 @@ def _torch_model(parameters: dict[str, Any], device: str) -> Any:
     ``buckets`` (a comma-separated batch ladder, e.g. ``"16,32"``),
     ``input_dtype`` (warm the buckets for that wire dtype, e.g. ``"uint8"``
     images normalized on the device), ``class_names`` (a list, or a
-    comma-separated string), ``batching``, ``rng`` (the weight seed), plus
-    config overrides (e.g. ``n_classes``).  ``mesh``, ``checkpoint`` and a
+    comma-separated string), ``batching``, ``rng`` (the weight seed),
+    ``checkpoint`` (an npz of the family's flax variables, written by
+    either package's ``save_checkpoint``; read in place of the seeded
+    weights), plus config overrides (e.g. ``n_classes``).  ``mesh`` and a
     ``sharding`` other than ``default`` raise by name.  One parameter the
     JAX unit lacks: ``input_shape`` (a comma-separated row shape, e.g.
     ``"128"`` for BERT rows of 128 tokens) warms the buckets for that row

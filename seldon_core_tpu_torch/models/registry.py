@@ -102,12 +102,39 @@ def example_input(family: str, cfg: Any, batch: int = 1) -> np.ndarray:
     return get_family(family).example_input(cfg, batch)
 
 
+def _resolve_params(params: Any, checkpoint: str | None) -> Any:
+    """Explicit params, then the ``checkpoint``'s tree, then None (the
+    caller makes seeded weights), as the JAX registry resolves them.  A
+    file that cannot be read as a checkpoint raises by name."""
+    from seldon_core_tpu_torch.executor.checkpoint import load_params
+
+    if params is not None or _is_off(checkpoint):
+        return params
+    try:
+        return load_params(str(checkpoint))
+    except (OSError, ValueError, KeyError) as e:
+        raise GraphUnitError(f"checkpoint {checkpoint!r} cannot be read: {e}") from e
+
+
+def _fit_checkpoint(build: Callable, what: str, checkpoint: str | None):
+    """Run ``build()`` (weights onto the module); a checkpoint's tree that
+    does not fit the resolved config raises by name."""
+    try:
+        return build()
+    except (KeyError, ValueError, TypeError, AttributeError) as e:
+        if _is_off(checkpoint):
+            raise
+        raise GraphUnitError(f"checkpoint {checkpoint!r} does not fit the {what}: {e}") from e
+
+
 def build_compiled(family: str, *, preset: str | None = None, cfg: Any = None, rng: int = 0,
                    dtype: torch.dtype | None = None, buckets=None, params: Any = None,
-                   device: str = "cuda", **overrides):
+                   checkpoint: str | None = None, device: str = "cuda", **overrides):
     """A :class:`CompiledModel` of ``family`` on ``device``.  ``params`` is
-    the family's port module or the JAX package's flax variables tree (as
-    numpy); without it the weights are made from the seed ``rng``."""
+    the family's port module or the JAX package's flax variables tree;
+    without it the weights come from ``checkpoint`` (an npz of
+    ``executor/checkpoint.py``, written by either package), else from the
+    seed ``rng``."""
     from seldon_core_tpu_torch.executor.compiled import BucketSpec, CompiledModel
 
     fam = get_family(family)
@@ -119,13 +146,15 @@ def build_compiled(family: str, *, preset: str | None = None, cfg: Any = None, r
         raise TypeError(f"unknown JAX_MODEL parameters {sorted(overrides)} for family "
                         f"{family!r} (config fields: "
                         f"{sorted(f.name for f in dataclasses.fields(fam.config_cls))})")
+    params = _resolve_params(params, checkpoint)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(int(rng))
         module = fam.init_params(cfg, gen, dtype=None, device=dev)
     elif isinstance(params, fam.module):
         module = params
     else:
-        module = zoo_from_flax(family, params, cfg, device=dev)
+        module = _fit_checkpoint(lambda: zoo_from_flax(family, params, cfg, device=dev),
+                                 f"{family} config {cfg}", checkpoint)
     return CompiledModel(module, buckets=buckets or BucketSpec(), dtype=dtype,
                          name=f"{family}:{preset or 'default'}", device=dev)
 
@@ -167,9 +196,8 @@ PRESETS = {
 }
 
 # parameters of the JAX package's generative unit that belong to later
-# slices of the port (trained Medusa heads from a checkpoint, mesh,
-# checkpoints)
-LATER_SLICE_PARAMS = ("spec_heads_path", "mesh", "checkpoint")
+# slices of the port (the mesh: multi-GPU)
+LATER_SLICE_PARAMS = ("mesh",)
 
 
 def _is_off(value: Any) -> bool:
@@ -201,6 +229,7 @@ def build_generative_component(
     n_slots: int = 4,
     rng: int = 0,
     dtype: torch.dtype | None = None,
+    checkpoint: str | None = None,
     params: Any = None,
     max_new_tokens: int = 32,
     temperature: float = 0.0,
@@ -221,6 +250,7 @@ def build_generative_component(
     spec_hist: int = 64,
     spec_method: str | None = None,
     spec_heads: int | None = None,
+    spec_heads_path: str | None = None,
     spec_draft_model: str | None = None,
     overlap: bool | None = None,
     conf_signal: bool | None = None,
@@ -238,8 +268,11 @@ def build_generative_component(
     """Build a continuous-batching generative graph unit on ``device``.
 
     ``params`` is a :class:`~seldon_core_tpu_torch.models.llama.Llama` or
-    the JAX package's ``init_params`` pytree (numpy leaves); without it the
-    weights are made from the seed ``rng``.  On ``cuda`` the attention runs
+    the JAX package's ``init_params`` pytree; without it the weights come
+    from ``checkpoint`` (an npz of ``executor/checkpoint.py`` written by
+    either package, or by ``models/convert.py``; a tree whose shapes do
+    not fit the resolved config raises by name), else from the seed
+    ``rng``.  On ``cuda`` the attention runs
     in the hand-written kernels only: ``seq_impl`` must be ``"flash"`` and
     ``decode_kernel`` True.  ``kv_cache_dtype="int8"`` stores the paged pool
     quantized with per-(position, head) scales, ``kv_prefix_reuse`` shares
@@ -249,9 +282,9 @@ def build_generative_component(
     ``SCT_PREFIX_DRAM_GB``) keeps evicted prefix blocks in that many GiB of
     host DRAM and promotes them back on a match.  ``spec_draft`` turns on speculative decoding with the
     proposer ``spec_method`` (``ngram``, ``heads`` with ``spec_heads``
-    heads made from the model's ``lm_head``, or ``draft`` with
-    ``spec_draft_model``); ``spec_ngram``/``spec_hist`` size the n-gram
-    proposer.  ``overlap`` (default on when ``decode_block > 1``; env
+    heads made from the model's ``lm_head`` or trained heads read from
+    ``spec_heads_path``, or ``draft`` with ``spec_draft_model``);
+    ``spec_ngram``/``spec_hist`` size the n-gram proposer.  ``overlap`` (default on when ``decode_block > 1``; env
     ``SCT_GEN_OVERLAP=0`` turns it off) dispatches each decode block from
     the previous block's device carry before that block's tokens are
     fetched.  ``conf_signal`` (env ``SCT_CASCADE_CONF_SIGNAL=1``) computes
@@ -268,7 +301,9 @@ def build_generative_component(
     ``pack_slo_ms`` are the deployment's QoS class and queue-wait SLO band
     on a packed card, read when the engine registers co-resident
     deployments with the device arbiter (``ENGINE_CO_PREDICTORS``, or
-    ``SCT_PACK=1``); a packed ``spec_method='draft'`` raises by name."""
+    ``SCT_PACK=1``); a packed ``spec_method='draft'`` defers its draft
+    model's prompt prefills to the scheduler's sync points, under a
+    second, batch-class registrant."""
     from seldon_core_tpu_torch.executor.generation import (
         GenerativeComponent,
         GenerativeModel,
@@ -296,13 +331,16 @@ def build_generative_component(
         cfg = resolve_config(preset, **overrides)
     elif overrides:
         raise TypeError(f"unknown generative parameters {sorted(overrides)}")
+    params = _resolve_params(params, checkpoint)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(int(rng))
         model_params = init_params(cfg, gen, dtype=dtype or torch.float32, device=dev)
     elif isinstance(params, llama.Llama):
         model_params = params
     else:
-        model_params = params_from_jax(params, cfg, dtype=dtype, device=dev)
+        model_params = _fit_checkpoint(
+            lambda: params_from_jax(params, cfg, dtype=dtype, device=dev),
+            f"llama config {cfg}", checkpoint)
     model = GenerativeModel(
         cfg,
         model_params,
@@ -324,6 +362,7 @@ def build_generative_component(
         spec_hist=spec_hist,
         spec_method=spec_method,
         spec_heads=spec_heads,
+        spec_heads_path=spec_heads_path,
         spec_draft_model=spec_draft_model,
         conf_signal=conf_signal,
         embed=embed,

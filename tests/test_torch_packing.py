@@ -19,8 +19,8 @@ suspend and resume inside the port.
 * Packed schedulers: a hot interactive co-tenant preempts a batch
   scheduler and its cooling resumes it (``arbiter-yield`` counted); two
   schedulers interleave whole blocks with every device call under the
-  caller's grant; queue pressure decays; ``register_packed``; closing a
-  component releases its host-ledger bytes.
+  caller's grant; queue pressure decays; ``register_packed`` (a draft
+  model too); closing a component releases its host-ledger bytes.
 """
 
 import asyncio
@@ -575,18 +575,22 @@ def test_sct_pack_attaches_a_sole_deployment(tiny, monkeypatch):
 
 
 def test_packed_draft_speculation_raises_by_name(tiny):
-    # every packing route (register_packed, SCT_PACK=1, the engine's
-    # co-resident boot) goes through attach_arbiter, which refuses the model
+    # a packed draft model once raised here; every packing route
+    # (register_packed, SCT_PACK=1, the engine's co-resident boot) goes
+    # through attach_arbiter, which now registers its draft prefills as a
+    # second, batch-class registrant (tests/test_torch_draft_packing.py)
     model = _port(tiny, spec_draft=2, spec_method="draft", spec_draft_model="truncate:1")
     comp = GenerativeComponent(model, pack_class="batch")
+    arb = arbiter.DeviceArbiter()
     try:
-        with pytest.raises(GraphUnitError, match="spec_method='draft'"):
-            comp.register_packed(arbiter.DeviceArbiter())
-        assert comp.scheduler._arbiter is None
+        comp.register_packed(arb)
+        assert comp.scheduler._arbiter is arb and model.defer_draft_prefill
+        deps = arb.snapshot()["deployments"]
+        assert deps[model.name]["priority"] == qos.PRIO_BATCH
+        assert deps[f"{model.name}/draft"]["priority"] == qos.PRIO_BATCH
     finally:
         run(comp.close())
-    with pytest.raises(GraphUnitError, match="spec_method='draft'"):
-        GenerationScheduler(model).attach_arbiter(arbiter.DeviceArbiter())
+    assert arb.snapshot()["deployments"] == {} and not model.defer_draft_prefill
 
 
 @pytest.mark.parametrize("name,value,check", [

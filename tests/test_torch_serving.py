@@ -224,8 +224,10 @@ def test_codec_matches_the_jax_codec(msg):
     ("spec_heads_path", "/heads.npz"), ("mesh", "auto"), ("checkpoint", "/weights.npz"),
 ])
 def test_later_slice_parameters_raise_by_name(name, value):
-    # pack_class and pack_slo_ms are served (tests/test_torch_packing.py)
-    assert set(registry.LATER_SLICE_PARAMS) == {"spec_heads_path", "mesh", "checkpoint"}
+    # only the mesh is left to a later slice; checkpoint and spec_heads_path
+    # are served (tests/test_torch_checkpoint.py), and a file that is not
+    # there, or spec_heads_path without spec_method='heads', is refused by name
+    assert registry.LATER_SLICE_PARAMS == ("mesh",)
     with pytest.raises(GraphUnitError, match=name):
         create_builtin(Implementation.JAX_GENERATIVE, {"preset": "tiny", name: value},
                        device="cpu")
@@ -307,7 +309,7 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "cache/semantic.py", "wire/h1client.py", "engine/transport.py",
                    "runtime/server.py", "runtime/microservice.py", "runtime/outlier.py",
                    "runtime/persistence.py", "executor/arbiter.py", "chaos/__init__.py",
-                   "chaos/plan.py"):
+                   "chaos/plan.py", "executor/checkpoint.py", "models/convert.py"):
         assert ROOT / "seldon_core_tpu_torch" / module in sources
     hits = [
         f"{p.relative_to(ROOT)}:{i}"
@@ -320,7 +322,8 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import importlib, pkgutil, sys, seldon_core_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(seldon_core_tpu_torch.__path__, 'seldon_core_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'seldon_core_tpu')]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'seldon_core_tpu', 'transformers')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", probe], cwd=ROOT, check=True, timeout=120)
