@@ -328,7 +328,39 @@ Phases, each printing one JSON line:
    converted by ``models/convert.py`` and its logits on the card (f32)
    against transformers' on the CPU within ``HF_TOL``; else reported as
    skipped with the reason.
-19. ``kernel_times``: each kernel's time at the main path's shapes and at a
+19. ``serve_gateway``: the port's gateway, spawned as its own process
+   through its entry point (``python -m seldon_core_tpu_torch.gateway.app``,
+   ``SCT_GW_ROUTE_POLL_S=0.25``, ``SCT_FLEET_POLL_S=0.5``,
+   ``SCT_GW_UPSTREAM_CONNS=16``), in front of two llama3-1b engines
+   (``serve``'s graph with ``kv_prefix_reuse``) as replicas A and B of one
+   deployment.  W1: a token for the right secret; 401 for a wrong secret
+   and for no token; 400 for conflicting ``Content-Length`` headers and a
+   header name with a space before its colon, 411 for a chunked upload
+   (the JAX splice front's statuses), 404 for an unknown route.  W2:
+   ``serve``'s prompts as a concurrent wave through the gateway equal the
+   same wave sent straight to A and ``serve``'s streams, three pairs; the
+   ``gateway-h1`` wire edge counts the bytes the clients sent and
+   received; it prints the gateway's added ms (p50, p99; the median of the
+   pairs; each wave's engine-side TTFT and prefills by replica; and the
+   same 8 requests one at a time, direct then through the gateway) and its
+   CPU seconds a request.  W3: a 512-token prefix warmed by
+   one request; after a poll, 8 requests sharing it (32-64-token
+   suffixes) all go to that replica (``/stats/route``), which reuses 512
+   tokens for each (8 reuses) while the other prefills none and K1 runs the
+   suffix prefills; their streams equal the same 8 prompts prefilled cold
+   on the other replica; a prompt with no shared prefix is one p2c pick;
+   it prints the routed and cold TTFT p50.  W4: an SSE stream through the
+   splice equals a direct one, its first event before its last block.
+   W6 (before W5): ``/stats/fleet`` lists both replicas and its request
+   count equals the engines' own ``/stats/summary`` counts; ``/feedback``
+   through the fallback core moves the gateway's reward counter.  W5: B
+   closed; every request answers 200 from A (a refused connect moves to
+   A), within its timeout, ``/stats/route`` shows B's digest cleared and
+   its breaker open; B rebooted on its port is picked again.  W6 (tap): a
+   second gateway with ``GATEWAY_TAP_BROKER`` on the port's taplog broker
+   gives one record a tapped request, keyed by its puid.  It prints each
+   engine's seconds to ``/ready`` and the phase's seconds.
+20. ``kernel_times``: each kernel's time at the main path's shapes and at a
    long one (flash at S=2048 and its variant at 80 rows over 592 keys,
    against SDPA with the lower-right causal mask; paged at 8 slots near
    position 2000; paged
@@ -344,7 +376,8 @@ Phases, each printing one JSON line:
 Then the card's name and power limit (nvidia-smi), one line listing the
 kernels (launches summed over the serve phases, ``serve_graph``,
 ``serve_lora``, ``serve_zoo``, ``serve_cache``, ``serve_qos``,
-``serve_remote``, ``serve_pack``, ``serve_obs`` and ``serve_checkpoint`` included),
+``serve_remote``, ``serve_pack``, ``serve_obs``, ``serve_checkpoint`` and
+``serve_gateway`` included),
 and as the last line
 ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero before that line.  Without CUDA, or without
@@ -1462,15 +1495,15 @@ def _serve_spec(preset: str, seed: int, name: str = "smoke", **extra):
     return PredictorSpec.from_dict(_serve_spec_dict(preset, seed, name, **extra))
 
 
-async def _boot(spec, device: str, **engine):
-    """Start the engine (``engine``: its role and decode peers) on a free
-    port and wait until it is ready (warmup included); returns the app and
-    the seconds that took."""
+async def _boot(spec, device: str, port: int = 0, **engine):
+    """Start the engine (``engine``: its role and decode peers) on ``port``
+    (0: a free one) and wait until it is ready (warmup included); returns
+    the app and the seconds that took."""
     from seldon_core_tpu_torch.engine.app import EngineApp
     from seldon_core_tpu_torch.engine.service import PredictionService
 
     app = EngineApp(PredictionService(spec, device=device), **engine)
-    await app.start("127.0.0.1", 0)
+    await app.start("127.0.0.1", port)
     t0 = time.perf_counter()
     boot = asyncio.create_task(app.boot())
     try:
@@ -2264,17 +2297,21 @@ async def _dram_tier(preset: str, seed: int, device: str, add) -> dict:
     return rec
 
 
-def _sse(port: int, body: dict, read_events: int | None = None) -> dict:
+def _sse(port: int, body: dict, read_events: int | None = None, headers: str = "",
+         on_first=None) -> dict:
     """POST ``body`` to the stream route over a raw socket: the status, the
     content type, the events, and for each event the time its bytes came
-    (the socket closes after ``read_events`` events when given)."""
+    (the socket closes after ``read_events`` events when given).
+    ``headers`` (``"name: value\\r\\n"`` lines) join the request head;
+    ``on_first()`` runs when the first event's bytes come, and its result
+    is returned as ``first``."""
     import socket
 
     sock = socket.create_connection(("127.0.0.1", port), timeout=600)
-    data, times = b"", []
+    data, times, first = b"", [], None
     try:
         payload = json.dumps(body).encode()
-        sock.sendall((f"POST /api/v0.1/predictions/stream HTTP/1.1\r\nHost: smoke\r\n"
+        sock.sendall((f"POST /api/v0.1/predictions/stream HTTP/1.1\r\nHost: smoke\r\n{headers}"
                       f"Content-Length: {len(payload)}\r\nConnection: close\r\n\r\n").encode()
                      + payload)
         while True:
@@ -2283,6 +2320,8 @@ def _sse(port: int, body: dict, read_events: int | None = None) -> dict:
                 break
             data += chunk
             times += [time.perf_counter()] * chunk.count(b"\n\n")
+            if on_first is not None and first is None and b"data: " in data:
+                first = on_first()
             if read_events is not None and data.count(b"\n\ndata: ") >= read_events:
                 break
     finally:
@@ -2294,7 +2333,7 @@ def _sse(port: int, body: dict, read_events: int | None = None) -> dict:
     ctype = next((ln.split(": ", 1)[1] for ln in lines if ln.lower().startswith("content-type")),
                  None)
     return {"status": int(lines[0].split(" ")[1]), "content_type": ctype, "events": events,
-            "times": times[-len(events):] if events else []}
+            "times": times[-len(events):] if events else [], "first": first}
 
 
 def phase_serve_stream(device: str = "cuda", preset: str = SERVE_PRESET, seed: int = 0) -> dict:
@@ -5530,6 +5569,611 @@ def phase_serve_checkpoint(serve: dict, spec: dict, pack: dict, device: str = "c
     return launches
 
 
+GW_POLL_S = 0.25  # SCT_GW_ROUTE_POLL_S in serve_gateway (the default 2 s would leave it waiting)
+GW_FLEET_POLL_S = 0.5  # SCT_FLEET_POLL_S (default 10 s)
+GW_CONNS = 16  # SCT_GW_UPSTREAM_CONNS: a wave's requests each on a connection of its own
+GW_PAIRS = 3  # W2's measured (direct, gateway) wave pairs
+GW_HOP_ROUNDS = 2  # W2's one-at-a-time pairs: serve's prompts, this many times
+GW_PREFIX = 512  # W3's shared system prompt: 32 full 16-row blocks
+GW_SUFFIXES = (32, 36, 41, 45, 50, 54, 59, 64)  # W3's 8 distinct suffixes
+GW_SSE_NEW = 128  # W4's streamed tokens: 8 decode blocks
+GW_TAPPED = 8  # W6's tapped predictions
+GW_TIMEOUT_S = 60.0  # a W5 client's timeout
+GW_READY_S = 90.0  # the gateway process's time to /ready
+
+
+def _traceparent() -> str:
+    return f"00-{os.urandom(16).hex()}-{os.urandom(8).hex()}-01"
+
+
+def _http(port: int, method: str, path: str, body: bytes | None = None,
+          headers: dict | None = None, timeout: float = 600.0) -> dict:
+    """One request over a raw socket (no hop-by-hop header: a splice
+    forwards the bytes as sent) -> its status, headers, body, the bytes sent
+    and received, and the wall seconds."""
+    import socket
+
+    head = f"{method} {path} HTTP/1.1\r\nhost: 127.0.0.1:{port}\r\n"
+    for k, v in (headers or {}).items():
+        head += f"{k}: {v}\r\n"
+    if body is not None:
+        head += f"content-length: {len(body)}\r\n"
+    req = head.encode() + b"\r\n" + (body or b"")
+    t0 = time.perf_counter()
+    sock = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+    data = b""
+    try:
+        sock.sendall(req)
+        while b"\r\n\r\n" not in data:
+            chunk = sock.recv(1 << 16)
+            if not chunk:
+                raise ConnectionError(f"{path}: closed before a response head")
+            data += chunk
+        hd, _, rest = data.partition(b"\r\n\r\n")
+        lines = hd.decode("latin-1").split("\r\n")
+        hdrs = {k.lower(): v for k, _, v in (ln.partition(": ") for ln in lines[1:])}
+        n = int(hdrs.get("content-length", "-1"))
+        while n < 0 or len(rest) < n:
+            chunk = sock.recv(1 << 16)
+            if not chunk:
+                break
+            rest += chunk
+    finally:
+        sock.close()
+    return {"status": int(lines[0].split(" ")[1]), "headers": hdrs, "body": rest,
+            "sent": len(req), "received": len(hd) + 4 + len(rest),
+            "s": time.perf_counter() - t0}
+
+
+def _raw_exchange(port: int, payload: bytes) -> bytes:
+    """Send raw bytes, return the first response's bytes (the framing gates)."""
+    import socket
+
+    sock = socket.create_connection(("127.0.0.1", port), timeout=30)
+    try:
+        sock.sendall(payload)
+        return sock.recv(1 << 16)
+    finally:
+        sock.close()
+
+
+class _GatewayProc:
+    """The port's gateway as its own process, through its entry point
+    (``python -m seldon_core_tpu_torch.gateway.app``) on a free loopback
+    port; killed on exit."""
+
+    def __init__(self, logdir: str, name: str, deployments: str, env: dict):
+        self.port = _free_port()
+        self.logpath = os.path.join(logdir, f"{name}.log")
+        self.log = open(self.logpath, "ab")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "seldon_core_tpu_torch.gateway.app", "--host", "127.0.0.1",
+             "--port", str(self.port), "--deployments", deployments],
+            cwd=ROOT, stdout=self.log, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": ROOT, **env})
+
+    def wait_ready(self) -> float:
+        t0 = time.perf_counter()
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"the gateway exited with {self.proc.returncode}: "
+                                     f"{self.tail()}")
+            try:
+                if _get(self.port, "/ready") == 200:
+                    return time.perf_counter() - t0
+            except (urllib.error.URLError, OSError):
+                pass  # not listening yet
+            if time.perf_counter() - t0 > GW_READY_S:
+                raise AssertionError(f"the gateway was not ready in {GW_READY_S} s")
+            time.sleep(0.1)
+
+    def cpu_s(self) -> float:
+        """The process's user + system CPU seconds (``/proc/<pid>/stat``)."""
+        with open(f"/proc/{self.proc.pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+    def tail(self) -> str:
+        with open(self.logpath, "rb") as f:
+            return f.read()[-2000:].decode(errors="replace")
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.log.close()
+
+
+def _json_get(port: int, path: str) -> dict:
+    status, raw = _fetch(port, path, timeout=30)
+    if status != 200:
+        raise AssertionError(f"GET {path} -> {status}: {raw[:300]!r}")
+    return json.loads(raw)
+
+
+def phase_serve_gateway(serve: dict, device: str = "cuda", preset: str = SERVE_PRESET,
+                        seed: int = 0) -> dict:
+    """The gateway in front of two llama3-1b engines (``serve``'s graph with
+    ``kv_prefix_reuse``), replicas A and B of one deployment, the port's
+    gateway spawned through its entry point; a second record, ``chat-a``,
+    lists A alone.  W1: tokens, 401s and the splice's framing refusals.
+    W2: ``serve``'s prompts through the gateway as a concurrent wave over
+    both replicas, and as waves through ``chat-a``, equal the same waves
+    sent straight to A (and ``serve``'s streams), one sync a block, the
+    ``gateway-h1`` wire edge counting the clients' bytes; it prints the
+    hop's added ms on one engine (``chat-a`` against direct, by wave and
+    one 1-token request at a time) and the gateway's CPU seconds a request
+    less an idle span's of the same length.  W3: a 512-token prefix warmed by one request,
+    then 8 requests sharing it all go to that replica, which reuses the
+    prefix for each while the other prefills none, with the streams of the
+    same prompts prefilled cold on the other replica; then a p2c pick.
+    W4: an SSE stream through the splice equals a direct one, its first
+    event before its last block.  W6 (fleet, feedback): ``/stats/fleet``
+    lists both replicas and sums their own counts; ``/feedback`` moves the
+    gateway's reward counter.  W5: B closed, every request answers 200
+    from A, B's digest cleared and its breaker open; B rebooted on its port
+    is picked again.  W6 (tap): a second gateway with
+    ``GATEWAY_TAP_BROKER`` on the port's taplog broker gives one record a
+    request, keyed by its puid.  Returns the kernels' launches on the
+    gateway's path: the reboot's warmup and every reference request sent
+    straight to an engine are taken off."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.ops import _build
+    from seldon_core_tpu_torch.taplog import TapBrokerClient, TapBrokerServer
+
+    spec = _serve_spec(preset, seed, kv_prefix_reuse=("true", "BOOL"))
+    rng = np.random.default_rng(seed + 15)
+    prompts = serve["prompts"]
+    gw_env = {"SCT_GW_ROUTE_POLL_S": str(GW_POLL_S), "SCT_FLEET_POLL_S": str(GW_FLEET_POLL_S),
+              "SCT_GW_UPSTREAM_CONNS": str(GW_CONNS)}
+    rec: dict = {"phase": "serve_gateway", "card": _card(), "preset": preset,
+                 "dtype": "bfloat16", "kv_prefix_reuse": True, "gateway_env": gw_env}
+    launches = {name: 0 for name in KERNELS}
+    # launches of reference traffic sent straight to an engine, not the
+    # gateway's path: taken off the phase's count
+    reference_launches = {name: 0 for name in KERNELS}
+    tmp = tempfile.mkdtemp(prefix="sct-gw-")
+
+    def body_of(p, max_new=MAX_NEW) -> bytes:
+        return json.dumps({"strData": json.dumps({"tokens": list(p),
+                                                  "max_new_tokens": max_new})}).encode()
+
+    def tokens_of(r: dict) -> list[int] | None:
+        if r["status"] != 200:
+            return None
+        return json.loads(json.loads(r["body"])["strData"])["tokens"]
+
+    async def wave(port: int, bodies, headers: dict) -> list[dict]:
+        loop = asyncio.get_running_loop()
+        with concurrent.futures.ThreadPoolExecutor(len(bodies)) as clients:
+            return list(await asyncio.gather(*(loop.run_in_executor(
+                clients, lambda b=b: _http(port, "POST", "/api/v0.1/predictions", b,
+                                           {**headers, "traceparent": _traceparent()}))
+                for b in bodies)))
+
+    async def reference(aw):
+        before = dict(_build.LAUNCHES)
+        try:
+            return await aw
+        finally:
+            for name in KERNELS:
+                reference_launches[name] += _build.LAUNCHES[name] - before[name]
+
+    def model_of(app):
+        return app.service.walker.component.model
+
+    async def run() -> None:
+        t_phase = time.perf_counter()
+        a, a_boot = await _boot(spec, device)
+        b, b_boot = await _boot(spec, device)
+        rec["ready_s"] = {"A": a_boot, "B": b_boot}
+        b_port = b.port
+        keys = {"A": f"127.0.0.1:{a.port}", "B": f"127.0.0.1:{b_port}"}
+        deps = os.path.join(tmp, "deployments.json")
+        with open(deps, "w") as f:
+            json.dump([{"name": "chat", "oauth_key": "chat-key", "oauth_secret": "chat-secret",
+                        "engine_host": "127.0.0.1", "engine_rest_port": a.port,
+                        "endpoints": [keys["A"], keys["B"]]},
+                       # A alone: W2's hop without a split over two engines
+                       {"name": "chat-a", "oauth_key": "chat-a-key",
+                        "oauth_secret": "chat-a-secret", "engine_host": "127.0.0.1",
+                        "engine_rest_port": a.port}], f)
+        procs, broker, b2 = [], None, None
+        syncs = {}
+        try:
+            gw = _GatewayProc(tmp, "gateway", deps, gw_env)
+            procs.append(gw)
+            rec["gateway_ready_s"] = await asyncio.to_thread(gw.wait_ready)
+            gp = gw.port
+            models = {"A": model_of(a), "B": model_of(b)}
+            base = {k: (m.decode_blocks, m.host_syncs) for k, m in models.items()}
+            _build.reset_launches()  # the main path's run starts here
+
+            # -- W1: auth and framing
+            form = b"grant_type=client_credentials&client_id=chat-key&client_secret="
+            ctype = {"content-type": "application/x-www-form-urlencoded"}
+            good = await asyncio.to_thread(_http, gp, "POST", "/oauth/token",
+                                           form + b"chat-secret", ctype)
+            bad = await asyncio.to_thread(_http, gp, "POST", "/oauth/token", form + b"nope",
+                                          ctype)
+            token = json.loads(good["body"]).get("access_token", "")
+            auth = {"authorization": f"Bearer {token}", "content-type": "application/json"}
+            anon = await asyncio.to_thread(_http, gp, "POST", "/api/v0.1/predictions",
+                                           body_of(VERIFY_PROMPT),
+                                           {"content-type": "application/json"})
+            framing = {}
+            for name, raw in (
+                ("conflicting_content_length", b"POST /api/v0.1/predictions HTTP/1.1\r\n"
+                 b"host: x\r\ncontent-length: 3\r\ncontent-length: 5\r\n\r\nabc"),
+                ("chunked_upload", b"POST /api/v0.1/predictions HTTP/1.1\r\nhost: x\r\n"
+                 b"transfer-encoding: chunked\r\n\r\n"),
+                ("space_before_colon", b"POST /api/v0.1/predictions HTTP/1.1\r\n"
+                 b"Content-Length : 2\r\n\r\n{}"),
+                ("unknown_route", b"GET /nope HTTP/1.1\r\nhost: x\r\n\r\n"),
+            ):
+                resp = await asyncio.to_thread(_raw_exchange, gp, raw)
+                framing[name] = int(resp.split(b" ", 2)[1])
+            w1 = {"token": good["status"], "expires_in": json.loads(good["body"]).get(
+                      "expires_in"), "wrong_secret": bad["status"], "no_token": anon["status"],
+                  **framing}
+            # the JAX splice front's statuses: a chunked upload is 411
+            w1["ok"] = (w1["token"] == 200 and bool(token) and w1["wrong_secret"] == 401
+                        and w1["no_token"] == 401 and framing == {
+                            "conflicting_content_length": 400, "chunked_upload": 411,
+                            "space_before_colon": 400, "unknown_route": 404})
+            rec["W1"] = w1
+            if not w1["ok"]:
+                raise AssertionError(f"serve_gateway W1: {w1}")
+
+            # -- W2: the splice wave
+            bodies = [body_of(p) for p in prompts]
+            plain = {"content-type": "application/json"}
+            # A's index holds the prompts
+            warmup = await reference(wave(a.port, bodies, plain))
+            want = [tokens_of(r) for r in warmup]
+            scheds = {"A": a.service.walker.component.scheduler,
+                      "B": b.service.walker.component.scheduler}
+            tok_a = json.loads((await asyncio.to_thread(
+                _http, gp, "POST", "/oauth/token",
+                b"grant_type=client_credentials&client_id=chat-a-key&client_secret="
+                b"chat-a-secret", ctype))["body"])["access_token"]
+            auth_a = {**auth, "authorization": f"Bearer {tok_a}"}
+
+            async def engine_side(port, bs, hdrs) -> tuple[list, dict]:
+                """A wave and, from the engines, its TTFT p50 and each
+                replica's prefills."""
+                n0 = {k: (len(scheds[k].ttft), models[k].prefills) for k in scheds}
+                out = await wave(port, bs, hdrs)
+                ttft = [t for k in scheds for _, t in list(scheds[k].ttft)[n0[k][0]:]]
+                return out, {"engine_ttft_ms_p50": 1e3 * _pct(ttft, 0.5) if ttft else None,
+                             "prefills": {k: models[k].prefills - n0[k][1] for k in scheds}}
+
+            async def gateway_wave(bs, hdrs, dep: str):
+                """A wave through the gateway: its replies, the engines'
+                side, whether ``dep``'s ``gateway-h1`` edge counted exactly
+                the clients' bytes, and the gateway's CPU and wall seconds
+                over the wave alone."""
+                w0 = (await asyncio.to_thread(_json_get, gp, "/stats/wire"))["wire"]["stages"]
+                cpu, t0 = gw.cpu_s(), time.perf_counter()
+                out, eng = await engine_side(gp, bs, hdrs)
+                cpu, wall = gw.cpu_s() - cpu, time.perf_counter() - t0
+                w1s = (await asyncio.to_thread(_json_get, gp, "/stats/wire"))["wire"]["stages"]
+                h0 = w0.get("gateway-h1", {}).get(dep, {"bytes_in": 0, "bytes_out": 0})
+                h1 = w1s["gateway-h1"][dep]
+                sent, got = sum(r["sent"] for r in out), sum(r["received"] for r in out)
+                ok = (h1["bytes_in"] - h0["bytes_in"] == sent
+                      and h1["bytes_out"] - h0["bytes_out"] == got)
+                return out, {**eng, "bytes_sent": sent, "bytes_received": got}, ok, cpu, wall
+
+            # the wave split over both replicas (p2c and prefixes): its streams
+            split, split_eng, wire_ok, _, _ = await gateway_wave(bodies, auth, "chat")
+            equal = [tokens_of(r) for r in split] == want
+            # the hop: the same wave on A direct and through chat-a (A alone)
+            pairs, busy_cpu, busy_s = [], 0.0, 0.0
+            for _ in range(GW_PAIRS):
+                direct, d_eng = await reference(engine_side(a.port, bodies, plain))
+                via, g_eng, ok, cpu, wall = await gateway_wave(bodies, auth_a, "chat-a")
+                wire_ok &= ok
+                busy_cpu, busy_s = busy_cpu + cpu, busy_s + wall
+                equal &= ([tokens_of(r) for r in direct] == want
+                          and [tokens_of(r) for r in via] == want)
+                added = sorted(1e3 * (g["s"] - d["s"]) for g, d in zip(via, direct))
+                pairs.append({"added_ms_p50": added[len(added) // 2],
+                              "added_ms_p99": _pct(added, 0.99),
+                              "direct_ms_p50": 1e3 * _pct([d["s"] for d in direct], 0.5),
+                              "gateway_ms_p50": 1e3 * _pct([g["s"] for g in via], 0.5),
+                              "direct_engine": d_eng, "gateway_engine": g_eng})
+            # an idle span as long as the gateway's waves: the poller's and
+            # the collector's scrapes alone, taken off the waves' CPU
+            idle_cpu = gw.cpu_s()
+            await asyncio.sleep(busy_s)
+            idle_cpu = gw.cpu_s() - idle_cpu
+            cpu_per_req = (busy_cpu - idle_cpu) / (GW_PAIRS * len(bodies))
+            # one 1-token request at a time on A, direct and through chat-a
+            # in alternating order: the hop without a wave's batching
+            seq, seq_direct = [], []
+            for i in range(GW_HOP_ROUNDS * len(prompts)):
+                one = body_of(prompts[i % len(prompts)], 1)
+                if i % 2:
+                    (g,) = await wave(gp, [one], auth_a)
+                    (d,) = await reference(wave(a.port, [one], plain))
+                else:
+                    (d,) = await reference(wave(a.port, [one], plain))
+                    (g,) = await wave(gp, [one], auth_a)
+                equal &= d["status"] == g["status"] == 200 and tokens_of(d) == tokens_of(g)
+                seq.append(1e3 * (g["s"] - d["s"]))
+                seq_direct.append(1e3 * d["s"])
+            serve_equal = None if serve.get("outs") is None else want == serve["outs"]
+            w2 = {"requests": len(bodies), "split_engine": split_eng, "pairs": pairs,
+                  "added_ms_p50": statistics.median(p["added_ms_p50"] for p in pairs),
+                  "added_ms_p99": statistics.median(p["added_ms_p99"] for p in pairs),
+                  "added_ms_one_at_a_time_p50": _pct(seq, 0.5),
+                  "added_ms_one_at_a_time": sorted(seq),
+                  "direct_ms_one_at_a_time_p50": _pct(seq_direct, 0.5),
+                  "gateway_cpu_s_waves": busy_cpu, "gateway_cpu_s_idle_span": idle_cpu,
+                  "gateway_waves_s": busy_s,
+                  "gateway_cpu_s_per_request": cpu_per_req, "streams_equal_direct": equal,
+                  "streams_equal_serve": serve_equal, "wire_bytes_equal": wire_ok}
+            w2["ok"] = equal and wire_ok and serve_equal in (None, True)
+            rec["W2"] = w2
+            if not w2["ok"]:
+                raise AssertionError(f"serve_gateway W2: {w2}")
+
+            # -- W3: prefix-aware routing
+            vocab = models["A"].cfg.vocab_size
+            prefix = rng.integers(0, vocab, GW_PREFIX).tolist()
+            warm_p = prefix + rng.integers(0, vocab, 24).tolist()
+            shared = [prefix + rng.integers(0, vocab, n).tolist() for n in GW_SUFFIXES]
+            before = {k: m.prefills for k, m in models.items()}
+            (warm_r,) = await wave(gp, [body_of(warm_p)], auth)
+            warm = next(k for k, m in models.items() if m.prefills > before[k])
+            cold = "B" if warm == "A" else "A"
+            await asyncio.sleep(2 * GW_POLL_S + 0.1)  # a whole poll after the warm reply
+            r0 = (await asyncio.to_thread(_json_get, gp, "/stats/route"))["route"]
+            snap = {k: (m.prefills, m.prefills_reused, m.prefix_snapshot()["tokens_reused"],
+                        len(scheds[k].ttft)) for k, m in models.items()}
+            k1 = _build.LAUNCHES["flash_attention"]
+            routed = await wave(gp, [body_of(p) for p in shared], auth)
+            k1_routed = _build.LAUNCHES["flash_attention"] - k1
+            r1 = (await asyncio.to_thread(_json_get, gp, "/stats/route"))["route"]
+            after = {k: (m.prefills, m.prefills_reused, m.prefix_snapshot()["tokens_reused"])
+                     for k, m in models.items()}
+            ttft_routed = [t for _, t in list(scheds[warm].ttft)[snap[warm][3]:]]
+            c0 = (models[cold].prefills, models[cold].prefills_reused, len(scheds[cold].ttft))
+            cold_port = a.port if cold == "A" else b_port
+            cold_r = await reference(wave(cold_port, [body_of(p) for p in shared], plain))
+            ttft_cold = [t for _, t in list(scheds[cold].ttft)[c0[2]:]]
+            p2c_p = rng.integers(0, vocab, 40).tolist()
+            (p2c_r,) = await wave(gp, [body_of(p2c_p)], auth)
+            r2 = (await asyncio.to_thread(_json_get, gp, "/stats/route"))["route"]
+
+            def picks(ra, rb):
+                da, db = ra["deployments"].get("chat-key", {}), rb["deployments"]["chat-key"]
+                return {n: db[keys[n]]["picked"] - da.get(keys[n], {}).get("picked", 0)
+                        for n in ("A", "B")}
+
+            w3 = {"warm": warm, "digest_entries": {n: r0["deployments"]["chat-key"][keys[n]][
+                      "digest_entries"] for n in ("A", "B")},
+                  "routed_picks": picks(r0, r1),
+                  "prefix_picks": r1["prefix_picks"] - r0["prefix_picks"],
+                  "warm_reuses": after[warm][1] - snap[warm][1],
+                  "warm_tokens_reused": after[warm][2] - snap[warm][2],
+                  "cold_prefills_during_routed": after[cold][0] - snap[cold][0],
+                  "cold_reference_reuses": models[cold].prefills_reused - c0[1],
+                  "k1_launches_routed": k1_routed,
+                  "streams_equal_cold": [tokens_of(r) for r in routed]
+                  == [tokens_of(r) for r in cold_r],
+                  "ttft_ms_routed_p50": 1e3 * _pct(ttft_routed, 0.5) if ttft_routed else None,
+                  "ttft_ms_cold_p50": 1e3 * _pct(ttft_cold, 0.5) if ttft_cold else None,
+                  "p2c_pick": [n for n, d in picks(r1, r2).items() if d],
+                  "p2c_picks": r2["p2c_picks"] - r1["p2c_picks"],
+                  "statuses": [warm_r["status"], *(r["status"] for r in routed),
+                               *(r["status"] for r in cold_r), p2c_r["status"]]}
+            n = len(shared)
+            w3["pick_sequence"] = [warm] + [warm if w3["routed_picks"][warm] == n else "?"] * n \
+                + w3["p2c_pick"]
+            w3["ok"] = (all(s == 200 for s in w3["statuses"]) and w3["digest_entries"][warm] > 0
+                        and w3["routed_picks"] == {warm: n, cold: 0} and w3["prefix_picks"] == n
+                        and w3["warm_reuses"] == n and w3["warm_tokens_reused"] == n * GW_PREFIX
+                        and w3["cold_prefills_during_routed"] == 0
+                        and w3["cold_reference_reuses"] == 0 and k1_routed > 0
+                        and w3["streams_equal_cold"] and w3["p2c_picks"] == 1
+                        and len(w3["p2c_pick"]) == 1)
+            rec["W3"] = w3
+            if not w3["ok"]:
+                raise AssertionError(f"serve_gateway W3: {w3}")
+
+            # -- W4: SSE through the splice
+            sse_body = {"tokens": VERIFY_PROMPT, "max_new_tokens": GW_SSE_NEW}
+            direct_sse = await reference(asyncio.to_thread(_sse, a.port, sse_body))
+            blocks0 = sum(m.decode_blocks for m in models.values())
+            via_sse = await asyncio.to_thread(
+                _sse, gp, sse_body, None,
+                f"authorization: Bearer {token}\r\ntraceparent: {_traceparent()}\r\n",
+                lambda: sum(m.decode_blocks for m in models.values()))
+            blocks = sum(m.decode_blocks for m in models.values()) - blocks0
+            w4 = {"status": via_sse["status"], "content_type": via_sse["content_type"],
+                  "events": len(via_sse["events"]),
+                  "events_equal_direct": via_sse["events"] == direct_sse["events"],
+                  "blocks_before_first_event": via_sse["first"] - blocks0,
+                  "blocks": blocks,
+                  "first_to_last_event_ms": 1e3 * (via_sse["times"][-1] - via_sse["times"][0])
+                  if via_sse["times"] else None}
+            w4["ok"] = (w4["status"] == 200 and w4["content_type"] == "text/event-stream"
+                        and w4["events_equal_direct"] and w4["events"] == GW_SSE_NEW + 1
+                        and blocks >= -(-(GW_SSE_NEW - 1) // SERVE_BLOCK)
+                        and w4["blocks_before_first_event"] < blocks)
+            rec["W4"] = w4
+            if not w4["ok"]:
+                raise AssertionError(f"serve_gateway W4: {w4}")
+
+            # -- W6, fleet and feedback (both replicas up)
+            deadline = time.perf_counter() + 10 * GW_FLEET_POLL_S + 5
+            while True:
+                fleet = (await asyncio.to_thread(_json_get, gp, "/stats/fleet"))["fleet"]
+                dep = fleet["deployments"].get("chat", {})
+                own = [(await asyncio.to_thread(_json_get, port, "/stats/summary"))["qos"][
+                    "admitted_total"] for port in (a.port, b_port)]
+                total = (dep.get("qos") or {}).get("admitted_total")
+                if total == sum(own) or time.perf_counter() > deadline:
+                    break
+                await asyncio.sleep(GW_FLEET_POLL_S / 2)
+            prom0 = _prom((await asyncio.to_thread(_fetch, gp, "/prometheus"))[1].decode())
+            fb = await asyncio.to_thread(_http, gp, "POST", "/api/v0.1/feedback",
+                                         json.dumps({"reward": 1.0}).encode(), auth)
+            prom1 = _prom((await asyncio.to_thread(_fetch, gp, "/prometheus"))[1].decode())
+            reward = [_prom_sum(p, "seldon_api_model_feedback_reward_total",
+                                deployment_name="chat", model_name="gateway")
+                      for p in (prom0, prom1)]
+            w6 = {"fleet_replicas": sorted(r["replica"] for r in dep.get("replicas", [])),
+                  "fleet_live": dep.get("replicas_live"), "fleet_admitted": total,
+                  "engines_admitted": own, "fleet_polls": fleet["collector"]["polls"],
+                  "feedback_status": fb["status"], "reward_moved": reward[1] - reward[0]}
+            w6["ok"] = (w6["fleet_replicas"] == sorted(keys.values()) and w6["fleet_live"] == 2
+                        and total == sum(own) and fb["status"] == 200
+                        and w6["reward_moved"] == 1.0)
+            rec["W6"] = w6
+            if not w6["ok"]:
+                raise AssertionError(f"serve_gateway W6 (fleet, feedback): {w6}")
+
+            # -- W5: a replica lost.  B holds a prefix of its own; once B is
+            # closed, a wave sharing it is routed to B by B's last digest
+            # (until SCT_GW_POLL_FAILS polls fail): each refused connect
+            # moves to A and counts on B's breaker
+            b_prefix = rng.integers(0, vocab, GW_PREFIX).tolist()
+            (b_warm,) = await reference(wave(b_port, [body_of(b_prefix + rng.integers(
+                0, vocab, 24).tolist())], plain))
+            await asyncio.sleep(2 * GW_POLL_S + 0.1)  # a poll sees B's new digest
+            route0 = (await asyncio.to_thread(_json_get, gp, "/stats/route"))["route"]
+            syncs["B"] = (models["B"].decode_blocks - base["B"][0],
+                          models["B"].host_syncs - base["B"][1])
+            a_admitted = a.qos.snapshot()["admitted_total"]
+            rerouted0 = (await asyncio.to_thread(_json_get, gp, "/stats/wire"))[
+                "h1_frontend"]["rerouted"]
+            await b.close()
+            b = None
+            t_lost = time.perf_counter()
+            lost = await wave(gp, [body_of(b_prefix + rng.integers(0, vocab, n).tolist())
+                                   for n in GW_SUFFIXES], {**auth})
+            lost_s = time.perf_counter() - t_lost
+            await asyncio.sleep(2 * GW_POLL_S + 0.1)  # the poller's misses
+            route = (await asyncio.to_thread(_json_get, gp, "/stats/route"))["route"]
+            st = route["deployments"]["chat-key"][keys["B"]]
+            wire = (await asyncio.to_thread(_json_get, gp, "/stats/wire"))["h1_frontend"]
+            served_a = a.qos.snapshot()["admitted_total"] - a_admitted
+            L1 = dict(_build.LAUNCHES)
+            b2, b2_boot = await _boot(spec, device, port=b_port)
+            rec["ready_s"]["B_rebooted"] = b2_boot
+            models["B2"] = model_of(b2)
+            base["B2"] = (models["B2"].decode_blocks, models["B2"].host_syncs)
+            _build.reset_launches()
+            # after a poll sees B back and its ejection window ends, a pick
+            # elects B as the breaker's half-open probe
+            back, deadline = [], time.perf_counter() + 30.0
+            while b2.qos.snapshot()["admitted_total"] == 0 and time.perf_counter() < deadline:
+                await asyncio.sleep(GW_POLL_S)
+                p = rng.integers(0, vocab, 24).tolist()
+                (r,) = await wave(gp, [body_of(p)], auth)
+                back.append(r)
+            route2 = (await asyncio.to_thread(_json_get, gp, "/stats/route"))["route"]
+            st2 = route2["deployments"]["chat-key"][keys["B"]]
+            w5 = {"B_digest_before": route0["deployments"]["chat-key"][keys["B"]][
+                      "digest_entries"], "B_warm_status": b_warm["status"],
+                  "requests_while_lost": len(lost), "statuses": sorted({r["status"] for r in lost}),
+                  "prefix_picks": route["prefix_picks"] - route0["prefix_picks"],
+                  "served_by_A": served_a, "rerouted": wire["rerouted"] - rerouted0,
+                  "max_wall_s": max(r["s"] for r in lost), "timeout_s": GW_TIMEOUT_S,
+                  "wave_s": lost_s, "B_digest_entries": st["digest_entries"],
+                  "B_breaker": st["breaker"], "poll_fails": route["poller"]["poll_fails"],
+                  "digest_clears": route["poller"]["digest_clears"],
+                  "requests_until_B_picked": len(back),
+                  "B_served_after_reboot": b2.qos.snapshot()["admitted_total"],
+                  "B_breaker_after": st2["breaker"],
+                  "statuses_after": sorted({r["status"] for r in back})}
+            w5["ok"] = (w5["B_digest_before"] > 0 and w5["statuses"] == [200]
+                        and served_a == len(lost)
+                        # every pick of B (by its stale digest) moved to A,
+                        # until the breaker ejected B
+                        and w5["rerouted"] == w5["prefix_picks"] >= route["cb_fails"]
+                        and w5["max_wall_s"] < GW_TIMEOUT_S
+                        and st["digest_entries"] == 0 and st["breaker"]["open"]
+                        and w5["B_served_after_reboot"] >= 1 and not st2["breaker"]["open"]
+                        and w5["statuses_after"] == [200])
+            rec["W5"] = w5
+            if not w5["ok"]:
+                raise AssertionError(f"serve_gateway W5: {w5}")
+
+            # -- W6, the tap: a second gateway on the port's taplog broker
+            broker = TapBrokerServer(os.path.join(tmp, "tap"), host="127.0.0.1", port=0)
+            await broker.start()
+            tgw = _GatewayProc(tmp, "gateway-tap", deps, {
+                **gw_env, "GATEWAY_TAP_BROKER": f"127.0.0.1:{broker.bound_port}"})
+            procs.append(tgw)
+            await asyncio.to_thread(tgw.wait_ready)
+            tok2 = json.loads((await asyncio.to_thread(
+                _http, tgw.port, "POST", "/oauth/token", form + b"chat-secret", ctype))["body"])
+            tapped = await wave(tgw.port, [body_of(p) for p in prompts[:GW_TAPPED]],
+                                {"authorization": f"Bearer {tok2['access_token']}",
+                                 "content-type": "application/json"})
+            puids = [json.loads(r["body"])["meta"]["puid"] for r in tapped]
+            reader = TapBrokerClient("127.0.0.1", broker.bound_port, timeout_s=5.0)
+            records, deadline = [], time.perf_counter() + 10
+            while len(records) < len(puids) and time.perf_counter() < deadline:
+                records = await reader.fetch("chat-key", 0, 1000)
+                await asyncio.sleep(0.1)
+            await reader.close()
+            w6t = {"tapped": len(tapped), "records": len(records),
+                   "keys_equal_puids": sorted(r["key"] for r in records) == sorted(puids),
+                   "distinct_puids": len(set(puids))}
+            w6t["ok"] = (all(r["status"] == 200 for r in tapped) and w6t["keys_equal_puids"]
+                         and w6t["distinct_puids"] == len(tapped)
+                         == min(GW_TAPPED, len(prompts)))
+            rec["W6_tap"] = w6t
+            if not w6t["ok"]:
+                raise AssertionError(f"serve_gateway W6 (tap): {w6t}")
+
+            L2 = dict(_build.LAUNCHES)
+            for name in KERNELS:
+                launches[name] = (L1.get(name, 0) + L2.get(name, 0)
+                                  - reference_launches[name])
+            for k in ("A", "B2"):
+                syncs[k] = (models[k].decode_blocks - base[k][0],
+                            models[k].host_syncs - base[k][1])
+            rec["decode_blocks_and_syncs"] = syncs
+            rec["launches"] = launches
+            rec["reference_launches"] = reference_launches
+            rec["seconds"] = time.perf_counter() - t_phase
+            rec["ok"] = (all(bl > 0 and sy == bl for bl, sy in syncs.values())
+                         and all(n > 0 for n in launches.values()))
+            if not rec["ok"]:
+                raise AssertionError("serve_gateway: a host sync off one a block, or a kernel "
+                                     f"never launched: {syncs}, {launches}")
+        except BaseException:
+            rec.setdefault("ok", False)
+            rec["gateway_log"] = procs[0].tail()[-800:] if procs else None
+            raise
+        finally:
+            emit(rec)
+            for proc in procs:
+                proc.stop()
+            if broker is not None:
+                await broker.close()
+            for app in (a, b, b2):
+                if app is not None:
+                    await app.close()
+
+    try:
+        asyncio.run(run())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def _flash_times(fa, S: int, D: int = 64) -> dict:
     """K1 at B=1, S, llama3-1b heads (32 and 8 KV; ``D`` 128 is the 8b's
     geometry), bf16: one input set per layer so no launch finds its inputs
@@ -5732,12 +6376,13 @@ def main() -> int:
     pack = timed("serve_pack", phase_serve_pack)
     obs = timed("serve_obs", phase_serve_obs)
     ckpt = timed("serve_checkpoint", phase_serve_checkpoint, serve, spec, pack)
+    gateway = timed("serve_gateway", phase_serve_gateway, serve)
     times = timed("kernel_times", phase_kernel_times, serve)
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     launches = {name: serve["launches"][name] + cached["launches"][name] + spec[name]
                 + split[name] + stream[name] + graph[name] + lora[name] + zoo[name]
                 + tiers[name] + admission[name] + remote[name] + pack[name] + obs[name]
-                + ckpt[name] for name in KERNELS}
+                + ckpt[name] + gateway[name] for name in KERNELS}
     print(_card(), flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": origin,

@@ -14,8 +14,6 @@ import contextlib
 import gc
 import threading
 
-import torch
-
 # one CUDA-graph capture at a time in the process, with the syncs and the
 # allocator calls around it: a capture on one thread and a capture, a
 # device-wide sync or an emptied allocator cache on another invalidate
@@ -41,9 +39,12 @@ def capture_section():
                 gc.enable()
 
 
-def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
+def resolve_device(device: "str | torch.device" = "cuda") -> "torch.device":
     """The device an entry point runs on; raises when CUDA is asked for but
-    absent, so nothing quietly carries on on the CPU."""
+    absent, so nothing quietly carries on on the CPU.  (torch is imported
+    here, not with the package: the gateway's processes never load it.)"""
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

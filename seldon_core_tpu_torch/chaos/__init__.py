@@ -3,9 +3,11 @@ the JAX package's ``chaos`` package (docs/RESILIENCE.md).
 
 Seeded, site-registered fault points on the hops that can fail in
 production, so that a recovery path is exercised by injected failure.
-In the port two sites have a caller: the engine's KV handoff POST
-(``disagg.handoff.send``, which a live drain's migration rides) and its
-peer prefix pull (``disagg.prefix.pull``).
+In the port four sites have a caller: the engine's KV handoff POST
+(``disagg.handoff.send``, which a live drain's migration rides), its peer
+prefix pull (``disagg.prefix.pull``), the gateway's forward of its
+fallback cores (``gw.forward``) and its splice front's upstream send
+(``gw.h1``).
 
 Activation is one environment variable, read at import::
 

@@ -52,9 +52,9 @@ from dataclasses import dataclass, field
 # Registered fault sites: name -> where it lives.  ``fire()``/``check()``
 # on an unregistered site raises in plans and tests (catching typos).  The
 # names are the JAX package's, all of them, so a plan parses alike in both;
-# in the port only the two ``disagg.*`` sites have a caller (the engine's
-# handoff POST and peer prefix pull): the gateway, multihost and kube
-# sites wait for the modules that hold them.
+# in the port the two ``disagg.*`` sites (the engine's handoff POST and peer
+# prefix pull) and the two ``gw.*`` sites (the gateway) have a caller: the
+# multihost and kube sites wait for the modules that hold them.
 SITES: dict[str, str] = {
     "gw.forward": "gateway/app.py _forward — one upstream POST attempt",
     "gw.h1": "gateway/h1gateway.py — upstream connect for the h1 splice",

@@ -8,7 +8,7 @@ paged-KV blocks and the first sampled token in a handoff frame
 (``--disagg-decode`` or ``SCT_DISAGG_DECODE``); a decode engine imports
 the blocks into its own pool and decodes.  A failed handoff falls back to
 local decode on the prefill engine and leaks no block.  The gateway's
-replica router is not ported yet.
+replica router is ``disagg/router.py``.
 """
 
 from __future__ import annotations

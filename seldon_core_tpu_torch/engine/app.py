@@ -324,6 +324,11 @@ class EngineApp:
         # generative unit's warm-up runs
         self.warmup_report: dict[str, int] = {}
         self._server: asyncio.base_events.Server | None = None
+        # keep-alive connections waiting for their next request: close()
+        # ends them, as the server's wait_closed() waits for every
+        # connection (a pooled client's idle socket would hold it forever)
+        self._idle_conns: set[asyncio.StreamWriter] = set()
+        self._closing = False
         self.role = disagg.resolve_role(role)
         self.decode_upstreams = (list(decode_upstreams) if decode_upstreams is not None
                                  else disagg.decode_upstreams())
@@ -409,7 +414,10 @@ class EngineApp:
                 self._profiler.stop()
             self._profiler = self._profile_dir = None
         if self._server is not None:
+            self._closing = True
             self._server.close()
+            for w in list(self._idle_conns):
+                w.close()
             await self._server.wait_closed()
         if planes:
             await close_exporters()
@@ -1329,13 +1337,16 @@ class EngineApp:
 
     async def _handle(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
         try:
-            while True:
+            while not self._closing:
+                self._idle_conns.add(writer)
                 try:
                     req = await read_request(reader, _body_limit)
                 except BadRequest as e:
                     writer.write(response(e.status, str(e).encode(), "text/plain", False))
                     await writer.drain()
                     break
+                finally:
+                    self._idle_conns.discard(writer)
                 if req is None:
                     break
                 method, path, version, headers, body, query = req

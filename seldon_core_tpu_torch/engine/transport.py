@@ -55,6 +55,36 @@ async def retry_backoff(attempt: int) -> None:
     await asyncio.sleep(RETRY_BASE_DELAY_S * (2 ** attempt) * (0.5 + random.random()))
 
 
+class RetryBudget:
+    """Token-bucket retry budget.  Each forwarded request ``earn``s
+    ``rate`` retry tokens (capped at ``burst``); each retry ``spend``s one.
+    Under sustained upstream failure the retry amplification is bounded at
+    about ``rate``: retries must never turn a replica brownout into a flood
+    of its own.  Single-owner (one event loop)."""
+
+    def __init__(self, burst: float, rate: float):
+        self.burst = max(0.0, float(burst))
+        self.rate = max(0.0, float(rate))
+        self.tokens = self.burst
+        self.spent = 0
+        self.denied = 0
+
+    def earn(self) -> None:
+        self.tokens = min(self.burst, self.tokens + self.rate)
+
+    def spend(self) -> bool:
+        if self.tokens >= 1.0:
+            self.tokens -= 1.0
+            self.spent += 1
+            return True
+        self.denied += 1
+        return False
+
+    def snapshot(self) -> dict:
+        return {"tokens": round(self.tokens, 3), "burst": self.burst, "rate": self.rate,
+                "spent": self.spent, "denied": self.denied}
+
+
 class _RetryableConnect(Exception):
     """The connection was never made: safe to retry any method."""
 
@@ -69,24 +99,30 @@ class _RetryableSent(Exception):
         self.cause = cause
 
 
-async def retry_loop(attempt, *, idempotent: bool):
-    """The bounded retry of every hop: up to ``RETRY_ATTEMPTS`` awaits of
-    ``attempt()``, which returns the result or raises
-    :class:`_RetryableConnect`, :class:`_RetryableSent` or anything else (no
-    retry).  On exhaustion, or a sent failure of a method that is not
-    idempotent, the last classified error's ``cause`` is raised."""
+async def retry_loop(attempt, *, idempotent: bool, attempts: int = RETRY_ATTEMPTS,
+                     budget: RetryBudget | None = None, backoff=None):
+    """The bounded retry of every hop (the engine's REST node hops and the
+    gateway's forward): up to ``attempts`` awaits of ``attempt(i)``, which
+    returns the result or raises :class:`_RetryableConnect`,
+    :class:`_RetryableSent` or anything else (no retry).  On exhaustion, or
+    a sent failure of a method that is not idempotent, the last classified
+    error's ``cause`` is raised.  ``budget`` gates every retry (an empty
+    bucket raises the last cause at once); ``backoff`` (an ``async f(i)``)
+    replaces the default delay between attempts."""
     last: Exception | None = None
-    for i in range(RETRY_ATTEMPTS):
+    for i in range(attempts):
         try:
-            return await attempt()
+            return await attempt(i)
         except _RetryableConnect as e:
             last = e.cause
         except _RetryableSent as e:
             if not idempotent:
                 raise e.cause from None
             last = e.cause
-        if i < RETRY_ATTEMPTS - 1:
-            await retry_backoff(i)
+        if i < attempts - 1:
+            if budget is not None and not budget.spend():
+                raise last
+            await (backoff(i) if backoff is not None else retry_backoff(i))
     raise last  # type: ignore[misc]
 
 
@@ -104,7 +140,7 @@ class RestNodeClient:
         self._wire = WIRE.counter(WIRE_ENGINE_NODE, spec.name)
 
     async def _post(self, path: str, body: dict[str, Any], idempotent: bool) -> dict[str, Any]:
-        return await retry_loop(lambda: self._post_once(path, body), idempotent=idempotent)
+        return await retry_loop(lambda _i: self._post_once(path, body), idempotent=idempotent)
 
     async def _post_once(self, path: str, body: dict[str, Any]) -> dict[str, Any]:
         # the trace context and the request's REMAINING deadline ride every hop

@@ -1755,37 +1755,39 @@ class GenerativeModel:
         return max(0, int((hbm_bytes - param_bytes) // self.kv_bytes_per_slot()))
 
     def prefix_snapshot(self) -> dict | None:
-        """The KV prefix index's state (None when reuse is off)."""
+        """The KV prefix index's state (None when reuse is off).  Served on
+        the event loop (``/stats/cache``, ``/stats/summary``), so it takes no
+        model lock, which a warmup holds for seconds: the index and the DRAM
+        tier lock their own state."""
         if self.prefix_index is None:
             return None
-        with self._lock:
-            snap = self.prefix_index.snapshot()
-            snap.update(
-                free_blocks=len(self._free_blocks), pool_blocks=self.kv_blocks - 1,
-                prefills=self.prefills, prefills_reused=self.prefills_reused,
-                kv_imports=self.imports, digest=self.prefix_index.digest(),
-            )
-            # the same six fields for every tier, zero where a tier has no
-            # such flow, as the JAX package reports them
-            tiers = {
-                "hbm": {"hits": snap["hits"], "misses": snap["misses"], "promotions": 0,
-                        "demotions": snap["evicted"],
-                        "bytes": len(self.prefix_index) * self.kv_bytes_per_block(),
-                        "pull_count": 0},
-                "peer": {"hits": self.peer_hits, "misses": 0, "promotions": self.peer_installs,
-                         "demotions": 0, "bytes": 0, "pull_count": self.peer_serves},
+        snap = self.prefix_index.snapshot()
+        snap.update(
+            free_blocks=len(self._free_blocks), pool_blocks=self.kv_blocks - 1,
+            prefills=self.prefills, prefills_reused=self.prefills_reused,
+            kv_imports=self.imports, digest=self.prefix_index.digest(),
+        )
+        # the same six fields for every tier, zero where a tier has no
+        # such flow, as the JAX package reports them
+        tiers = {
+            "hbm": {"hits": snap["hits"], "misses": snap["misses"], "promotions": 0,
+                    "demotions": snap["evicted"],
+                    "bytes": len(self.prefix_index) * self.kv_bytes_per_block(),
+                    "pull_count": 0},
+            "peer": {"hits": self.peer_hits, "misses": 0, "promotions": self.peer_installs,
+                     "demotions": 0, "bytes": 0, "pull_count": self.peer_serves},
+        }
+        if self.host_store is not None:
+            st = self.host_store.snapshot()
+            tiers["dram"] = {
+                **{key: st[key] for key in ("hits", "misses", "promotions", "demotions",
+                                            "bytes")},
+                "pull_count": 0, "dram_hits": self.dram_hits,
+                **{key: st[key] for key in ("entries", "budget_bytes", "evictions",
+                                            "rejected")},
+                "digest": self.host_store.digest(),
             }
-            if self.host_store is not None:
-                st = self.host_store.snapshot()
-                tiers["dram"] = {
-                    **{key: st[key] for key in ("hits", "misses", "promotions", "demotions",
-                                                "bytes")},
-                    "pull_count": 0, "dram_hits": self.dram_hits,
-                    **{key: st[key] for key in ("entries", "budget_bytes", "evictions",
-                                                "rejected")},
-                    "digest": self.host_store.digest(),
-                }
-            snap["tiers"] = tiers
+        snap["tiers"] = tiers
         return snap
 
     # -------------------------------------------------------- embeddings

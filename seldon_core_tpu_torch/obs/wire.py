@@ -6,7 +6,9 @@ times the transfer, an achieved-MB/s EWMA, so a stage that is bound by
 its bandwidth shows as such.  One :class:`WireCounter` per ``(stage,
 deployment)``; the stage vocabulary is the JAX package's:
 
-    gateway-h1, gateway-rest, gateway-grpc   the gateways (no caller in the port yet)
+    gateway-h1      the gateway's splice front (``gateway/h1gateway.py``): request and reply bytes
+    gateway-rest    the gateway's fallback cores (``gateway/app.py`` ``_forward``): bodies
+    gateway-grpc    the gateway's gRPC front (no caller in the port yet)
     engine-rest     the engine's HTTP front (``engine/app.py``): request and reply bodies
     engine-grpc     the engine's gRPC service (no caller in the port yet)
     engine-node     the engine's hops to remote graph units (``engine/transport.py``)

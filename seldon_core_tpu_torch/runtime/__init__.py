@@ -2,8 +2,9 @@
 a user component behind the REST routes a graph's remote unit answers
 (``server.py``), its command line (``microservice.py``), the outlier
 detector adapter (``outlier.py``) and state persistence
-(``persistence.py``).  The gRPC front and the ``SCT_*`` settings registry
-of the JAX package's runtime are not ported yet.
+(``persistence.py``), and the ``SCT_*`` settings the gateway and the fleet
+plane read (``settings.py``, a trimmed copy of the JAX registry).  The
+gRPC front of the JAX package's runtime is not ported yet.
 
 The exports load lazily (PEP 562), so that ``python -m
 seldon_core_tpu_torch.runtime.microservice`` does not import its own

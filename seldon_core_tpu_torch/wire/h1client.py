@@ -1,9 +1,10 @@
 """A minimal pooled HTTP/1.1 POST client: the port's copy of the JAX
 package's ``wire/h1client.py``, on asyncio streams alone.
 
-A hop from the engine to a remote graph unit is a fixed-shape request
-(POST, a few headers, a known body), so this client does only what such a
-hop needs:
+A hop from the engine to a remote graph unit, or from the gateway to an
+engine replica, is a fixed-shape request (a POST with a few headers and a
+known body, or a bodiless GET of a ``/stats`` route), so this client does
+only what such a hop needs:
 
 - one persistent connection pool per (host, port), LIFO recycle;
 - requests written as one pre-assembled bytes block;
@@ -97,24 +98,38 @@ class H1Pool:
         for _r, w in idle:
             w.close()
 
-    def _request_bytes(self, path: str, body: bytes, headers: dict[str, str] | None) -> bytes:
-        parts = [
-            b"POST ", path.encode(), b" HTTP/1.1", _CRLF,
-            b"host: ", self._host_hdr, _CRLF,
-            b"content-type: application/json", _CRLF,
-            b"content-length: ", str(len(body)).encode(), _CRLF,
-        ]
+    def _request_bytes(self, path: str, body: bytes | None,
+                       headers: dict[str, str] | None) -> bytes:
+        """A POST of ``body``, or a bodiless GET when ``body`` is None."""
+        if body is None:
+            parts = [b"GET ", path.encode(), b" HTTP/1.1", _CRLF,
+                     b"host: ", self._host_hdr, _CRLF]
+            body = b""
+        else:
+            parts = [
+                b"POST ", path.encode(), b" HTTP/1.1", _CRLF,
+                b"host: ", self._host_hdr, _CRLF,
+                b"content-type: application/json", _CRLF,
+                b"content-length: ", str(len(body)).encode(), _CRLF,
+            ]
         for k, v in (headers or {}).items():
             parts.extend((k.encode(), b": ", v.encode(), _CRLF))
         parts.extend((_CRLF, body))
         return b"".join(parts)
 
-    async def post(self, path: str, body: bytes, headers: dict[str, str] | None = None,
+    async def get(self, path: str, timeout: float = 30.0) -> H1Response:
+        """One GET (``/stats/*`` scrapes), with :meth:`post`'s budget and
+        failure classes."""
+        return await self.post(path, None, timeout=timeout)
+
+    async def post(self, path: str, body: bytes | None,
+                   headers: dict[str, str] | None = None,
                    timeout: float = 30.0) -> H1Response:
-        """One POST within ONE overall ``timeout`` budget: the wait for a
-        free connection, the connect, the write and the read, the stale
-        keep-alive replay included.  Raises :class:`H1ConnectError`,
-        :class:`H1SentError` or ``asyncio.TimeoutError``."""
+        """One POST (a GET when ``body`` is None) within ONE overall
+        ``timeout`` budget: the wait for a free connection, the connect,
+        the write and the read, the stale keep-alive replay included.
+        Raises :class:`H1ConnectError`, :class:`H1SentError` or
+        ``asyncio.TimeoutError``."""
         loop = asyncio.get_running_loop()
         deadline = loop.time() + timeout
 
