@@ -360,7 +360,26 @@ Phases, each printing one JSON line:
    second gateway with ``GATEWAY_TAP_BROKER`` on the port's taplog broker
    gives one record a tapped request, keyed by its puid.  It prints each
    engine's seconds to ``/ready`` and the phase's seconds.
-20. ``kernel_times``: each kernel's time at the main path's shapes and at a
+20. ``serve_grpc``: the gRPC plane through the port's own client
+   (``FastGrpcChannel``; the card has no grpcio).  G1: a llama3-1b engine
+   with a gRPC port: ``Seldon/Predict`` over ``serve``'s prompts equals
+   the REST replies and ``serve``'s streams, ``StreamPredict`` the SSE
+   stream; the JAX refusals answer status 3 with the JAX texts; the
+   ``engine-grpc`` edge counts the client's bytes.  G2: the gateway
+   process's relay (``--grpc-port``) with an ``oauth_token``: the same
+   tokens, 401 FAILURE replies for a missing or wrong token, status 16 on
+   a stream, the ``gateway-grpc`` edge's framed bytes, a ``traceparent``
+   in the engine's timeline, and a stream whose client drops its
+   connection after 2 messages frees its slot.  G3: Iris and the
+   transform pipeline behind GRPC nodes (``microservice ... GRPC``
+   children) equal the same graphs over REST nodes; ResNet-50's 16-image
+   uint8 rawTensor answers bit for bit over both fronts (each front's
+   predictions/s printed).  G4: the engine's CLI with ``--workers 2`` and
+   ``SELDON_DEPLOYMENT_ID``: both processes listen on both ports, both
+   answer fresh connections on each front (read from ``/proc``), the
+   edges carry the deployment's name.  Its launches leave out the REST
+   and SSE references.
+21. ``kernel_times``: each kernel's time at the main path's shapes and at a
    long one (flash at S=2048 and its variant at 80 rows over 592 keys,
    against SDPA with the lower-right causal mask; paged at 8 slots near
    position 2000; paged
@@ -376,8 +395,8 @@ Phases, each printing one JSON line:
 Then the card's name and power limit (nvidia-smi), one line listing the
 kernels (launches summed over the serve phases, ``serve_graph``,
 ``serve_lora``, ``serve_zoo``, ``serve_cache``, ``serve_qos``,
-``serve_remote``, ``serve_pack``, ``serve_obs``, ``serve_checkpoint`` and
-``serve_gateway`` included),
+``serve_remote``, ``serve_pack``, ``serve_obs``, ``serve_checkpoint``,
+``serve_gateway`` and ``serve_grpc`` included),
 and as the last line
 ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero before that line.  Without CUDA, or without
@@ -1495,15 +1514,16 @@ def _serve_spec(preset: str, seed: int, name: str = "smoke", **extra):
     return PredictorSpec.from_dict(_serve_spec_dict(preset, seed, name, **extra))
 
 
-async def _boot(spec, device: str, port: int = 0, **engine):
+async def _boot(spec, device: str, port: int = 0, grpc_port: int | None = None, **engine):
     """Start the engine (``engine``: its role and decode peers) on ``port``
-    (0: a free one) and wait until it is ready (warmup included); returns
-    the app and the seconds that took."""
+    (0: a free one), with its gRPC service on ``grpc_port`` when given, and
+    wait until it is ready (warmup included); returns the app and the
+    seconds that took."""
     from seldon_core_tpu_torch.engine.app import EngineApp
     from seldon_core_tpu_torch.engine.service import PredictionService
 
     app = EngineApp(PredictionService(spec, device=device), **engine)
-    await app.start("127.0.0.1", port)
+    await app.start("127.0.0.1", port, grpc_port=grpc_port)
     t0 = time.perf_counter()
     boot = asyncio.create_task(app.boot())
     try:
@@ -4135,6 +4155,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _connects(port: int) -> bool:
+    import socket
+
+    with socket.socket() as s:
+        s.settimeout(1.0)
+        return s.connect_ex(("127.0.0.1", port)) == 0
+
+
 def _pct(xs, q: float) -> float:
     s = sorted(xs)
     return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
@@ -4157,18 +4185,21 @@ class _Children:
     def __init__(self, logdir: str):
         self.logdir = logdir
         self.procs: dict = {}
+        self.apis: dict = {}
 
     def start(self, name: str, interface: str, service_type: str, cwd: str,
-              port: int | None = None, env: dict | None = None, persistence: int = 0) -> int:
+              port: int | None = None, env: dict | None = None, persistence: int = 0,
+              api: str = "REST") -> int:
         port = port or _free_port()
         log = open(os.path.join(self.logdir, f"{name}.log"), "ab")
         self.procs[name] = (subprocess.Popen(
             [sys.executable, "-m", "seldon_core_tpu_torch.runtime.microservice", interface,
-             "REST", "--service-type", service_type, "--port", str(port),
+             api, "--service-type", service_type, "--port", str(port),
              "--persistence", str(persistence)],
             cwd=cwd, stdout=log, stderr=subprocess.STDOUT,
             env={**os.environ, "PYTHONPATH": ROOT, "PREDICTIVE_UNIT_ID": name, **(env or {})}),
             port, log)
+        self.apis[name] = api
         return port
 
     def wait_ready(self, timeout_s: float = REMOTE_READY_S) -> float:
@@ -4181,7 +4212,9 @@ class _Children:
                     raise AssertionError(f"microservice {name} exited with {proc.returncode}: "
                                          f"{self.tail(name)}")
                 try:
-                    if _get(port, "/ready") == 200:
+                    # a gRPC child binds once its component is loaded
+                    if (_connects(port) if self.apis[name] == "GRPC"
+                            else _get(port, "/ready") == 200):
                         waiting.discard(name)
                 except (urllib.error.URLError, OSError):
                     pass  # not listening yet
@@ -5639,16 +5672,18 @@ def _raw_exchange(port: int, payload: bytes) -> bytes:
 
 class _GatewayProc:
     """The port's gateway as its own process, through its entry point
-    (``python -m seldon_core_tpu_torch.gateway.app``) on a free loopback
-    port; killed on exit."""
+    (``python -m seldon_core_tpu_torch.gateway.app``) on free loopback
+    ports (REST and gRPC); killed on exit."""
 
     def __init__(self, logdir: str, name: str, deployments: str, env: dict):
         self.port = _free_port()
+        self.grpc_port = _free_port()  # its gRPC relay's (the default 5000 is one for all)
         self.logpath = os.path.join(logdir, f"{name}.log")
         self.log = open(self.logpath, "ab")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "seldon_core_tpu_torch.gateway.app", "--host", "127.0.0.1",
-             "--port", str(self.port), "--deployments", deployments],
+             "--port", str(self.port), "--grpc-port", str(self.grpc_port),
+             "--deployments", deployments],
             cwd=ROOT, stdout=self.log, stderr=subprocess.STDOUT,
             env={**os.environ, "PYTHONPATH": ROOT, **env})
 
@@ -6174,6 +6209,598 @@ def phase_serve_gateway(serve: dict, device: str = "cuda", preset: str = SERVE_P
     return launches
 
 
+# -- serve_grpc: the gRPC plane ---------------------------------------------------
+
+GRPC_DROP_NEW = 1500  # G2's dropped stream asks for this many tokens
+GRPC_DROP_AFTER = 2  # ... and its client leaves after this many messages
+GRPC_IRIS_REQUESTS = 16
+GRPC_PIPE_REQUESTS = 8
+GRPC_ZOO_REQUESTS = 8  # 16-image uint8 rawTensor requests, one wave per front
+GRPC_ZOO_IMAGES = 16
+GRPC_WORKERS = 2
+GRPC_WORKER_CONNS = 24  # G4's fresh connections per front
+GRPC_DEPLOYMENT = "smoke-dep"  # G4's SELDON_DEPLOYMENT_ID
+GRPC_PREDICT = "/seldon.protos.Seldon/Predict"
+GRPC_STREAM = "/seldon.protos.Seldon/StreamPredict"
+# the JAX engine's StreamPredict refusals: (request strData, status, text)
+GRPC_REFUSALS = [
+    (None, 3, "StreamPredict takes strData JSON"),
+    ({"tokens": [[5, 9], [2]]}, 3,
+     "bad stream request: streaming takes ONE prompt: flat 'tokens' list"),
+    ({"tokens": [5, 9, 2], "max_new_tokens": "many"}, 3,
+     "bad stream request: invalid literal for int() with base 10: 'many'"),
+]
+GRPC_NO_UNIT = (3, "streaming needs exactly one generative unit in the graph (found 0)")
+
+
+def _proc_children() -> dict:
+    """ppid -> child pids, from ``/proc/<pid>/stat``."""
+    kids: dict = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        kids.setdefault(ppid, []).append(int(d))
+    return kids
+
+
+def descendants(pid: int) -> list[int]:
+    """``pid`` and every process below it."""
+    kids, out, todo = _proc_children(), [], [pid]
+    while todo:
+        p = todo.pop()
+        out.append(p)
+        todo.extend(kids.get(p, []))
+    return out
+
+
+def _socket_inodes(pid: int) -> set:
+    out = set()
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return out
+    for fd in fds:
+        try:
+            link = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if link.startswith("socket:["):
+            out.add(int(link[8:-1]))
+    return out
+
+
+def _tcp_sockets() -> list:
+    """(local port, remote port, state, inode) of each TCP socket of this
+    network namespace (``/proc/net/tcp`` and ``tcp6``)."""
+    rows = []
+    for name in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(name) as f:
+                lines = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        for line in lines:
+            f = line.split()
+            rows.append((int(f[1].rsplit(":", 1)[1], 16), int(f[2].rsplit(":", 1)[1], 16),
+                         int(f[3], 16), int(f[9])))
+    return rows
+
+
+def socket_owners(pids, port: int, peer_port: int | None = None) -> set:
+    """The processes among ``pids`` holding a socket on local ``port``: a
+    listening one, or with ``peer_port`` the one accepted from that
+    client port."""
+    inodes = {ino for lp, rp, st, ino in _tcp_sockets()
+              if lp == port and (st == 0x0A if peer_port is None else rp == peer_port)}
+    return {p for p in pids if _socket_inodes(p) & inodes}
+
+
+def _grpc_prompt(tokens, max_new: int = MAX_NEW, **extra) -> bytes:
+    from seldon_core_tpu_torch.proto import prediction as pb
+
+    return pb.SeldonMessage(strData=json.dumps(
+        {"tokens": list(tokens), "max_new_tokens": max_new, **extra})).SerializeToString()
+
+
+def _grpc_tokens(raw: bytes) -> list[int] | None:
+    from seldon_core_tpu_torch.proto import prediction as pb
+
+    msg = pb.SeldonMessage.FromString(raw)
+    return json.loads(msg.strData)["tokens"] if msg.strData else None
+
+
+async def _grpc_calls(port: int, raws, metadata=(), path: str = GRPC_PREDICT) -> list[bytes]:
+    """Concurrent unary calls over one channel -> the raw replies."""
+    from seldon_core_tpu_torch.wire import FastGrpcChannel
+
+    ch = FastGrpcChannel(f"127.0.0.1:{port}")
+    try:
+        return list(await asyncio.gather(*(ch.call(path, r, timeout=600, metadata=metadata)
+                                           for r in raws)))
+    finally:
+        await ch.close()
+
+
+async def _grpc_stream(port: int, raw: bytes, metadata=(), drop_after: int | None = None
+                       ) -> dict:
+    """StreamPredict -> its messages' JSON and its failure (status, text);
+    ``drop_after`` messages in, the connection is aborted (no RST)."""
+    from seldon_core_tpu_torch.proto import prediction as pb
+    from seldon_core_tpu_torch.wire import FastGrpcChannel, GrpcCallError
+
+    ch = FastGrpcChannel(f"127.0.0.1:{port}")
+    msgs, err = [], None
+    try:
+        async for m in ch.call_stream(GRPC_STREAM, raw, timeout=600, metadata=metadata):
+            msgs.append(json.loads(pb.SeldonMessage.FromString(m).strData))
+            if drop_after is not None and len(msgs) >= drop_after:
+                ch._conn.transport.abort()
+                break
+    except GrpcCallError as e:
+        err = (e.status, e.message)
+    except ConnectionError:
+        pass
+    finally:
+        await ch.close()
+    return {"msgs": msgs, "err": err}
+
+
+def _stream_tokens(out: dict) -> list[int] | None:
+    msgs = out["msgs"]
+    if out["err"] is not None or not msgs or not msgs[-1].get("done"):
+        return None
+    toks = [m["token"] for m in msgs[:-1]]
+    return toks if toks == msgs[-1]["tokens"] else None
+
+
+def _status_of(raw: bytes) -> tuple:
+    from seldon_core_tpu_torch.proto import prediction as pb
+
+    st = pb.SeldonMessage.FromString(raw).status
+    return (st.code, st.info, st.status) if st is not None else None
+
+
+def _rest_exchange_owner(port: int, body: bytes, pids) -> tuple[int, set]:
+    """One POST on a fresh connection -> (status, the processes that hold
+    its accepted socket)."""
+    import socket
+
+    sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+    try:
+        sock.sendall(f"POST /api/v0.1/predictions HTTP/1.1\r\nhost: smoke\r\n"
+                     f"content-length: {len(body)}\r\n\r\n".encode() + body)
+        data = b""
+        while b"\r\n\r\n" not in data:
+            data += sock.recv(65536)
+        head, _, rest = data.partition(b"\r\n\r\n")
+        n = next(int(ln.split(b":")[1]) for ln in head.split(b"\r\n")
+                 if ln.lower().startswith(b"content-length"))
+        while len(rest) < n:
+            rest += sock.recv(65536)
+        return int(head.split(b" ")[1]), socket_owners(pids, port, sock.getsockname()[1])
+    finally:
+        sock.close()
+
+
+async def _grpc_exchange_owner(port: int, raw: bytes, pids) -> tuple[tuple, set]:
+    """One Predict on a fresh channel -> (its status, the processes that
+    hold its accepted socket)."""
+    from seldon_core_tpu_torch.wire import FastGrpcChannel
+
+    ch = FastGrpcChannel(f"127.0.0.1:{port}")
+    try:
+        reply = await ch.call(GRPC_PREDICT, raw, timeout=60)
+        local = ch._conn.transport.get_extra_info("sockname")[1]
+        return _status_of(reply), await asyncio.to_thread(socket_owners, pids, port, local)
+    finally:
+        await ch.close()
+
+
+def phase_serve_grpc(serve: dict, device: str = "cuda", preset: str = SERVE_PRESET,
+                     seed: int = 0) -> dict:
+    """The gRPC plane, through the port's own client (``FastGrpcChannel``;
+    the card has no grpcio).  G1: one llama3-1b bf16 engine with a gRPC
+    port: ``Seldon/Predict`` over ``serve``'s prompts and ``StreamPredict``
+    equal the REST replies and the SSE stream of the same prompts, the JAX
+    refusals answer status 3 with the JAX texts, the ``engine-grpc`` edge
+    counts the client's bytes.  G2: the port's gateway (``--grpc-port``) in
+    front of it: Predict and StreamPredict with a valid ``oauth_token``
+    equal the direct calls, a missing or wrong token gives the JAX status
+    and message, the ``gateway-grpc`` edge counts the client's framed
+    bytes, one ``traceparent`` reaches the engine's timeline, and a client
+    that drops its connection mid-StreamPredict frees the engine's slot
+    long before its ``max_new_tokens``.  G3: R1's Iris and R2's transform
+    pipeline behind GRPC nodes (the runtime's CLI with ``GRPC``) answer as
+    the same graphs of REST nodes; a ResNet-50 ``JAX_MODEL`` unit answers a
+    16-image uint8 rawTensor over gRPC bit for bit as over REST (one wave's
+    predictions/s over each front is printed, a record).  G4: a
+    SIMPLE_MODEL engine through its CLI with ``--workers 2`` and
+    ``SELDON_DEPLOYMENT_ID``: both processes listen on both ports, fresh
+    connections on each front are answered by both, and its
+    ``engine-grpc`` edge carries the deployment's name.  Returns the
+    kernels' launches on the gRPC paths (REST and SSE references off)."""
+    import base64
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.obs import TIMELINE, WIRE, WIRE_ENGINE_GRPC
+    from seldon_core_tpu_torch.ops import _build
+    from seldon_core_tpu_torch.proto import prediction as pb
+    from seldon_core_tpu_torch.runtime.server import MicroserviceApp
+
+    prompts = serve["prompts"]
+    rec: dict = {"phase": "serve_grpc", "card": _card(), "preset": preset, "dtype": "bfloat16"}
+    launches = {name: 0 for name in KERNELS}
+    reference_launches = {name: 0 for name in KERNELS}
+    tmp = tempfile.mkdtemp(prefix="sct-grpc-")
+    iris_dir = os.path.join(ROOT, "examples", "iris")
+    pipe_dir = os.path.join(ROOT, "examples", "transform-pipeline")
+    iris = _load_example("examples/iris/IrisClassifier.py", "iris_example")
+    pipe = _load_example("examples/transform-pipeline/pipeline.py", "pipeline_example")
+    with open(os.path.join(pipe_dir, "graph.json")) as f:
+        pipe_graph = json.load(f)["graph"]
+
+    async def reference(aw):
+        before = dict(_build.LAUNCHES)
+        try:
+            return await aw
+        finally:
+            for name in KERNELS:
+                reference_launches[name] += _build.LAUNCHES[name] - before[name]
+
+    def check(key: str, gate: bool) -> None:
+        rec[key]["ok"] = bool(gate)
+        if not gate:
+            raise AssertionError(f"serve_grpc {key}: {rec[key]}")
+
+    async def run() -> None:
+        t_phase = time.perf_counter()
+        # the children boot while the engine warms: G3's gRPC microservices
+        # and G4's engine processes
+        kids = _Children(tmp)
+        iris_port = kids.start("iris", "IrisClassifier", "MODEL", iris_dir, api="GRPC")
+        pipe_ports = {name: kids.start(name, f"pipeline.{cls}", kind, pipe_dir, api="GRPC")
+                      for name, cls, kind in (("standardize", "Standardize", "TRANSFORMER"),
+                                              ("scorer", "Scorer", "MODEL"),
+                                              ("label", "ArgmaxLabel", "TRANSFORMER"))}
+        w_port, w_grpc = _free_port(), _free_port()
+        simple = {"name": "default", "graph": {"name": "m", "type": "MODEL",
+                                               "implementation": "SIMPLE_MODEL"}}
+        w_log = open(os.path.join(tmp, "workers.log"), "ab")
+        workers = subprocess.Popen(
+            [sys.executable, "-m", "seldon_core_tpu_torch.engine.app", "--host", "127.0.0.1",
+             "--port", str(w_port), "--grpc-port", str(w_grpc), "--workers", str(GRPC_WORKERS),
+             "--device", device],
+            cwd=ROOT, stdout=w_log, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": ROOT, "SELDON_DEPLOYMENT_ID": GRPC_DEPLOYMENT,
+                 "ENGINE_PREDICTOR": base64.b64encode(json.dumps(simple).encode()).decode()})
+        apps, gw = [], None
+        try:
+            e, e_boot = await _boot(_serve_spec(preset, seed), device, grpc_port=0)
+            apps.append(e)
+            rec["ready_s"] = e_boot
+            model = e.service.walker.component.model
+            wire = WIRE.counter(WIRE_ENGINE_GRPC, e.service.deployment_name)
+            _build.reset_launches()  # the gRPC paths' run starts here
+
+            # -- G1: the engine's gRPC service
+            raws = [_grpc_prompt(p) for p in prompts]
+            w0 = (wire.requests, wire.bytes_in, wire.bytes_out)
+            t0 = time.perf_counter()
+            replies = await _grpc_calls(e.grpc_port, raws)
+            grpc_s = time.perf_counter() - t0
+            w1 = (wire.requests, wire.bytes_in, wire.bytes_out)
+            grpc_toks = [_grpc_tokens(r) for r in replies]
+            t0 = time.perf_counter()
+            rest = await reference(_requests(e.port, [_body(p) for p in prompts]))
+            rest_s = time.perf_counter() - t0
+            rest_toks = [json.loads(json.loads(r["raw"])["strData"])["tokens"]
+                         if r["status"] == 200 else None for r in rest]
+            stream = await _grpc_stream(e.grpc_port, raws[0])
+            sse = await reference(asyncio.to_thread(
+                _sse, e.port, {"tokens": list(prompts[0]), "max_new_tokens": MAX_NEW}))
+            sse_toks = [ev["token"] for ev in sse["events"] if "token" in ev]
+            refusals = [await _grpc_stream(e.grpc_port, (
+                pb.SeldonMessage(binData=b"x") if body is None
+                else pb.SeldonMessage(strData=json.dumps(body))).SerializeToString())
+                for body, _, _ in GRPC_REFUSALS]
+            rec["G1"] = {
+                "requests": len(raws), "wave_s": grpc_s, "rest_wave_s": rest_s,
+                "tokens_equal_rest": sum(int(g is not None and g == r)
+                                         for g, r in zip(grpc_toks, rest_toks)),
+                "tokens_equal_serve": sum(int(g == w) for g, w in zip(grpc_toks, serve["outs"]))
+                if serve.get("outs") else None,
+                "stream_equal_predict": _stream_tokens(stream) == grpc_toks[0],
+                "stream_equal_sse": _stream_tokens(stream) == sse_toks,
+                "refusals": [r["err"] for r in refusals],
+                "wire": {"requests": w1[0] - w0[0], "bytes_in": w1[1] - w0[1],
+                         "bytes_out": w1[2] - w0[2], "client_sent": sum(map(len, raws)),
+                         "client_received": sum(map(len, replies))}}
+            g1 = rec["G1"]
+            check("G1", g1["tokens_equal_rest"] == len(raws) and g1["stream_equal_predict"]
+                  and g1["tokens_equal_serve"] in (None, len(raws))
+                  and g1["stream_equal_sse"]
+                  and g1["refusals"] == [(st, text) for _, st, text in GRPC_REFUSALS]
+                  and g1["wire"]["requests"] == len(raws)
+                  and (g1["wire"]["bytes_in"], g1["wire"]["bytes_out"])
+                  == (g1["wire"]["client_sent"], g1["wire"]["client_received"]))
+
+            # -- G2: the gateway's gRPC relay in front of it
+            deps = os.path.join(tmp, "deployments.json")
+            with open(deps, "w") as f:
+                json.dump([{"name": "chat", "oauth_key": "chat-key",
+                            "oauth_secret": "chat-secret",
+                            "endpoints": [{"host": "127.0.0.1", "rest_port": e.port,
+                                           "grpc_port": e.grpc_port}]}], f)
+            gw = _GatewayProc(tmp, "gateway", deps, {})
+            rec["gateway_ready_s"] = await asyncio.to_thread(gw.wait_ready)
+            tok = json.loads((await asyncio.to_thread(
+                _http, gw.port, "POST", "/oauth/token",
+                b"grant_type=client_credentials&client_id=chat-key&client_secret=chat-secret",
+                {"content-type": "application/x-www-form-urlencoded"}))["body"])["access_token"]
+            auth = (("oauth_token", tok),)
+            gw_wire0 = _json_get(gw.port, "/stats/wire")["wire"]["stages"].get("gateway-grpc", {})
+            via = await _grpc_calls(gw.grpc_port, raws, auth)
+            gw_wire1 = _json_get(gw.port, "/stats/wire")["wire"]["stages"]["gateway-grpc"]["chat"]
+            via_stream = await _grpc_stream(gw.grpc_port, raws[0], auth)
+            no_token = (await _grpc_calls(gw.grpc_port, raws[:1]))[0]
+            bad_token = (await _grpc_calls(gw.grpc_port, raws[:1],
+                                           (("oauth_token", "nope"),)))[0]
+            stream_no_token = await _grpc_stream(gw.grpc_port, raws[0])
+            tp = _traceparent()
+            traced = (await _grpc_calls(gw.grpc_port, raws[1:2],
+                                        auth + (("traceparent", tp),)))[0]
+            timelines = TIMELINE.by_trace(tp.split("-")[1])
+            free0, emitted0 = model.free_block_count, model.tokens_emitted
+            t_drop = time.perf_counter()
+            dropped = await _grpc_stream(gw.grpc_port,
+                                         _grpc_prompt(VERIFY_PROMPT, GRPC_DROP_NEW),
+                                         auth, drop_after=GRPC_DROP_AFTER)
+            while model.free_block_count != free0 and time.perf_counter() - t_drop < 30:
+                await asyncio.sleep(0.01)
+            freed_s = time.perf_counter() - t_drop
+            before = gw_wire0.get("chat", {"requests": 0, "bytes_in": 0, "bytes_out": 0})
+            rec["G2"] = {
+                "predict_equal_direct": sum(int(_grpc_tokens(v) == g)
+                                            for v, g in zip(via, grpc_toks)),
+                "stream_equal_direct": via_stream == stream,
+                "no_token": _status_of(no_token), "bad_token": _status_of(bad_token),
+                "stream_no_token": stream_no_token["err"],
+                "wire": {"requests": gw_wire1["requests"] - before["requests"],
+                         "bytes_in": gw_wire1["bytes_in"] - before["bytes_in"],
+                         "bytes_out": gw_wire1["bytes_out"] - before["bytes_out"],
+                         "client_framed_sent": sum(len(r) + 5 for r in raws),
+                         "client_framed_received": sum(len(v) + 5 for v in via)},
+                "traced_tokens_equal": _grpc_tokens(traced) == grpc_toks[1],
+                "trace_timelines": len(timelines),
+                "drop": {"max_new_tokens": GRPC_DROP_NEW, "received": len(dropped["msgs"]),
+                         "emitted": model.tokens_emitted - emitted0,
+                         "freed": model.free_block_count == free0, "freed_s": freed_s}}
+            g2 = rec["G2"]
+            check("G2", g2["predict_equal_direct"] == len(raws) and g2["stream_equal_direct"]
+                  and g2["no_token"] == (401, "missing oauth_token metadata", pb.Status.FAILURE)
+                  and g2["bad_token"] == (401, "invalid access token", pb.Status.FAILURE)
+                  and g2["stream_no_token"] == (16, "missing oauth_token metadata")
+                  and g2["wire"]["requests"] == len(raws)
+                  and (g2["wire"]["bytes_in"], g2["wire"]["bytes_out"])
+                  == (g2["wire"]["client_framed_sent"], g2["wire"]["client_framed_received"])
+                  and g2["traced_tokens_equal"] and g2["trace_timelines"] >= 1
+                  and g2["drop"]["received"] == GRPC_DROP_AFTER and g2["drop"]["freed"]
+                  and g2["drop"]["emitted"] <= GRPC_DROP_NEW // 4)
+            L1 = dict(_build.LAUNCHES)
+            gw.stop()
+            gw = None
+            await e.close()
+            apps.remove(e)
+
+            # -- G3: graphs of GRPC nodes, and a zoo unit over both fronts
+            rec["children_ready_s"] = await asyncio.to_thread(kids.wait_ready)
+            rng = np.random.default_rng(seed + 16)
+            rows = [rng.uniform(0.1, 8.0, size=(int(rng.integers(1, 9)), 4)).round(3)
+                    for _ in range(GRPC_IRIS_REQUESTS)]
+            iris_bodies = [{"data": {"names": ["sepal_length", "sepal_width", "petal_length",
+                                               "petal_width"], "ndarray": r.tolist()}}
+                           for r in rows]
+            pipe_bodies = [{"data": {"ndarray": r.tolist()}} for r in rows[:GRPC_PIPE_REQUESTS]]
+            twins = {"iris": MicroserviceApp(iris.IrisClassifier(), "iris", "MODEL"),
+                     "standardize": MicroserviceApp(pipe.Standardize(), "standardize",
+                                                    "TRANSFORMER"),
+                     "scorer": MicroserviceApp(pipe.Scorer(), "scorer", "MODEL"),
+                     "label": MicroserviceApp(pipe.ArgmaxLabel(), "label", "TRANSFORMER")}
+            for t in twins.values():
+                await t.start("127.0.0.1", 0)
+            try:
+                def node(kind, ports, name, unit_type, children=()):
+                    return {"name": name, "type": unit_type, "children": list(children),
+                            "endpoint": {"service_host": "127.0.0.1",
+                                         "service_port": ports[name], "type": kind}}
+
+                def rewrite(n, kind, ports):
+                    return {**n, "endpoint": {**n["endpoint"], "type": kind,
+                                              "service_port": ports[n["name"]]},
+                            "children": [rewrite(c, kind, ports) for c in n.get("children", [])]}
+
+                grpc_ports = {"iris": iris_port, **pipe_ports}
+                rest_ports = {k: t.port for k, t in twins.items()}
+                outs = {}
+                for kind, ports in (("GRPC", grpc_ports), ("REST", rest_ports)):
+                    for gname, graph, bodies in (
+                            ("iris", node(kind, ports, "iris", "MODEL"), iris_bodies),
+                            ("pipeline", rewrite(pipe_graph, kind, ports), pipe_bodies)):
+                        app, _ = await _boot(_graph_spec(graph), device, grpc_port=0)
+                        try:
+                            got = [(st, {k: v for k, v in rep.items() if k != "meta"})
+                                   for st, rep in (await _walls(app.port, bodies, 4))[0]]
+                            extra = None
+                            if gname == "iris" and kind == "GRPC":
+                                extra = (await _grpc_stream(
+                                    app.grpc_port, _grpc_prompt([1, 2])))["err"]
+                        finally:
+                            await app.close()
+                        outs[(gname, kind)] = (got, extra)
+                host = iris.IrisClassifier()
+                iris_host = sum(int(st == 200 and np.array_equal(
+                    np.asarray(rep["data"]["ndarray"]), host.predict(r, [])))
+                    for (st, rep), r in zip(outs[("iris", "GRPC")][0], rows))
+            finally:
+                for t in twins.values():
+                    await t.close()
+            zoo = await _grpc_zoo(device, seed)
+            rec["G3"] = {
+                "iris_equal_rest_twin": outs[("iris", "GRPC")][0] == outs[("iris", "REST")][0],
+                "iris_equal_host": iris_host, "iris_requests": len(rows),
+                "pipeline_equal_rest_twin":
+                    outs[("pipeline", "GRPC")][0] == outs[("pipeline", "REST")][0],
+                "pipeline_statuses": sorted({st for st, _ in outs[("pipeline", "GRPC")][0]}),
+                "no_generative_unit": outs[("iris", "GRPC")][1], **zoo}
+            g3 = rec["G3"]
+            check("G3", g3["iris_equal_rest_twin"] and g3["iris_equal_host"] == len(rows)
+                  and g3["pipeline_equal_rest_twin"] and g3["pipeline_statuses"] == [200]
+                  and tuple(g3["no_generative_unit"] or ()) == GRPC_NO_UNIT
+                  and g3["resnet_bit_equal"] == GRPC_ZOO_REQUESTS)
+
+            # -- G4: --workers 2 behind SO_REUSEPORT
+            t0 = time.perf_counter()
+            pids: set = set()
+            while time.perf_counter() - t0 < REMOTE_READY_S:
+                if workers.poll() is not None:
+                    raise AssertionError(f"the worker engine exited with {workers.returncode}")
+                tree = descendants(workers.pid)
+                rest_l, grpc_l = socket_owners(tree, w_port), socket_owners(tree, w_grpc)
+                if len(rest_l) == GRPC_WORKERS and rest_l == grpc_l:
+                    pids = rest_l
+                    try:
+                        if _get(w_port, "/ready") == 200:
+                            break
+                    except (urllib.error.URLError, OSError):
+                        pass
+                await asyncio.sleep(0.2)
+            body = json.dumps({"data": {"ndarray": [[1.0, 2.0, 3.0]]}}).encode()
+            raw = _sm_ndarray([[1.0, 2.0, 3.0]])
+            rest_owners, grpc_owners, statuses = [], [], set()
+            for _ in range(GRPC_WORKER_CONNS):
+                st, owner = await asyncio.to_thread(_rest_exchange_owner, w_port, body, pids)
+                statuses.add(("rest", st))
+                rest_owners.append(sorted(owner))
+                gst, gowner = await _grpc_exchange_owner(w_grpc, raw, pids)
+                statuses.add(("grpc", gst[0] if gst else None))
+                grpc_owners.append(sorted(gowner))
+            wire_stages = _json_get(w_port, "/stats/wire")["wire"]["stages"]
+            rec["G4"] = {
+                "workers": GRPC_WORKERS, "listening_pids": len(pids),
+                "listen_s": time.perf_counter() - t0,
+                "rest_answered_by": len({o[0] for o in rest_owners if len(o) == 1}),
+                "grpc_answered_by": len({o[0] for o in grpc_owners if len(o) == 1}),
+                "rest_per_process": sorted(
+                    sum(o == [p] for o in rest_owners) for p in pids),
+                "grpc_per_process": sorted(
+                    sum(o == [p] for o in grpc_owners) for p in pids),
+                "connections": GRPC_WORKER_CONNS, "statuses": sorted(statuses),
+                "engine_grpc_names": sorted(wire_stages.get("engine-grpc", {})),
+                "engine_rest_names": sorted(wire_stages.get("engine-rest", {}))}
+            g4 = rec["G4"]
+            check("G4", g4["listening_pids"] == GRPC_WORKERS
+                  and g4["rest_answered_by"] == g4["grpc_answered_by"] == GRPC_WORKERS
+                  and all(len(o) == 1 for o in rest_owners + grpc_owners)
+                  and g4["statuses"] == [("grpc", 200), ("rest", 200)]
+                  and g4["engine_grpc_names"] == [GRPC_DEPLOYMENT]
+                  and g4["engine_rest_names"] == [GRPC_DEPLOYMENT])
+
+            for name in KERNELS:
+                launches[name] = L1.get(name, 0) - reference_launches[name]
+            rec["launches"] = launches
+            rec["reference_launches"] = reference_launches
+            rec["seconds"] = time.perf_counter() - t_phase
+            rec["ok"] = all(n > 0 for n in launches.values())
+            if not rec["ok"]:
+                raise AssertionError(f"serve_grpc: a kernel never launched: {launches}")
+        except BaseException:
+            rec.setdefault("ok", False)
+            rec["gateway_log"] = gw.tail()[-800:] if gw is not None else None
+            raise
+        finally:
+            emit(rec)
+            if gw is not None:
+                gw.stop()
+            for app in apps:
+                await app.close()
+            kids.close()
+            workers.terminate()
+            try:
+                workers.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                workers.kill()
+                workers.wait()
+            w_log.close()
+
+    try:
+        asyncio.run(run())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def _sm_ndarray(rows) -> bytes:
+    from seldon_core_tpu_torch.contract import Payload, payload_to_proto
+
+    import numpy as np
+
+    return payload_to_proto(Payload.from_array(np.asarray(rows))).SerializeToString()
+
+
+async def _grpc_zoo(device: str, seed: int) -> dict:
+    """G3's zoo unit: ResNet-50 (uint8 input, buckets 16 and 32) answering
+    the same 16-image rawTensor requests over REST and over gRPC, one wave
+    each; -> the bit-equality count and each front's predictions/s."""
+    import base64
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.contract import Payload, payload_to_proto
+    from seldon_core_tpu_torch.contract.payload import DataKind
+    from seldon_core_tpu_torch.proto import prediction as pb
+
+    rng = np.random.default_rng(seed + 17)
+    cfg = _zoo_cfg("resnet")
+    images = [_zoo_rows("resnet", cfg, GRPC_ZOO_IMAGES, rng) for _ in range(GRPC_ZOO_REQUESTS)]
+    unit = _zoo_unit("res", "resnet", 0, input_dtype=("uint8", "STRING"),
+                     buckets=("16,32", "STRING"))
+    app, boot_s = await _boot(_graph_spec(unit), device, grpc_port=0)
+    try:
+        bodies = [_raw_body(x) for x in images]
+        raws = [payload_to_proto(Payload(x, [], DataKind.RAW)).SerializeToString()
+                for x in images]
+        await _graph_wave(app.port, bodies[:1])  # the connections' warmup
+        await _grpc_calls(app.grpc_port, raws[:1])
+        t0 = time.perf_counter()
+        rest, _, _ = await _graph_wave(app.port, bodies)
+        rest_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        replies = await _grpc_calls(app.grpc_port, raws)
+        grpc_s = time.perf_counter() - t0
+    finally:
+        await app.close()
+    equal = 0
+    for (code, rep), raw in zip(rest, replies):
+        rt = pb.SeldonMessage.FromString(raw).rawTensor
+        want = rep.get("rawTensor") if code == 200 else None
+        equal += int(rt is not None and want is not None and rt.dtype == want["dtype"]
+                     and list(rt.shape) == want["shape"]
+                     and rt.data == base64.b64decode(want["data"]))
+    n = GRPC_ZOO_REQUESTS * GRPC_ZOO_IMAGES
+    print(f"serve_grpc G3: ResNet-50 {n} images in {GRPC_ZOO_REQUESTS} concurrent requests: "
+          f"REST {n / rest_s:.1f} predictions/s, gRPC {n / grpc_s:.1f} predictions/s "
+          f"({_card()})", flush=True)
+    return {"resnet_boot_s": boot_s, "resnet_bit_equal": equal,
+            "resnet_rest_predictions_s": n / rest_s,
+            "resnet_grpc_predictions_s": n / grpc_s}
+
+
 def _flash_times(fa, S: int, D: int = 64) -> dict:
     """K1 at B=1, S, llama3-1b heads (32 and 8 KV; ``D`` 128 is the 8b's
     geometry), bf16: one input set per layer so no launch finds its inputs
@@ -6377,12 +7004,13 @@ def main() -> int:
     obs = timed("serve_obs", phase_serve_obs)
     ckpt = timed("serve_checkpoint", phase_serve_checkpoint, serve, spec, pack)
     gateway = timed("serve_gateway", phase_serve_gateway, serve)
+    grpc_plane = timed("serve_grpc", phase_serve_grpc, serve)
     times = timed("kernel_times", phase_kernel_times, serve)
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     launches = {name: serve["launches"][name] + cached["launches"][name] + spec[name]
                 + split[name] + stream[name] + graph[name] + lora[name] + zoo[name]
                 + tiers[name] + admission[name] + remote[name] + pack[name] + obs[name]
-                + ckpt[name] + gateway[name] for name in KERNELS}
+                + ckpt[name] + gateway[name] + grpc_plane[name] for name in KERNELS}
     print(_card(), flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": origin,

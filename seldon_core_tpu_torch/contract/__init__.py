@@ -1,13 +1,17 @@
-"""The data-plane contract: payloads and their JSON wire codec."""
+"""The data-plane contract: payloads and their JSON and protobuf wire codecs."""
 
 from seldon_core_tpu_torch.contract.codec import (
     CodecError,
     failure_status_dict,
     feedback_from_dict,
+    feedback_from_proto,
     feedback_to_dict,
+    feedback_to_proto,
     payload_from_dict,
     payload_from_json,
+    payload_from_proto,
     payload_to_dict,
+    payload_to_proto,
 )
 from seldon_core_tpu_torch.contract.payload import (
     DataKind,
@@ -19,6 +23,7 @@ from seldon_core_tpu_torch.contract.payload import (
 
 __all__ = [
     "CodecError", "DataKind", "FeedbackPayload", "Meta", "Metric", "Payload",
-    "failure_status_dict", "feedback_from_dict", "feedback_to_dict", "payload_from_dict",
-    "payload_from_json", "payload_to_dict",
+    "failure_status_dict", "feedback_from_dict", "feedback_from_proto", "feedback_to_dict",
+    "feedback_to_proto", "payload_from_dict", "payload_from_json", "payload_from_proto",
+    "payload_to_dict", "payload_to_proto",
 ]

@@ -1,7 +1,9 @@
-"""Wire codec: SeldonMessage JSON <-> :class:`Payload`.
+"""Wire codec: SeldonMessage JSON and protobuf <-> :class:`Payload`.
 
-The JSON half of the JAX package's ``contract/codec.py``, wire-compatible
+The port's copy of the JAX package's ``contract/codec.py``, wire-compatible
 with it: ``data.tensor``, ``data.ndarray``, ``binData`` and ``strData``.
+The protobuf half (``payload_from_proto`` and its kin) runs over the
+stdlib messages of ``proto/prediction.py``.
 
     {"meta": {...}, "data": {"names": [...], "tensor": {"shape": [...],
      "values": [...]}}}                       # or "ndarray": [[...]]
@@ -28,6 +30,8 @@ from typing import Any
 
 import numpy as np
 
+from seldon_core_tpu_torch.proto import prediction as pb
+from seldon_core_tpu_torch.proto.prediction import value_from_json
 from seldon_core_tpu_torch.contract.payload import (
     DataKind,
     FeedbackPayload,
@@ -50,6 +54,7 @@ _RAW_DTYPES = {
 
 
 _METRIC_TYPES = {"COUNTER", "GAUGE", "TIMER"}
+_METRIC_CODES = {name: code for code, name in pb.Metric.TYPES.items()}
 
 
 def failure_status_dict(code: int, reason: str) -> dict[str, Any]:
@@ -209,6 +214,112 @@ def feedback_to_dict(fb: FeedbackPayload) -> dict[str, Any]:
     if fb.truth is not None:
         out["truth"] = payload_to_dict(fb.truth)
     return out
+
+
+# ---------------------------------------------------------------------------
+# protobuf (proto/prediction.py) <-> Payload
+# ---------------------------------------------------------------------------
+
+def payload_from_proto(msg: pb.SeldonMessage) -> Payload:
+    """Decode a SeldonMessage as the JAX package's ``payload_from_proto``
+    does: an ``ndarray``'s and a tag's numbers come back as floats, and a
+    non-finite one raises the ValueError of ``json_format``."""
+    m = msg.meta or pb.Meta()
+    metrics = []
+    for x in m.metrics:
+        if x.type not in pb.Metric.TYPES:
+            raise ValueError(f"Enum MetricType has no name defined for value {x.type!r}")
+        metrics.append(Metric(x.key, pb.Metric.TYPES[x.type], x.value))
+    meta = Meta(
+        puid=m.puid,
+        tags={k: value_from_json(v) for k, v in m.tags.items()},
+        routing=dict(m.routing),
+        request_path=dict(m.requestPath),
+        metrics=metrics,
+    )
+    which = msg.WhichOneof("data_oneof")
+    if which == "data":
+        names = list(msg.data.names)
+        dwhich = msg.data.WhichOneof("data_oneof")
+        if dwhich == "tensor":
+            arr = np.asarray(msg.data.tensor.values, dtype=np.float64)
+            shape = list(msg.data.tensor.shape)
+            if shape:
+                try:
+                    arr = arr.reshape(shape)
+                except ValueError as e:
+                    raise CodecError(f"tensor shape mismatch: {e}") from e
+            return Payload(arr, names, DataKind.TENSOR, meta)
+        if dwhich == "ndarray":
+            nd = value_from_json(msg.data.ndarray)
+            return Payload(_ndarray_to_array(nd), names, DataKind.NDARRAY, meta)
+        return Payload(None, names, DataKind.EMPTY, meta)
+    if which == "rawTensor":
+        rt = msg.rawTensor
+        dtype = rt.dtype or "float32"
+        if dtype not in _RAW_DTYPES:
+            raise CodecError(f"unsupported rawTensor dtype {dtype!r}")
+        try:
+            arr = _raw_to_array(rt.data, dtype, list(rt.shape))
+        except ValueError as e:
+            raise CodecError(f"bad rawTensor: {e}") from e
+        return Payload(arr, list(rt.names), DataKind.RAW, meta)
+    if which == "binData":
+        return Payload(bytes(msg.binData), [], DataKind.BINARY, meta)
+    if which == "strData":
+        return Payload(msg.strData, [], DataKind.STRING, meta)
+    return Payload(None, [], DataKind.EMPTY, meta)
+
+
+def payload_to_proto(payload: Payload) -> pb.SeldonMessage:
+    """Encode a payload as the JAX package's ``payload_to_proto`` does (the
+    meta is always present, an empty one included)."""
+    meta = payload.meta
+    msg = pb.SeldonMessage(meta=pb.Meta(
+        puid=meta.puid, tags=dict(meta.tags),
+        routing={k: int(v) for k, v in meta.routing.items()},
+        requestPath=dict(meta.request_path),
+        metrics=[pb.Metric(key=m.key, type=_METRIC_CODES[m.type], value=m.value)
+                 for m in meta.metrics]))
+    kind, data = payload.kind, payload.data
+    if kind == DataKind.EMPTY or data is None:
+        return msg
+    if kind == DataKind.BINARY:
+        msg.binData = bytes(data)
+    elif kind == DataKind.STRING:
+        msg.strData = data
+    elif kind == DataKind.RAW:
+        arr = np.ascontiguousarray(data)
+        msg.rawTensor = pb.RawTensor(shape=list(arr.shape), dtype=arr.dtype.name,
+                                     data=arr.tobytes(), names=list(payload.names))
+    elif kind == DataKind.TENSOR:
+        arr = np.asarray(data, dtype=np.float64)
+        msg.data = pb.DefaultData(names=list(payload.names), tensor=pb.Tensor(
+            shape=list(arr.shape), values=arr.ravel()))
+    else:  # NDARRAY
+        nd = np.asarray(data).tolist()
+        if not isinstance(nd, list):
+            raise ValueError(f"ListValue must be in [] which is {nd}")
+        msg.data = pb.DefaultData(names=list(payload.names), ndarray=nd)
+    return msg
+
+
+def feedback_from_proto(msg: pb.Feedback) -> FeedbackPayload:
+    return FeedbackPayload(
+        request=payload_from_proto(msg.request) if msg.request is not None else None,
+        response=payload_from_proto(msg.response) if msg.response is not None else None,
+        reward=msg.reward,
+        truth=payload_from_proto(msg.truth) if msg.truth is not None else None,
+    )
+
+
+def feedback_to_proto(fb: FeedbackPayload) -> pb.Feedback:
+    return pb.Feedback(
+        request=payload_to_proto(fb.request) if fb.request is not None else None,
+        response=payload_to_proto(fb.response) if fb.response is not None else None,
+        reward=fb.reward,
+        truth=payload_to_proto(fb.truth) if fb.truth is not None else None,
+    )
 
 
 def payload_from_json(raw: str | bytes) -> Payload:

@@ -547,13 +547,18 @@ class RouterPoller:
         """One sweep over every multi-upstream record; returns replicas
         polled (exposed for tests and for a forced refresh)."""
         polled = 0
+        live: set[tuple[str, int]] = set()
         for rec in self.store.list():
             endpoints = rec.replica_endpoints
             if len(endpoints) < 2:
                 continue
             for ep in endpoints:
+                live.add((ep.host, int(ep.rest_port)))
                 await self._poll_replica(rec, ep)
                 polled += 1
+        # a replica no record lists any more keeps no pool (nor its sockets)
+        for key in [k for k in self._pools if k not in live]:
+            await self._pools.pop(key).close()
         self.polls += 1
         return polled
 

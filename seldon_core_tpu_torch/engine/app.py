@@ -1,6 +1,7 @@
 """The engine: a REST front for one predictor, on the stdlib alone.
 
     python -m seldon_core_tpu_torch.engine.app --port 8000 [--device cuda|cpu]
+        [--grpc-port 5001] [--workers N]
         [--role prefill|decode|unified] [--disagg-decode host:port,...]
 
 Serves ``POST /api/v0.1/predictions`` (a SeldonMessage JSON body),
@@ -40,6 +41,16 @@ decode block at a time, closed by ``data: {"done": true, "tokens":
 bad option is a 400 before any header goes out; so is a graph with no
 generative unit.  A client that leaves mid-stream cancels its request,
 whose slot the scheduler frees.
+
+The Seldon gRPC service (``engine/grpc_app.py``: Predict, SendFeedback
+and the server-streaming StreamPredict) listens beside the REST front on
+``--grpc-port`` (``ENGINE_SERVER_GRPC_PORT``, default 5001; a port that
+does not bind fails the boot unless ``ENGINE_GRPC_OPTIONAL=1``).
+``--workers N`` (``ENGINE_WORKERS``) runs N spawned processes that share
+both ports through SO_REUSEPORT, for CPU-bound graphs only.  The served
+process names its deployment ``SELDON_DEPLOYMENT_ID`` (else the
+predictor's name) and tunes its event loop once the units are warm
+(``utils/loops.py``).
 
 A generative body's ``"adapter"`` (on the predictions, stream and
 ``/disagg/generate`` routes and the prefix pull) names the LoRA adapter
@@ -206,6 +217,7 @@ from seldon_core_tpu_torch.obs.spans import (
     outgoing_headers,
     set_traceparent,
 )
+from seldon_core_tpu_torch.utils.loops import tune_server_loop
 from seldon_core_tpu_torch.utils.metrics import DEFAULT as DEFAULT_METRICS
 from seldon_core_tpu_torch.qos.admission import QosRejection, QueueFull
 from seldon_core_tpu_torch.wire.h1server import (
@@ -324,6 +336,8 @@ class EngineApp:
         # generative unit's warm-up runs
         self.warmup_report: dict[str, int] = {}
         self._server: asyncio.base_events.Server | None = None
+        # the Seldon gRPC service beside the REST front, when start() got a port
+        self.grpc_server = None
         # keep-alive connections waiting for their next request: close()
         # ends them, as the server's wait_closed() waits for every
         # connection (a pooled client's idle socket would hold it forever)
@@ -358,15 +372,40 @@ class EngineApp:
     def port(self) -> int:
         return self._server.sockets[0].getsockname()[1]
 
-    async def start(self, host: str, port: int) -> None:
+    @property
+    def grpc_port(self) -> int | None:
+        return self.grpc_server.bound_port if self.grpc_server is not None else None
+
+    async def start(self, host: str, port: int, *, grpc_port: int | None = None,
+                    reuse_port: bool = False) -> None:
         """Listen (``/ping`` answers from here on), with the span exporters
         the environment selects, this engine's role on spans recorded off a
-        request, and the event loop's lag probe."""
+        request, and the event loop's lag probe.  ``grpc_port`` also starts
+        the primary deployment's Seldon gRPC service (``engine/grpc_app.py``,
+        0 for any free port); ``reuse_port`` shares both ports with the
+        other worker processes (SO_REUSEPORT).  A gRPC port that does not
+        bind fails the start (a gRPC-only client must not meet refusals from
+        a ready engine) unless ``ENGINE_GRPC_OPTIONAL=1``, which serves REST
+        alone."""
         configure_exporters_from_env()
         set_process_role(self.role)
-        self._server = await asyncio.start_server(self._handle, host, port)
+        self._server = await asyncio.start_server(self._handle, host, port,
+                                                  reuse_port=reuse_port or None)
         LOOP_LAG.start("engine")
         self._planes = True
+        if grpc_port is not None:
+            from seldon_core_tpu_torch.engine.grpc_app import start_engine_grpc
+
+            try:
+                self.grpc_server = await start_engine_grpc(
+                    self.service, grpc_port, reuse_port=reuse_port,
+                    host=None if host in ("0.0.0.0", "::", "") else host)
+            except Exception as e:
+                if os.environ.get("ENGINE_GRPC_OPTIONAL") == "1":
+                    log.warning("gRPC server not started (optional): %s", e)
+                    return
+                await self.close()
+                raise
 
     async def boot(self) -> None:
         """Build the graph's units off the event loop (loading a model
@@ -413,6 +452,9 @@ class EngineApp:
             with contextlib.suppress(Exception):
                 self._profiler.stop()
             self._profiler = self._profile_dir = None
+        grpc_server, self.grpc_server = self.grpc_server, None
+        if grpc_server is not None:
+            await grpc_server.stop(grace=2.0)
         if self._server is not None:
             self._closing = True
             self._server.close()
@@ -1389,19 +1431,43 @@ class EngineApp:
 
 
 async def _serve(host: str, port: int, device: str, role: str | None,
-                 decode: str | None) -> None:
-    service = PredictionService(load_predictor_spec(), device=device)
+                 decode: str | None, grpc_port: int | None = None,
+                 reuse_port: bool = False, stop: asyncio.Event | None = None) -> None:
+    """Serve until SIGTERM or SIGINT (or ``stop``): the REST front and, with
+    ``grpc_port``, the gRPC service, with the loop tuned once the units are
+    warm (``utils/loops.py``: warmup and the captures run under the default
+    collector).  The deployment is named ``SELDON_DEPLOYMENT_ID`` when set,
+    else the predictor's name."""
+    import signal
+
+    service = PredictionService(load_predictor_spec(), device=device,
+                                deployment_name=os.environ.get("SELDON_DEPLOYMENT_ID", ""))
     co_services = [PredictionService(spec, device=device) for spec in load_co_predictor_specs()]
     app = EngineApp(service, role=role, decode_upstreams=disagg.decode_upstreams(decode),
                     co_services=co_services)
-    await app.start(host, port)
-    log.info("engine listening on %s:%d (device %s, role %s)", host, app.port, device, app.role)
+    stop = stop or asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        with contextlib.suppress(NotImplementedError, RuntimeError, ValueError):
+            loop.add_signal_handler(sig, stop.set)
     try:
+        await app.start(host, port, grpc_port=grpc_port, reuse_port=reuse_port)
+        log.info("engine listening on %s:%d, gRPC %s (device %s, role %s)", host, app.port,
+                 app.grpc_port, device, app.role)
         await app.boot()
+        tune_server_loop()
         log.info("engine ready")
-        await asyncio.Event().wait()  # serve until cancelled
+        await stop.wait()
     finally:
         await app.close()
+
+
+def _serve_worker(host: str, port: int, device: str, role: str | None, decode: str | None,
+                  grpc_port: int | None, reuse_port: bool) -> None:
+    """One engine process (the target of the spawned workers)."""
+    logging.basicConfig(level=logging.INFO)
+    with contextlib.suppress(KeyboardInterrupt):
+        asyncio.run(_serve(host, port, device, role, decode, grpc_port, reuse_port))
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -1410,6 +1476,14 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument(
         "--port", type=int, default=int(os.environ.get("ENGINE_SERVER_PORT", "8000"))
     )
+    parser.add_argument(
+        "--grpc-port", type=int, default=int(os.environ.get("ENGINE_SERVER_GRPC_PORT", "5001")),
+        help="the Seldon gRPC service's port (h2 data plane)")
+    parser.add_argument(
+        "--workers", type=int, default=int(os.environ.get("ENGINE_WORKERS", "1")),
+        help="worker processes sharing both ports via SO_REUSEPORT. Use >1 only for "
+             "CPU-bound graphs (stubs, routing): a graph with a model on the card owns "
+             "the device and must stay at 1 (batching provides its concurrency)")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("--role", default=None, choices=disagg.ROLES,
                         help=f"disaggregated serving role (default: ${disagg.ROLE_ENV} or unified)")
@@ -1420,8 +1494,25 @@ def main(argv: list[str] | None = None) -> None:
     logging.basicConfig(level=logging.INFO)
     resolve_device(args.device)
     disagg.resolve_role(args.role)  # an unknown role in the env fails here
-    with contextlib.suppress(KeyboardInterrupt):
-        asyncio.run(_serve(args.host, args.port, args.device, args.role, args.disagg_decode))
+    serve = (args.host, args.port, args.device, args.role, args.disagg_decode, args.grpc_port)
+    if args.workers <= 1:
+        _serve_worker(*serve, False)
+        return
+    # spawned, never forked: a forked child cannot use the parent's CUDA state
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_serve_worker, args=(*serve, True))
+             for _ in range(args.workers - 1)]
+    for p in procs:
+        p.start()
+    try:
+        _serve_worker(*serve, True)
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            p.join(timeout=10)
 
 
 if __name__ == "__main__":

@@ -89,15 +89,19 @@ class PredictionService:
     loads the models); ``components`` (unit name -> component) mounts
     in-process components in place of the built-in registry's; a unit
     behind a REST endpoint is called over HTTP within
-    ``transport_timeout_s`` a hop."""
+    ``transport_timeout_s`` a hop.  ``deployment_name`` (the engine's
+    ``SELDON_DEPLOYMENT_ID``) names the deployment on every metric label,
+    wire edge, meter key and cache allow-list check; empty, the
+    predictor's name does."""
 
     def __init__(self, predictor: PredictorSpec, *, device: str = "cuda",
                  components: dict[str, Any] | None = None,
-                 transport_timeout_s: float = 5.0, metrics: MetricsRegistry | None = None):
+                 transport_timeout_s: float = 5.0, metrics: MetricsRegistry | None = None,
+                 deployment_name: str = ""):
         self.predictor = predictor
         self.metrics = metrics or DEFAULT_METRICS
         self.warmup_report: dict[str, int] = {}
-        self.deployment_name = predictor.name
+        self.deployment_name = deployment_name or predictor.name
         self.device = device
         self._components = components or {}
         self.transports = TransportManager(timeout_s=transport_timeout_s, device=device)

@@ -11,9 +11,10 @@ failures a bounded number of times: any method when the connection was
 never made, and only the pure methods (``/predict``, ``/aggregate``) when
 the request may have reached the unit.
 
-GRPC endpoints are refused by name (no gRPC transport in the port yet).
-Every hop's request and reply bytes count on the ``engine-node`` wire
-edge of its unit (``obs/wire.py``).
+A unit behind a GRPC endpoint is called over the h2 data plane
+(``engine/grpc_transport.py``), with the same retry classes.  Every hop's
+request and reply bytes count on the ``engine-node`` wire edge of its
+unit (``obs/wire.py``).
 """
 
 from __future__ import annotations
@@ -218,7 +219,8 @@ class RestNodeClient:
 
 class TransportManager:
     """Builds the walker's clients and owns one :class:`H1Pool` per
-    (host, port) of the graph's REST units.  The walker may be built off
+    (host, port) of the graph's REST units and one gRPC channel per GRPC
+    unit's endpoint.  The walker may be built off
     the engine's loop: a pool binds to the loop that first posts through
     it."""
 
@@ -226,11 +228,15 @@ class TransportManager:
         self.timeout_s = timeout_s
         self.device = device
         self.pools: dict[tuple[str, int], H1Pool] = {}
+        self._channels = None  # the GRPC units' ChannelCache, made at first use
 
     async def close(self) -> None:
         pools, self.pools = self.pools, {}
         for pool in pools.values():
             await pool.close()
+        channels, self._channels = self._channels, None
+        if channels is not None:
+            await channels.close()
 
     def pool(self, host: str, port: int) -> H1Pool:
         key = (host, int(port))
@@ -244,7 +250,12 @@ class TransportManager:
             return RestNodeClient(spec, self.pool(ep.service_host, ep.service_port),
                                   self.timeout_s)
         if ep.type == TransportType.GRPC:
-            raise GraphUnitError(
-                f"unit {spec.name!r}: GRPC endpoints are not served by this engine yet; "
-                "give the unit a REST endpoint")
+            from seldon_core_tpu_torch.engine.grpc_transport import ChannelCache, GrpcNodeClient
+
+            if self._channels is None:
+                self._channels = ChannelCache()
+            try:
+                return GrpcNodeClient(spec, self._channels, self.timeout_s)
+            except NotImplementedError as e:  # the grpcio transport, refused
+                raise GraphUnitError(f"unit {spec.name!r}: {e}") from e
         return default_client_factory(spec, self.device)

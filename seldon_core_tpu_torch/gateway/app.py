@@ -20,9 +20,11 @@ it does not splice.  ``python -m seldon_core_tpu_torch.gateway.app --port
 Options of the JAX gateway that the port does not serve raise by name:
 ``SCT_REST_IMPL=aiohttp`` (the card has no aiohttp; the splice front is the
 default of both packages), ``--watch``/``GATEWAY_WATCH=1`` (the CR watch
-needs the operator's kube client), ``--grpc-port``/``GATEWAY_GRPC_PORT``
-(the gRPC slice) and an explicit ``SCT_SCALE`` (the embedded autoscaler of
-the operator slice; ``/stats/autoscale`` answers as the JAX gateway with no
+needs the operator's kube client), ``SCT_GRPC_IMPL=grpcio`` (the card has
+no grpcio; the h2 relay of ``gateway/grpc_gateway.py`` serves
+``--grpc-port``/``GATEWAY_GRPC_PORT``, default 5000 as in the JAX gateway)
+and an explicit ``SCT_SCALE`` (the embedded autoscaler of the operator
+slice; ``/stats/autoscale`` answers as the JAX gateway with no
 autoscaler).
 """
 
@@ -30,7 +32,6 @@ from __future__ import annotations
 
 import argparse
 import asyncio
-import gc
 import json
 import logging
 import os
@@ -54,16 +55,15 @@ from seldon_core_tpu_torch.obs import (
     set_engine_role,
 )
 from seldon_core_tpu_torch.obs.spans import outgoing_headers, set_traceparent
+from seldon_core_tpu_torch.proto.grpc_defs import use_grpcio
 from seldon_core_tpu_torch.runtime import settings as _settings
+from seldon_core_tpu_torch.utils.loops import tune_server_loop
 from seldon_core_tpu_torch.utils.metrics import DEFAULT as DEFAULT_METRICS, MetricsRegistry
 from seldon_core_tpu_torch.wire.h1client import H1ConnectError, H1Pool
 
 log = logging.getLogger(__name__)
 
 # the refusals by name of the JAX gateway's options the port does not serve
-LATER_GRPC = ("--grpc-port/GATEWAY_GRPC_PORT: the gateway's gRPC listener is not in the port "
-              "yet; it comes with the gRPC slice (ROADMAP A16: a stdlib protobuf codec for "
-              "SeldonMessage, then grpc_gateway.py)")
 LATER_WATCH = ("--watch/GATEWAY_WATCH=1: the SeldonDeployment CR watch is not in the port yet; "
                "it comes with the operator slice (ROADMAP A16: watch.py and the kube client)")
 LATER_AIOHTTP = ("SCT_REST_IMPL=aiohttp: the aiohttp REST front is not in the port (the card "
@@ -577,25 +577,12 @@ class GatewayApp:
         return self.autoscaler.snapshot()
 
 
-def _tune_loop() -> None:
-    """Steady-state serving tuning, once at startup inside the loop: relax
-    the collector (the data plane allocates per request) and run a handler
-    that completes without suspending eagerly (3.12+)."""
-    gc.collect()
-    gc.freeze()
-    gc.set_threshold(50000, 25, 25)
-    eager = getattr(asyncio, "eager_task_factory", None)
-    if eager is not None:
-        asyncio.get_running_loop().set_task_factory(eager)
-
-
 def _refuse_later_options(args) -> None:
+    use_grpcio()  # SCT_GRPC_IMPL=grpcio raises by name
     if args.rest_impl != "h1":
         raise NotImplementedError(LATER_AIOHTTP)
     if args.watch:
         raise NotImplementedError(LATER_WATCH)
-    if args.grpc_port:
-        raise NotImplementedError(LATER_GRPC)
     if os.environ.get("SCT_SCALE", "") != "" and _settings.get_bool("SCT_SCALE"):
         raise NotImplementedError(LATER_SCALE)
 
@@ -606,8 +593,9 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--host", default=None,
                         help="listen address (default: every IPv4 and IPv6 address)")
     parser.add_argument("--grpc-port", type=int,
-                        default=int(os.environ.get("GATEWAY_GRPC_PORT", "0") or 0),
-                        help="refused: the gRPC slice")
+                        default=int(os.environ.get("GATEWAY_GRPC_PORT", "5000")),
+                        help="the Seldon gRPC relay's port (h2 data plane; "
+                             "GATEWAY_GRPC_OPTIONAL=1 serves REST alone if it cannot bind)")
     parser.add_argument("--deployments", default="", help="JSON file of deployment records")
     parser.add_argument("--watch", action="store_true",
                         default=os.environ.get("GATEWAY_WATCH") == "1",
@@ -628,16 +616,28 @@ def main(argv: list[str] | None = None) -> None:
 
 
 async def _run_h1(gateway: GatewayApp, args) -> None:
-    """Serve REST on the h1 splice front, with the replica poller and the
-    fleet collector in the same loop, until SIGTERM or SIGINT."""
+    """Serve REST on the h1 splice front and gRPC on the h2 relay, with the
+    replica poller and the fleet collector in the same loop, until SIGTERM
+    or SIGINT."""
     import signal
 
+    from seldon_core_tpu_torch.gateway.grpc_gateway import start_gateway_grpc
     from seldon_core_tpu_torch.gateway.h1gateway import H1SpliceFrontend
 
-    _tune_loop()
+    tune_server_loop()
     frontend = H1SpliceFrontend(gateway)
     await frontend.start(args.port, host=args.host)
     log.info("gateway REST (h1 splice) on :%d", frontend.bound_port)
+    grpc_server = None
+    try:
+        grpc_server = await start_gateway_grpc(gateway, args.grpc_port, host=args.host)
+    except Exception as e:
+        if os.environ.get("GATEWAY_GRPC_OPTIONAL") == "1":
+            log.warning("gateway gRPC not started (optional): %s", e)
+        else:
+            log.error("gateway gRPC failed to start on :%d: %s", args.grpc_port, e)
+            await frontend.stop()
+            raise
     await gateway.start()
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
@@ -649,6 +649,9 @@ async def _run_h1(gateway: GatewayApp, args) -> None:
     try:
         await stop.wait()
     finally:
+        if grpc_server is not None:
+            await grpc_server.gateway_handler.close()
+            await grpc_server.stop(grace=2.0)
         await frontend.stop()
         await gateway.close()
 

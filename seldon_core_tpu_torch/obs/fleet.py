@@ -244,9 +244,13 @@ class FleetCollector:
                     self.scrapes_ok += 1
                     st.update(payload=result, last_ok=now,
                               fail_streak=0, skip=0)
-        # forget replicas that left the store entirely
+        # forget replicas that left the store entirely, and close their pools
         for k in [k for k in self._replicas if k not in live_keys]:
             del self._replicas[k]
+        live_pools = {(ep.host, int(ep.rest_port)) for rec in records
+                      for ep in rec.replica_endpoints}
+        for key in [k for k in self._pools if k not in live_pools]:
+            await self._pools.pop(key).close()
         live_names = {rec.name for rec in records}
         for k in [k for k in self._prev_stage_hist if k[0] not in live_names]:
             del self._prev_stage_hist[k]

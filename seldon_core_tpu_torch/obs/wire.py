@@ -8,9 +8,9 @@ deployment)``; the stage vocabulary is the JAX package's:
 
     gateway-h1      the gateway's splice front (``gateway/h1gateway.py``): request and reply bytes
     gateway-rest    the gateway's fallback cores (``gateway/app.py`` ``_forward``): bodies
-    gateway-grpc    the gateway's gRPC front (no caller in the port yet)
+    gateway-grpc    the gateway's gRPC relay (``gateway/grpc_gateway.py``): framed request and reply
     engine-rest     the engine's HTTP front (``engine/app.py``): request and reply bodies
-    engine-grpc     the engine's gRPC service (no caller in the port yet)
+    engine-grpc     the engine's gRPC service (``engine/grpc_app.py``): request and reply messages
     engine-node     the engine's hops to remote graph units (``engine/transport.py``)
 
 A record is a few integer adds and one deque append, bounded.  Served by

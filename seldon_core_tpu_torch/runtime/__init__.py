@@ -1,10 +1,10 @@
 """The user-model microservice runtime (the reference's wrapper runtime):
 a user component behind the REST routes a graph's remote unit answers
-(``server.py``), its command line (``microservice.py``), the outlier
+(``server.py``) and their gRPC twin (``grpc_service.py``), its command
+line (``microservice.py``), the outlier
 detector adapter (``outlier.py``) and state persistence
 (``persistence.py``), and the ``SCT_*`` settings the gateway and the fleet
-plane read (``settings.py``, a trimmed copy of the JAX registry).  The
-gRPC front of the JAX package's runtime is not ported yet.
+plane read (``settings.py``, a trimmed copy of the JAX registry).
 
 The exports load lazily (PEP 562), so that ``python -m
 seldon_core_tpu_torch.runtime.microservice`` does not import its own

@@ -12,8 +12,9 @@ first, under ``python -m``).  The environment contract is the operator's:
 ``PREDICTOR_ID`` and ``SELDON_DEPLOYMENT_ID`` in the persistence key.
 ``--persistence 1`` restores the component's saved state at boot and
 snapshots it every ``PERSISTENCE_FREQUENCY`` seconds and at exit
-(``runtime/persistence.py``).  ``GRPC`` is refused by name: the port has
-no gRPC front yet.
+(``runtime/persistence.py``).  ``GRPC`` serves the component on the h2
+gRPC data plane (``runtime/grpc_service.py``); ``SCT_GRPC_IMPL=grpcio``
+raises by name.
 """
 
 from __future__ import annotations
@@ -54,8 +55,9 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--persistence", type=int, default=0)
     args = parser.parse_args(argv)
     if args.api_type == "GRPC":
-        raise RuntimeError("GRPC: the port's microservice runtime serves REST only; "
-                           "run it with REST")
+        from seldon_core_tpu_torch.proto.grpc_defs import use_grpcio
+
+        use_grpcio()  # raises by name before the user's module loads
 
     logging.basicConfig(level=logging.INFO)
     component = load_component(args.interface_name,
@@ -70,6 +72,11 @@ def main(argv: list[str] | None = None) -> None:
 
         component = start_persistence(component, name)
 
+    if args.api_type == "GRPC":
+        from seldon_core_tpu_torch.runtime.grpc_service import serve_grpc
+
+        serve_grpc(component, args.port, name=name, service_type=args.service_type)
+        return
     from seldon_core_tpu_torch.runtime.server import serve
 
     serve(component, args.port, name=name, service_type=args.service_type)

@@ -17,8 +17,11 @@ Beside the JAX harness's figures a run counts the request and reply body
 bytes it moved (comparable with the engine's ``engine-rest`` wire edge)
 and keeps the ``x-sct-trace-id`` of every reply.  ``--once`` sends each
 payload exactly once (split over the processes) instead of running for a
-duration.  ``--grpc`` and ``--contract`` raise by name: the gRPC worker
-and the contract's payloads come with the control plane.
+duration.  ``--grpc`` drives ``Seldon/Predict`` at a host:port with the
+port's own h2 client (``--grpc-lib grpcio`` raises by name; the card has
+no grpcio; the token of ``--token-url`` rides the ``oauth_token``
+metadata).  ``--contract`` raises by name: the contract's payloads come
+with the control plane.
 """
 
 from __future__ import annotations
@@ -61,11 +64,6 @@ def _percentile(hist: np.ndarray, q: float) -> float:
     return float(_BIN_EDGES[idx])
 
 
-def _refuse_grpc() -> None:
-    raise NotImplementedError("--grpc: the gRPC load worker is not in the port yet "
-                              "(it comes with the control plane's gRPC front)")
-
-
 @dataclasses.dataclass
 class WorkerConfig:
     target: str  # the URL
@@ -80,6 +78,8 @@ class WorkerConfig:
     # send each payload exactly once (no warmup, no duration)
     once: bool = False
     timeout_s: float = 60.0
+    # gRPC: ``target`` is host:port and each payload a serialized SeldonMessage
+    grpc: bool = False
 
 
 @dataclasses.dataclass
@@ -133,6 +133,70 @@ class LoadResult:
         return out
 
 
+def _new_acc() -> dict:
+    return {"ok": 0, "fail": 0, "offered": 0, "sent": 0, "received": 0, "traces": [],
+            "replies": {}, "first": None, "last": None}
+
+
+def _note(acc: dict, hist: np.ndarray, cfg: WorkerConfig, i: int, t0: float, ok: bool,
+          body: bytes, got: bytes) -> None:
+    """Count one timed request: its latency, outcome and bytes."""
+    acc["last"] = time.time()
+    _record(hist, time.perf_counter() - t0)
+    acc["ok" if ok else "fail"] += 1
+    acc["sent"] += len(body)
+    acc["received"] += len(got)
+    if cfg.once:
+        acc["replies"][i] = got if ok else None
+
+
+async def _drive(cfg: WorkerConfig, one, acc: dict) -> None:
+    """The request schedule shared by both transports: each payload once,
+    or a warmup outside the timed window and then a closed loop of
+    ``concurrency`` workers or open-loop Poisson arrivals."""
+    if cfg.once:
+        order = iter(range(len(cfg.payloads)))
+
+        async def drain_once() -> None:
+            for i in order:
+                await one(i, True)
+
+        await asyncio.gather(*(drain_once() for _ in range(cfg.concurrency)))
+        return
+    # connection warmup, outside the timed window
+    await asyncio.gather(*(one(i, False) for i in range(cfg.warmup_requests)))
+    stop_at = time.perf_counter() + cfg.duration_s
+    if cfg.arrival_rps > 0:
+        rng = np.random.default_rng(cfg.seed)
+        inflight: set[asyncio.Task] = set()
+        i = 0
+        next_t = time.perf_counter()
+        while next_t < stop_at:
+            delay = next_t - time.perf_counter()
+            if delay > 0:
+                await asyncio.sleep(delay)
+            t = asyncio.get_running_loop().create_task(one(i, True))
+            inflight.add(t)
+            t.add_done_callback(inflight.discard)
+            acc["offered"] += 1
+            i += 1
+            next_t += float(rng.exponential(1.0 / cfg.arrival_rps))
+        if inflight:
+            # late replies still count; stragglers past the window go
+            await asyncio.wait(inflight, timeout=30.0)
+            for t in list(inflight):
+                t.cancel()
+        return
+
+    async def worker(wid: int) -> None:
+        i = wid
+        while time.perf_counter() < stop_at:
+            await one(i, True)
+            i += cfg.concurrency
+
+    await asyncio.gather(*(worker(w) for w in range(cfg.concurrency)))
+
+
 async def _rest_worker_loop(cfg: WorkerConfig) -> dict:
     from seldon_core_tpu_torch.wire.h1client import H1Pool
 
@@ -145,8 +209,7 @@ async def _rest_worker_loop(cfg: WorkerConfig) -> dict:
     limit = 1 << 16 if cfg.arrival_rps > 0 else cfg.concurrency + 8
     pool = H1Pool(url.hostname or "127.0.0.1", url.port or 80, limit=limit, max_conns=limit)
     hist = _histogram()
-    acc = {"ok": 0, "fail": 0, "offered": 0, "sent": 0, "received": 0, "traces": [],
-           "replies": {}, "first": None, "last": None}
+    acc = _new_acc()
     headers = {k.lower(): v for k, v in cfg.headers.items()}
 
     async def one(i: int, timed: bool) -> None:
@@ -164,63 +227,52 @@ async def _rest_worker_loop(cfg: WorkerConfig) -> dict:
         except (ConnectionError, asyncio.TimeoutError, OSError):
             pass
         if timed:
-            acc["last"] = time.time()
-            _record(hist, time.perf_counter() - t0)
-            acc["ok" if ok else "fail"] += 1
-            acc["sent"] += len(body)
-            acc["received"] += len(got)
-            if cfg.once:
-                acc["replies"][i] = got if ok else None
+            _note(acc, hist, cfg, i, t0, ok, body, got)
 
     try:
-        if cfg.once:
-            order = iter(range(len(cfg.payloads)))
-
-            async def drain_once() -> None:
-                for i in order:
-                    await one(i, True)
-
-            await asyncio.gather(*(drain_once() for _ in range(cfg.concurrency)))
-            return acc | {"hist": hist}
-        # connection warmup, outside the timed window
-        await asyncio.gather(*(one(i, False) for i in range(cfg.warmup_requests)))
-        stop_at = time.perf_counter() + cfg.duration_s
-        if cfg.arrival_rps > 0:
-            rng = np.random.default_rng(cfg.seed)
-            inflight: set[asyncio.Task] = set()
-            i = 0
-            next_t = time.perf_counter()
-            while next_t < stop_at:
-                delay = next_t - time.perf_counter()
-                if delay > 0:
-                    await asyncio.sleep(delay)
-                t = asyncio.get_running_loop().create_task(one(i, True))
-                inflight.add(t)
-                t.add_done_callback(inflight.discard)
-                acc["offered"] += 1
-                i += 1
-                next_t += float(rng.exponential(1.0 / cfg.arrival_rps))
-            if inflight:
-                # late replies still count; stragglers past the window go
-                await asyncio.wait(inflight, timeout=30.0)
-                for t in list(inflight):
-                    t.cancel()
-            return acc | {"hist": hist}
-
-        async def worker(wid: int) -> None:
-            i = wid
-            while time.perf_counter() < stop_at:
-                await one(i, True)
-                i += cfg.concurrency
-
-        await asyncio.gather(*(worker(w) for w in range(cfg.concurrency)))
+        await _drive(cfg, one, acc)
         return acc | {"hist": hist}
     finally:
         await pool.close()
 
 
+async def _grpc_worker_loop(cfg: WorkerConfig) -> dict:
+    """``Seldon/Predict`` calls over one multiplexed h2 channel (the port's
+    own client, ``wire/h2grpc.py``); a reply counts as ok when its status
+    code is 0 or 200.  The bytes counted are the serialized messages."""
+    from seldon_core_tpu_torch.proto import prediction as pb
+    from seldon_core_tpu_torch.wire import FastGrpcChannel, GrpcCallError
+
+    hist = _histogram()
+    acc = _new_acc()
+    path = "/seldon.protos.Seldon/Predict"
+    metadata = tuple((k.lower(), v) for k, v in cfg.headers.items())
+    channel = FastGrpcChannel(cfg.target)
+
+    async def one(i: int, timed: bool) -> None:
+        body = cfg.payloads[i % len(cfg.payloads)]
+        if timed and acc["first"] is None:
+            acc["first"] = time.time()
+        t0 = time.perf_counter()
+        ok, got = False, b""
+        try:
+            got = await channel.call(path, body, timeout=cfg.timeout_s, metadata=metadata)
+            status = pb.SeldonMessage.FromString(got).status
+            ok = (status.code if status is not None else 0) in (0, 200)
+        except (GrpcCallError, ConnectionError, asyncio.TimeoutError, OSError, ValueError):
+            pass
+        if timed:
+            _note(acc, hist, cfg, i, t0, ok, body, got)
+
+    try:
+        await _drive(cfg, one, acc)
+        return acc | {"hist": hist}
+    finally:
+        await channel.close()
+
+
 def _run_worker(cfg: WorkerConfig) -> dict:
-    out = asyncio.run(_rest_worker_loop(cfg))
+    out = asyncio.run(_grpc_worker_loop(cfg) if cfg.grpc else _rest_worker_loop(cfg))
     out["hist"] = out["hist"].tobytes()
     return out
 
@@ -228,18 +280,24 @@ def _run_worker(cfg: WorkerConfig) -> dict:
 def run_load(target: str, payloads: list[bytes], *, grpc: bool = False, concurrency: int = 32,
              processes: int = 1, duration_s: float = 10.0, headers: dict[str, str] | None = None,
              arrival_rps: float = 0.0, seed: int = 0, once: bool = False,
-             timeout_s: float = 60.0) -> LoadResult:
+             timeout_s: float = 60.0, grpc_lib: str = "h2") -> LoadResult:
     """Drive ``target`` for ``duration_s`` (or, with ``once``, until each
     payload was sent once, process ``p`` taking ``payloads[p::processes]``,
     each reply kept in ``replies``); returns the merged results.  ``concurrency`` is per process.
     ``arrival_rps > 0`` selects open-loop Poisson arrivals, split evenly
-    over the processes."""
-    if grpc:
-        _refuse_grpc()
+    over the processes (REST only, as in the JAX harness).  ``grpc``
+    drives ``Seldon/Predict`` at ``target`` (host:port) with serialized
+    SeldonMessage payloads; ``grpc_lib='grpcio'`` raises by name."""
+    if grpc and grpc_lib == "grpcio":
+        from seldon_core_tpu_torch.proto.grpc_defs import GRPCIO_REFUSED
+
+        raise NotImplementedError(f"grpc_lib='grpcio': {GRPCIO_REFUSED}")
+    if arrival_rps > 0 and grpc:
+        raise ValueError("open-loop arrivals are REST-only")
     cfg = WorkerConfig(target=target, payloads=payloads, concurrency=concurrency,
                        duration_s=duration_s, headers=headers or {},
                        arrival_rps=arrival_rps / max(1, processes), seed=seed, once=once,
-                       timeout_s=timeout_s)
+                       timeout_s=timeout_s, grpc=grpc)
     t0 = time.perf_counter()
     if processes <= 1:
         results = [_run_worker(cfg)]
@@ -360,6 +418,13 @@ def default_rest_payload(rows: int = 1, features: int = 3) -> bytes:
     return json.dumps({"data": {"ndarray": batch.tolist()}}).encode()
 
 
+def default_grpc_payload(rows: int = 1, features: int = 3) -> bytes:
+    from seldon_core_tpu_torch.contract import Payload, payload_to_proto
+
+    batch = np.random.default_rng(0).normal(size=(rows, features))
+    return payload_to_proto(Payload.from_array(batch)).SerializeToString()
+
+
 def _fetch_token(token_url: str, key: str, secret: str) -> str:
     import urllib.request
 
@@ -374,8 +439,10 @@ def _fetch_token(token_url: str, key: str, secret: str) -> str:
 
 def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(description="wire-level load harness")
-    parser.add_argument("target", help="the URL")
-    parser.add_argument("--grpc", action="store_true", help="not in the port yet: raises")
+    parser.add_argument("target", help="the URL (REST) or host:port (gRPC)")
+    parser.add_argument("--grpc", action="store_true")
+    parser.add_argument("--grpc-lib", choices=("h2", "grpcio"), default="h2",
+                        help="the gRPC client: the port's h2 data plane (grpcio raises)")
     parser.add_argument("-c", "--concurrency", type=int, default=32,
                         help="in-flight requests per process")
     parser.add_argument("-P", "--processes", type=int, default=1)
@@ -392,20 +459,25 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--oauth-key")
     parser.add_argument("--oauth-secret")
     args = parser.parse_args(argv)
-    if args.grpc:
-        _refuse_grpc()
     if args.contract:
         raise NotImplementedError("--contract: payloads from a contract file are not in the "
                                   "port yet (testing/contract.py comes with the control plane)")
-    payloads = ([d.encode() for d in args.data] if args.data
-                else [default_rest_payload(args.batch_size)])
+    if args.data:
+        payloads = [d.encode() for d in args.data]
+    elif args.grpc:
+        payloads = [default_grpc_payload(args.batch_size)]
+    else:
+        payloads = [default_rest_payload(args.batch_size)]
     headers: dict[str, str] = {}
     if args.token_url:
         token = _fetch_token(args.token_url, args.oauth_key or "", args.oauth_secret or "")
-        headers["Authorization"] = f"Bearer {token}"
-    result = run_load(args.target, payloads, concurrency=args.concurrency,
+        if args.grpc:
+            headers["oauth_token"] = token
+        else:
+            headers["Authorization"] = f"Bearer {token}"
+    result = run_load(args.target, payloads, grpc=args.grpc, concurrency=args.concurrency,
                       processes=args.processes, duration_s=args.duration, headers=headers,
-                      arrival_rps=args.arrival_rps, once=args.once)
+                      arrival_rps=args.arrival_rps, once=args.once, grpc_lib=args.grpc_lib)
     print(json.dumps(result.summary()))
     sys.exit(0 if result.failures == 0 and result.requests > 0 else 1)
 

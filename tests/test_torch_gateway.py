@@ -7,10 +7,11 @@ package's, and the slice as a whole.
   revocation and the shared store behave alike under one fake clock.
 - The settings the port reads carry the JAX registry's names, types and
   defaults.
-- Refusals by name: ``--grpc-port``/``GATEWAY_GRPC_PORT``, ``--watch``,
-  ``SCT_REST_IMPL=aiohttp``, ``SCT_SCALE`` and the fleet sidecar each
-  raise with a message naming the slice they wait for (the Kafka tap is
-  refused in ``tests/test_torch_taplog.py``).
+- Refusals by name: the gRPC relay's grpcio transport
+  (``SCT_GRPC_IMPL=grpcio`` beside ``--grpc-port``/``GATEWAY_GRPC_PORT``),
+  ``--watch``, ``SCT_REST_IMPL=aiohttp``, ``SCT_SCALE`` and the fleet
+  sidecar each raise with a message naming what they wait for (the Kafka
+  tap is refused in ``tests/test_torch_taplog.py``).
 - A repair: the port's engine closes with a pooled client's idle
   keep-alive connection open (before, ``close()`` waited on it forever).
 - The slice as a whole: the port's gateway in front of two port engines
@@ -163,8 +164,11 @@ def test_settings_carry_the_jax_names_types_and_defaults():
 
 
 @pytest.mark.parametrize("argv,env,match", [
-    (["--grpc-port", "5000"], {}, "gRPC slice"),
-    ([], {"GATEWAY_GRPC_PORT": "5000"}, "gRPC slice"),
+    # the gRPC relay is served since the gRPC slice; its grpcio transport is not
+    pytest.param(["--grpc-port", "5000"], {"SCT_GRPC_IMPL": "grpcio"}, "grpcio",
+                 id="argv0-env0-gRPC slice"),
+    pytest.param([], {"GATEWAY_GRPC_PORT": "5000", "SCT_GRPC_IMPL": "grpcio"}, "grpcio",
+                 id="argv1-env1-gRPC slice"),
     (["--watch"], {}, "operator slice"),
     ([], {"GATEWAY_WATCH": "1"}, "operator slice"),
     ([], {"SCT_REST_IMPL": "aiohttp"}, "aiohttp REST front is not in the port"),
@@ -172,7 +176,8 @@ def test_settings_carry_the_jax_names_types_and_defaults():
     ([], {"SCT_SCALE": "1"}, "embedded autoscaler .* operator slice"),
 ])
 def test_unported_gateway_options_raise_by_name(monkeypatch, argv, env, match):
-    for k in ("GATEWAY_GRPC_PORT", "GATEWAY_WATCH", "SCT_REST_IMPL", "SCT_SCALE"):
+    for k in ("GATEWAY_GRPC_PORT", "GATEWAY_WATCH", "SCT_REST_IMPL", "SCT_SCALE",
+              "SCT_GRPC_IMPL"):
         monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)

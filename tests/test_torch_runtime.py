@@ -396,6 +396,9 @@ def test_load_component_and_grpc_refused(tmp_path, monkeypatch):
     monkeypatch.syspath_prepend(str(tmp_path))
     assert load_component("usermod", {"k": 3}).k == 3
     assert type(load_component("usermod.Other", {})).__name__ == "Other"
+    # GRPC is served on the h2 plane since the gRPC slice; its grpcio
+    # transport is refused by name
+    monkeypatch.setenv("SCT_GRPC_IMPL", "grpcio")
     with pytest.raises(RuntimeError, match="GRPC"):
         microservice_main(["usermod", "GRPC", "--port", "0"])
 

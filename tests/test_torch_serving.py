@@ -309,7 +309,10 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "cache/semantic.py", "wire/h1client.py", "engine/transport.py",
                    "runtime/server.py", "runtime/microservice.py", "runtime/outlier.py",
                    "runtime/persistence.py", "executor/arbiter.py", "chaos/__init__.py",
-                   "chaos/plan.py", "executor/checkpoint.py", "models/convert.py"):
+                   "chaos/plan.py", "executor/checkpoint.py", "models/convert.py",
+                   "proto/prediction.py", "proto/grpc_defs.py", "wire/hpack.py",
+                   "wire/h2grpc.py", "engine/grpc_app.py", "engine/grpc_transport.py",
+                   "runtime/grpc_service.py", "gateway/grpc_gateway.py", "utils/loops.py"):
         assert ROOT / "seldon_core_tpu_torch" / module in sources
     hits = [
         f"{p.relative_to(ROOT)}:{i}"
@@ -323,7 +326,8 @@ def test_port_never_imports_jax_or_the_jax_package():
         "for m in pkgutil.walk_packages(seldon_core_tpu_torch.__path__, 'seldon_core_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'seldon_core_tpu', 'transformers')]\n"
+        "       if m.split('.')[0] in ('jax', 'seldon_core_tpu', 'transformers', 'grpc')\n"
+        "       or m.startswith('google.protobuf')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", probe], cwd=ROOT, check=True, timeout=120)

@@ -513,7 +513,10 @@ def test_a_graph_with_a_remote_node_is_never_cached(monkeypatch):
     assert node["entries"] == 1 and node["hits"] == 2  # the local model's repeats hit
 
 
-def test_grpc_endpoint_and_remote_cascade_router_raise_by_name():
+def test_grpc_endpoint_and_remote_cascade_router_raise_by_name(monkeypatch):
+    # a GRPC endpoint is served on the h2 plane since the gRPC slice; over
+    # the grpcio transport it is refused by name
+    monkeypatch.setenv("SCT_GRPC_IMPL", "grpcio")
     grpc = PredictorSpec.from_dict({"name": "p", "graph": {
         "name": "g", "type": "MODEL",
         "endpoint": {"service_host": "127.0.0.1", "service_port": 1, "type": "GRPC"}}})
